@@ -2,20 +2,29 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the sources in the checkout, then:
+Builds the CUDA kernels from the sources in the checkout (one nvcc per
+source, all started together), then:
   1. kernel phase: each kernel entry against its plain PyTorch version at
-     every shape the 512x512 main path gives it, in bf16 and fp32, with
-     both timed by CUDA events (median of 20 after warm-up);
+     every shape the 512x512 main path gives it (attention; the one-pass
+     GroupNorm at every gated GroupNorm site, in the channels-last memory
+     the networks hold; LayerNorm at the gated transformer sites) and the
+     two-pass GroupNorm pair at two large slabs, in bf16 and fp32, with both
+     timed on the device (torch.profiler's kernel durations over 20 calls)
+     and eagerly (CUDA events around one call, host launch cost included);
   2. reference phase: one full-width controlled-UNet evaluation at 256x256
-     in fp32 on the card (through the kernel) against the same weights on
-     the CPU (plain attention), TF32 off;
+     in fp32 on the card (through the kernels) against the same weights on
+     the CPU (plain versions), TF32 off; once by default and once with the
+     fused-norm configuration (set_kernels(groupnorm=True, layernorm=True));
   3. main path: Canny2ImagePipeline.process at the full SD-1.5 widths in
      bf16, weights drawn from a fixed seed: one warm-up request, then two
      timed requests (512x512, 20 DDIM steps, scale 9, eta 0, batch 1),
-     counting the kernel launches of those two requests.
-Any failed check raises, so the script exits non-zero and prints no result.
-The last line is {"ok": true, "device": {...}}; the line before it names
-the card and its power limit, the one before that lists the kernels.
+     counting the kernel launches of those two requests; run by default,
+     then again with the fused-norm configuration.
+Launch counts must equal what the UNet, ControlNet, VAE and CLIP plans and
+the dispatch gates imply. Any failed check raises, so the script exits
+non-zero and prints no result. The last line is {"ok": true, "device":
+{...}}; the line before it names the card and its power limit, the one
+before that lists the kernels.
 """
 
 import copy
@@ -29,10 +38,20 @@ import zlib
 import numpy as np
 import torch
 
-KERNEL_SOURCE = "stablediffusioneo_tpu_torch/csrc/attention.cu"
-PALLAS = "stablediffusioneo_tpu/ops/pallas/attention.py"
+CSRC = "stablediffusioneo_tpu_torch/csrc"
+PALLAS = "stablediffusioneo_tpu/ops/pallas"
+# kernel entry -> (CUDA source, Pallas kernel it replaces as file:line)
+KERNELS = {
+    "fused_attention_packed": ("attention.cu", "attention.py:125"),
+    "fused_attention": ("attention.cu", "attention.py:106"),
+    "fused_group_norm": ("groupnorm.cu", "groupnorm.py:127"),
+    "group_norm_stats": ("groupnorm.cu", "groupnorm.py:173"),
+    "group_norm_apply": ("groupnorm.cu", "groupnorm.py:179"),
+    "fused_layer_norm": ("layernorm.cu", "layernorm.py:89"),
+}
 BF16_TOL = (2e-2, 2e-3)  # max, mean |d| on standard-normal inputs
 FP32_TOL = 1e-4
+STATS_TOL = 1e-5  # GroupNorm partial sums, fp32, relative to max |plain|
 REF_TOL = 1e-3  # full-width UNet eval, card vs CPU, relative to max |ref|
 STEPS, RES, SCALE = 20, 512, 9.0
 
@@ -50,6 +69,8 @@ def stand_in_tokenizer(texts, max_length=77):
 
 
 def time_ms(fn, warmup=3, reps=20):
+    """Eager time of one call, host launch cost included: CUDA events
+    around the call, median of reps after warm-up."""
     for _ in range(warmup):
         fn()
     times = []
@@ -64,19 +85,87 @@ def time_ms(fn, warmup=3, reps=20):
     return statistics.median(times)
 
 
-def kernel_phase():
+def device_ms(fn, calls=20):
+    """Device time of one call: the summed durations of the kernels and
+    copies that `calls` calls put on the card (torch.profiler), divided by
+    calls. Eager timing of a norm of a few microseconds would measure the
+    host's launch cost instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return us / 1e3 / calls
+
+
+# ------------------------------------------------------------- kernel phase
+
+
+def measure(name, desc, kern, plain, make_inputs, relative=False):
+    """One row of the kernel phase: in bf16 and fp32, the kernel's output
+    against its plain version's on the same inputs, and both times.
+    relative: fp32 sums, checked against STATS_TOL x max |plain|."""
+    row = dict(desc)
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        args = make_inputs(dtype)
+        ref = plain(*args).float()
+        err = (kern(*args).float() - ref).abs()
+        torch.cuda.synchronize()
+        mx, mean = err.max().item(), err.mean().item()
+        row[f"{tag}_max_abs_err"], row[f"{tag}_mean_abs_err"] = mx, mean
+        if relative:
+            row[f"{tag}_max_rel_err"] = rel = mx / ref.abs().max().item()
+            ok = rel <= STATS_TOL
+        elif tag == "bf16":
+            ok = mx <= BF16_TOL[0] and mean <= BF16_TOL[1]
+        else:
+            ok = mx <= FP32_TOL
+        row[f"{tag}_ms"] = device_ms(lambda: kern(*args))
+        row[f"{tag}_plain_ms"] = device_ms(lambda: plain(*args))
+        row[f"{tag}_eager_ms"] = time_ms(lambda: kern(*args))
+        row[f"{tag}_plain_eager_ms"] = time_ms(lambda: plain(*args))
+        print(f"kernel {name} {desc} {tag}: max|d| {mx:.3e} mean|d| {mean:.3e}  "
+              f"device: kernel {row[f'{tag}_ms']:.4f} ms, plain "
+              f"{row[f'{tag}_plain_ms']:.4f} ms; eager call: kernel "
+              f"{row[f'{tag}_eager_ms']:.4f} ms, plain {row[f'{tag}_plain_eager_ms']:.4f} ms",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"{name} {desc} {tag} disagrees with its plain "
+                                 f"version: {mx}, {mean}")
+        del args, ref, err
+        torch.cuda.empty_cache()
+    return row
+
+
+def kernel_phase(cfg):
     from stablediffusioneo_tpu_torch.ops.kernels import attention as ka
+    from stablediffusioneo_tpu_torch.ops.kernels import groupnorm as kg
+    from stablediffusioneo_tpu_torch.ops.kernels import layernorm as kl
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    cases = [
+
+    def randn(shape, dtype, scale=1.0, shift=0.0, channels_last=False):
+        t = (torch.randn(shape, generator=g, device="cuda") * scale + shift).to(dtype)
+        return t.contiguous(memory_format=torch.channels_last) if channels_last else t
+
+    def affine(c, dtype):
+        return randn((c,), dtype, 0.1, 1.0), randn((c,), dtype, 0.1)
+
+    results = {name: [] for name in KERNELS}
+    for name, q_shape, s, heads in [
         ("fused_attention_packed", (2, 4096, 320), 4096, 8),
         ("fused_attention_packed", (2, 4096, 320), 77, 8),
         ("fused_attention_packed", (2, 1024, 640), 1024, 8),
         ("fused_attention_packed", (2, 1024, 640), 77, 8),
         ("fused_attention", (1, 1, 4096, 512), 4096, 1),
-    ]
-    results = {}
-    for name, q_shape, s, heads in cases:
+    ]:
         if name == "fused_attention_packed":
             kv_shape = (q_shape[0], s, q_shape[2])
             scale = (q_shape[2] // heads) ** -0.5
@@ -87,73 +176,55 @@ def kernel_phase():
             scale = q_shape[3] ** -0.5
             kern = lambda q, k, v: ka.fused_attention(q, k, v, scale)
             plain = lambda q, k, v: ka.fused_attention_plain(q, k, v, scale)
-        row = {"q": list(q_shape), "s": s, "heads": heads}
-        for dtype in (torch.bfloat16, torch.float32):
-            q = torch.randn(q_shape, generator=g, device="cuda").to(dtype)
-            k = torch.randn(kv_shape, generator=g, device="cuda").to(dtype)
-            v = torch.randn(kv_shape, generator=g, device="cuda").to(dtype)
-            err = (kern(q, k, v).float() - plain(q, k, v).float()).abs()
-            torch.cuda.synchronize()
-            mx, mean = err.max().item(), err.mean().item()
-            tag = "bf16" if dtype == torch.bfloat16 else "fp32"
-            ok = (mx <= BF16_TOL[0] and mean <= BF16_TOL[1] if tag == "bf16"
-                  else mx <= FP32_TOL)
-            row[f"{tag}_max_abs_err"], row[f"{tag}_mean_abs_err"] = mx, mean
-            row[f"{tag}_ms"] = time_ms(lambda: kern(q, k, v))
-            row[f"{tag}_plain_ms"] = time_ms(lambda: plain(q, k, v))
-            print(f"kernel {name} q={q_shape} S={s} {tag}: max|d| {mx:.3e} "
-                  f"mean|d| {mean:.3e}  kernel {row[f'{tag}_ms']:.4f} ms  "
-                  f"plain {row[f'{tag}_plain_ms']:.4f} ms", flush=True)
-            if not ok:
-                raise AssertionError(f"{name} {q_shape} S={s} {tag} disagrees "
-                                     f"with its plain version: {mx}, {mean}")
-            del q, k, v, err
-            torch.cuda.empty_cache()
-        results.setdefault(name, []).append(row)
+        results[name].append(measure(
+            name, {"q": list(q_shape), "s": s, "heads": heads}, kern, plain,
+            lambda dt: (randn(q_shape, dt), randn(kv_shape, dt), randn(kv_shape, dt))))
+
+    # the one-pass GroupNorm at every gated main-path site, channels-last
+    gn_sites = sorted({(shape, swish, groups)
+                       for kind, shape, swish, groups in norm_sites(cfg, RES)["step"]
+                       if kind == "gn" and gated((kind, shape, swish, groups),
+                                                 torch.bfloat16)})
+    for shape, swish, groups in gn_sites:
+        eps = 1e-5 if swish else 1e-6
+        results["fused_group_norm"].append(measure(
+            "fused_group_norm", {"x": list(shape), "groups": groups, "swish": swish},
+            lambda x, w, b: kg.fused_group_norm(x, w, b, groups, eps, swish),
+            lambda x, w, b: kg.fused_group_norm_plain(x, w, b, groups, eps, swish),
+            lambda dt: (randn(shape, dt, channels_last=True), *affine(shape[1], dt))))
+
+    # the two-pass pair, reached only by calling fused_group_norm directly
+    for shape in ((1, 128, 512, 512), (2, 960, 64, 64)):
+        x32 = randn(shape, torch.float32, channels_last=True)
+        rows = kg.chunk_rows(x32, 32)
+        desc = {"x": list(shape), "groups": 32, "chunk_rows": rows}
+        results["group_norm_stats"].append(measure(
+            "group_norm_stats", desc,
+            lambda x: kg.group_norm_stats(x, 32, rows),
+            lambda x: kg.group_norm_stats_plain(x, 32, rows),
+            lambda dt: (x32.to(dt),), relative=True))
+
+        def apply_inputs(dt):
+            x = x32.to(dt)
+            return (x, kg.group_norm_stats_plain(x, 32, rows), *affine(shape[1], dt))
+
+        results["group_norm_apply"].append(measure(
+            "group_norm_apply", desc,
+            lambda x, p, w, b: kg.group_norm_apply(x, p, w, b, rows, 1e-6, True),
+            lambda x, p, w, b: kg.group_norm_apply_plain(x, p, w, b, 1e-6, True),
+            apply_inputs))
+        del x32
+
+    for shape in ((2, 4096, 320), (2, 1024, 640), (2, 256, 1280)):
+        results["fused_layer_norm"].append(measure(
+            "fused_layer_norm", {"x": list(shape)},
+            lambda x, w, b: kl.fused_layer_norm(x, w, b, 1e-5),
+            lambda x, w, b: kl.fused_layer_norm_plain(x, w, b, 1e-5),
+            lambda dt: (randn(shape, dt), *affine(shape[-1], dt))))
     return results
 
 
-def build_model(cfg, seed):
-    from stablediffusioneo_tpu_torch.models.cldm import ControlLDM, init_weights
-
-    with torch.device("meta"):
-        model = ControlLDM(cfg)
-    model.to_empty(device="cuda")
-    init_weights(model, torch.Generator(device="cuda").manual_seed(seed))
-    return model
-
-
-def reference_phase(model, cfg):
-    """Full-width controlled-UNet eval at 256x256 (1024-token level-0 sites
-    go through the packed kernel), fp32: card vs CPU."""
-    from stablediffusioneo_tpu_torch.models.controlnet import controlled_unet_apply
-    from stablediffusioneo_tpu_torch.ops import dispatch
-
-    g = torch.Generator().manual_seed(1)
-    x = torch.randn((2, 32, 32, 4), generator=g)
-    hint = (torch.rand((2, 256, 256, 3), generator=g) > 0.8).float()
-    ctx = torch.randn((2, 77, 768), generator=g)
-    t = torch.tensor([801.0, 801.0])
-    scales = [1.0] * 13
-    outs = {}
-    for dev, m in (("cuda", model), ("cpu", copy.deepcopy(model).cpu())):
-        dispatch.reset_launches()
-        with torch.no_grad():
-            out = controlled_unet_apply(
-                m.unet, m.control_model, x.to(dev), hint.to(dev), t.to(dev),
-                ctx.to(dev), control_scales=scales)
-        outs[dev] = out.cpu()
-        if dev == "cuda":
-            launches = dispatch.launches["fused_attention_packed"]
-        del m
-    err = (outs["cuda"] - outs["cpu"]).abs().max().item()
-    ref_scale = outs["cpu"].abs().max().item()
-    print(f"reference: full-width controlled UNet 256x256 fp32, card vs CPU "
-          f"max|d| {err:.3e} (max|ref| {ref_scale:.3e}), packed launches "
-          f"{launches}", flush=True)
-    if not (torch.isfinite(outs["cuda"]).all() and err <= REF_TOL * ref_scale
-            and launches == expected_launches(cfg, 256)[0]):
-        raise AssertionError(f"reference phase failed: {err}, {launches}")
+# ------------------------------------------------- launches the plans imply
 
 
 def expected_launches(cfg, res):
@@ -179,10 +250,169 @@ def expected_launches(cfg, res):
     return packed, int(lat * lat >= ATTN_MIN_TQ)
 
 
-def main_path(model, cfg):
+def _unet_norms(ucfg, lat, batch, decoder):
+    """Norm calls of one UNet evaluation (decoder=False: the ControlNet's
+    input and middle blocks), in module order."""
+    from stablediffusioneo_tpu_torch.models.unet import decoder_plan, encoder_plan
+
+    sites = []
+
+    def res(cin, cout, side):  # ResBlock: in and out GroupNorm+SiLU
+        sites.extend(("gn", (batch, c, side, side), True, ucfg.groups)
+                     for c in (cin, cout))
+
+    def st(c, depth, side):  # SpatialTransformer: GroupNorm, 3 LayerNorms a block
+        sites.append(("gn", (batch, c, side, side), False, ucfg.groups))
+        sites.extend([("ln", (batch, side * side, c), False, 0)] * (3 * depth))
+
+    blocks = [d for d in encoder_plan(ucfg) if d["kind"] == "res"]
+    levels = len(ucfg.channel_mult)
+    for d in blocks:
+        res(d["cin"], d["cout"], lat // d["ds"])
+        if d["attn"]:
+            st(d["cout"], d["depth"], lat // d["ds"])
+    ch, side = ucfg.model_channels * ucfg.channel_mult[-1], lat // 2 ** (levels - 1)
+    res(ch, ch, side)
+    st(ch, ucfg.depth_for(levels - 1), side)
+    res(ch, ch, side)
+    if decoder:
+        for d in decoder_plan(ucfg):
+            res(d["cin"], d["cout"], lat // d["ds"])
+            if d["attn"]:
+                st(d["cout"], d["depth"], lat // d["ds"])
+        sites.append(("gn", (batch, ucfg.model_channels, lat, lat), True, ucfg.groups))
+    return sites
+
+
+def _vae_norms(vcfg, lat, batch):
+    """Norm calls of one VAE decode, in module order."""
+    def gn(c, side, swish=True):
+        return ("gn", (batch, c, side, side), swish, vcfg.groups)
+
+    bi, side = vcfg.ch * vcfg.ch_mult[-1], lat
+    sites = [gn(bi, side), gn(bi, side), gn(bi, side, False), gn(bi, side), gn(bi, side)]
+    for i in reversed(range(len(vcfg.ch_mult))):
+        cout = vcfg.ch * vcfg.ch_mult[i]
+        for _ in range(vcfg.num_res_blocks + 1):
+            sites += [gn(bi, side), gn(cout, side)]
+            bi = cout
+        if i != 0:
+            side *= 2
+    return sites + [gn(bi, side)]
+
+
+def norm_sites(cfg, res, samples=1):
+    """Every GroupNorm and LayerNorm call of a request, from the plans, as
+    (kind, shape, swish, groups): "step" = one DDIM step (UNet and
+    ControlNet on the CFG batch), "decode" = the VAE decode, "prompt" = the
+    CLIP tower on the cond and uncond prompts."""
+    lat = res // cfg.vae.downsample_factor
+    clip = cfg.clip
+    return {
+        "step": (_unet_norms(cfg.unet, lat, 2 * samples, True)
+                 + _unet_norms(cfg.controlnet.unet, lat, 2 * samples, False)),
+        "decode": _vae_norms(cfg.vae, lat, samples),
+        "prompt": [("ln", (2, clip.max_length, clip.hidden_size), False, 0)]
+                  * (2 * clip.num_layers + 1),
+    }
+
+
+def gated(site, dtype):
+    """Whether the fused-norm configuration sends this site to a kernel."""
+    from stablediffusioneo_tpu_torch.ops.kernels.groupnorm import group_norm_supported
+    from stablediffusioneo_tpu_torch.ops.kernels.layernorm import layer_norm_supported
+
+    kind, shape, _, groups = site
+    if kind == "gn":
+        return group_norm_supported(shape, groups)
+    return layer_norm_supported(shape, dtype)
+
+
+def norm_launches(sites, dtype):
+    return {name: sum(1 for s in sites if s[0] == kind and gated(s, dtype))
+            for name, kind in (("fused_group_norm", "gn"), ("fused_layer_norm", "ln"))}
+
+
+def expected_request_launches(cfg, fused_norms):
+    """Every kernel's launches over the two timed requests of main_path."""
+    per_step, per_decode = expected_launches(cfg, RES)
+    want = dict.fromkeys(KERNELS, 0)
+    want["fused_attention_packed"] = 2 * STEPS * per_step
+    want["fused_attention"] = 2 * per_decode
+    if fused_norms:
+        sites = norm_sites(cfg, RES)
+        step, decode, prompt = (norm_launches(sites[k], torch.bfloat16)
+                                for k in ("step", "decode", "prompt"))
+        for name in step:
+            want[name] = 2 * (STEPS * step[name] + decode[name] + prompt[name])
+    return want
+
+
+# ------------------------------------------------------ model-level phases
+
+
+def build_model(cfg, seed):
+    from stablediffusioneo_tpu_torch.models.cldm import ControlLDM, init_weights
+
+    with torch.device("meta"):
+        model = ControlLDM(cfg)
+    model.to_empty(device="cuda")
+    init_weights(model, torch.Generator(device="cuda").manual_seed(seed))
+    return model
+
+
+def reference_phase(model, cfg):
+    """Full-width controlled-UNet eval at 256x256 (1024-token level-0 sites
+    go through the packed kernel), fp32: card vs CPU, by default and with
+    the fused-norm configuration (every gated GroupNorm through the one-pass
+    kernel; the LayerNorm gate admits bf16 only)."""
+    from stablediffusioneo_tpu_torch.models.controlnet import controlled_unet_apply
+    from stablediffusioneo_tpu_torch.ops import dispatch
+
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 32, 32, 4), generator=g)
+    hint = (torch.rand((2, 256, 256, 3), generator=g) > 0.8).float()
+    ctx = torch.randn((2, 77, 768), generator=g)
+    t = torch.tensor([801.0, 801.0])
+    scales = [1.0] * 13
+    cpu_model = copy.deepcopy(model).cpu()
+    norms = norm_launches(norm_sites(cfg, 256)["step"], torch.float32)
+    for fused_norms in (False, True):
+        dispatch.set_kernels(groupnorm=fused_norms, layernorm=fused_norms)
+        want = dict.fromkeys(KERNELS, 0)
+        want["fused_attention_packed"] = expected_launches(cfg, 256)[0]
+        if fused_norms:
+            want.update(norms)
+        outs = {}
+        for dev, m in (("cuda", model), ("cpu", cpu_model)):
+            dispatch.reset_launches()
+            with torch.no_grad():
+                out = controlled_unet_apply(
+                    m.unet, m.control_model, x.to(dev), hint.to(dev), t.to(dev),
+                    ctx.to(dev), control_scales=scales)
+            outs[dev] = out.cpu()
+            if dev == "cuda":
+                launches = dict(dispatch.launches)
+        err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+        ref_scale = outs["cpu"].abs().max().item()
+        print(f"reference (fused norms {'on' if fused_norms else 'off'}): "
+              f"full-width controlled UNet 256x256 fp32, card vs CPU max|d| "
+              f"{err:.3e} (max|ref| {ref_scale:.3e}), launches {launches}",
+              flush=True)
+        if not (torch.isfinite(outs["cuda"]).all() and err <= REF_TOL * ref_scale
+                and launches == want):
+            raise AssertionError(f"reference phase failed: {err}, {launches} "
+                                 f"(expected {want})")
+    dispatch.set_kernels(groupnorm=False, layernorm=False)
+    del cpu_model
+
+
+def main_path(model, cfg, fused_norms):
     from stablediffusioneo_tpu_torch.ops import dispatch
     from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
 
+    config = "fused norms" if fused_norms else "default"
+    dispatch.set_kernels(groupnorm=fused_norms, layernorm=fused_norms)
     pipe = Canny2ImagePipeline(model, stand_in_tokenizer, cfg, device="cuda")
     rng = np.random.default_rng(0)
     img = np.zeros((RES, RES, 3), np.uint8)
@@ -192,9 +422,8 @@ def main_path(model, cfg):
               scale=SCALE, eta=0.0, strength=1.0)
     t0 = time.perf_counter()
     pipe.process(img, "a house in the woods", seed=0, **kw)
-    print(f"main path warm-up request: {time.perf_counter() - t0:.3f} s",
+    print(f"main path ({config}) warm-up request: {time.perf_counter() - t0:.3f} s",
           flush=True)
-    per_step, per_decode = expected_launches(cfg, RES)
     torch.cuda.synchronize()
     dispatch.reset_launches()
     images, latencies = [], []
@@ -208,31 +437,29 @@ def main_path(model, cfg):
         if not (out[1].shape == (RES, RES, 3) and out[1].dtype == np.uint8):
             raise AssertionError(f"image {out[1].shape} {out[1].dtype}")
         images.append(out[1])
-        print(f"main path request seed={seed}: {latencies[-1]:.4f} s "
+        print(f"main path ({config}) request seed={seed}: {latencies[-1]:.4f} s "
               f"({pipe.last_timings})", flush=True)
     launches = dict(dispatch.launches)
-    want = {"fused_attention_packed": 2 * STEPS * per_step,
-            "fused_attention": 2 * per_decode}
-    print(f"kernel launches over the 2 requests: {launches} (expected {want}: "
-          f"{per_step} packed per step, {per_decode} split per decode)",
-          flush=True)
+    want = expected_request_launches(cfg, fused_norms)
+    print(f"main path ({config}) kernel launches over the 2 requests: {launches} "
+          f"(expected from the plans and gates: {want})", flush=True)
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if np.array_equal(images[0], images[1]):
         raise AssertionError("two seeds gave the same image")
-    print(f"image stats: mean {images[0].mean():.2f} std {images[0].std():.2f}; "
-          f"seeds differ in {(images[0] != images[1]).mean():.3f} of values",
-          flush=True)
+    print(f"image stats ({config}): mean {images[0].mean():.2f} std "
+          f"{images[0].std():.2f}; seeds differ in "
+          f"{(images[0] != images[1]).mean():.3f} of values", flush=True)
     pipe.runtime.release()
-    return launches, latencies
+    dispatch.set_kernels(groupnorm=False, layernorm=False)
+    return launches, latencies, images[0]
 
 
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card only")
     from stablediffusioneo_tpu.config import sd15_pipeline
-    from stablediffusioneo_tpu_torch.ops.kernels import build
-    from stablediffusioneo_tpu_torch.ops.kernels.attention import SOURCES
+    from stablediffusioneo_tpu_torch.ops.kernels import attention, build, groupnorm, layernorm
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -243,29 +470,39 @@ def main():
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           "TF32 off for matmul and cuDNN", flush=True)
     t0 = time.perf_counter()
-    build.load_library("attention", SOURCES)
-    print(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {build.build_seconds.get('attention', 0.0):.2f} s)", flush=True)
+    build.load_libraries({"attention": attention.SOURCES,
+                          "groupnorm": groupnorm.SOURCES,
+                          "layernorm": layernorm.SOURCES})
+    print(f"kernel build + load: {time.perf_counter() - t0:.2f} s (nvcc, in "
+          f"parallel: {build.build_seconds})", flush=True)
 
-    kernels = kernel_phase()
     cfg = sd15_pipeline(dtype="bfloat16")
+    kernels = kernel_phase(cfg)
     model = build_model(cfg, seed=0)
     reference_phase(model, cfg)
-    launches, latencies = main_path(model, cfg)
+    _, latencies, image = main_path(model, cfg, fused_norms=False)
+    launches, fused_latencies, fused_image = main_path(model, cfg, fused_norms=True)
+    print(f"request latency: default {latencies}, fused norms {fused_latencies} s; "
+          f"seed-1 images differ by mean |d| "
+          f"{np.abs(image.astype(np.int16) - fused_image).mean():.3f} of 255",
+          flush=True)
 
     out = []
-    for name, line in (("fused_attention_packed", 125), ("fused_attention", 106)):
+    for name, (source, replaces) in KERNELS.items():
         rows = kernels[name]
         out.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": f"{PALLAS}:{line}", "launches": launches[name],
+            "name": name, "route": "cuda", "source": f"{CSRC}/{source}",
+            "replaces": f"{PALLAS}/{replaces}",
+            # the fused-norm run (its attention counts equal the default run's)
+            "launches": launches[name],
             "max_abs_err": max(r["bf16_max_abs_err"] for r in rows),
-            # one call at each main-path shape, bf16
+            # device time of one call at each main-path (or listed) shape, bf16
             "ms": sum(r["bf16_ms"] for r in rows),
             "plain_ms": sum(r["bf16_plain_ms"] for r in rows),
             "shapes": rows,
         })
-    print(json.dumps({"kernels": out, "request_s": latencies}))
+    print(json.dumps({"kernels": out, "request_s": latencies,
+                      "request_s_fused_norms": fused_latencies}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,17 @@
-"""Kernel dispatch: the device rule and the launch counters.
+"""Kernel dispatch: the kernel flags, the device rule and the launch counters.
 
-Counterpart of stablediffusioneo_tpu/ops/dispatch.py. The rule has no
-switches: a kernel-gated site given CUDA tensors launches the hand-written
-kernel (or raises when the kernel does not take the input); given CPU
-tensors it runs the kernel's plain PyTorch version. The gates themselves are
-the JAX package's defaults (ops/attention.py: no mask and at least
-`ATTN_MIN_TQ` query tokens).
+Counterpart of stablediffusioneo_tpu/ops/dispatch.py. Attention has no
+switch: its gate is the JAX package's default (ops/attention.py: no mask and
+at least `ATTN_MIN_TQ` query tokens). The norm kernels are behind the JAX
+package's flags of the same names, off by default as there:
+`set_kernels(groupnorm=True, layernorm=True)` is the fused-norm
+configuration (the JAX package's SDEO_FORCE_GN_PALLAS=1
+SDEO_FORCE_LN_PALLAS=1). The flags are process-wide; the port reads no
+environment variable.
+
+The device rule: a kernel-gated site given CUDA tensors launches the
+hand-written kernel (or raises when the kernel does not take the input);
+given CPU tensors it runs the kernel's plain PyTorch version.
 
 `launches` holds one plain integer per kernel entry. A wrapper adds one
 exactly where it launches its kernel, so a run can show that its main path
@@ -22,9 +28,24 @@ import torch
 # (the JAX package's _min_tq default, stablediffusioneo_tpu/ops/attention.py)
 ATTN_MIN_TQ = 1024
 
-KERNELS = ("fused_attention_packed", "fused_attention")
+KERNELS = ("fused_attention_packed", "fused_attention", "fused_group_norm",
+           "group_norm_stats", "group_norm_apply", "fused_layer_norm")
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_FLAGS: Dict[str, bool] = {"groupnorm": False, "layernorm": False}
+
+
+def set_kernels(**flags: bool) -> None:
+    """Turn kernel families on or off, e.g. set_kernels(groupnorm=True)."""
+    for name, on in flags.items():
+        if name not in _FLAGS:
+            raise KeyError(f"unknown kernel flag {name!r}; have {sorted(_FLAGS)}")
+        _FLAGS[name] = bool(on)
+
+
+def kernels_enabled(name: str) -> bool:
+    return _FLAGS.get(name, False)
 
 
 def reset_launches() -> None:

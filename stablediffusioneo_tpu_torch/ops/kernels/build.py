@@ -48,23 +48,42 @@ def library_path(name: str, sources: Sequence[str]) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Compile (if needed) and load `lib<name>.so` from csrc sources."""
-    if name in _LIBS:
-        return _LIBS[name]
-    out = library_path(name, sources)
-    if not out.exists():
+def load_libraries(specs: Dict[str, Sequence[str]]) -> Dict[str, ctypes.CDLL]:
+    """Compile the missing libraries of {name: csrc sources}, one nvcc for
+    each, all started together, then load every `lib<name>.so`."""
+    pending = []
+    for name, sources in specs.items():
+        if name in _LIBS:
+            continue
+        out = library_path(name, sources)
+        if out.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                *[str(CSRC / s) for s in sources]]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr}")
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        pending.append((name, out, tmp, time.perf_counter(), proc))
+    failed = []
+    for name, out, tmp, t0, proc in pending:  # wait for every build
+        _, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}:\n{stderr}")
+            continue
         build_seconds[name] = time.perf_counter() - t0
-        out.with_suffix(".log").write_text(res.stderr)  # ptxas -v report
+        out.with_suffix(".log").write_text(stderr)  # ptxas -v report
         os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-    _LIBS[name] = ctypes.CDLL(str(out))
-    return _LIBS[name]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name, sources in specs.items():
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(library_path(name, sources)))
+    return {name: _LIBS[name] for name in specs}
 
+
+def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
+    """Compile (if needed) and load `lib<name>.so` from csrc sources; called
+    at every launch, so a loaded library returns at once."""
+    lib = _LIBS.get(name)
+    return lib if lib is not None else load_libraries({name: sources})[name]

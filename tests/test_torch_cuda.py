@@ -1,18 +1,22 @@
-"""The port's CUDA attention kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Marked `cuda`: each test skips without a CUDA device. This file imports no
 JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 (--noconftest: tests/conftest.py sets JAX up). Tolerances: fp32 max |d| <=
 1e-4 (the two differ in summation order only); bf16 max |d| <= 2e-2 and
-mean |d| <= 2e-3 on standard-normal inputs (the kernel rounds the
-unnormalised p to bf16, the plain version the normalised one).
+mean |d| <= 2e-3 on standard-normal inputs (attention: the kernel rounds
+the unnormalised p to bf16, the plain version the normalised one; norms:
+both round the same fp32 value once, up to the sums' summation order); the
+GroupNorm partial sums within 1e-5 x max |plain|.
 """
 
 import pytest
 import torch
 
 from stablediffusioneo_tpu_torch.ops import dispatch
+from stablediffusioneo_tpu_torch.ops.kernels import groupnorm as kg
+from stablediffusioneo_tpu_torch.ops.kernels import layernorm as kl
 from stablediffusioneo_tpu_torch.ops.kernels.attention import (
     fused_attention,
     fused_attention_packed,
@@ -95,3 +99,78 @@ def test_kernel_rejects_what_it_does_not_take(gen):
     h = _randn((1, 1024, 80), gen, torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fused_attention_packed(h, h, h, 1, 80 ** -0.5)
+
+
+def _affine(c, gen, dtype):
+    return (_randn((c,), gen, torch.float32) * 0.1 + 1).to(dtype), \
+        (_randn((c,), gen, torch.float32) * 0.1).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("shape,swish", [((2, 320, 64, 64), True),
+                                         ((2, 1280, 16, 16), False)])
+def test_group_norm_kernel_matches_plain(gen, dtype, channels_last, shape, swish):
+    x = _randn(shape, gen, dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    w, b = _affine(shape[1], gen, dtype)
+    dispatch.reset_launches()
+    out = kg.fused_group_norm(x, w, b, 32, 1e-5, swish)
+    assert dispatch.launches["fused_group_norm"] == 1
+    assert out.stride() == x.stride()
+    _check(out, kg.fused_group_norm_plain(x, w, b, 32, 1e-5, swish), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_two_pass_kernels_match_plain(gen, dtype):
+    x = _randn((2, 960, 64, 64), gen, dtype).contiguous(
+        memory_format=torch.channels_last)
+    w, b = _affine(960, gen, dtype)
+    rows = kg.chunk_rows(x, 32)
+    dispatch.reset_launches()
+    parts = kg.group_norm_stats(x, 32, rows)
+    ref = kg.group_norm_stats_plain(x, 32, rows)
+    assert (parts - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    out = kg.group_norm_apply(x, ref, w, b, rows, 1e-6, True)
+    _check(out, kg.group_norm_apply_plain(x, ref, w, b, 1e-6, True), dtype)
+    assert dispatch.launches["group_norm_stats"] == 1
+    assert dispatch.launches["group_norm_apply"] == 1
+    assert dispatch.launches["fused_group_norm"] == 0
+    two_pass = kg.fused_group_norm(x, w, b, 32, 1e-6, True)  # outside the gate
+    _check(two_pass, kg.fused_group_norm_plain(x, w, b, 32, 1e-6, True), dtype)
+
+
+def test_group_norm_kernel_is_deterministic(gen):
+    x = _randn((2, 640, 32, 32), gen, torch.bfloat16)
+    w, b = _affine(640, gen, torch.bfloat16)
+    a = kg.fused_group_norm(x, w, b, 32, 1e-5, True)
+    assert torch.equal(a, kg.fused_group_norm(x, w, b, 32, 1e-5, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 4096, 320), (2, 256, 1280), (3, 77, 768)])
+def test_layer_norm_kernel_matches_plain(gen, dtype, shape):
+    x = _randn(shape, gen, dtype)
+    w, b = _affine(shape[-1], gen, dtype)
+    dispatch.reset_launches()
+    out = kl.fused_layer_norm(x, w, b, 1e-5)
+    assert dispatch.launches["fused_layer_norm"] == 1
+    _check(out, kl.fused_layer_norm_plain(x, w, b, 1e-5), dtype)
+
+
+def test_norm_kernels_reject_what_they_do_not_take(gen):
+    x = _randn((2, 64, 16, 16), gen, torch.bfloat16)
+    w, b = _affine(64, gen, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        kg.fused_group_norm(x.transpose(2, 3), w, b, 32, 1e-5, True)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kg.fused_group_norm(x.half(), w, b, 32, 1e-5, True)
+    with pytest.raises(ValueError, match="divisible"):
+        kg.fused_group_norm(x, w, b, 48, 1e-5, True)
+    t = _randn((2, 1024, 320), gen, torch.bfloat16)
+    wt, bt = _affine(320, gen, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        kl.fused_layer_norm(t.transpose(0, 1), wt, bt, 1e-5)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kl.fused_layer_norm(t.half(), wt.half(), bt.half(), 1e-5)
