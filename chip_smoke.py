@@ -5,21 +5,31 @@
 Builds the CUDA kernels from the sources in the checkout (one nvcc per
 source, all started together), then:
   1. kernel phase: each kernel entry against its plain PyTorch version at
-     every shape the 512x512 main path gives it (attention; the one-pass
-     GroupNorm at every gated GroupNorm site, in the channels-last memory
-     the networks hold; LayerNorm at the gated transformer sites) and the
-     two-pass GroupNorm pair at two large slabs, in bf16 and fp32, with both
-     timed on the device (torch.profiler's kernel durations over 20 calls)
-     and eagerly (CUDA events around one call, host launch cost included);
+     every shape the main paths give it (packed attention at the 512x512
+     and 1024x1024 sites, streaming attention at the hires pass's
+     (2, 16384, 320) self-attention, split attention at both VAE
+     mid-blocks; the one-pass GroupNorm at every gated GroupNorm site, in
+     the channels-last memory the networks hold; LayerNorm at the gated
+     transformer sites; the int8 matmul at every gated 512x512 GEMM) and
+     the two-pass GroupNorm pair at two large slabs, in bf16 and fp32, with
+     both timed on the device (torch.profiler's kernel durations over 20
+     calls) and eagerly (CUDA events around one call, host launch cost
+     included); the int8 matmul also against the flag-off path (dequantise,
+     then cuBLAS) and the unquantised bf16 F.linear;
   2. reference phase: one full-width controlled-UNet evaluation at 256x256
      in fp32 on the card (through the kernels) against the same weights on
-     the CPU (plain versions), TF32 off; once by default and once with the
-     fused-norm configuration (set_kernels(groupnorm=True, layernorm=True));
-  3. main path: Canny2ImagePipeline.process at the full SD-1.5 widths in
+     the CPU (plain versions), TF32 off; by default, with the fused-norm
+     configuration (set_kernels(groupnorm=True, layernorm=True)), and with
+     int8 linears (quantised once, the bytes shared by card and CPU) and
+     set_kernels(int8_linear=True);
+  3. main paths: Canny2ImagePipeline.process at the full SD-1.5 widths in
      bf16, weights drawn from a fixed seed: one warm-up request, then two
-     timed requests (512x512, 20 DDIM steps, scale 9, eta 0, batch 1),
-     counting the kernel launches of those two requests; run by default,
-     then again with the fused-norm configuration.
+     timed requests (20 DDIM steps, scale 9, eta 0, batch 1), counting the
+     kernel launches of those two requests; 512x512 by default, with the
+     fused-norm configuration, and with int8 linears (quantize_linears=True,
+     set_kernels(int8_linear=True)); then the hires fix 512 -> 1024
+     (hires_upscale=2.0, hires_denoise=0.7: the last 14 of 20 steps again
+     at 1024x1024).
 Launch counts must equal what the UNet, ControlNet, VAE and CLIP plans and
 the dispatch gates imply. Any failed check raises, so the script exits
 non-zero and prints no result. The last line is {"ok": true, "device":
@@ -37,6 +47,7 @@ import zlib
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 CSRC = "stablediffusioneo_tpu_torch/csrc"
 PALLAS = "stablediffusioneo_tpu/ops/pallas"
@@ -44,16 +55,25 @@ PALLAS = "stablediffusioneo_tpu/ops/pallas"
 KERNELS = {
     "fused_attention_packed": ("attention.cu", "attention.py:125"),
     "fused_attention": ("attention.cu", "attention.py:106"),
+    "fused_attention_packed_stream": ("attention.cu", "attention.py:150"),
     "fused_group_norm": ("groupnorm.cu", "groupnorm.py:127"),
     "group_norm_stats": ("groupnorm.cu", "groupnorm.py:173"),
     "group_norm_apply": ("groupnorm.cu", "groupnorm.py:179"),
     "fused_layer_norm": ("layernorm.cu", "layernorm.py:89"),
+    "quantized_matmul": ("quant.cu", "quant.py:109"),
 }
+# the main-path run whose launches the kernels line reports for each kernel
+EXERCISED_BY = {"fused_attention_packed": "default", "fused_attention": "default",
+                "fused_attention_packed_stream": "hires",
+                "quantized_matmul": "int8"}
 BF16_TOL = (2e-2, 2e-3)  # max, mean |d| on standard-normal inputs
 FP32_TOL = 1e-4
 STATS_TOL = 1e-5  # GroupNorm partial sums, fp32, relative to max |plain|
 REF_TOL = 1e-3  # full-width UNet eval, card vs CPU, relative to max |ref|
 STEPS, RES, SCALE = 20, 512, 9.0
+HIRES_UPSCALE, HIRES_DENOISE = 2.0, 0.7
+HIRES_RES = int(round(RES * HIRES_UPSCALE / 64)) * 64
+HIRES_T_ENC = max(1, min(STEPS, int(round(HIRES_DENOISE * STEPS))))
 
 
 def stand_in_tokenizer(texts, max_length=77):
@@ -85,33 +105,37 @@ def time_ms(fn, warmup=3, reps=20):
     return statistics.median(times)
 
 
-def device_ms(fn, calls=20):
+def device_ms(fn, calls=20, attempts=3):
     """Device time of one call: the summed durations of the kernels and
     copies that `calls` calls put on the card (torch.profiler), divided by
     calls. Eager timing of a norm of a few microseconds would measure the
-    host's launch cost instead."""
+    host's launch cost instead. The profiler now and then returns a trace
+    without device events; such a trace is taken again."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return us / 1e3 / calls
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / calls
+    raise AssertionError(f"the profiler saw no device time in {attempts} traces")
 
 
 # ------------------------------------------------------------- kernel phase
 
 
-def measure(name, desc, kern, plain, make_inputs, relative=False):
+def measure(name, desc, kern, plain, make_inputs, relative=False, others=None):
     """One row of the kernel phase: in bf16 and fp32, the kernel's output
     against its plain version's on the same inputs, and both times.
-    relative: fp32 sums, checked against STATS_TOL x max |plain|."""
+    relative: fp32 sums, checked against STATS_TOL x max |plain|.
+    others: {name: fn(*inputs)}, further versions timed on the device in
+    bf16 (row key f"bf16_{name}_ms")."""
     row = dict(desc)
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         args = make_inputs(dtype)
@@ -131,6 +155,11 @@ def measure(name, desc, kern, plain, make_inputs, relative=False):
         row[f"{tag}_plain_ms"] = device_ms(lambda: plain(*args))
         row[f"{tag}_eager_ms"] = time_ms(lambda: kern(*args))
         row[f"{tag}_plain_eager_ms"] = time_ms(lambda: plain(*args))
+        if tag == "bf16":
+            for other, fn in (others or {}).items():
+                row[f"bf16_{other}_ms"] = device_ms(lambda: fn(*args))
+                print(f"kernel {name} {desc} bf16: device {other} "
+                      f"{row[f'bf16_{other}_ms']:.4f} ms", flush=True)
         print(f"kernel {name} {desc} {tag}: max|d| {mx:.3e} mean|d| {mean:.3e}  "
               f"device: kernel {row[f'{tag}_ms']:.4f} ms, plain "
               f"{row[f'{tag}_plain_ms']:.4f} ms; eager call: kernel "
@@ -148,6 +177,8 @@ def kernel_phase(cfg):
     from stablediffusioneo_tpu_torch.ops.kernels import attention as ka
     from stablediffusioneo_tpu_torch.ops.kernels import groupnorm as kg
     from stablediffusioneo_tpu_torch.ops.kernels import layernorm as kl
+    from stablediffusioneo_tpu_torch.ops.kernels import quant as kq
+    from stablediffusioneo_tpu_torch.ops.quant import quantize_weights
 
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -159,26 +190,35 @@ def kernel_phase(cfg):
         return randn((c,), dtype, 0.1, 1.0), randn((c,), dtype, 0.1)
 
     results = {name: [] for name in KERNELS}
-    for name, q_shape, s, heads in [
-        ("fused_attention_packed", (2, 4096, 320), 4096, 8),
-        ("fused_attention_packed", (2, 4096, 320), 77, 8),
-        ("fused_attention_packed", (2, 1024, 640), 1024, 8),
-        ("fused_attention_packed", (2, 1024, 640), 77, 8),
-        ("fused_attention", (1, 1, 4096, 512), 4096, 1),
-    ]:
-        if name == "fused_attention_packed":
-            kv_shape = (q_shape[0], s, q_shape[2])
-            scale = (q_shape[2] // heads) ** -0.5
-            kern = lambda q, k, v: ka.fused_attention_packed(q, k, v, heads, scale)
-            plain = lambda q, k, v: ka.fused_attention_packed_plain(q, k, v, heads, scale)
-        else:
+    for name, q_shape, s, heads in attention_rows(cfg):
+        if name == "fused_attention":
             kv_shape = q_shape[:2] + (s, q_shape[3])
             scale = q_shape[3] ** -0.5
             kern = lambda q, k, v: ka.fused_attention(q, k, v, scale)
             plain = lambda q, k, v: ka.fused_attention_plain(q, k, v, scale)
+        else:
+            kv_shape = (q_shape[0], s, q_shape[2])
+            scale = (q_shape[2] // heads) ** -0.5
+            kern = (lambda q, k, v, e=getattr(ka, name): e(q, k, v, heads, scale))
+            plain = (lambda q, k, v, e=getattr(ka, name + "_plain"):
+                     e(q, k, v, heads, scale))
         results[name].append(measure(
             name, {"q": list(q_shape), "s": s, "heads": heads}, kern, plain,
             lambda dt: (randn(q_shape, dt), randn(kv_shape, dt), randn(kv_shape, dt))))
+
+    # the int8 matmul at every gated 512x512 GEMM (output std ~0.5)
+    for m, k, n in sorted(set(quant_gated(quant_sites(cfg, RES)))):
+        w = torch.randn((n, k), generator=g, device="cuda") * (0.5 / k ** 0.5)
+        w_q, w_scale = quantize_weights(w)
+        w_bf16 = w.to(torch.bfloat16)
+        results["quantized_matmul"].append(measure(
+            "quantized_matmul", {"m": m, "k": k, "n": n},
+            kq.quantized_matmul, kq.quantized_matmul_plain,
+            lambda dt: (randn((m, k), dt), w_q, w_scale),
+            others={"dequant_linear": lambda x, q, sc: F.linear(
+                        x, (q.float() * sc[:, None]).to(x.dtype)),
+                    "bf16_linear": lambda x, q, sc: F.linear(x, w_bf16)}))
+        del w, w_q, w_scale, w_bf16
 
     # the one-pass GroupNorm at every gated main-path site, channels-last
     gn_sites = sorted({(shape, swish, groups)
@@ -227,27 +267,102 @@ def kernel_phase(cfg):
 # ------------------------------------------------- launches the plans imply
 
 
-def expected_launches(cfg, res):
-    """Packed launches per DDIM step and split launches per decode, from the
-    UNet plans: each transformer block of a site with >= ATTN_MIN_TQ tokens
-    runs self- and cross-attention once each over the whole CFG batch (UNet:
-    input, middle and output blocks; ControlNet: input and middle blocks);
-    the VAE mid-block attends once at latent resolution."""
+def _transformer_sites(cfg, lat):
+    """(channels, latent side) of every transformer block one DDIM step runs:
+    the UNet's input, middle and output blocks and the ControlNet's input
+    and middle blocks."""
     from stablediffusioneo_tpu_torch.models.unet import decoder_plan, encoder_plan
+
+    ucfg = cfg.unet
+    levels = len(ucfg.channel_mult)
+    mid = (ucfg.model_channels * ucfg.channel_mult[-1], lat // 2 ** (levels - 1))
+    sites = []
+    for plan, copies in ((encoder_plan(ucfg), 2), (decoder_plan(ucfg), 1)):
+        for d in plan:
+            if d["attn"]:
+                sites += [(d["cout"], lat // d["ds"])] * (copies * d["depth"])
+    return sites + [mid] * (2 * ucfg.depth_for(levels - 1))
+
+
+def attention_sites(cfg, res, batch=2):
+    """Every multi-head attention call of one DDIM step on the CFG batch, as
+    (q shape (B, Tq, C), key length, heads): each transformer block runs a
+    self- (S = Tq) and a cross-attention (S = the context length)."""
+    sites = []
+    for c, side in _transformer_sites(cfg, res // cfg.vae.downsample_factor):
+        q, heads = (batch, side * side, c), cfg.unet.heads_for(c)
+        sites += [(q, side * side, heads), (q, cfg.clip.max_length, heads)]
+    return sites
+
+
+def attention_route(q_shape, s, dtype):
+    """The kernel entry multi_head_attention sends a site to, or None."""
+    from stablediffusioneo_tpu_torch.ops.attention import stream_attention
     from stablediffusioneo_tpu_torch.ops.dispatch import ATTN_MIN_TQ
 
+    _, tq, c = q_shape
+    if tq < ATTN_MIN_TQ:
+        return None
+    if stream_attention(tq, s, c, dtype):
+        return "fused_attention_packed_stream"
+    return "fused_attention_packed"
+
+
+def expected_launches(cfg, res, dtype=torch.bfloat16):
+    """Attention launches of one DDIM step by kernel entry, and split
+    launches of one decode (the VAE mid-block attends once at latent
+    resolution)."""
+    from stablediffusioneo_tpu_torch.ops.dispatch import ATTN_MIN_TQ
+
+    step = {"fused_attention_packed": 0, "fused_attention_packed_stream": 0}
+    for q_shape, s, _ in attention_sites(cfg, res):
+        route = attention_route(q_shape, s, dtype)
+        if route:
+            step[route] += 1
+    lat = res // cfg.vae.downsample_factor
+    return step, int(lat * lat >= ATTN_MIN_TQ)
+
+
+def attention_rows(cfg):
+    """(entry, q shape, key length, heads) of every distinct kernel-gated
+    attention call of the 512x512 request and of the 1024x1024 hires pass."""
+    rows = []
+    for res in (RES, HIRES_RES):
+        for q_shape, s, heads in attention_sites(cfg, res):
+            route = attention_route(q_shape, s, torch.bfloat16)
+            if route and (route, q_shape, s, heads) not in rows:
+                rows.append((route, q_shape, s, heads))
+        lat = res // cfg.vae.downsample_factor
+        rows.append(("fused_attention", (1, 1, lat * lat, cfg.vae.ch * cfg.vae.ch_mult[-1]),
+                     lat * lat, 1))
+    return rows
+
+
+def quant_sites(cfg, res, batch=2):
+    """(M, K, N) of every linear that quantize_linears=True converts, for
+    one DDIM step on the CFG batch: the time-embedding MLP and each
+    ResBlock's emb projection (M = batch), the GEGLU pair of each
+    transformer block (M = batch x tokens)."""
+    from stablediffusioneo_tpu_torch.models.unet import decoder_plan, encoder_plan
+
     ucfg, lat = cfg.unet, res // cfg.vae.downsample_factor
+    emb, mc = ucfg.time_embed_dim, ucfg.model_channels
+    mid = mc * ucfg.channel_mult[-1]
+    couts = [d["cout"] for d in encoder_plan(ucfg) if d["kind"] == "res"] + [mid, mid]
+    couts = 2 * couts + [d["cout"] for d in decoder_plan(ucfg)]  # ControlNet, UNet
+    sites = [(batch, mc, emb), (batch, emb, emb)] * 2
+    sites += [(batch, emb, c) for c in couts]
+    for c, side in _transformer_sites(cfg, lat):
+        m = batch * side * side
+        sites += [(m, c, 8 * c), (m, 4 * c, c)]
+    return sites
 
-    def blocks(plan):
-        return sum(d["depth"] for d in plan
-                   if d["attn"] and (lat // d["ds"]) ** 2 >= ATTN_MIN_TQ)
 
-    levels = len(ucfg.channel_mult)
-    mid = (ucfg.depth_for(levels - 1)
-           if (lat // 2 ** (levels - 1)) ** 2 >= ATTN_MIN_TQ else 0)
-    enc = blocks(encoder_plan(ucfg))
-    packed = 2 * (2 * enc + blocks(decoder_plan(ucfg)) + 2 * mid)
-    return packed, int(lat * lat >= ATTN_MIN_TQ)
+def quant_gated(sites):
+    """The (M, K, N) that the int8_linear gate sends to the kernel."""
+    from stablediffusioneo_tpu_torch.ops.kernels.quant import pick_blocks
+
+    return [(m, k, n) for m, k, n in sites if pick_blocks(m, n)]
 
 
 def _unet_norms(ucfg, lat, batch, decoder):
@@ -333,19 +448,26 @@ def norm_launches(sites, dtype):
             for name, kind in (("fused_group_norm", "gn"), ("fused_layer_norm", "ln"))}
 
 
-def expected_request_launches(cfg, fused_norms):
+def expected_request_launches(cfg, config):
     """Every kernel's launches over the two timed requests of main_path."""
-    per_step, per_decode = expected_launches(cfg, RES)
+    step, per_decode = expected_launches(cfg, RES)
     want = dict.fromkeys(KERNELS, 0)
-    want["fused_attention_packed"] = 2 * STEPS * per_step
-    want["fused_attention"] = 2 * per_decode
-    if fused_norms:
+    for name, n in step.items():
+        want[name] = STEPS * n
+    if config == "hires":  # the base pass is not decoded
+        hi_step, per_decode = expected_launches(cfg, HIRES_RES)
+        for name, n in hi_step.items():
+            want[name] += HIRES_T_ENC * n
+    want["fused_attention"] = per_decode
+    if config == "fused norms":
         sites = norm_sites(cfg, RES)
         step, decode, prompt = (norm_launches(sites[k], torch.bfloat16)
                                 for k in ("step", "decode", "prompt"))
         for name in step:
-            want[name] = 2 * (STEPS * step[name] + decode[name] + prompt[name])
-    return want
+            want[name] = STEPS * step[name] + decode[name] + prompt[name]
+    if config == "int8":
+        want["quantized_matmul"] = STEPS * len(quant_gated(quant_sites(cfg, RES)))
+    return {name: 2 * n for name, n in want.items()}
 
 
 # ------------------------------------------------------ model-level phases
@@ -363,11 +485,14 @@ def build_model(cfg, seed):
 
 def reference_phase(model, cfg):
     """Full-width controlled-UNet eval at 256x256 (1024-token level-0 sites
-    go through the packed kernel), fp32: card vs CPU, by default and with
-    the fused-norm configuration (every gated GroupNorm through the one-pass
-    kernel; the LayerNorm gate admits bf16 only)."""
+    go through the packed kernel), fp32: card vs CPU, by default, with the
+    fused-norm configuration (every gated GroupNorm through the one-pass
+    kernel; the LayerNorm gate admits bf16 only), and with int8 linears
+    (quantised once on the card, the same bytes copied to the CPU) and the
+    int8_linear flag on (every gated GEGLU product through the fp32 kernel)."""
     from stablediffusioneo_tpu_torch.models.controlnet import controlled_unet_apply
     from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.ops.quant import quantize_linear_modules
 
     g = torch.Generator().manual_seed(1)
     x = torch.randn((2, 32, 32, 4), generator=g)
@@ -375,16 +500,24 @@ def reference_phase(model, cfg):
     ctx = torch.randn((2, 77, 768), generator=g)
     t = torch.tensor([801.0, 801.0])
     scales = [1.0] * 13
-    cpu_model = copy.deepcopy(model).cpu()
+    attn = expected_launches(cfg, 256, torch.float32)[0]
     norms = norm_launches(norm_sites(cfg, 256)["step"], torch.float32)
-    for fused_norms in (False, True):
-        dispatch.set_kernels(groupnorm=fused_norms, layernorm=fused_norms)
+    int8 = copy.deepcopy(model)
+    for net in (int8.unet, int8.control_model):
+        quantize_linear_modules(net)
+    for config, card_model in (("default", model), ("fused norms", model),
+                               ("int8", int8)):
+        fused = config == "fused norms"
+        dispatch.set_kernels(groupnorm=fused, layernorm=fused,
+                             int8_linear=config == "int8")
         want = dict.fromkeys(KERNELS, 0)
-        want["fused_attention_packed"] = expected_launches(cfg, 256)[0]
-        if fused_norms:
+        want.update(attn)
+        if fused:
             want.update(norms)
+        if config == "int8":
+            want["quantized_matmul"] = len(quant_gated(quant_sites(cfg, 256)))
         outs = {}
-        for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        for dev, m in (("cuda", card_model), ("cpu", copy.deepcopy(card_model).cpu())):
             dispatch.reset_launches()
             with torch.no_grad():
                 out = controlled_unet_apply(
@@ -395,31 +528,39 @@ def reference_phase(model, cfg):
                 launches = dict(dispatch.launches)
         err = (outs["cuda"] - outs["cpu"]).abs().max().item()
         ref_scale = outs["cpu"].abs().max().item()
-        print(f"reference (fused norms {'on' if fused_norms else 'off'}): "
-              f"full-width controlled UNet 256x256 fp32, card vs CPU max|d| "
-              f"{err:.3e} (max|ref| {ref_scale:.3e}), launches {launches}",
-              flush=True)
+        print(f"reference ({config}): full-width controlled UNet 256x256 fp32, "
+              f"card vs CPU max|d| {err:.3e} (max|ref| {ref_scale:.3e}), "
+              f"launches {launches}", flush=True)
         if not (torch.isfinite(outs["cuda"]).all() and err <= REF_TOL * ref_scale
                 and launches == want):
-            raise AssertionError(f"reference phase failed: {err}, {launches} "
-                                 f"(expected {want})")
-    dispatch.set_kernels(groupnorm=False, layernorm=False)
-    del cpu_model
+            raise AssertionError(f"reference phase ({config}) failed: {err}, "
+                                 f"{launches} (expected {want})")
+    dispatch.set_kernels(groupnorm=False, layernorm=False, int8_linear=False)
+    del int8
+    torch.cuda.empty_cache()
 
 
-def main_path(model, cfg, fused_norms):
+def main_path(model, cfg, config):
+    """One warm-up and two timed requests of one configuration: "default",
+    "fused norms", "int8" (512x512) or "hires" (512 -> 1024)."""
     from stablediffusioneo_tpu_torch.ops import dispatch
     from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
 
-    config = "fused norms" if fused_norms else "default"
-    dispatch.set_kernels(groupnorm=fused_norms, layernorm=fused_norms)
-    pipe = Canny2ImagePipeline(model, stand_in_tokenizer, cfg, device="cuda")
+    fused = config == "fused norms"
+    dispatch.set_kernels(groupnorm=fused, layernorm=fused,
+                         int8_linear=config == "int8")
+    pipe = Canny2ImagePipeline(model, stand_in_tokenizer, cfg, device="cuda",
+                               quantize_linears=config == "int8")
     rng = np.random.default_rng(0)
     img = np.zeros((RES, RES, 3), np.uint8)
     img[96:416, 128:384] = 200  # a box with edges, plus texture
     img = (img + rng.integers(0, 40, img.shape)).astype(np.uint8)
     kw = dict(num_samples=1, image_resolution=RES, ddim_steps=STEPS,
               scale=SCALE, eta=0.0, strength=1.0)
+    res = RES
+    if config == "hires":
+        kw.update(hires_upscale=HIRES_UPSCALE, hires_denoise=HIRES_DENOISE)
+        res = HIRES_RES
     t0 = time.perf_counter()
     pipe.process(img, "a house in the woods", seed=0, **kw)
     print(f"main path ({config}) warm-up request: {time.perf_counter() - t0:.3f} s",
@@ -432,26 +573,27 @@ def main_path(model, cfg, fused_norms):
         out = pipe.process(img, "a house in the woods", seed=seed, **kw)
         latencies.append(time.perf_counter() - t0)
         z = pipe.last_latents
-        if not (torch.isfinite(z).all() and z.shape == (1, RES // 8, RES // 8, 4)):
-            raise AssertionError("final latents are not finite or misshapen")
-        if not (out[1].shape == (RES, RES, 3) and out[1].dtype == np.uint8):
-            raise AssertionError(f"image {out[1].shape} {out[1].dtype}")
+        if not (torch.isfinite(z).all() and z.shape == (1, res // 8, res // 8, 4)):
+            raise AssertionError(f"final latents are not finite or misshapen: {z.shape}")
+        if not (out[1].shape == (res, res, 3) and out[1].dtype == np.uint8
+                and out[0].shape == (res, res, 3)):
+            raise AssertionError(f"image {out[1].shape} {out[1].dtype}, map {out[0].shape}")
         images.append(out[1])
         print(f"main path ({config}) request seed={seed}: {latencies[-1]:.4f} s "
               f"({pipe.last_timings})", flush=True)
     launches = dict(dispatch.launches)
-    want = expected_request_launches(cfg, fused_norms)
+    want = expected_request_launches(cfg, config)
     print(f"main path ({config}) kernel launches over the 2 requests: {launches} "
           f"(expected from the plans and gates: {want})", flush=True)
     if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
+        raise AssertionError(f"launch counts ({config}) {launches} != {want}")
     if np.array_equal(images[0], images[1]):
         raise AssertionError("two seeds gave the same image")
     print(f"image stats ({config}): mean {images[0].mean():.2f} std "
           f"{images[0].std():.2f}; seeds differ in "
           f"{(images[0] != images[1]).mean():.3f} of values", flush=True)
     pipe.runtime.release()
-    dispatch.set_kernels(groupnorm=False, layernorm=False)
+    dispatch.set_kernels(groupnorm=False, layernorm=False, int8_linear=False)
     return launches, latencies, images[0]
 
 
@@ -459,7 +601,8 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card only")
     from stablediffusioneo_tpu.config import sd15_pipeline
-    from stablediffusioneo_tpu_torch.ops.kernels import attention, build, groupnorm, layernorm
+    from stablediffusioneo_tpu_torch.ops.kernels import (
+        attention, build, groupnorm, layernorm, quant)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -469,31 +612,40 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           "TF32 off for matmul and cuDNN", flush=True)
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     build.load_libraries({"attention": attention.SOURCES,
                           "groupnorm": groupnorm.SOURCES,
-                          "layernorm": layernorm.SOURCES})
+                          "layernorm": layernorm.SOURCES,
+                          "quant": quant.SOURCES})
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s (nvcc, in "
           f"parallel: {build.build_seconds})", flush=True)
 
     cfg = sd15_pipeline(dtype="bfloat16")
     kernels = kernel_phase(cfg)
+    print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     model = build_model(cfg, seed=0)
     reference_phase(model, cfg)
-    _, latencies, image = main_path(model, cfg, fused_norms=False)
-    launches, fused_latencies, fused_image = main_path(model, cfg, fused_norms=True)
-    print(f"request latency: default {latencies}, fused norms {fused_latencies} s; "
-          f"seed-1 images differ by mean |d| "
-          f"{np.abs(image.astype(np.int16) - fused_image).mean():.3f} of 255",
-          flush=True)
+    print(f"reference phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    runs = {}
+    for config in ("default", "fused norms", "int8", "hires"):
+        runs[config] = main_path(model, cfg, config)
+        print(f"main path ({config}) done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+    latencies = {config: r[1] for config, r in runs.items()}
+    base = runs["default"][2].astype(np.int16)
+    print(f"request latency, s: {latencies}; seed-1 images against the default's, "
+          f"mean |d| of 255: fused norms "
+          f"{np.abs(base - runs['fused norms'][2]).mean():.3f}, int8 "
+          f"{np.abs(base - runs['int8'][2]).mean():.3f}", flush=True)
 
     out = []
     for name, (source, replaces) in KERNELS.items():
         rows = kernels[name]
+        launches = runs[EXERCISED_BY.get(name, "fused norms")][0]
         out.append({
             "name": name, "route": "cuda", "source": f"{CSRC}/{source}",
             "replaces": f"{PALLAS}/{replaces}",
-            # the fused-norm run (its attention counts equal the default run's)
+            # the main-path run that exercises the kernel (EXERCISED_BY)
             "launches": launches[name],
             "max_abs_err": max(r["bf16_max_abs_err"] for r in rows),
             # device time of one call at each main-path (or listed) shape, bf16
@@ -501,8 +653,7 @@ def main():
             "plain_ms": sum(r["bf16_plain_ms"] for r in rows),
             "shapes": rows,
         })
-    print(json.dumps({"kernels": out, "request_s": latencies,
-                      "request_s_fused_norms": fused_latencies}))
+    print(json.dumps({"kernels": out, "request_s": latencies}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

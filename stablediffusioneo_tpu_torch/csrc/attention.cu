@@ -1,13 +1,20 @@
 // Fused scaled-dot-product attention for Hopper (sm_90a), no mask.
 //
-// Replaces two Pallas TPU kernels of the JAX package:
+// Replaces three Pallas TPU kernels of the JAX package:
 //   - stablediffusioneo_tpu/ops/pallas/attention.py  _attn_kernel_packed
 //     (launched by _packed_impl; head-packed q (B,Tq,H*D), k/v (B,S,H*D))
+//   - stablediffusioneo_tpu/ops/pallas/attention.py  _attn_kernel_packed_stream
+//     (launched by _packed_stream_call: the same layout, for bf16
+//     self-attention whose K/V slab does not fit VMEM, e.g. the 1024x1024
+//     hires pass's (2, 16384, 320) sites)
 //   - stablediffusioneo_tpu/ops/pallas/attention.py  _attn_kernel
 //     (launched by _split_impl; split q (B,H,Tq,D), k/v (B,H,S,D))
-// Both layouts reach this one kernel: the wrapper passes each tensor's batch,
+// All layouts reach this one kernel: the wrapper passes each tensor's batch,
 // head and token strides (the head dim is contiguous), so packed and split
-// differ only in the strides.
+// differ only in the strides. The streaming kernel needs nothing of its own
+// here: this kernel already walks K/V in tiles with the same online-softmax
+// recurrence (running max from -1e30, one normalisation after AV), so its
+// entry (fused_attention_packed_stream) launches the packed variant.
 //
 // Numerics follow the Pallas kernels: q is scaled and rounded to its own
 // dtype; logits and softmax statistics are fp32; p is rounded to v's dtype
@@ -35,6 +42,15 @@
 //     tile per thread, bounded by shared-memory loads per FMA. d = 512 needs
 //     a smaller q tile (its fp32 accumulator is 2 KB per query row) and more
 //     than 48 KB of dynamic shared memory.
+// At S = 16384 (kernel #3's sites: Tq = S = 16384, 8 heads, d = 40) shared
+// memory and registers are what they are at S = 4096, since only one K/V
+// tile is resident; the key length costs time alone. The grid is 256 q tiles
+// x 16 (batch*head) = 4096 blocks, each walking 256 K/V tiles, so K/V (2.6 MB
+// per head) is re-read from L2 by every q tile of its head, about 10.7 GB per
+// call; with the staging not overlapped with the mma, that re-read and the
+// d = 40 -> 48 padding of the mma K step bound it, not the exp count.
+// The split variant at the 1024x1024 VAE mid-block (S = 16384, d = 512)
+// scales as S^2 on the CUDA cores and is its slowest use.
 // Head dims compiled: 40, 64, 80, 160 and 512.
 
 #include <cuda_bf16.h>

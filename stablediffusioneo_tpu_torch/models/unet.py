@@ -27,6 +27,7 @@ from stablediffusioneo_tpu_torch.ops.attention import (
     multi_head_attention,
 )
 from stablediffusioneo_tpu_torch.ops.layers import (
+    dense,
     geglu,
     linear,
     nchw,
@@ -137,7 +138,7 @@ class GEGLU(nn.Module):
         self.proj = nn.Linear(dim_in, dim_out * 2)
 
     def forward(self, x):
-        return geglu(x, self.proj.weight, self.proj.bias)
+        return geglu(x, self.proj)
 
 
 class FeedForward(nn.Module):
@@ -147,8 +148,7 @@ class FeedForward(nn.Module):
                                  nn.Linear(dim * mult, dim))
 
     def forward(self, x):
-        out = self.net[2]
-        return linear(self.net[0](x), out.weight, out.bias)
+        return dense(self.net[0](x), self.net[2])
 
 
 class BasicTransformerBlock(nn.Module):
@@ -213,8 +213,7 @@ class ResBlock(nn.Module):
 
     def forward(self, x, emb):
         h = self.in_layers[2](self.in_layers[0](x, swish=True))
-        emb_l = self.emb_layers[1]
-        emb_out = linear(silu(emb), emb_l.weight, emb_l.bias)
+        emb_out = dense(silu(emb), self.emb_layers[1])
         h = h + emb_out[:, :, None, None].to(h.dtype)
         h = self.out_layers[3](self.out_layers[0](h, swish=True))
         return self.skip_connection(x) + h
@@ -332,10 +331,8 @@ class UNetModel(nn.Module):
 def embed_timesteps(time_embed: nn.Sequential, model_channels: int,
                     timesteps, dtype):
     """Sinusoidal embedding and the time MLP, in fp32; cast to dtype."""
-    l1, l2 = time_embed[0], time_embed[2]
-    emb = linear(timestep_embedding(timesteps, model_channels),
-                 l1.weight, l1.bias)
-    emb = linear(silu(emb), l2.weight, l2.bias)
+    emb = dense(timestep_embedding(timesteps, model_channels), time_embed[0])
+    emb = dense(silu(emb), time_embed[2])
     return emb.to(dtype)
 
 

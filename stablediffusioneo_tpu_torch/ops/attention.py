@@ -8,7 +8,8 @@
     context, one matmul against the concatenated weights.
   * `multi_head_attention`: project (fused QKV for self-attention), attend,
     out-project. Unmasked sites with at least ATTN_MIN_TQ query tokens go to
-    the kernel's head-packed entry.
+    the kernel's head-packed entry, or to its streaming entry where the JAX
+    package streams K/V (`stream_attention`).
 """
 
 from __future__ import annotations
@@ -21,8 +22,52 @@ from stablediffusioneo_tpu_torch.ops.dispatch import ATTN_MIN_TQ
 from stablediffusioneo_tpu_torch.ops.kernels.attention import (
     fused_attention,
     fused_attention_packed,
+    fused_attention_packed_stream,
 )
 from stablediffusioneo_tpu_torch.ops.layers import linear
+
+
+# The JAX package's routing constants (ops/pallas/attention.py): the budget
+# tiers of its full-K/V packed kernel and the blocks of its streaming one.
+# Here they only decide which entry (and counter) a site takes; the CUDA
+# kernel streams K/V at every site.
+_BUDGET, _BUDGET_BIG = 14 * 1024 * 1024, 20 * 1024 * 1024
+
+
+def _pick_block_q_packed(tq: int, s: int, c: int, itemsize: int) -> int:
+    """The JAX package's _pick_block_q_packed: the q block of its full-K/V
+    packed kernel, 0 when none fits."""
+    tiers = (_BUDGET, _BUDGET_BIG) if itemsize == 2 else (_BUDGET,)
+    for budget in tiers:
+        for bq in (512, 256, 128):
+            if tq % bq or (bq == 512 and bq * s * (4 + itemsize) > 3_500_000):
+                continue
+            if (bq * s * (4 + itemsize) + 2 * s * c * itemsize
+                    + 2 * bq * c * itemsize <= budget):
+                return bq
+    return 0
+
+
+def _pick_blocks_stream(tq: int, s: int, itemsize: int):
+    """The JAX package's _pick_blocks_stream: (bq, bk) or None (bf16 only)."""
+    if itemsize != 2:
+        return None
+    for bq in (256, 512, 128):
+        if tq % bq == 0:
+            bk = next((b for b in (4096, 2048, 1024, 512) if s % b == 0), None)
+            if bk:
+                return bq, bk
+    return None
+
+
+def stream_attention(tq: int, s: int, c: int, dtype: torch.dtype) -> bool:
+    """Whether the JAX package runs this packed site on its streaming kernel
+    (`_packed_impl`): self-attention whose full K/V slab fits no block of
+    the packed kernel, e.g. the 1024x1024 hires pass's level-0 sites
+    (2, 16384, 320)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    return (tq == s and _pick_block_q_packed(tq, s, c, itemsize) == 0
+            and _pick_blocks_stream(tq, s, itemsize) is not None)
 
 
 def attention(q, k, v, mask: Optional[torch.Tensor] = None,
@@ -65,7 +110,9 @@ def multi_head_attention(x, context, wq, wk, wv, wo, bo, num_heads: int,
         k, v = context_kv(context, wk, wv)
     tk = k.shape[1]
     if mask is None and tq >= ATTN_MIN_TQ:
-        out = fused_attention_packed(q, k, v, num_heads, scale=head_dim ** -0.5)
+        entry = (fused_attention_packed_stream
+                 if stream_attention(tq, tk, inner, q.dtype) else fused_attention_packed)
+        out = entry(q, k, v, num_heads, scale=head_dim ** -0.5)
     else:
         def heads(t, n):
             return t.reshape(b, n, num_heads, head_dim).transpose(1, 2)

@@ -2,12 +2,13 @@
 
 Counterpart of stablediffusioneo_tpu/ops/dispatch.py. Attention has no
 switch: its gate is the JAX package's default (ops/attention.py: no mask and
-at least `ATTN_MIN_TQ` query tokens). The norm kernels are behind the JAX
-package's flags of the same names, off by default as there:
-`set_kernels(groupnorm=True, layernorm=True)` is the fused-norm
-configuration (the JAX package's SDEO_FORCE_GN_PALLAS=1
-SDEO_FORCE_LN_PALLAS=1). The flags are process-wide; the port reads no
-environment variable.
+at least `ATTN_MIN_TQ` query tokens). The norm kernels and the int8
+dequant-matmul are behind the JAX package's flags of the same names, off by
+default as there: `set_kernels(groupnorm=True, layernorm=True)` is the
+fused-norm configuration (the JAX package's SDEO_FORCE_GN_PALLAS=1
+SDEO_FORCE_LN_PALLAS=1), `set_kernels(int8_linear=True)` sends the linears
+that `quantize_linears=True` converted to the kernel (SDEO_INT8_PALLAS=1).
+The flags are process-wide; the port reads no environment variable.
 
 The device rule: a kernel-gated site given CUDA tensors launches the
 hand-written kernel (or raises when the kernel does not take the input);
@@ -28,12 +29,14 @@ import torch
 # (the JAX package's _min_tq default, stablediffusioneo_tpu/ops/attention.py)
 ATTN_MIN_TQ = 1024
 
-KERNELS = ("fused_attention_packed", "fused_attention", "fused_group_norm",
-           "group_norm_stats", "group_norm_apply", "fused_layer_norm")
+KERNELS = ("fused_attention_packed", "fused_attention_packed_stream",
+           "fused_attention", "fused_group_norm", "group_norm_stats",
+           "group_norm_apply", "fused_layer_norm", "quantized_matmul")
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
-_FLAGS: Dict[str, bool] = {"groupnorm": False, "layernorm": False}
+_FLAGS: Dict[str, bool] = {"groupnorm": False, "layernorm": False,
+                           "int8_linear": False}
 
 
 def set_kernels(**flags: bool) -> None:

@@ -2,15 +2,19 @@
 
 Counterpart of stablediffusioneo_tpu/ops/pallas/attention.py. The kernel
 (csrc/attention.cu) replaces `_attn_kernel_packed` (entry
-`fused_attention_packed`) and `_attn_kernel` (entry `fused_attention`); both
-entries launch the same CUDA kernel and differ only in the strides they
-pass. On CPU tensors each entry runs its plain version, which mirrors the
-JAX package's `_packed_math` / `_split_math`.
+`fused_attention_packed`), `_attn_kernel_packed_stream` (entry
+`fused_attention_packed_stream`) and `_attn_kernel` (entry
+`fused_attention`); the entries launch the same CUDA kernel, which streams
+K/V tiles with an online softmax whatever the key length, and differ only
+in the strides they pass and the counter they add to. On CPU tensors each
+entry runs its plain version, which mirrors the JAX package's
+`_packed_math` / `_split_math`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -85,13 +89,7 @@ def fused_attention_packed_plain(q, k, v, heads: int, scale: float):
     return out.to(q.dtype).transpose(1, 2).reshape(b, tq, c)
 
 
-def fused_attention_packed(q, k, v, heads: int, scale: float):
-    """Head-packed layout: q (B, Tq, H*D), k/v (B, S, H*D) -> (B, Tq, H*D).
-    Heads are sliced inside the kernel by the head stride, so no
-    (B,T,H,D)<->(B,H,T,D) relayout happens. q, k and v may be column views
-    of a fused QKV projection: only the head dim must be contiguous."""
-    if not dispatch.use_kernel(q, k, v):
-        return fused_attention_packed_plain(q, k, v, heads, scale)
+def _packed_launch(q, k, v, heads: int, scale: float, counter: str):
     b, tq, c = q.shape
     s = k.shape[1]
     if c % heads or k.shape != (b, s, c) or v.shape != (b, s, c):
@@ -101,8 +99,46 @@ def fused_attention_packed(q, k, v, heads: int, scale: float):
     out = torch.empty((b, tq, c), dtype=q.dtype, device=q.device)
     strides = [(t.stride(0), d, t.stride(1)) for t in (q, k, v, out)]
     _launch(q, k, v, out, b, heads, tq, s, d, strides, scale)
-    dispatch.count_launch("fused_attention_packed")
+    dispatch.count_launch(counter)
     return out
+
+
+def fused_attention_packed(q, k, v, heads: int, scale: float):
+    """Head-packed layout: q (B, Tq, H*D), k/v (B, S, H*D) -> (B, Tq, H*D).
+    Heads are sliced inside the kernel by the head stride, so no
+    (B,T,H,D)<->(B,H,T,D) relayout happens. q, k and v may be column views
+    of a fused QKV projection: only the head dim must be contiguous."""
+    if not dispatch.use_kernel(q, k, v):
+        return fused_attention_packed_plain(q, k, v, heads, scale)
+    return _packed_launch(q, k, v, heads, scale, "fused_attention_packed")
+
+
+# ------------------------------------------------- packed streaming entry
+
+# fp32 logits held at once by the chunked plain version (1 GiB)
+_PLAIN_LOGITS_BYTES = 1 << 30
+
+
+def fused_attention_packed_stream_plain(q, k, v, heads: int, scale: float,
+                                        rows: Optional[int] = None):
+    """Plain version of the streaming kernel: the packed plain version over
+    chunks of `rows` query rows (softmax is per row, so the result is the
+    same). At the hires sites unchunked logits would take (2, 8, 16384,
+    16384) fp32 = 17 GB; by default a chunk's logits take 1 GiB."""
+    b, tq, _ = q.shape
+    rows = rows or max(1, _PLAIN_LOGITS_BYTES // (4 * b * heads * k.shape[1]))
+    return torch.cat([fused_attention_packed_plain(q[:, i:i + rows], k, v, heads, scale)
+                      for i in range(0, tq, rows)], dim=1)
+
+
+def fused_attention_packed_stream(q, k, v, heads: int, scale: float):
+    """The packed entry at the sites where the JAX package streams K/V
+    (`_packed_stream_call`: bf16 self-attention too long for its full-K/V
+    kernel, ops/attention.py:stream_attention). Same layout and kernel as
+    `fused_attention_packed`, its own launch counter."""
+    if not dispatch.use_kernel(q, k, v):
+        return fused_attention_packed_stream_plain(q, k, v, heads, scale)
+    return _packed_launch(q, k, v, heads, scale, "fused_attention_packed_stream")
 
 
 # -------------------------------------------------------------- split entry

@@ -5,11 +5,16 @@ stablediffusioneo_tpu/pipeline/canny2image.py).
   (input_image, prompt, a_prompt, n_prompt, num_samples, image_resolution,
    ddim_steps, guess_mode, strength, scale, seed, eta,
    low_threshold, high_threshold)
-plus `x_T=` for seeded cross-framework comparison. Path: resize to /64 ->
-Canny -> HWC3 hint (uploaded as uint8) -> one CLIP call for cond and uncond
--> DDIM with CFG -> VAE decode -> uint8. The JAX package's other features
-are accepted by name and raise NotImplementedError naming the ROADMAP item
-that brings them.
+plus `x_T=` (and, for the hires fix, `hires_noise=`) for seeded
+cross-framework comparison. Path: resize to /64 -> Canny -> HWC3 hint
+(uploaded as uint8) -> one CLIP call for cond and uncond -> DDIM with CFG ->
+VAE decode -> uint8. With hires_upscale > 1 (the hires fix): the base pass,
+a bilinear latent upscale, a fresh Canny of the input at the high
+resolution, and an img2img refine over the last round(hires_denoise *
+ddim_steps) steps. With quantize_linears=True the UNet and ControlNet run
+int8 weight-only linears (kernel with set_kernels(int8_linear=True)). The
+JAX package's other features are accepted by name and raise
+NotImplementedError naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 
 from stablediffusioneo_tpu.config import PipelineConfig, sd15_pipeline
 from stablediffusioneo_tpu_torch.models.cldm import ControlLDM
+from stablediffusioneo_tpu_torch.ops.layers import resize_latent_bilinear
 from stablediffusioneo_tpu_torch.runtime.engine import CNSDRuntime
 
 
@@ -38,14 +44,13 @@ class Canny2ImagePipeline:
     def __init__(self, model: ControlLDM, tokenizer: Callable,
                  cfg: Optional[PipelineConfig] = None, device="cuda",
                  annotator=None, quantize_linears: bool = False):
-        if quantize_linears:
-            raise _not_ported("int8 weight-only linears", "Adapters and knobs")
         if isinstance(annotator, (list, tuple)):
             raise _not_ported("multi-ControlNet", "Adapters and knobs")
         self.cfg = cfg or sd15_pipeline()
         self.tokenizer = tokenizer
         self.annotator = annotator
-        self.runtime = CNSDRuntime(model, self.cfg, device=device)
+        self.runtime = CNSDRuntime(model, self.cfg, device=device,
+                                   quantize_linears=quantize_linears)
         self.last_timings: Dict[str, float] = {}
         self.last_latents: Optional[torch.Tensor] = None
 
@@ -87,13 +92,23 @@ class Canny2ImagePipeline:
         inpaint_image: Optional[np.ndarray] = None,
         inpaint_mask: Optional[np.ndarray] = None,
         hires_upscale: float = 0.0,
+        hires_denoise: float = 0.7,
         tome_ratio: float = 0.0,
+        hires_noise: Optional[np.ndarray] = None,
     ) -> List[np.ndarray]:
-        """Returns [detected_map] + num_samples uint8 HWC images."""
+        """Returns [detected_map] + num_samples uint8 HWC images.
+
+        hires_upscale > 1: the hires fix (JAX canny2image.py:345-393); the
+        images and the returned map are at round(H * hires_upscale / 64) *
+        64. hires_noise: the refine's re-noise (NHWC latents at that size),
+        drawn from the seed's generator when None."""
+        hires = bool(hires_upscale and hires_upscale > 1.0)
+        if hires and (init_image is not None or inpaint_image is not None):
+            raise ValueError("hires_upscale composes with plain txt2img only "
+                             "(no img2img/inpaint)")
         for on, feature, item in (
                 (sampler != "ddim", f"sampler {sampler!r}", "The other samplers"),
                 (init_image is not None, "img2img", "The other samplers"),
-                (hires_upscale and hires_upscale > 1.0, "hires fix", "The other samplers"),
                 (inpaint_image is not None or inpaint_mask is not None,
                  "inpainting", "The other model families"),
                 (bool(long_prompt), "long prompts (3x77 windows)",
@@ -127,10 +142,30 @@ class Canny2ImagePipeline:
         if x_T is None:
             x_T = torch.randn((num_samples, H // f, W // f, 4), generator=gen,
                               device=rt.device)
+        run = dict(guidance_scale=scale, strength=strength, eta=eta,
+                   guess_mode=guess_mode, generator=gen)
         z = rt.sample(ddim_steps, torch.as_tensor(x_T, device=rt.device), hint,
-                      ctx_cond, ctx_uncond, guidance_scale=scale,
-                      strength=strength, eta=eta, guess_mode=guess_mode,
-                      generator=gen)
+                      ctx_cond, ctx_uncond, **run)
+        if hires:
+            import cv2
+
+            # the JAX scan carries x_T's dtype: its base latents are rounded
+            # to the compute dtype before the fp32 upscale
+            z = z.to(rt.dtype).float()
+            H2 = int(round(H * hires_upscale / 64)) * 64
+            W2 = int(round(W * hires_upscale / 64)) * 64
+            z_up = resize_latent_bilinear(z, H2 // f, W2 // f)
+            img_hi = cv2.resize(HWC3(input_image), (W2, H2),
+                                interpolation=cv2.INTER_LANCZOS4)
+            detected_map = self._annotate(img_hi, low_threshold, high_threshold)
+            hint_hi = torch.from_numpy(np.repeat(detected_map[None], num_samples,
+                                                 axis=0)).to(rt.device)
+            t_enc = max(1, min(ddim_steps, int(round(hires_denoise * ddim_steps))))
+            z = rt.sample(ddim_steps, None, hint_hi, ctx_cond, ctx_uncond,
+                          init_latent=z_up, t_enc=t_enc,
+                          renoise=None if hires_noise is None
+                          else torch.as_tensor(hires_noise, device=rt.device),
+                          **run)
         self.last_latents = z
         images = rt.decode(z).cpu().numpy()  # waits for the device
         t_end = time.perf_counter()

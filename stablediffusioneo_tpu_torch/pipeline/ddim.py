@@ -18,7 +18,7 @@ Update (p_sample_ddim, ddim_hacked.py:208-231):
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -124,3 +124,27 @@ def ddim_sample(
                  torch.randn(x.shape, generator=generator, device=x.device))
             x = x + float(sigma) * n * temperature
     return x
+
+
+def stochastic_tail_entry(
+    schedule: Dict[str, np.ndarray],
+    t_enc: int,
+    z0: torch.Tensor,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[Dict[str, np.ndarray], torch.Tensor]:
+    """img2img / hires-refine entry (the JAX package's ddim.py
+    stochastic_tail_entry): the LAST t_enc entries of a DDIM schedule
+    (sampling order), and z0 forward-diffused to the entry step's level,
+    x_T = sqrt(a0) z0 + sqrt(1 - a0) noise in fp32, rounded to z0's dtype.
+    noise (z0's shape) is drawn from `generator` unless given."""
+    n = len(schedule["timesteps"])
+    if not 0 < t_enc <= n:
+        raise ValueError(f"t_enc must be in (0, {n}], got {t_enc}")
+    tail = {k: np.asarray(v)[n - t_enc:] for k, v in schedule.items()}
+    a0 = np.float32(tail["alphas"][0])
+    if noise is None:
+        noise = torch.randn(z0.shape, generator=generator, device=z0.device)
+    x_T = (float(np.sqrt(a0)) * z0.float()
+           + float(np.sqrt(np.float32(1.0) - a0)) * noise.to(z0.device, torch.float32))
+    return tail, x_T.to(z0.dtype)

@@ -8,7 +8,9 @@ JAX, so it also runs where JAX is not installed:
 mean |d| <= 2e-3 on standard-normal inputs (attention: the kernel rounds
 the unnormalised p to bf16, the plain version the normalised one; norms:
 both round the same fp32 value once, up to the sums' summation order); the
-GroupNorm partial sums within 1e-5 x max |plain|.
+GroupNorm partial sums within 1e-5 x max |plain|; the int8 matmul within
+the same bounds, with inputs scaled to outputs of std ~0.5 (both round the
+same fp32 sum once).
 """
 
 import pytest
@@ -17,12 +19,16 @@ import torch
 from stablediffusioneo_tpu_torch.ops import dispatch
 from stablediffusioneo_tpu_torch.ops.kernels import groupnorm as kg
 from stablediffusioneo_tpu_torch.ops.kernels import layernorm as kl
+from stablediffusioneo_tpu_torch.ops.kernels import quant as kq
 from stablediffusioneo_tpu_torch.ops.kernels.attention import (
     fused_attention,
     fused_attention_packed,
     fused_attention_packed_plain,
+    fused_attention_packed_stream,
+    fused_attention_packed_stream_plain,
     fused_attention_plain,
 )
+from stablediffusioneo_tpu_torch.ops.quant import quantize_weights
 
 pytestmark = pytest.mark.cuda
 
@@ -90,6 +96,19 @@ def test_split_kernel_matches_plain(gen, dtype):
     out = fused_attention(q, k, v, 512 ** -0.5)
     assert dispatch.launches["fused_attention"] == 1
     _check(out, fused_attention_plain(q, k, v, 512 ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stream_entry_matches_chunked_plain(gen, dtype):
+    """The streaming entry at a multi-tile S (self-attention, d = 40), held
+    against its plain version in 512-row chunks; counted on its own."""
+    q, k, v = (_randn((2, 2048, 320), gen, dtype) for _ in range(3))
+    dispatch.reset_launches()
+    out = fused_attention_packed_stream(q, k, v, 8, 40 ** -0.5)
+    assert dispatch.launches["fused_attention_packed_stream"] == 1
+    assert dispatch.launches["fused_attention_packed"] == 0
+    _check(out, fused_attention_packed_stream_plain(q, k, v, 8, 40 ** -0.5, rows=512),
+           dtype)
 
 
 def test_kernel_rejects_what_it_does_not_take(gen):
@@ -174,3 +193,36 @@ def test_norm_kernels_reject_what_they_do_not_take(gen):
         kl.fused_layer_norm(t.transpose(0, 1), wt, bt, 1e-5)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         kl.fused_layer_norm(t.half(), wt.half(), bt.half(), 1e-5)
+
+
+def _qmm_inputs(m, k, n, gen, dtype):
+    w = torch.randn((n, k), generator=gen, device="cuda") * (0.5 / k ** 0.5)
+    return (_randn((m, k), gen, dtype), *quantize_weights(w))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [
+    (8192, 320, 2560), (2048, 2560, 640), (128, 5120, 1280),  # SD-1.5 GEGLU sites
+    (40, 200, 384),  # M not a multiple of the tile, K not of 16 (element loads)
+])
+def test_quantized_matmul_matches_plain(gen, dtype, m, k, n):
+    x, w_q, scale = _qmm_inputs(m, k, n, gen, dtype)
+    dispatch.reset_launches()
+    out = kq.quantized_matmul(x, w_q, scale)
+    assert dispatch.launches["quantized_matmul"] == 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    _check(out, kq.quantized_matmul_plain(x, w_q, scale), dtype)
+
+
+def test_quantized_matmul_rejects_what_it_does_not_take(gen):
+    x, w_q, scale = _qmm_inputs(64, 256, 256, gen, torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kq.quantized_matmul(x.half(), w_q, scale)
+    with pytest.raises(TypeError, match="int8"):
+        kq.quantized_matmul(x, w_q.float(), scale)
+    with pytest.raises(ValueError, match="N % 128"):
+        kq.quantized_matmul(x, w_q[:192].contiguous(), scale[:192].contiguous())
+    with pytest.raises(ValueError, match="M % 8"):
+        kq.quantized_matmul(x[:12], w_q, scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        kq.quantized_matmul(_randn((256, 64), gen, torch.bfloat16).t(), w_q, scale)

@@ -104,7 +104,7 @@ def test_guess_mode_matches_jax(pipes, slice_inputs):
 
 @pytest.mark.parametrize("kwargs", [
     {"sampler": "dpmpp"}, {"long_prompt": True}, {"prompt_emphasis": True},
-    {"hires_upscale": 2.0}, {"tome_ratio": 0.5},
+    {"tome_ratio": 0.5},
     {"init_image": np.zeros((64, 64, 3), np.uint8)},
     {"inpaint_image": np.zeros((64, 64, 3), np.uint8),
      "inpaint_mask": np.zeros((64, 64), np.uint8)},
