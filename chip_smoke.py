@@ -14,8 +14,15 @@ source, all started together), then:
      the two-pass GroupNorm pair at two large slabs, in bf16 and fp32, with
      both timed on the device (torch.profiler's kernel durations over 20
      calls) and eagerly (CUDA events around one call, host launch cost
-     included); the int8 matmul also against the flag-off path (dequantise,
-     then cuBLAS) and the unquantised bf16 F.linear;
+     included); beside them the row's bound (the least time the card could
+     take: see `bound_ms`) and, where one PyTorch call computes the same
+     function, that call's device time as a yardstick (library_ms:
+     scaled_dot_product_attention, F.group_norm (+ F.silu), F.layer_norm;
+     the port itself never calls them); each attention row also names the
+     variant of csrc/attention.cu it ran, and a bf16 row on another variant
+     than the tensor-core one fails the run; the int8 matmul also against
+     the flag-off path (dequantise, then cuBLAS) and the unquantised bf16
+     F.linear;
   2. reference phase: one full-width controlled-UNet evaluation at 256x256
      in fp32 on the card (through the kernels) against the same weights on
      the CPU (plain versions), TF32 off; by default, with the fused-norm
@@ -29,7 +36,9 @@ source, all started together), then:
      fused-norm configuration, and with int8 linears (quantize_linears=True,
      set_kernels(int8_linear=True)); then the hires fix 512 -> 1024
      (hires_upscale=2.0, hires_denoise=0.7: the last 14 of 20 steps again
-     at 1024x1024).
+     at 1024x1024). The default and the hires run add one traced request
+     (torch.profiler) for the device time per request and the attention
+     kernels' part of it.
 Launch counts must equal what the UNet, ControlNet, VAE and CLIP plans and
 the dispatch gates imply. Any failed check raises, so the script exits
 non-zero and prints no result. The last line is {"ok": true, "device":
@@ -39,6 +48,9 @@ before that lists the kernels.
 
 import copy
 import json
+import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -66,6 +78,12 @@ KERNELS = {
 EXERCISED_BY = {"fused_attention_packed": "default", "fused_attention": "default",
                 "fused_attention_packed_stream": "hires",
                 "quantized_matmul": "int8"}
+# Published dense peaks of one H100 SXM, for the bounds: bf16 tensor cores,
+# fp32 outside them, device memory; and the special-function units' exp
+# rate (16 a clock on each of 132 SMs at the 1.755 GHz boost clock).
+PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK_EXP = 16 * 132 * 1.755e9
+NORM_OPS = 8  # fp32 operations per element of a norm: two sums, normalise, affine
 BF16_TOL = (2e-2, 2e-3)  # max, mean |d| on standard-normal inputs
 FP32_TOL = 1e-4
 STATS_TOL = 1e-5  # GroupNorm partial sums, fp32, relative to max |plain|
@@ -127,21 +145,118 @@ def device_ms(fn, calls=20, attempts=3):
     raise AssertionError(f"the profiler saw no device time in {attempts} traces")
 
 
+def traced_request(fn, attempts=3):
+    """Device time of one call of `fn`, ms, and the part of it spent in this
+    package's attention kernels, from one torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.device_time for e in events)
+        if total > 0:
+            attn = sum(e.device_time for e in events if "attention_" in e.name)
+            return total / 1e3, attn / 1e3, len(events)
+    raise AssertionError(f"the profiler saw no device time in {attempts} traces")
+
+
+def ptxas_report(library):
+    """{kernel kind: (most registers a thread, spill bytes)} of the
+    tensor-core attention kernels, from the `ptxas -v` report that the build
+    keeps beside the library."""
+    report, kind = {}, None
+    for line in library.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kind = next((k for k in ("attention_split512_kernel", "attention_wgmma_kernel")
+                         if k in m.group(1)), None)
+        if kind is None:
+            continue
+        regs, spill = report.get(kind, (0, 0))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = max(regs, int(m.group(1)))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill += int(m.group(1)) + int(m.group(2))
+        report[kind] = (regs, spill)
+    return report
+
+
+def tensor_core_instructions(library):
+    """{kernel: count of warpgroup-mma (HGMMA) instructions} in the SASS of
+    the built attention library's tensor-core kernels, by `cuobjdump -sass`
+    from the toolkit that built it; None where the tool is missing."""
+    from stablediffusioneo_tpu_torch.ops.kernels.build import find_nvcc
+
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+        elif name and "HGMMA" in line:
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
 # ------------------------------------------------------------- kernel phase
 
 
-def measure(name, desc, kern, plain, make_inputs, relative=False, others=None):
+def bound_ms(ops, peak, nbytes):
+    """The least time the card could take for one call, ms, and what sets
+    it: the larger of ops / peak (the operations the function does on these
+    inputs over the card's peak rate for their type) and nbytes /
+    PEAK_BYTES (every input read once and every output written once)."""
+    by_ops, by_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def attention_work(batch, heads, tq, s, head_dim, itemsize=2):
+    """(operations, bytes, exps) of one attention call: 2 products of
+    2*Tq*S*d each per head; q and o of Tq rows, k and v of S rows; one exp
+    per logit."""
+    ops = 4 * batch * heads * tq * s * head_dim
+    nbytes = 2 * batch * heads * head_dim * (tq + s) * itemsize
+    return ops, nbytes, batch * heads * tq * s
+
+
+def measure(name, desc, kern, plain, make_inputs, relative=False, others=None,
+            ops=0, peak=PEAK_FP32, library=None, variants=None):
     """One row of the kernel phase: in bf16 and fp32, the kernel's output
     against its plain version's on the same inputs, and both times.
     relative: fp32 sums, checked against STATS_TOL x max |plain|.
     others: {name: fn(*inputs)}, further versions timed on the device in
-    bf16 (row key f"bf16_{name}_ms")."""
+    bf16 (row key f"bf16_{name}_ms"). ops, peak: the operations of one bf16
+    call and the peak rate of their type, for the row's bound (the bytes
+    are those of the inputs and the output). library: the one PyTorch call
+    that computes the same function, timed in bf16 as a yardstick.
+    variants: the attention wrappers' per-variant launch counter."""
     row = dict(desc)
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         args = make_inputs(dtype)
         ref = plain(*args).float()
-        err = (kern(*args).float() - ref).abs()
+        if variants is not None:
+            variants.clear()
+        out = kern(*args)
+        out_bytes = out.numel() * out.element_size()
+        got = out.float()
+        del out  # freed before anything else is allocated, as in the timed calls
+        err = (got - ref).abs()
+        del got
         torch.cuda.synchronize()
+        if variants is not None:
+            row[f"{tag}_variant"] = "+".join(sorted(variants))
+        if tag == "bf16":
+            nbytes = sum(t.numel() * t.element_size() for t in args) + out_bytes
+            row["bound_ms"], row["bound_by"] = bound_ms(ops, peak, nbytes)
         mx, mean = err.max().item(), err.mean().item()
         row[f"{tag}_max_abs_err"], row[f"{tag}_mean_abs_err"] = mx, mean
         if relative:
@@ -156,10 +271,16 @@ def measure(name, desc, kern, plain, make_inputs, relative=False, others=None):
         row[f"{tag}_eager_ms"] = time_ms(lambda: kern(*args))
         row[f"{tag}_plain_eager_ms"] = time_ms(lambda: plain(*args))
         if tag == "bf16":
+            row["library_ms"] = device_ms(lambda: library(*args)) if library else None
             for other, fn in (others or {}).items():
                 row[f"bf16_{other}_ms"] = device_ms(lambda: fn(*args))
                 print(f"kernel {name} {desc} bf16: device {other} "
                       f"{row[f'bf16_{other}_ms']:.4f} ms", flush=True)
+            print(f"kernel {name} {desc} bf16: bound {row['bound_ms']:.4f} ms by "
+                  f"{row['bound_by']}, library call "
+                  + (f"{row['library_ms']:.4f} ms" if library else "none")
+                  + (f", variant {row['bf16_variant']}" if variants is not None else ""),
+                  flush=True)
         print(f"kernel {name} {desc} {tag}: max|d| {mx:.3e} mean|d| {mean:.3e}  "
               f"device: kernel {row[f'{tag}_ms']:.4f} ms, plain "
               f"{row[f'{tag}_plain_ms']:.4f} ms; eager call: kernel "
@@ -193,18 +314,34 @@ def kernel_phase(cfg):
     for name, q_shape, s, heads in attention_rows(cfg):
         if name == "fused_attention":
             kv_shape = q_shape[:2] + (s, q_shape[3])
-            scale = q_shape[3] ** -0.5
+            batch, tq, d = q_shape[0], q_shape[2], q_shape[3]
+            scale = d ** -0.5
             kern = lambda q, k, v: ka.fused_attention(q, k, v, scale)
             plain = lambda q, k, v: ka.fused_attention_plain(q, k, v, scale)
+            library = F.scaled_dot_product_attention
         else:
             kv_shape = (q_shape[0], s, q_shape[2])
-            scale = (q_shape[2] // heads) ** -0.5
+            batch, tq, d = q_shape[0], q_shape[1], q_shape[2] // heads
+            scale = d ** -0.5
             kern = (lambda q, k, v, e=getattr(ka, name): e(q, k, v, heads, scale))
             plain = (lambda q, k, v, e=getattr(ka, name + "_plain"):
                      e(q, k, v, heads, scale))
-        results[name].append(measure(
+            # the library call on the head-split view of the packed tensors
+            library = lambda q, k, v: F.scaled_dot_product_attention(
+                *(t.view(batch, -1, heads, d).transpose(1, 2) for t in (q, k, v)))
+        ops, _, exps = attention_work(batch, heads, tq, s, d)
+        row = measure(
             name, {"q": list(q_shape), "s": s, "heads": heads}, kern, plain,
-            lambda dt: (randn(q_shape, dt), randn(kv_shape, dt), randn(kv_shape, dt))))
+            lambda dt: (randn(q_shape, dt), randn(kv_shape, dt), randn(kv_shape, dt)),
+            ops=ops, peak=PEAK_BF16, library=library, variants=ka.variant_launches)
+        # a second figure beside the bound: one exp per logit on the
+        # special-function units
+        row["exp_ms"] = exps / PEAK_EXP * 1e3
+        want = "wgmma_split" if d == 512 else "wgmma"  # the tensor-core variants
+        if row["bf16_variant"] != want or row["fp32_variant"] != "cuda_core":
+            raise AssertionError(f"{name} {q_shape} x {s} ran {row['bf16_variant']} "
+                                 f"(bf16) and {row['fp32_variant']} (fp32)")
+        results[name].append(row)
 
     # the int8 matmul at every gated 512x512 GEMM (output std ~0.5)
     for m, k, n in sorted(set(quant_gated(quant_sites(cfg, RES)))):
@@ -215,6 +352,7 @@ def kernel_phase(cfg):
             "quantized_matmul", {"m": m, "k": k, "n": n},
             kq.quantized_matmul, kq.quantized_matmul_plain,
             lambda dt: (randn((m, k), dt), w_q, w_scale),
+            ops=2 * m * k * n, peak=PEAK_BF16,
             others={"dequant_linear": lambda x, q, sc: F.linear(
                         x, (q.float() * sc[:, None]).to(x.dtype)),
                     "bf16_linear": lambda x, q, sc: F.linear(x, w_bf16)}))
@@ -231,7 +369,10 @@ def kernel_phase(cfg):
             "fused_group_norm", {"x": list(shape), "groups": groups, "swish": swish},
             lambda x, w, b: kg.fused_group_norm(x, w, b, groups, eps, swish),
             lambda x, w, b: kg.fused_group_norm_plain(x, w, b, groups, eps, swish),
-            lambda dt: (randn(shape, dt, channels_last=True), *affine(shape[1], dt))))
+            lambda dt: (randn(shape, dt, channels_last=True), *affine(shape[1], dt)),
+            ops=NORM_OPS * math.prod(shape),
+            library=lambda x, w, b: (F.silu(F.group_norm(x, groups, w, b, eps)) if swish
+                                     else F.group_norm(x, groups, w, b, eps))))
 
     # the two-pass pair, reached only by calling fused_group_norm directly
     for shape in ((1, 128, 512, 512), (2, 960, 64, 64)):
@@ -242,7 +383,7 @@ def kernel_phase(cfg):
             "group_norm_stats", desc,
             lambda x: kg.group_norm_stats(x, 32, rows),
             lambda x: kg.group_norm_stats_plain(x, 32, rows),
-            lambda dt: (x32.to(dt),), relative=True))
+            lambda dt: (x32.to(dt),), relative=True, ops=3 * x32.numel()))
 
         def apply_inputs(dt):
             x = x32.to(dt)
@@ -252,7 +393,7 @@ def kernel_phase(cfg):
             "group_norm_apply", desc,
             lambda x, p, w, b: kg.group_norm_apply(x, p, w, b, rows, 1e-6, True),
             lambda x, p, w, b: kg.group_norm_apply_plain(x, p, w, b, 1e-6, True),
-            apply_inputs))
+            apply_inputs, ops=NORM_OPS * x32.numel()))
         del x32
 
     for shape in ((2, 4096, 320), (2, 1024, 640), (2, 256, 1280)):
@@ -260,7 +401,9 @@ def kernel_phase(cfg):
             "fused_layer_norm", {"x": list(shape)},
             lambda x, w, b: kl.fused_layer_norm(x, w, b, 1e-5),
             lambda x, w, b: kl.fused_layer_norm_plain(x, w, b, 1e-5),
-            lambda dt: (randn(shape, dt), *affine(shape[-1], dt))))
+            lambda dt: (randn(shape, dt), *affine(shape[-1], dt)),
+            ops=NORM_OPS * math.prod(shape),
+            library=lambda x, w, b: F.layer_norm(x, x.shape[-1:], w, b, 1e-5)))
     return results
 
 
@@ -544,6 +687,7 @@ def main_path(model, cfg, config):
     """One warm-up and two timed requests of one configuration: "default",
     "fused norms", "int8" (512x512) or "hires" (512 -> 1024)."""
     from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.ops.kernels.attention import variant_launches
     from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
 
     fused = config == "fused norms"
@@ -567,6 +711,7 @@ def main_path(model, cfg, config):
           flush=True)
     torch.cuda.synchronize()
     dispatch.reset_launches()
+    variant_launches.clear()
     images, latencies = [], []
     for seed in (1, 2):
         t0 = time.perf_counter()
@@ -587,20 +732,38 @@ def main_path(model, cfg, config):
           f"(expected from the plans and gates: {want})", flush=True)
     if launches != want:
         raise AssertionError(f"launch counts ({config}) {launches} != {want}")
+    # every attention launch of the bf16 main path is a tensor-core variant
+    want_variants = {"wgmma": want["fused_attention_packed"]
+                     + want["fused_attention_packed_stream"],
+                     "wgmma_split": want["fused_attention"]}
+    print(f"main path ({config}) attention launches by variant: "
+          f"{dict(variant_launches)}", flush=True)
+    if {k: v for k, v in variant_launches.items() if v} != \
+            {k: v for k, v in want_variants.items() if v}:
+        raise AssertionError(f"attention variants ({config}) {dict(variant_launches)} "
+                             f"!= {want_variants}")
     if np.array_equal(images[0], images[1]):
         raise AssertionError("two seeds gave the same image")
     print(f"image stats ({config}): mean {images[0].mean():.2f} std "
           f"{images[0].std():.2f}; seeds differ in "
           f"{(images[0] != images[1]).mean():.3f} of values", flush=True)
+    traced = None
+    if config in ("default", "hires"):
+        ms, attn_ms, n_ops = traced_request(
+            lambda: pipe.process(img, "a house in the woods", seed=3, **kw))
+        traced = {"device_ms": ms, "attention_ms": attn_ms, "device_ops": n_ops}
+        print(f"main path ({config}) traced request: device time {ms:.1f} ms in "
+              f"{n_ops} device operations, attention kernels {attn_ms:.1f} ms",
+              flush=True)
     pipe.runtime.release()
     dispatch.set_kernels(groupnorm=False, layernorm=False, int8_linear=False)
-    return launches, latencies, images[0]
+    return launches, latencies, images[0], traced
 
 
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card only")
-    from stablediffusioneo_tpu.config import sd15_pipeline
+    from stablediffusioneo_tpu_torch.config import sd15_pipeline
     from stablediffusioneo_tpu_torch.ops.kernels import (
         attention, build, groupnorm, layernorm, quant)
 
@@ -619,6 +782,23 @@ def main():
                           "quant": quant.SOURCES})
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s (nvcc, in "
           f"parallel: {build.build_seconds})", flush=True)
+    library = build.library_path("attention", attention.SOURCES)
+    regs = ptxas_report(library)
+    print(f"ptxas, tensor-core attention kernels, (most registers, spill bytes): "
+          f"{regs}", flush=True)
+    if len(regs) != 2 or any(spill for _, spill in regs.values()):
+        raise AssertionError(f"a tensor-core attention kernel spills or is missing: {regs}")
+    hgmma = tensor_core_instructions(library)
+    if hgmma is None:
+        print("SASS check skipped: no cuobjdump beside nvcc", flush=True)
+    else:
+        wanted = {kind: {n: c for n, c in hgmma.items() if kind in n}
+                  for kind in ("attention_split512_kernel", "attention_wgmma_kernel")}
+        print(f"SASS of the attention library, HGMMA (wgmma) instructions per kernel: "
+              f"{ {kind: sorted(found.values()) for kind, found in wanted.items()} }",
+              flush=True)
+        if not all(wanted.values()):
+            raise AssertionError(f"a tensor-core attention kernel has no HGMMA: {hgmma}")
 
     cfg = sd15_pipeline(dtype="bfloat16")
     kernels = kernel_phase(cfg)
@@ -642,18 +822,29 @@ def main():
     for name, (source, replaces) in KERNELS.items():
         rows = kernels[name]
         launches = runs[EXERCISED_BY.get(name, "fused norms")][0]
+        by = {kind: sum(r["bound_ms"] for r in rows if r["bound_by"] == kind)
+              for kind in ("operations", "bytes")}
+        library = [r["library_ms"] for r in rows]
         out.append({
             "name": name, "route": "cuda", "source": f"{CSRC}/{source}",
             "replaces": f"{PALLAS}/{replaces}",
-            # the main-path run that exercises the kernel (EXERCISED_BY)
+            # the main-path run that exercises the kernel (EXERCISED_BY),
+            # two requests
             "launches": launches[name],
+            "launches_per_request": launches[name] / 2,
             "max_abs_err": max(r["bf16_max_abs_err"] for r in rows),
-            # device time of one call at each main-path (or listed) shape, bf16
+            # device time of one call at each main-path (or listed) shape,
+            # bf16, summed over the shapes; the bound and the library call's
+            # time summed over the same shapes
             "ms": sum(r["bf16_ms"] for r in rows),
             "plain_ms": sum(r["bf16_plain_ms"] for r in rows),
+            "bound_ms": sum(by.values()),
+            "bound_by": max(by, key=by.get),
+            "library_ms": None if None in library else sum(library),
             "shapes": rows,
         })
-    print(json.dumps({"kernels": out, "request_s": latencies}))
+    print(json.dumps({"kernels": out, "request_s": latencies,
+                      "traced": {config: r[3] for config, r in runs.items() if r[3]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from stablediffusioneo_tpu.config import PipelineConfig
+from stablediffusioneo_tpu_torch.config import PipelineConfig
 from stablediffusioneo_tpu_torch.models.unet import decoder_plan, encoder_plan
 
 StateDict = Dict[str, torch.Tensor]

@@ -9,48 +9,48 @@
 //     hires pass's (2, 16384, 320) sites)
 //   - stablediffusioneo_tpu/ops/pallas/attention.py  _attn_kernel
 //     (launched by _split_impl; split q (B,H,Tq,D), k/v (B,H,S,D))
-// All layouts reach this one kernel: the wrapper passes each tensor's batch,
-// head and token strides (the head dim is contiguous), so packed and split
-// differ only in the strides. The streaming kernel needs nothing of its own
-// here: this kernel already walks K/V in tiles with the same online-softmax
-// recurrence (running max from -1e30, one normalisation after AV), so its
-// entry (fused_attention_packed_stream) launches the packed variant.
+// Every layout reaches the same kernels: the wrapper passes each tensor's
+// batch, head and token strides (the head dim is contiguous), so packed and
+// split differ only in the strides, and q, k, v may be column views of a
+// fused QKV projection. The streaming kernel needs nothing of its own: every
+// variant here walks K/V in tiles with the same online-softmax recurrence,
+// whatever the key length, so its entry (fused_attention_packed_stream)
+// launches the packed variant. The TPU kernels held the whole K/V slab (or
+// a stream of large blocks) in VMEM; a Hopper block has at most 227 KB of
+// shared memory, so the K loop lives inside the block and a ragged last
+// tile is masked (cross-attention has S = 77).
 //
-// Numerics follow the Pallas kernels: q is scaled and rounded to its own
-// dtype; logits and softmax statistics are fp32; p is rounded to v's dtype
-// before the AV product; AV accumulates in fp32 and the divide by the
-// softmax denominator comes once, after AV.
+// Numerics follow the Pallas kernels: q is scaled by the scale rounded to
+// its dtype and rounded to that dtype; logits and softmax statistics are
+// fp32; the running max starts at -1e30; the denominator sums the unrounded
+// p; p is rounded to v's dtype before the AV product; AV accumulates in
+// fp32 and the divide by the denominator comes once, after AV. The bf16
+// variants take exp(x) as ex2(x log2 e) on the special-function units.
 //
-// Schedule: one block per ((batch*head), q tile of BQ rows). K/V tiles of BK
-// rows are staged through shared memory and folded in with the online
-// softmax (running max from -1e30, running denominator, unnormalised fp32
-// accumulator), so any key length works and a ragged last tile is masked
-// (cross-attention has S = 77). The TPU kernel instead held the whole K/V
-// slab in VMEM; a Hopper block has at most 227 KB of shared memory, so the
-// K loop lives inside the block.
-//
-// What bounds it: at the 512x512 shapes (Tq = S = 4096, d = 40) attention is
-// compute bound (about 4*Tq*S*d FLOPs per head against (Tq + 2*S)*d*2
-// bytes), and the logits never reach device memory. Two variants:
-//   - attention_mma_kernel (bf16, d a multiple of 8 up to 160: the UNet and
-//     ControlNet sites): both products on the tensor cores with mma.sync
-//     m16n8k16, p kept in registers. Its remaining limits are the exp of
-//     every logit on the special-function units and the K/V staging through
-//     registers; wgmma with TMA-fed tiles is the next step.
-//   - attention_kernel (fp32, for exact checks, and d = 512, the VAE
-//     mid-block site): fp32 FMAs on the CUDA cores from an RQ x RK register
-//     tile per thread, bounded by shared-memory loads per FMA. d = 512 needs
-//     a smaller q tile (its fp32 accumulator is 2 KB per query row) and more
-//     than 48 KB of dynamic shared memory.
-// At S = 16384 (kernel #3's sites: Tq = S = 16384, 8 heads, d = 40) shared
-// memory and registers are what they are at S = 4096, since only one K/V
-// tile is resident; the key length costs time alone. The grid is 256 q tiles
-// x 16 (batch*head) = 4096 blocks, each walking 256 K/V tiles, so K/V (2.6 MB
-// per head) is re-read from L2 by every q tile of its head, about 10.7 GB per
-// call; with the staging not overlapped with the mma, that re-read and the
-// d = 40 -> 48 padding of the mma K step bound it, not the exp count.
-// The split variant at the 1024x1024 VAE mid-block (S = 16384, d = 512)
-// scales as S^2 on the CUDA cores and is its slowest use.
+// Three variants (`Variant`; chosen by ops/kernels/attention.py):
+//   - attention_wgmma_kernel (bf16, d in {40, 64, 80, 160}: every UNet and
+//     ControlNet site). Both products on the tensor cores by wgmma, K/V
+//     tiles through a cp.async ring with mbarriers, p in registers. At d =
+//     40 a logit costs 4 d = 160 tensor-core operations but also a max, an
+//     FMA, an exp, an add and half a convert on the CUDA cores and the
+//     special-function units, and each tile one round trip to the tensor
+//     cores; those, not the products, bound it: at (2, 16384, 320) x 16384
+//     the exp alone needs 1.2 ms where the products need 0.7 ms. The design
+//     keeps several warpgroups an SM independent (no block barrier in the
+//     loop), issues O += P V of one tile and S of the next as one wgmma
+//     group, and widens the block to 3 or 4 warpgroups where the grid still
+//     covers the SMs, which divides the K/V re-read from L2 (one pass per
+//     block) and the copy requests by the same factor. The S = 77 sites are
+//     bound by bytes and by the q loads and o stores of 4 bytes a thread.
+//   - attention_split512_kernel (bf16, d = 512: the VAE mid-block). Both
+//     products by wgmma with O's 512 columns split over two warpgroups. It
+//     is bound by L2 traffic: each 64-row block re-reads all of K and V, and
+//     O of a wider block does not fit the register file.
+//   - attention_kernel (fp32 for the exact checks, and bf16 views whose rows
+//     are not 16-byte aligned): fp32 FMAs on the CUDA cores from an RQ x RK
+//     register tile per thread, bounded by shared-memory loads per FMA; no
+//     bf16 main-path site reaches it.
+// Measured times, bounds and the library call's times: PERF.md section 6.
 // Head dims compiled: 40, 64, 80, 160 and 512.
 
 #include <cuda_bf16.h>
@@ -261,42 +261,6 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Params p) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// Tensor-core variant: bf16, head dims that are multiples of 8 up to 160.
-//
-// Same numerics and schedule, with both products on the tensor cores
-// (mma.sync m16n8k16, bf16 in, fp32 accumulate). A block of 4 warps owns
-// 64 query rows, 16 per warp. Q (scaled, rounded to bf16) and the K tile
-// sit in shared memory row-major, the V tile transposed, each row padded so
-// that the 32-bit fragment loads of a warp hit 32 distinct banks. A warp
-// keeps its logits S (16 x 64) and output accumulator O (16 x DP) in
-// registers: the S accumulator fragments are exactly the A fragments of
-// the p @ V product, so p never leaves registers. The head dim is padded to
-// DP (a multiple of 16) with zeros in shared memory.
-
-constexpr int kMmaWarps = 4;
-constexpr int kMmaBQ = 16 * kMmaWarps;  // query rows per block
-constexpr int kMmaBK = 64;              // keys per tile
-
-template <int D>
-struct MmaTile {
-  static constexpr int DP = (D + 15) / 16 * 16;
-  static constexpr int QS = DP + 8;      // q_s / k_s row stride (bf16)
-  static constexpr int VS = kMmaBK + 8;  // vt_s row stride (bf16)
-  static constexpr size_t kBytes =
-      sizeof(__nv_bfloat16) * (kMmaBQ * QS + kMmaBK * QS + DP * VS);
-  static_assert(D % 8 == 0 && D <= 160, "tensor-core path: D % 8 == 0, D <= 160");
-};
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -306,143 +270,697 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Copy rows [r0, r0 + rows) of a (tokens, D) bf16 slice with token stride
-// `st` into shared memory, 8 elements (16 bytes) per load; rows at or past
-// `n` and columns D..DP are zero. transpose: dst[col][row] with row stride
-// `ds`, else dst[row][col].
-template <int D, int DP, bool kTranspose>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ds,
-                                           const __nv_bfloat16* src,
-                                           long long st, int r0, int rows,
-                                           int n, float scale, bool scaled) {
-  constexpr int kVec = DP / 8;
-  for (int i = threadIdx.x; i < rows * kVec; i += kMmaWarps * 32) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (c < D && r0 + r < n) {
-      raw = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * st + c);
-      if (scaled) {
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * scale);
-      }
-    }
-    if (kTranspose) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst[(c + j) * ds + r] = e[j];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * ds + c) = raw;
-    }
+// ---------------------------------------------------------------------------
+// Tensor-core variants (bf16): wgmma (warpgroup mma, fp32 accumulate) fed by
+// cp.async.
+//
+// Shared-memory layout. Every wgmma operand read from shared memory here is
+// in the no-swizzle "core matrix" layout: a tile of R rows x C 16-byte
+// chunks (8 bf16) stores chunk c of row r at
+//     ((r / 8) * C + c) * 128 + (r % 8) * 16   bytes,
+// so each 8-row x 16-byte core matrix is 128 contiguous bytes (every bank
+// once, no conflicts, no swizzle to match). The same bytes serve both
+// operand kinds; only the descriptor differs:
+//   - K-major (Q and K in S = Q K^T; rows are the M/N index, the head dim is
+//     the reduction): leading byte offset (reduction direction, next chunk)
+//     = 128, stride byte offset (next 8 rows) = C * 128;
+//   - MN-major (V in O += P V, "transposed B": rows are keys = the
+//     reduction, the head dim is N): leading byte offset (next 8 keys)
+//     = C * 128, stride byte offset (next 8 head dims) = 128.
+// So V is consumed as it lies in memory, with no element-wise transpose.
+// cp.async writes one 16-byte chunk per request, which places a head's
+// row of any width (80 bytes at d = 40) and any row stride (packed heads,
+// fused-QKV column views) without a TMA box; a request of source size 0
+// zero-fills the rows past the end of a ragged tile.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// no-swizzle wgmma matrix descriptor (offsets in bytes, multiples of 16)
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// generic-proxy writes (st.shared, cp.async) before async-proxy reads (wgmma)
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// wgmma.mma_async m64nNk16, bf16 x bf16 -> fp32. d: the thread's N/2
+// accumulators (n8 block j: d[4j], d[4j+1] = row g, columns 8j+2t, +1;
+// d[4j+2], d[4j+3] = row g+8; warp w of the group owns rows 16w..16w+15).
+// wgmma_ss: A and B by descriptor, both K-major. wgmma_rs: A from registers
+// (the m16k16 fragment of mma.sync, per warp), B by descriptor, kTransB = 1
+// for an MN-major B. scale_d = 0 overwrites d instead of accumulating.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[20], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1, %26;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[80], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, %86;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+// Copy rows [r0, r0 + kRows) of a (tokens, kChunks * 8) bf16 slice with
+// token stride `st` into a core-matrix tile, one 16-byte cp.async per chunk;
+// rows at or past `n` are zero-filled. Consecutive threads take consecutive
+// rows of one chunk: 8 lanes write one 128-byte core matrix, 4 neighbouring
+// groups of 8 read 64 contiguous bytes of each row. Chunk i lands at byte
+// 16 i of the tile.
+template <int kRows, int kChunks, int kThreadsPerBlock>
+__device__ __forceinline__ void stage_tile_async(uint32_t dst,
+                                                 const __nv_bfloat16* src,
+                                                 long long st, int r0, int n) {
+  for (int i = threadIdx.x; i < kRows * kChunks; i += kThreadsPerBlock) {
+    const int r8 = i % 8, c = (i / 8) % kChunks, rg = i / (8 * kChunks);
+    const int row = r0 + rg * 8 + r8;
+    const bool live = row < n;
+    cp_async16(dst + i * 16, src + (live ? (long long)row * st + c * 8 : 0),
+               live ? 16 : 0);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaWarps * 32) attention_mma_kernel(Params p) {
-  using L = MmaTile<D>;
-  constexpr int DP = L::DP, QS = L::QS, VS = L::VS;
-  constexpr int NS = kMmaBK / 8;  // S column tiles of 8 keys
-  constexpr int NO = DP / 8;      // O column tiles of 8 dims
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][QS]
-  __nv_bfloat16* k_s = q_s + kMmaBQ * QS;                            // [BK][QS]
-  __nv_bfloat16* vt_s = k_s + kMmaBK * QS;                           // [DP][VS]
+// scale two packed bf16 by `scale` (fp32 product, rounded back to bf16)
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float scale) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&x);
+  return pack_bf16(__bfloat162float(v.x) * scale, __bfloat162float(v.y) * scale);
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // fragment row group, column pair
-  const int b = blockIdx.y / p.heads, h = blockIdx.y % p.heads;
-  const int q0 = blockIdx.x * kMmaBQ;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One online-softmax step on a warpgroup's 64 x kBK logits tile `s`
+// (accumulator layout above): masks keys at or past `valid`, updates the
+// running max m and denominator l of rows g and g + 8, returns the factor
+// that rescales the accumulator, and leaves p rounded to bf16 in the A
+// fragments pa[kc] of the P V product (one per 16 keys). exp(x) is
+// ex2(x * log2 e): one FMA and one special-function op per logit.
+template <int kBK>
+__device__ __forceinline__ void softmax_tile(float (&s)[kBK / 2], int valid, int t,
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2],
+                                             uint32_t (&pa)[kBK / 16][4]) {
+  float mx[2] = {-INFINITY, -INFINITY};
+  if (valid < kBK) {
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i)
+      if ((i / 4) * 8 + 2 * t + (i & 1) >= valid) s[i] = -INFINITY;
+  }
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float ml[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = ex2((m[r] - m_new) * kLog2e);
+    m[r] = m_new;
+    ml[r] = m_new * kLog2e;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) {
+    s[i] = ex2(fmaf(s[i], kLog2e, -ml[(i >> 1) & 1]));
+    sum[(i >> 1) & 1] += s[i];  // the denominator sums the unrounded p
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+  for (int kc = 0; kc < kBK / 16; ++kc) {
+    pa[kc][0] = pack_bf16(s[8 * kc + 0], s[8 * kc + 1]);
+    pa[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
+    pa[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
+    pa[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
+  }
+}
+
+// ---- packed / streaming kernel: bf16, d in {40, 64, 80, 160} -------------
+//
+// A block of NWG warpgroups owns NWG x 64 query rows of one (batch, head)
+// and walks K/V in tiles of BK keys through a ring of STAGES shared-memory
+// stages. Every thread issues its share of a tile's cp.async requests and
+// lets them arrive on the stage's `full` mbarrier; a warp that is done
+// with a tile arrives on the stage's `empty` mbarrier. The warpgroups never
+// meet at a block barrier inside the loop, so one runs its softmax while
+// another multiplies. Each warpgroup keeps its q fragments (scaled, rounded
+// to bf16), the logits of one tile and its 64 x D fp32 output in registers:
+// S = Q K^T takes A from registers and K (K-major) from shared memory; the
+// S accumulators, turned into p, are the A fragments of O += P V, which
+// takes V MN-major as it was copied. O += P_i V_i and S_(i+1) go to the
+// tensor cores as one wgmma group. d = 40 multiplies at depth 48: q's
+// columns 40..47 are zero fragments and the K stages' sixth chunk slot is
+// zeroed once and never written again.
+
+template <int D, int BK, int STAGES>
+struct WgTile {
+  static constexpr int DP = (D + 15) / 16 * 16;
+  static constexpr int KCH = DP / 8;  // chunk slots of a K row
+  static constexpr int VCH = D / 8;   // chunks of a V row
+  static constexpr int kKBytes = BK * KCH * 16;
+  static constexpr int kVBytes = BK * VCH * 16;
+  static constexpr int kStage = kKBytes + kVBytes;
+  static constexpr size_t kBytes = (size_t)STAGES * kStage + 2 * STAGES * 8;
+  static_assert(D % 8 == 0 && D <= 160 && BK % 16 == 0 && STAGES >= 2, "tile");
+};
+
+// mbarrier helpers (shared::cta addresses)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+// arrives once this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void mbar_arrive_after_copies(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+}
+// spins until the barrier's phase of this parity is complete
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+template <int D, int BK, int STAGES, int NWG>
+__global__ void __launch_bounds__(NWG * 128, (D <= 64 && NWG == 2) ? 2 : 1)
+attention_wgmma_kernel(Params p) {
+  constexpr int kBlock = NWG * 128;
+  using L = WgTile<D, BK, STAGES>;
   using bf16 = __nv_bfloat16;
+  constexpr int kAhead = STAGES - 2;  // tiles requested ahead of the one multiplied
+  constexpr int kItems = BK * L::VCH;  // 16-byte chunks of a K (or V) tile
+  constexpr int NI = (kItems + kBlock - 1) / kBlock;
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  const uint32_t smem0 = smem_u32(wg_smem);
+  const uint32_t full0 = smem0 + STAGES * L::kStage, empty0 = full0 + STAGES * 8;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int b = blockIdx.y / p.heads, h = blockIdx.y % p.heads;
+  const int row0 = blockIdx.x * NWG * 64 + wg * 64 + warp * 16 + g;
   const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
   const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
   bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const int n_tiles = (p.s + BK - 1) / BK;
 
-  stage_rows<D, DP, false>(q_s, QS, q, p.q_st, q0, kMmaBQ, p.tq, p.scale, true);
-  __syncthreads();
-  uint32_t qa[DP / 16][4];  // A fragments of this warp's 16 query rows
-  const bf16* qw = q_s + (warp * 16) * QS;
+  if (tid == 0) {
 #pragma unroll
-  for (int ks = 0; ks < DP / 16; ++ks) {
-    qa[ks][0] = ld32(qw + g * QS + ks * 16 + 2 * t);
-    qa[ks][1] = ld32(qw + (g + 8) * QS + ks * 16 + 2 * t);
-    qa[ks][2] = ld32(qw + g * QS + ks * 16 + 2 * t + 8);
-    qa[ks][3] = ld32(qw + (g + 8) * QS + ks * 16 + 2 * t + 8);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full0 + st * 8, kBlock);  // every thread's copies of a tile
+      mbar_init(empty0 + st * 8, kBlock / 32);  // every warp is done with it
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (L::KCH != L::VCH) {  // the depth pad of the K stages, zeroed once
+    for (int i = tid; i < STAGES * BK; i += kBlock) {
+      const int st = i / BK, j = i % BK;
+      *reinterpret_cast<uint4*>(wg_smem + st * L::kStage +
+                                ((j / 8) * L::KCH + L::VCH) * 128 + (j % 8) * 16) =
+          make_uint4(0, 0, 0, 0);
+    }
+    fence_async_proxy();
+  }
+  __syncthreads();  // the only block-wide barrier: from here on the warpgroups
+                    // meet at the mbarriers alone
+
+  // This thread's chunks of every tile: item i = tid + n * kBlock is
+  // chunk c of local row rg * 8 + r8 (8 consecutive threads take the 8 rows
+  // of one core matrix, 4 neighbouring groups of 8 read 64 contiguous bytes
+  // of each row). Row and 32-bit element offsets are kept per item, so a
+  // tile costs each item two adds and two cp.async.
+  int item_row[NI], k_off[NI], v_off[NI];
+  uint32_t k_dst[NI];
+#pragma unroll
+  for (int n = 0; n < NI; ++n) {
+    const int i = tid + n * kBlock;
+    const int r8 = i % 8, c = (i / 8) % L::VCH, rg = i / (8 * L::VCH);
+    item_row[n] = rg * 8 + r8;
+    k_off[n] = item_row[n] * (int)p.k_st + c * 8;
+    v_off[n] = item_row[n] * (int)p.v_st + c * 8;
+    k_dst[n] = ((rg * L::KCH + c) * 8 + r8) * 16;
+  }
+  auto issue = [&](int tile) {
+    const uint32_t base = smem0 + (tile % STAGES) * L::kStage;
+    const int left = p.s - tile * BK;  // rows of this tile that exist
+#pragma unroll
+    for (int n = 0; n < NI; ++n) {
+      if (NI * kBlock == kItems || tid + n * kBlock < kItems) {
+        const bool live = item_row[n] < left;
+        cp_async16(base + k_dst[n], k + (live ? k_off[n] : 0), live ? 16 : 0);
+        cp_async16(base + L::kKBytes + (tid + n * kBlock) * 16,
+                   v + (live ? v_off[n] : 0), live ? 16 : 0);
+      }
+      k_off[n] += BK * (int)p.k_st;
+      v_off[n] += BK * (int)p.v_st;
+    }
+    mbar_arrive_after_copies(full0 + (tile % STAGES) * 8);
+  };
+  // tiles are requested in order, so the offsets advance one tile a call
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j)
+    if (j < n_tiles) issue(j);
+
+  // q fragments straight from global memory: rows row0 and row0 + 8
+  uint32_t qa[L::DP / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < L::DP / 16; ++ks) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + 8 * (e & 1), col = ks * 16 + 2 * t + 8 * (e >> 1);
+      qa[ks][e] = (row < p.tq && col < D)
+                      ? scale_bf16x2(ld32(q + (long long)row * p.q_st + col), p.scale)
+                      : 0u;
+    }
   }
 
-  float m[2] = {-1e30f, -1e30f};  // running max of rows g and g + 8
-  float l[2] = {0.f, 0.f};        // running denominators (this thread's part)
-  float acc[NO][4];
+  float m[2] = {-1e30f, -1e30f};
+  float l[2] = {0.f, 0.f};
+  float acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-  for (int k0 = 0; k0 < p.s; k0 += kMmaBK) {
-    __syncthreads();  // the previous tile's K and V are no longer read
-    stage_rows<D, DP, false>(k_s, QS, k, p.k_st, k0, kMmaBK, p.s, 0.f, false);
-    stage_rows<D, DP, true>(vt_s, VS, v, p.v_st, k0, kMmaBK, p.s, 0.f, false);
-    __syncthreads();
+  // S_0, then per tile: softmax of S_i, then O += P_i V_i and S_(i+1) = Q
+  // K_(i+1)^T in ONE wgmma group (P_i lives in its own fragments, so the
+  // logits' registers are free for S_(i+1)): one round trip to the tensor
+  // cores per tile instead of two.
+  float s[BK / 2];
+  auto issue_s = [&](int tile) {
+    const uint32_t kb = smem0 + (tile % STAGES) * L::kStage;
+#pragma unroll
+    for (int ks = 0; ks < L::DP / 16; ++ks)
+      wgmma_rs<0>(s, qa[ks], wgmma_desc(kb + ks * 256, 128, L::KCH * 128), ks > 0);
+  };
+  auto request = [&](int j) {  // tile j's stage held tile j - STAGES
+    if (j < n_tiles) {
+      if (j >= STAGES) mbar_wait(empty0 + (j % STAGES) * 8, (j / STAGES - 1) & 1);
+      issue(j);
+    }
+  };
+  request(kAhead);
+  mbar_wait(full0, 0);
+  fence_async_proxy();
+  wgmma_fence();
+  issue_s(0);
+  wgmma_commit();
+  wgmma_wait();
 
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const bf16* kr = k_s + (n * 8 + g) * QS + 2 * t;
-#pragma unroll
-      for (int ks = 0; ks < DP / 16; ++ks)
-        mma_16816(s[n], qa[ks], ld32(kr + ks * 16), ld32(kr + ks * 16 + 8));
-    }
-    // mask the ragged last tile, then the online softmax of rows g, g + 8
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (k0 + n * 8 + 2 * t + (e & 1) >= p.s) s[n][e] = -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    }
+  for (int i = 0; i < n_tiles; ++i) {
     float alpha[2];
+    uint32_t pa[BK / 16][4];
+    softmax_tile<BK>(s, p.s - i * BK, t, m, l, alpha, pa);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
+    for (int n = 0; n < D / 2; ++n) acc[n] *= alpha[(n >> 1) & 1];
+    request(i + 1 + kAhead);
+    if (i + 1 < n_tiles) {
+      mbar_wait(full0 + ((i + 1) % STAGES) * 8, ((i + 1) / STAGES) & 1);
+      fence_async_proxy();
     }
+    const uint32_t vb = smem0 + (i % STAGES) * L::kStage + L::kKBytes;
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e >> 1]);
-        l[e >> 1] += s[n][e];  // the denominator sums the unrounded p
-      }
-    }
-    // O += p @ V over the tile's 4 chunks of 16 keys; p rounds to bf16
-#pragma unroll
-    for (int kc = 0; kc < kMmaBK / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const bf16* vr = vt_s + (n * 8 + g) * VS + kc * 16 + 2 * t;
-        mma_16816(acc[n], pa, ld32(vr), ld32(vr + 8));
-      }
-    }
+    for (int kc = 0; kc < BK / 16; ++kc)
+      wgmma_rs<1>(acc, pa[kc], wgmma_desc(vb + kc * 2 * L::VCH * 128, L::VCH * 128, 128), 1);
+    if (i + 1 < n_tiles) issue_s(i + 1);
+    wgmma_commit();
+    wgmma_wait();
+    if (lane == 0) mbar_arrive(empty0 + (i % STAGES) * 8);
   }
 
-  // each row's denominator is spread over the 4 threads of a quad
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // a row's denominator is spread over a quad
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= p.tq) continue;
+    bf16* orow = o + (long long)row * p.o_st;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) = __floats2bfloat162_rn(
+          acc[4 * n + 2 * r] / l[r], acc[4 * n + 2 * r + 1] / l[r]);
+  }
+}
+
+int sm_count() {
+  static int count = 0;  // of the current device at first use
+  if (count == 0) {
+    int device = 0;
+    if (cudaGetDevice(&device) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device) !=
+            cudaSuccess)
+      count = 132;
+  }
+  return count;
+}
+
+template <int D, int BK, int STAGES, int NWG>
+cudaError_t launch_wgmma(const Params& p, int batch, cudaStream_t stream) {
+  using L = WgTile<D, BK, STAGES>;
+  // the kernel keeps 32-bit element offsets into a head's K and V
+  if ((long long)p.s * (p.k_st > p.v_st ? p.k_st : p.v_st) >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  auto kernel = attention_wgmma_kernel<D, BK, STAGES, NWG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.tq + NWG * 64 - 1) / (NWG * 64), batch * p.heads);
+  kernel<<<grid, NWG * 128, L::kBytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// More warpgroups a block share each K/V tile among more query rows (less
+// L2 traffic and fewer copy requests per row), as long as the wider blocks
+// still cover every SM; NWIDE is bounded by the registers of one SM.
+template <int D, int STAGES, int NWIDE>
+cudaError_t launch_wgmma_blocks(const Params& p, int batch, cudaStream_t stream) {
+  const long long wide = (long long)((p.tq + NWIDE * 64 - 1) / (NWIDE * 64)) *
+                         batch * p.heads;
+  if (NWIDE > 2 && wide >= sm_count())
+    return launch_wgmma<D, 64, STAGES, NWIDE>(p, batch, stream);
+  return launch_wgmma<D, 64, STAGES, 2>(p, batch, stream);
+}
+
+// ---- split kernel: bf16, d = 512 (the VAE mid-block, one head) -----------
+//
+// O for 64 query rows is 64 x 512 fp32 = 128 KB, more than one warpgroup's
+// registers, so a block of two warpgroups splits O's columns: warpgroup w
+// holds columns [256 w, 256 w + 256) as one m64n256 accumulator (128
+// registers a thread). Q (scaled, rounded to bf16; 64 KB) stays in shared
+// memory as the A operand of S = Q K^T; one K tile and one V tile of 64
+// keys (64 KB each) complete the 192 KB. S (depth 512, 32 wgmma m64n64k16)
+// is computed by BOTH warpgroups rather than once: exchanging p would cost
+// two more block barriers and a shared-memory round trip per tile, while
+// the tensor work (1.5x with the duplicate) is not what bounds the kernel.
+// Each 64-row block re-reads all of K and V (Tq/64 x S x 2 KB) from L2, and
+// that traffic is the bound; a 128-row tile would halve it but its O does
+// not fit the register file. So p stays in registers (the A fragments of
+// O += P V) and the warpgroups meet only at the barriers that publish and
+// free the two tiles. The copies alternate: V_i is requested before S_i is
+// multiplied and K_(i+1) as soon as S_i is done, so each copy runs under
+// the other tile's product.
+
+constexpr int kSplitThreads = 256;  // the split kernel's two warpgroups
+constexpr int kSplitD = 512;
+constexpr int kSplitCH = kSplitD / 8;  // 16-byte chunks per row
+constexpr int kSplitBQ = 64, kSplitBK = 64;
+constexpr int kSplitTile = 64 * kSplitCH * 16;  // bytes of Q, of a K and of a V tile
+constexpr size_t kSplitBytes = 3 * (size_t)kSplitTile;
+
+__global__ void __launch_bounds__(kSplitThreads, 1) attention_split512_kernel(Params p) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  const uint32_t q_s = smem_u32(wg_smem), k_s = q_s + kSplitTile, v_s = k_s + kSplitTile;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int b = blockIdx.y / p.heads, h = blockIdx.y % p.heads;
+  const int q0 = blockIdx.x * kSplitBQ;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const int n_tiles = (p.s + kSplitBK - 1) / kSplitBK;
+
+  stage_tile_async<kSplitBK, kSplitCH, kSplitThreads>(k_s, k, p.k_st, 0, p.s);
+  cp_async_commit();
+
+  // Q, scaled and rounded, into its core-matrix tile
+  for (int i = tid; i < kSplitBQ * kSplitCH; i += kSplitThreads) {
+    const int r8 = i % 8, c = (i / 8) % kSplitCH, rg = i / (8 * kSplitCH);
+    const int row = q0 + rg * 8 + r8;
+    uint4 raw = make_uint4(0, 0, 0, 0);
+    if (row < p.tq) {
+      raw = *reinterpret_cast<const uint4*>(q + (long long)row * p.q_st + c * 8);
+      raw.x = scale_bf16x2(raw.x, p.scale);
+      raw.y = scale_bf16x2(raw.y, p.scale);
+      raw.z = scale_bf16x2(raw.z, p.scale);
+      raw.w = scale_bf16x2(raw.w, p.scale);
+    }
+    *reinterpret_cast<uint4*>(wg_smem + ((rg * kSplitCH + c) * 8 + r8) * 16) = raw;
+  }
+
+  float m[2] = {-1e30f, -1e30f};
+  float l[2] = {0.f, 0.f};
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    // every thread is past P V of tile i - 1: the V tile is free
+    stage_tile_async<kSplitBK, kSplitCH, kSplitThreads>(v_s, v, p.v_st,
+                                                              i * kSplitBK, p.s);
+    cp_async_commit();
+    cp_async_wait<1>();  // K_i (this thread's part); V_i may be in flight
+    fence_async_proxy();
+    __syncthreads();  // K_i (and, at i = 0, Q) is whole
+
+    float s[kSplitBK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kSplitD / 16; ++ks)
+      wgmma_ss(s, wgmma_desc(q_s + ks * 256, 128, kSplitCH * 128),
+               wgmma_desc(k_s + ks * 256, 128, kSplitCH * 128), ks > 0);
+    wgmma_commit();
+    wgmma_wait();
+    __syncthreads();  // both warpgroups are done with K_i
+    if (i + 1 < n_tiles)
+      stage_tile_async<kSplitBK, kSplitCH, kSplitThreads>(
+          k_s, k, p.k_st, (i + 1) * kSplitBK, p.s);
+    cp_async_commit();
+
+    float alpha[2];
+    uint32_t pa[kSplitBK / 16][4];
+    softmax_tile<kSplitBK>(s, p.s - i * kSplitBK, t, m, l, alpha, pa);
+#pragma unroll
+    for (int j = 0; j < 128; ++j) acc[j] *= alpha[(j >> 1) & 1];
+
+    cp_async_wait<1>();  // V_i; K_(i+1) may be in flight
+    fence_async_proxy();
+    __syncthreads();  // V_i is whole
+    const uint32_t vb = v_s + wg * 32 * 128;  // this warpgroup's 256 columns
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kSplitBK / 16; ++kc)
+      wgmma_rs<1>(acc, pa[kc], wgmma_desc(vb + kc * 2 * kSplitCH * 128, kSplitCH * 128, 128), 1);
+    wgmma_commit();
+    wgmma_wait();
+    __syncthreads();  // both warpgroups are done with V_i
+  }
+  cp_async_wait<0>();
+
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -452,32 +970,27 @@ __global__ void __launch_bounds__(kMmaWarps * 32) attention_mma_kernel(Params p)
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + g + 8 * r;
     if (row >= p.tq) continue;
-    bf16* orow = o + (long long)row * p.o_st;
+    bf16* orow = o + (long long)row * p.o_st + wg * 256;
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      const int d = n * 8 + 2 * t;
-      if (d < D)
-        *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
-            acc[n][2 * r] / l[r], acc[n][2 * r + 1] / l[r]);
-    }
+    for (int n = 0; n < 32; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) = __floats2bfloat162_rn(
+          acc[4 * n + 2 * r] / l[r], acc[4 * n + 2 * r + 1] / l[r]);
   }
 }
 
-template <int D>
-cudaError_t launch_mma(const Params& p, int batch, cudaStream_t stream) {
-  using L = MmaTile<D>;
-  auto kernel = attention_mma_kernel<D>;
+cudaError_t launch_split512(const Params& p, int batch, cudaStream_t stream) {
+  auto kernel = attention_split512_kernel;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSplitBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.tq + kMmaBQ - 1) / kMmaBQ, batch * p.heads);
-  kernel<<<grid, kMmaWarps * 32, L::kBytes, stream>>>(p);
+  const dim3 grid((p.tq + kSplitBQ - 1) / kSplitBQ, batch * p.heads);
+  kernel<<<grid, kSplitThreads, kSplitBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-// The tensor-core path reads 16-byte vectors of q, k, v and writes 4-byte
+// The tensor-core variants read 16-byte vectors of q, k, v and write 4-byte
 // pairs of o: every row start must be aligned to that.
-bool mma_aligned(const Params& p) {
+bool vectors_aligned(const Params& p) {
   const long long in_strides[] = {p.q_sb, p.q_sh, p.q_st, p.k_sb, p.k_sh,
                                   p.k_st, p.v_sb, p.v_sh, p.v_st};
   for (long long s : in_strides)
@@ -501,17 +1014,8 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
 }
 
 template <typename T>
-cudaError_t launch_head_dim(const Params& p, int head_dim, int batch,
-                            cudaStream_t stream) {
-  if (sizeof(T) == 2 && mma_aligned(p)) {  // bf16: tensor cores
-    switch (head_dim) {
-      case 40: return launch_mma<40>(p, batch, stream);
-      case 64: return launch_mma<64>(p, batch, stream);
-      case 80: return launch_mma<80>(p, batch, stream);
-      case 160: return launch_mma<160>(p, batch, stream);
-      default: break;  // d = 512: CUDA cores below
-    }
-  }
+cudaError_t launch_cuda_core(const Params& p, int head_dim, int batch,
+                             cudaStream_t stream) {
   switch (head_dim) {
     case 40: return launch<T, 40, 64, 64>(p, batch, stream);
     case 64: return launch<T, 64, 64, 64>(p, batch, stream);
@@ -522,21 +1026,48 @@ cudaError_t launch_head_dim(const Params& p, int head_dim, int batch,
   }
 }
 
+// The variant is the caller's choice (ops/kernels/attention.py:
+// attention_variant); a variant that does not take these arguments is an
+// error, never a silent switch to another one.
+enum Variant { kCudaCore = 0, kWgmma = 1, kWgmmaSplit = 2 };
+
+cudaError_t launch_variant(const Params& p, int dtype, int head_dim, int batch,
+                           int variant, cudaStream_t stream) {
+  if (variant == kCudaCore) {
+    if (dtype == 0) return launch_cuda_core<float>(p, head_dim, batch, stream);
+    if (dtype == 1) return launch_cuda_core<__nv_bfloat16>(p, head_dim, batch, stream);
+    return cudaErrorInvalidValue;
+  }
+  if (dtype != 1 || !vectors_aligned(p)) return cudaErrorInvalidValue;
+  if (variant == kWgmma) {
+    switch (head_dim) {
+      case 40: return launch_wgmma_blocks<40, 4, 4>(p, batch, stream);
+      case 64: return launch_wgmma_blocks<64, 4, 2>(p, batch, stream);
+      case 80: return launch_wgmma_blocks<80, 4, 3>(p, batch, stream);
+      case 160: return launch_wgmma_blocks<160, 3, 2>(p, batch, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (variant == kWgmmaSplit && head_dim == kSplitD)
+    return launch_split512(p, batch, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the head dim
-// of every tensor is contiguous. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. variant: a Variant code. Strides are in
+// elements; the head dim of every tensor is contiguous. Returns a
+// cudaError_t (0 = launched).
 extern "C" int sdeo_attention_forward(
     const void* q, const void* k, const void* v, void* o, int dtype, int batch,
     int heads, int tq, int s, int head_dim, long long q_sb, long long q_sh,
     long long q_st, long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st, long long o_sb,
-    long long o_sh, long long o_st, float scale, void* stream) {
+    long long o_sh, long long o_st, float scale, int variant,
+    void* stream) {
   Params p{q, k, v, o, heads, tq, s,
            q_sb, q_sh, q_st, k_sb, k_sh, k_st,
            v_sb, v_sh, v_st, o_sb, o_sh, o_st, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_head_dim<float>(p, head_dim, batch, st);
-  if (dtype == 1) return (int)launch_head_dim<__nv_bfloat16>(p, head_dim, batch, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_variant(p, dtype, head_dim, batch, variant,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -17,7 +17,7 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
-from stablediffusioneo_tpu.config import PipelineConfig
+from stablediffusioneo_tpu_torch.config import PipelineConfig
 from stablediffusioneo_tpu_torch.models.clip import CLIPTextModel
 from stablediffusioneo_tpu_torch.models.controlnet import ControlNet
 from stablediffusioneo_tpu_torch.models.unet import UNetModel

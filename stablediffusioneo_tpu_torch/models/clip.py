@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from stablediffusioneo_tpu.config import CLIPTextConfig
+from stablediffusioneo_tpu_torch.config import CLIPTextConfig
 from stablediffusioneo_tpu_torch.models.unet import LayerNorm
 from stablediffusioneo_tpu_torch.ops.attention import attention
 from stablediffusioneo_tpu_torch.ops.layers import gelu, linear

@@ -13,7 +13,7 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn as nn
 
-from stablediffusioneo_tpu.config import ControlNetConfig
+from stablediffusioneo_tpu_torch.config import ControlNetConfig
 from stablediffusioneo_tpu_torch.models.unet import (
     TimestepEmbedSequential,
     UNetModel,

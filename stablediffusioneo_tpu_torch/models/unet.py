@@ -21,7 +21,7 @@ from typing import List, Optional
 import torch
 import torch.nn as nn
 
-from stablediffusioneo_tpu.config import UNetConfig
+from stablediffusioneo_tpu_torch.config import UNetConfig
 from stablediffusioneo_tpu_torch.ops.attention import (
     context_kv,
     multi_head_attention,

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from stablediffusioneo_tpu.config import VAEConfig
+from stablediffusioneo_tpu_torch.config import VAEConfig
 from stablediffusioneo_tpu_torch.models.unet import GroupNorm32, conv1x1_as_linear
 from stablediffusioneo_tpu_torch.ops.attention import attention
 from stablediffusioneo_tpu_torch.ops.layers import nchw, nhwc, upsample_nearest_2x

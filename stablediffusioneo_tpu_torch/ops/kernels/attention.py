@@ -1,18 +1,21 @@
-"""Fused attention: the CUDA kernel's wrappers and their plain versions.
+"""Fused attention: the CUDA kernels' wrappers and their plain versions.
 
-Counterpart of stablediffusioneo_tpu/ops/pallas/attention.py. The kernel
+Counterpart of stablediffusioneo_tpu/ops/pallas/attention.py. The source
 (csrc/attention.cu) replaces `_attn_kernel_packed` (entry
 `fused_attention_packed`), `_attn_kernel_packed_stream` (entry
 `fused_attention_packed_stream`) and `_attn_kernel` (entry
-`fused_attention`); the entries launch the same CUDA kernel, which streams
-K/V tiles with an online softmax whatever the key length, and differ only
-in the strides they pass and the counter they add to. On CPU tensors each
-entry runs its plain version, which mirrors the JAX package's
-`_packed_math` / `_split_math`.
+`fused_attention`). Every entry passes batch/head/token strides, streams
+K/V tiles with an online softmax whatever the key length, and adds to its
+own counter. The source holds three variants of that schedule;
+`attention_variant` chooses one from the dtype, head dim, lengths and
+alignment, and the C entry launches exactly that one or returns an error.
+On CPU tensors each entry runs its plain version, which mirrors the JAX
+package's `_packed_math` / `_split_math`.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional
 
@@ -25,6 +28,38 @@ HEAD_DIMS = (40, 64, 80, 160, 512)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LL = ctypes.c_longlong
 
+# variant name -> code of csrc/attention.cu's `Variant`
+VARIANTS = {
+    "cuda_core": 0,    # fp32 FMAs from shared memory: fp32, and unaligned views
+    "wgmma": 1,        # bf16 d <= 160: wgmma, cp.async ring, 2-4 warpgroups a block
+    "wgmma_split": 2,  # bf16 d = 512: wgmma, O's columns split over 2 warpgroups
+}
+# launches by variant name since the last clear() (chip_smoke.py reads it)
+variant_launches: "collections.Counter[str]" = collections.Counter()
+
+
+def attention_variant(dtype: torch.dtype, head_dim: int, tq: int, s: int,
+                      aligned: bool) -> str:
+    """The variant of csrc/attention.cu that one call runs. `aligned`: every
+    row of q, k and v starts on 16 bytes and every row of the output on 4
+    (`views_aligned`), which the tensor-core variants' vector loads need.
+    The lengths do not enter yet: on the H100 the wgmma variant is the
+    faster one at every main-path site, S = 77 included (PERF.md)."""
+    del tq, s
+    if dtype != torch.bfloat16 or not aligned:
+        return "cuda_core"
+    return "wgmma_split" if head_dim == 512 else "wgmma"
+
+
+def views_aligned(q, k, v, out, strides) -> bool:
+    """strides: (batch, head, token) element strides of q, k, v, out."""
+    if any(t.element_size() != 2 for t in (q, k, v, out)):
+        return False
+    if any(x % 8 for st in strides[:3] for x in st) or any(x % 2 for x in strides[3]):
+        return False
+    return (all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+            and out.data_ptr() % 4 == 0)
+
 
 def _library() -> ctypes.CDLL:
     from stablediffusioneo_tpu_torch.ops.kernels.build import load_library
@@ -33,8 +68,8 @@ def _library() -> ctypes.CDLL:
     fn = lib.sdeo_attention_forward
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [_LL] * 12 + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [_LL] * 12
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return lib
 
 
@@ -47,8 +82,12 @@ def _rounded_scale(scale: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(scale, dtype=dtype))
 
 
-def _launch(q, k, v, out, batch, heads, tq, s, head_dim, strides, scale):
-    """strides: (batch, head, token) element strides of q, k, v, out."""
+def _launch(q, k, v, out, batch, heads, tq, s, head_dim, strides, scale,
+            variant: Optional[str] = None):
+    """strides: (batch, head, token) element strides of q, k, v, out.
+    variant: a name of VARIANTS to run instead of `attention_variant`'s
+    choice (for tests); the C entry refuses a variant that does not take the
+    arguments, and the refusal raises here."""
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"attention kernel takes float32 or bfloat16, got {q.dtype}")
     if not (q.dtype == k.dtype == v.dtype):
@@ -61,14 +100,19 @@ def _launch(q, k, v, out, batch, heads, tq, s, head_dim, strides, scale):
         raise ValueError("attention kernel needs a contiguous head dim")
     if len({t.device for t in (q, k, v, out)}) != 1:
         raise ValueError("attention kernel inputs on different devices")
+    if variant is None:
+        variant = attention_variant(q.dtype, head_dim, tq, s,
+                                    views_aligned(q, k, v, out, strides))
     fn = _library().sdeo_attention_forward
     flat = [x for st in strides for x in st]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              _DTYPE_CODE[q.dtype], batch, heads, tq, s, head_dim, *flat,
-             _rounded_scale(scale, q.dtype), stream)
+             _rounded_scale(scale, q.dtype), VARIANTS[variant], stream)
     if err != 0:
-        raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"attention kernel launch failed ({variant}): "
+                           f"cudaError {err}")
+    variant_launches[variant] += 1
 
 
 # ------------------------------------------------------------- packed entry
@@ -89,7 +133,8 @@ def fused_attention_packed_plain(q, k, v, heads: int, scale: float):
     return out.to(q.dtype).transpose(1, 2).reshape(b, tq, c)
 
 
-def _packed_launch(q, k, v, heads: int, scale: float, counter: str):
+def _packed_launch(q, k, v, heads: int, scale: float, counter: str,
+                   variant: Optional[str] = None):
     b, tq, c = q.shape
     s = k.shape[1]
     if c % heads or k.shape != (b, s, c) or v.shape != (b, s, c):
@@ -98,7 +143,7 @@ def _packed_launch(q, k, v, heads: int, scale: float, counter: str):
     d = c // heads
     out = torch.empty((b, tq, c), dtype=q.dtype, device=q.device)
     strides = [(t.stride(0), d, t.stride(1)) for t in (q, k, v, out)]
-    _launch(q, k, v, out, b, heads, tq, s, d, strides, scale)
+    _launch(q, k, v, out, b, heads, tq, s, d, strides, scale, variant)
     dispatch.count_launch(counter)
     return out
 
@@ -152,10 +197,7 @@ def fused_attention_plain(q, k, v, scale: float):
     return torch.matmul(w.float(), v.float()).to(q.dtype)
 
 
-def fused_attention(q, k, v, scale: float):
-    """Split layout: q (B, H, Tq, D), k/v (B, H, S, D) -> (B, H, Tq, D)."""
-    if not dispatch.use_kernel(q, k, v):
-        return fused_attention_plain(q, k, v, scale)
+def _split_launch(q, k, v, scale: float, variant: Optional[str] = None):
     b, h, tq, d = q.shape
     s = k.shape[2]
     if k.shape != (b, h, s, d) or v.shape != (b, h, s, d):
@@ -163,6 +205,13 @@ def fused_attention(q, k, v, scale: float):
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     strides = [(t.stride(0), t.stride(1), t.stride(2)) for t in (q, k, v, out)]
-    _launch(q, k, v, out, b, h, tq, s, d, strides, scale)
+    _launch(q, k, v, out, b, h, tq, s, d, strides, scale, variant)
     dispatch.count_launch("fused_attention")
     return out
+
+
+def fused_attention(q, k, v, scale: float):
+    """Split layout: q (B, H, Tq, D), k/v (B, H, S, D) -> (B, H, Tq, D)."""
+    if not dispatch.use_kernel(q, k, v):
+        return fused_attention_plain(q, k, v, scale)
+    return _split_launch(q, k, v, scale)

@@ -25,7 +25,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from stablediffusioneo_tpu.config import PipelineConfig, sd15_pipeline
+from stablediffusioneo_tpu_torch.config import PipelineConfig, sd15_pipeline
 from stablediffusioneo_tpu_torch.models.cldm import ControlLDM
 from stablediffusioneo_tpu_torch.ops.layers import resize_latent_bilinear
 from stablediffusioneo_tpu_torch.runtime.engine import CNSDRuntime
@@ -55,8 +55,8 @@ class Canny2ImagePipeline:
         self.last_latents: Optional[torch.Tensor] = None
 
     def _annotate(self, img: np.ndarray, low: int, high: int) -> np.ndarray:
-        from stablediffusioneo_tpu.annotators.canny import CannyDetector
-        from stablediffusioneo_tpu.annotators.util import HWC3
+        from stablediffusioneo_tpu_torch.annotators.canny import CannyDetector
+        from stablediffusioneo_tpu_torch.annotators.util import HWC3
 
         ann = self.annotator or CannyDetector()
         try:
@@ -117,7 +117,7 @@ class Canny2ImagePipeline:
                 (bool(tome_ratio), "ToMe", "Adapters and knobs")):
             if on:
                 raise _not_ported(feature, item)
-        from stablediffusioneo_tpu.annotators.util import HWC3, resize_image
+        from stablediffusioneo_tpu_torch.annotators.util import HWC3, resize_image
 
         t_start = time.perf_counter()
         img = resize_image(HWC3(input_image), image_resolution)

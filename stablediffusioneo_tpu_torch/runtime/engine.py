@@ -18,7 +18,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from stablediffusioneo_tpu.config import PipelineConfig
+from stablediffusioneo_tpu_torch.config import PipelineConfig
 from stablediffusioneo_tpu_torch.models.cldm import ControlLDM
 from stablediffusioneo_tpu_torch.models.clip import clip_text_apply
 from stablediffusioneo_tpu_torch.models.controlnet import guess_mode_scales

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from stablediffusioneo_tpu_torch.ops import dispatch
+from stablediffusioneo_tpu_torch.ops.kernels import attention as ka
 from stablediffusioneo_tpu_torch.ops.kernels import groupnorm as kg
 from stablediffusioneo_tpu_torch.ops.kernels import layernorm as kl
 from stablediffusioneo_tpu_torch.ops.kernels import quant as kq
@@ -66,9 +67,27 @@ def test_packed_kernel_matches_plain(gen, dtype, b, tq, c, s, heads):
     k, v = _randn((b, s, c), gen, dtype), _randn((b, s, c), gen, dtype)
     scale = (c // heads) ** -0.5
     dispatch.reset_launches()
+    ka.variant_launches.clear()
     out = fused_attention_packed(q, k, v, heads, scale)
     assert dispatch.launches["fused_attention_packed"] == 1
+    assert dict(ka.variant_launches) == {
+        "wgmma" if dtype == torch.bfloat16 else "cuda_core": 1}
     _check(out, fused_attention_packed_plain(q, k, v, heads, scale), dtype)
+
+
+@pytest.mark.parametrize("s", [77, 4096 + 13])
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_wgmma_variant_ragged_keys(gen, d, s):
+    """The wgmma variant at a key length that ends inside a tile (the
+    zero-filled rows of the last tile are masked before the max), and, at
+    Tq = 1000, a q tile that ends inside a warpgroup's rows."""
+    tq = 1000 if d == 160 else 2048
+    q = _randn((2, tq, 8 * d), gen, torch.bfloat16)
+    k, v = (_randn((2, s, 8 * d), gen, torch.bfloat16) for _ in range(2))
+    ka.variant_launches.clear()
+    out = fused_attention_packed(q, k, v, 8, d ** -0.5)
+    assert dict(ka.variant_launches) == {"wgmma": 1}
+    _check(out, fused_attention_packed_plain(q, k, v, 8, d ** -0.5), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -84,7 +103,9 @@ def test_packed_kernel_unaligned_views(gen):
     """Rows that do not start on 16 bytes take the CUDA-core variant."""
     q, k, v = (_randn((2, 1024, 641), gen, torch.bfloat16)[..., 1:]
                for _ in range(3))  # odd token stride and offset
+    ka.variant_launches.clear()
     out = fused_attention_packed(q, k, v, 8, 80 ** -0.5)
+    assert dict(ka.variant_launches) == {"cuda_core": 1}
     _check(out, fused_attention_packed_plain(q, k, v, 8, 80 ** -0.5),
            torch.bfloat16)
 
@@ -93,9 +114,43 @@ def test_packed_kernel_unaligned_views(gen):
 def test_split_kernel_matches_plain(gen, dtype):
     q, k, v = (_randn((1, 1, 4096, 512), gen, dtype) for _ in range(3))
     dispatch.reset_launches()
+    ka.variant_launches.clear()
     out = fused_attention(q, k, v, 512 ** -0.5)
     assert dispatch.launches["fused_attention"] == 1
+    assert dict(ka.variant_launches) == {
+        "wgmma_split" if dtype == torch.bfloat16 else "cuda_core": 1}
     _check(out, fused_attention_plain(q, k, v, 512 ** -0.5), dtype)
+
+
+def test_split_wgmma_variant_ragged_queries(gen):
+    """d = 512 in bf16 with a last q tile of 40 rows (Tq = 4096 - 24)."""
+    q = _randn((1, 1, 4096 - 24, 512), gen, torch.bfloat16)
+    k, v = (_randn((1, 1, 4096, 512), gen, torch.bfloat16) for _ in range(2))
+    ka.variant_launches.clear()
+    out = fused_attention(q, k, v, 512 ** -0.5)
+    assert dict(ka.variant_launches) == {"wgmma_split": 1}
+    _check(out, fused_attention_plain(q, k, v, 512 ** -0.5), torch.bfloat16)
+
+
+def test_split_kernel_unaligned_bf16_takes_cuda_cores(gen):
+    q, k, v = (_randn((1, 1, 1024, 513), gen, torch.bfloat16)[..., 1:]
+               for _ in range(3))
+    ka.variant_launches.clear()
+    out = fused_attention(q, k, v, 512 ** -0.5)
+    assert dict(ka.variant_launches) == {"cuda_core": 1}
+    _check(out, fused_attention_plain(q, k, v, 512 ** -0.5), torch.bfloat16)
+
+
+def test_variant_that_does_not_take_the_arguments_raises(gen):
+    """No silent switch: a tensor-core variant asked for fp32, or for the
+    wrong head dim, is an error."""
+    q = _randn((1, 1, 1024, 512), gen, torch.float32)
+    with pytest.raises(RuntimeError, match="wgmma_split"):
+        ka._split_launch(q, q, q, 512 ** -0.5, "wgmma_split")
+    h = _randn((1, 1024, 320), gen, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="wgmma_split"):
+        ka._packed_launch(h, h, h, 8, 40 ** -0.5, "fused_attention_packed",
+                          "wgmma_split")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

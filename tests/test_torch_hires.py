@@ -21,7 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-from stablediffusioneo_tpu.config import sd15_pipeline
 from stablediffusioneo_tpu.models.tokenizer import toy_tokenizer
 from stablediffusioneo_tpu.ops import schedule as jax_schedule
 from stablediffusioneo_tpu.ops.pallas import attention as jax_attn
@@ -29,6 +28,7 @@ from stablediffusioneo_tpu.pipeline import ddim as jax_ddim
 from stablediffusioneo_tpu.pipeline.canny2image import (
     Canny2ImagePipeline as JaxPipeline,
 )
+from stablediffusioneo_tpu_torch.config import sd15_pipeline
 from stablediffusioneo_tpu_torch.ops import attention as port_attn
 from stablediffusioneo_tpu_torch.ops.kernels.attention import (
     fused_attention_packed_stream,
@@ -38,7 +38,7 @@ from stablediffusioneo_tpu_torch.ops.layers import resize_latent_bilinear
 from stablediffusioneo_tpu_torch.pipeline import ddim as port_ddim
 from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
 
-from torch_port_util import CFG, port_model, tiny_params
+from torch_port_util import CFG, PORT_CFG, port_model, tiny_params
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the plan-derived attention sites)
@@ -146,7 +146,7 @@ def pipes():
     params = tiny_params()
     tok = toy_tokenizer(max_length=CFG.clip.max_length)
     return (JaxPipeline(params, tok, CFG, persistent_cache=False),
-            Canny2ImagePipeline(port_model(params), tok, CFG, device="cpu"))
+            Canny2ImagePipeline(port_model(params), tok, PORT_CFG, device="cpu"))
 
 
 def test_hires_process_matches_jax(pipes):

@@ -1,0 +1,177 @@
+"""The PyTorch port stands on its own: it imports neither the JAX package
+nor JAX, and keeps its own copies of the configuration dataclasses and the
+host-side annotators, held here to the JAX package's field by field and
+byte by byte.
+"""
+
+import ast
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+from stablediffusioneo_tpu import config as jax_config
+from stablediffusioneo_tpu.annotators import canny as jax_canny
+from stablediffusioneo_tpu.annotators import util as jax_util
+from stablediffusioneo_tpu_torch import annotators as port_annotators
+from stablediffusioneo_tpu_torch import config as port_config
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "stablediffusioneo_tpu_torch").rglob("*.py")) \
+    + [REPO / "chip_smoke.py"]
+FORBIDDEN = ("stablediffusioneo_tpu", "jax")
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_port_file_imports_neither_the_jax_package_nor_jax(path):
+    """Every `import` / `from` of the file, at any depth of nesting; the
+    exact packages, so `stablediffusioneo_tpu_torch` is allowed."""
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_the_walk_covers_the_port():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for must in ("chip_smoke.py", "stablediffusioneo_tpu_torch/config.py",
+                 "stablediffusioneo_tpu_torch/annotators/canny.py",
+                 "stablediffusioneo_tpu_torch/pipeline/canny2image.py",
+                 "stablediffusioneo_tpu_torch/ops/kernels/attention.py"):
+        assert must in names
+    assert len(names) >= 30
+
+
+def test_tiny_process_runs_with_both_packages_blocked():
+    """With `stablediffusioneo_tpu` and `jax` made unimportable, the port's
+    pipeline imports and runs a tiny process() on the CPU."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["stablediffusioneo_tpu"] = None
+        import numpy as np, torch
+        from stablediffusioneo_tpu_torch.config import tiny_pipeline
+        from stablediffusioneo_tpu_torch.models.cldm import ControlLDM, init_weights
+        from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
+        cfg = tiny_pipeline()
+        model = ControlLDM(cfg)
+        init_weights(model, torch.Generator().manual_seed(0))
+        def tok(texts):
+            rows = [[998] + [sum(map(ord, w)) % 990 for w in t.split()][:14]
+                    for t in texts]
+            return np.array([(r + [999] * 16)[:16] for r in rows])
+        pipe = Canny2ImagePipeline(model, tok, cfg, device="cpu")
+        img = (np.random.default_rng(0).random((64, 64, 3)) * 255).astype(np.uint8)
+        out = pipe.process(img, "a bird", image_resolution=64, ddim_steps=2, seed=3)
+        assert out[0].shape == (64, 64, 3) and out[0].any()  # the Canny map
+        assert out[1].shape == (64, 64, 3) and out[1].dtype == np.uint8
+        loaded = [m for m in sys.modules if sys.modules[m] is not None
+                  and m.split(".")[0] in ("jax", "stablediffusioneo_tpu")]
+        assert not loaded, loaded
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(REPO), timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("OK")
+
+
+# ----------------------------------------------------------- configuration
+
+CONSTRUCTORS = ["sd15_pipeline", "tiny_pipeline", "sd15_unet", "sd15_controlnet",
+                "sd15_vae", "clip_vit_l14"]
+CLASSES = ["UNetConfig", "ControlNetConfig", "VAEConfig", "CLIPTextConfig",
+           "DiffusionConfig", "PipelineConfig"]
+
+
+@pytest.mark.parametrize("name", CONSTRUCTORS)
+def test_config_constructor_equals_the_jax_packages(name):
+    port, ref = getattr(port_config, name)(), getattr(jax_config, name)()
+    assert type(port).__module__ == "stablediffusioneo_tpu_torch.config"
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+
+
+@pytest.mark.parametrize("name", CLASSES)
+def test_config_class_has_the_same_fields_and_defaults(name):
+    port, ref = getattr(port_config, name), getattr(jax_config, name)
+    assert [(f.name, f.type) for f in dataclasses.fields(port)] == \
+        [(f.name, f.type) for f in dataclasses.fields(ref)]
+    assert dataclasses.asdict(port()) == dataclasses.asdict(ref())
+    assert port.__dataclass_params__.frozen and hash(port()) == hash(port())
+
+
+@pytest.mark.parametrize("name", ["sd15_pipeline", "tiny_pipeline"])
+def test_config_helper_methods_agree(name):
+    port, ref = getattr(port_config, name)(), getattr(jax_config, name)()
+    assert port.unet.time_embed_dim == ref.unet.time_embed_dim
+    assert port.vae.downsample_factor == ref.vae.downsample_factor
+    for channels in (32, 64, 320, 640, 1280):
+        assert port.unet.heads_for(channels) == ref.unet.heads_for(channels)
+    for level in range(len(ref.unet.channel_mult)):
+        assert port.unet.depth_for(level) == ref.unet.depth_for(level)
+
+
+def test_config_helpers_with_per_head_channels_and_per_level_depth():
+    kw = dict(num_head_channels=64, transformer_depth=(1, 2, 10),
+              channel_mult=(1, 2, 4))
+    port, ref = port_config.UNetConfig(**kw), jax_config.UNetConfig(**kw)
+    assert [port.heads_for(c) for c in (320, 640, 1280)] == \
+        [ref.heads_for(c) for c in (320, 640, 1280)] == [5, 10, 20]
+    assert [port.depth_for(i) for i in range(3)] == \
+        [ref.depth_for(i) for i in range(3)] == [1, 2, 10]
+
+
+def test_sd15_pipeline_takes_the_dtype():
+    assert port_config.sd15_pipeline(dtype="float32") == \
+        dataclasses.replace(port_config.sd15_pipeline(), dtype="float32")
+
+
+# -------------------------------------------------------------- annotators
+
+
+@pytest.fixture
+def image():
+    rng = np.random.default_rng(7)
+    img = np.zeros((96, 128, 3), np.uint8)
+    img[20:70, 30:100] = 180  # a box, so Canny finds edges
+    return (img + rng.integers(0, 50, img.shape)).astype(np.uint8)
+
+
+@pytest.mark.parametrize("low,high", [(100, 200), (50, 120)])
+def test_canny_gives_the_same_bytes(image, low, high):
+    out = port_annotators.CannyDetector()(image, low, high)
+    ref = jax_canny.CannyDetector()(image, low, high)
+    assert out.dtype == np.uint8 and out.any()
+    assert out.tobytes() == ref.tobytes()
+
+
+@pytest.mark.parametrize("channels", [None, 1, 3, 4])
+def test_hwc3_gives_the_same_bytes(image, channels):
+    rng = np.random.default_rng(8)
+    x = {None: image[..., 0], 1: image[..., :1], 3: image,
+         4: np.concatenate([image, rng.integers(0, 256, image.shape[:2] + (1,),
+                                                dtype=np.uint8)], axis=2)}[channels]
+    out, ref = port_annotators.HWC3(x), jax_util.HWC3(x)
+    assert out.shape == image.shape and out.tobytes() == ref.tobytes()
+
+
+@pytest.mark.parametrize("resolution", [64, 128, 200])
+def test_resize_image_gives_the_same_bytes(image, resolution):
+    out = port_annotators.resize_image(image, resolution)
+    ref = jax_util.resize_image(image, resolution)
+    assert out.shape == ref.shape and out.shape[0] % 64 == 0 and out.shape[1] % 64 == 0
+    assert out.tobytes() == ref.tobytes()

@@ -46,7 +46,13 @@ from stablediffusioneo_tpu_torch.ops.attention import (
     multi_head_attention,
 )
 
-from torch_port_util import CFG, assert_close_scaled, port_model, tiny_params
+from torch_port_util import (
+    CFG,
+    PORT_CFG,
+    assert_close_scaled,
+    port_model,
+    tiny_params,
+)
 
 
 @pytest.fixture(scope="module")
@@ -171,7 +177,7 @@ def test_clip_text(params, model, rng, clip_skip):
 def test_state_dict_round_trip_is_exact(params):
     """JAX params -> state_dict_from_jax -> checkpoint/convert.py -> JAX
     params reproduces every leaf bit for bit."""
-    sd = {k: v.numpy() for k, v in state_dict_from_jax(params, CFG).items()}
+    sd = {k: v.numpy() for k, v in state_dict_from_jax(params, PORT_CFG).items()}
     back = {
         "unet": convert_unet(sd, CFG.unet),
         "controlnet": convert_controlnet(sd, CFG.controlnet),

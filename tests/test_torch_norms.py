@@ -58,12 +58,18 @@ from stablediffusioneo_tpu_torch.ops.kernels.layernorm import (
     layer_norm_supported,
 )
 
-from torch_port_util import CFG, assert_close_scaled, port_model, tiny_params
+from torch_port_util import (
+    CFG,
+    PORT_CFG,
+    assert_close_scaled,
+    port_model,
+    tiny_params,
+)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the plan-derived site lists)
 
-from stablediffusioneo_tpu.config import sd15_pipeline  # noqa: E402
+from stablediffusioneo_tpu_torch.config import sd15_pipeline  # noqa: E402
 
 FP32_ATOL = 2e-5
 BF16_ATOL = 1e-2
@@ -366,7 +372,7 @@ def test_plan_sites_are_the_modules_calls(model, rng, fused_norms, monkeypatch):
         entry = getattr(norms, name)
         monkeypatch.setattr(norms, name, lambda *a, _e=entry, _n=name, **k:
                             (routed.update([_n]), _e(*a, **k))[1])
-    sites = chip_smoke.norm_sites(CFG, 64)
+    sites = chip_smoke.norm_sites(PORT_CFG, 64)
     with torch.no_grad():
         controlled_unet_apply(
             model.unet, model.control_model, _t(rng.standard_normal((2, 8, 8, 4))),

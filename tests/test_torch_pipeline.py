@@ -19,7 +19,7 @@ from stablediffusioneo_tpu.pipeline.canny2image import (
 )
 from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
 
-from torch_port_util import CFG, port_model, tiny_params
+from torch_port_util import CFG, PORT_CFG, port_model, tiny_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 A_PROMPT = "best quality"
@@ -40,7 +40,7 @@ def pipes():
     params = tiny_params()
     tok = toy_tokenizer(max_length=CFG.clip.max_length)
     jax_pipe = JaxPipeline(params, tok, CFG, persistent_cache=False)
-    port_pipe = Canny2ImagePipeline(port_model(params), tok, CFG, device="cpu")
+    port_pipe = Canny2ImagePipeline(port_model(params), tok, PORT_CFG, device="cpu")
     return jax_pipe, port_pipe
 
 
@@ -132,7 +132,7 @@ def test_port_runs_without_jax():
         import sys
         sys.modules["jax"] = None
         import numpy as np, torch
-        from stablediffusioneo_tpu.config import tiny_pipeline
+        from stablediffusioneo_tpu_torch.config import tiny_pipeline
         from stablediffusioneo_tpu_torch.models.cldm import ControlLDM, init_weights
         from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
         cfg = tiny_pipeline()

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from stablediffusioneo_tpu.config import sd15_pipeline
+from stablediffusioneo_tpu.config import sd15_pipeline as jax_sd15_pipeline
 from stablediffusioneo_tpu.models import init_controlnet, init_unet
 from stablediffusioneo_tpu.models.tokenizer import toy_tokenizer
 from stablediffusioneo_tpu.ops import dispatch as jax_dispatch
@@ -35,6 +35,7 @@ from stablediffusioneo_tpu_torch.checkpoint.convert import (
     controlnet_state_dict,
     unet_state_dict,
 )
+from stablediffusioneo_tpu_torch.config import sd15_pipeline
 from stablediffusioneo_tpu_torch.models.cldm import ControlLDM
 from stablediffusioneo_tpu_torch.models.controlnet import controlled_unet_apply
 from stablediffusioneo_tpu_torch.ops import dispatch
@@ -46,7 +47,7 @@ from stablediffusioneo_tpu_torch.ops.kernels.quant import (
 )
 from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
 
-from torch_port_util import CFG, port_model, tiny_params
+from torch_port_util import CFG, PORT_CFG, port_model, tiny_params
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the plan-derived int8 sites)
@@ -115,8 +116,8 @@ def _converted_names(tree):
         return np.zeros(np.shape(node), np.float32)
 
     sd = {}
-    unet_state_dict(sd, CFG.unet, mark(tree["unet"]))
-    controlnet_state_dict(sd, CFG.controlnet, mark(tree["controlnet"]))
+    unet_state_dict(sd, PORT_CFG.unet, mark(tree["unet"]))
+    controlnet_state_dict(sd, PORT_CFG.controlnet, mark(tree["controlnet"]))
     return {k for k, v in sd.items() if k.endswith(".weight") and bool((v == 1).all())}
 
 
@@ -144,7 +145,7 @@ def test_converted_set_matches_jax_tiny(params):
     tree = {name: jax_quant.quantize_linear_tree(params[name], min_dim=MIN_DIM)[0]
             for name in ("unet", "controlnet")}
     want = _converted_names(tree)
-    got, _ = _port_converted(ControlLDM(CFG), MIN_DIM)
+    got, _ = _port_converted(ControlLDM(PORT_CFG), MIN_DIM)
     assert got == want
     assert any("time_embed.0" in n for n in got) and any("ff.net.2" in n for n in got)
     assert not any("to_q" in n or "to_out" in n for n in got)
@@ -153,7 +154,7 @@ def test_converted_set_matches_jax_tiny(params):
 def test_converted_set_matches_jax_sd15():
     """SD-1.5 widths, no weights: jax.eval_shape over quantize_linear_tree
     against the port's model on the meta device."""
-    cfg = sd15_pipeline()
+    cfg, jax_cfg = sd15_pipeline(), jax_sd15_pipeline()
     key = jax.random.PRNGKey(0)
 
     def jax_shapes(init, sub_cfg):
@@ -166,7 +167,8 @@ def test_converted_set_matches_jax_sd15():
     with torch.device("meta"):
         model = ControlLDM(cfg)
     _, shapes = _port_converted(model, 256)
-    unet, ctrl = jax_shapes(init_unet, cfg.unet), jax_shapes(init_controlnet, cfg.controlnet)
+    unet, ctrl = (jax_shapes(init_unet, jax_cfg.unet),
+                  jax_shapes(init_controlnet, jax_cfg.controlnet))
     assert sum(unet.values()) == 56 and sum(ctrl.values()) == 26
     assert shapes["model.diffusion_model."] == unet
     assert shapes["control_model."] == ctrl
@@ -255,7 +257,7 @@ def test_quant_sites_are_the_modules_calls(params, rng, monkeypatch, int8_kernel
     with torch.no_grad():
         controlled_unet_apply(model.unet, model.control_model, x, hint,
                               torch.tensor([500.0, 500.0]), ctx, control_scales=[1.0] * 13)
-    sites = chip_smoke.quant_sites(CFG, 64)
+    sites = chip_smoke.quant_sites(PORT_CFG, 64)
     assert sorted(calls) == sorted(sites)
     assert sorted(kernel) == sorted(chip_smoke.quant_gated(sites))
     assert kernel  # the tiny GEGLU products reach the kernel entry
@@ -305,7 +307,7 @@ def test_int8_process_matches_jax(slice_setup, tiny_min_dim, request, flag):
     jax_pipe = JaxPipeline(params, tok, CFG, persistent_cache=False,
                            quantize_linears=True)
     model = port_model(params)
-    port_pipe = Canny2ImagePipeline(model, tok, CFG, device="cpu",
+    port_pipe = Canny2ImagePipeline(model, tok, PORT_CFG, device="cpu",
                                     quantize_linears=True)
     jax_bytes = _int8_bytes_jax(jax_pipe.runtime.params)
     assert sum(jax_bytes.values()) > 0
@@ -321,8 +323,8 @@ def test_int8_quality_gate(slice_setup, tiny_min_dim):
     """The JAX package's quality gate (test_pipeline.py): int8 weight-only
     stays perceptually close to the unquantised output."""
     params, tok = slice_setup["params"], slice_setup["tok"]
-    base = Canny2ImagePipeline(port_model(params), tok, CFG, device="cpu")
-    quant = Canny2ImagePipeline(port_model(params), tok, CFG, device="cpu",
+    base = Canny2ImagePipeline(port_model(params), tok, PORT_CFG, device="cpu")
+    quant = Canny2ImagePipeline(port_model(params), tok, PORT_CFG, device="cpu",
                                 quantize_linears=True)
     a, b = _process(base, slice_setup)[1], _process(quant, slice_setup)[1]
     assert a.shape == b.shape and not np.array_equal(a, b)

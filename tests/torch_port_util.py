@@ -1,6 +1,8 @@
 """Shared set-up of the PyTorch port's parity tests: one set of seeded tiny
 JAX parameters, and the port's ControlLDM loaded with the same weights
-through checkpoint/convert.py's inverse."""
+through checkpoint/convert.py's inverse. Each package gets its own
+configuration object, built from the same numbers: CFG goes to the JAX
+package, PORT_CFG to the port."""
 
 import jax
 import numpy as np
@@ -12,10 +14,12 @@ from stablediffusioneo_tpu.models import (
     init_unet,
     init_vae,
 )
+from stablediffusioneo_tpu_torch import config as port_config
 from stablediffusioneo_tpu_torch.checkpoint.convert import state_dict_from_jax
 from stablediffusioneo_tpu_torch.models.cldm import ControlLDM
 
 CFG = tiny_pipeline()
+PORT_CFG = port_config.tiny_pipeline()
 
 
 def denonzero(tree, key):
@@ -39,8 +43,8 @@ def tiny_params():
 
 
 def port_model(params) -> ControlLDM:
-    model = ControlLDM(CFG)
-    model.load_checkpoint(state_dict_from_jax(params, CFG))
+    model = ControlLDM(PORT_CFG)
+    model.load_checkpoint(state_dict_from_jax(params, PORT_CFG))
     return model.eval().requires_grad_(False)
 
 
