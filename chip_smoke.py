@@ -19,10 +19,12 @@ source, all started together), then:
      function, that call's device time as a yardstick (library_ms:
      scaled_dot_product_attention, F.group_norm (+ F.silu), F.layer_norm;
      the port itself never calls them); each attention row also names the
-     variant of csrc/attention.cu it ran, and a bf16 row on another variant
-     than the tensor-core one fails the run; the int8 matmul also against
-     the flag-off path (dequantise, then cuBLAS) and the unquantised bf16
-     F.linear;
+     variant of csrc/attention.cu it ran, each int8 matmul and one-pass
+     GroupNorm row the plan it ran (variant, tile, K split; access width,
+     cluster size), and a bf16 attention or int8 matmul row on another
+     variant than the tensor-core one fails the run; the int8 matmul also
+     against the flag-off path (dequantise, then cuBLAS) and the
+     unquantised bf16 F.linear;
   2. reference phase: one full-width controlled-UNet evaluation at 256x256
      in fp32 on the card (through the kernels) against the same weights on
      the CPU (plain versions), TF32 off; by default, with the fused-norm
@@ -36,9 +38,9 @@ source, all started together), then:
      fused-norm configuration, and with int8 linears (quantize_linears=True,
      set_kernels(int8_linear=True)); then the hires fix 512 -> 1024
      (hires_upscale=2.0, hires_denoise=0.7: the last 14 of 20 steps again
-     at 1024x1024). The default and the hires run add one traced request
-     (torch.profiler) for the device time per request and the attention
-     kernels' part of it.
+     at 1024x1024). Every run adds one traced request (torch.profiler) for
+     the device time per request and the part of it spent in this package's
+     attention, GroupNorm and int8 matmul kernels.
 Launch counts must equal what the UNet, ControlNet, VAE and CLIP plans and
 the dispatch gates imply. Any failed check raises, so the script exits
 non-zero and prints no result. The last line is {"ok": true, "device":
@@ -123,56 +125,97 @@ def time_ms(fn, warmup=3, reps=20):
     return statistics.median(times)
 
 
-def device_ms(fn, calls=20, attempts=3):
-    """Device time of one call: the summed durations of the kernels and
-    copies that `calls` calls put on the card (torch.profiler), divided by
-    calls. Eager timing of a norm of a few microseconds would measure the
-    host's launch cost instead. The profiler now and then returns a trace
-    without device events; such a trace is taken again."""
+def _device_events(fn, attempts=6):
+    """The device events of one torch.profiler trace of `fn` (which ends
+    synchronised), or None. The profiler now and then returns a trace
+    without device events, several times in a row; such a trace is taken
+    again after a pause."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.device_time for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / calls
-    raise AssertionError(f"the profiler saw no device time in {attempts} traces")
-
-
-def traced_request(fn, attempts=3):
-    """Device time of one call of `fn`, ms, and the part of it spent in this
-    package's attention kernels, from one torch.profiler trace."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(attempts):
+    for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        total = sum(e.device_time for e in events)
-        if total > 0:
-            attn = sum(e.device_time for e in events if "attention_" in e.name)
-            return total / 1e3, attn / 1e3, len(events)
-    raise AssertionError(f"the profiler saw no device time in {attempts} traces")
+        if sum(e.device_time for e in events) > 0:
+            return events
+        time.sleep(0.5 * (attempt + 1))
+    return None
 
 
-def ptxas_report(library):
-    """{kernel kind: (most registers a thread, spill bytes)} of the
-    tensor-core attention kernels, from the `ptxas -v` report that the build
-    keeps beside the library."""
+def graph_ms(fn, calls=20):
+    """Time of one call from CUDA events around a CUDA graph of `calls`
+    calls: no host launch cost between the kernels."""
+    stream = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with torch.cuda.stream(stream):
+        fn()  # warm-up on the capture stream
+        stream.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(calls):
+                fn()
+        graph.replay()
+        start.record(stream)
+        graph.replay()
+        end.record(stream)
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def device_ms(fn, calls=20):
+    """Device time of one call: the summed durations of the kernels and
+    copies that `calls` calls put on the card (torch.profiler), divided by
+    calls. Eager timing of a norm of a few microseconds would measure the
+    host's launch cost instead. Where the profiler gives no device events at
+    all, `graph_ms` times the calls instead, and a line says so."""
+    fn()
+    torch.cuda.synchronize()
+
+    def many():
+        for _ in range(calls):
+            fn()
+
+    events = _device_events(many)
+    if events is not None:
+        return sum(e.device_time for e in events) / 1e3 / calls
+    print("device_ms: no device events from the profiler; timing a CUDA graph "
+          "of the calls by CUDA events instead", flush=True)
+    return graph_ms(fn, calls)
+
+
+# kernel family -> what its kernels' names hold
+FAMILIES = {"attention": "attention_", "group_norm": "gn_", "quantized_matmul": "qmm_"}
+
+
+def traced_request(fn):
+    """Device time of one call of `fn`, ms, the part of it spent in each of
+    this package's kernel families, and the count of device operations, from
+    one torch.profiler trace; None where the profiler gives no device events."""
+    events = _device_events(fn, attempts=3)
+    if events is None:
+        return None
+    total = sum(e.device_time for e in events)
+    parts = {family: sum(e.device_time for e in events if mark in e.name) / 1e3
+             for family, mark in FAMILIES.items()}
+    return total / 1e3, parts, len(events)
+
+
+# the tensor-core kernels of each library, by what their names hold
+TENSOR_CORE_KERNELS = {"attention": ("attention_split512_kernel", "attention_wgmma_kernel"),
+                       "quant": ("qmm_wgmma_kernel",)}
+
+
+def ptxas_report(library, kinds):
+    """{kernel kind: (most registers a thread, spill bytes)} of a library's
+    tensor-core kernels, from the `ptxas -v` report that the build keeps
+    beside the library."""
     report, kind = {}, None
     for line in library.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            kind = next((k for k in ("attention_split512_kernel", "attention_wgmma_kernel")
-                         if k in m.group(1)), None)
+            kind = next((k for k in kinds if k in m.group(1)), None)
         if kind is None:
             continue
         regs, spill = report.get(kind, (0, 0))
@@ -188,8 +231,8 @@ def ptxas_report(library):
 
 def tensor_core_instructions(library):
     """{kernel: count of warpgroup-mma (HGMMA) instructions} in the SASS of
-    the built attention library's tensor-core kernels, by `cuobjdump -sass`
-    from the toolkit that built it; None where the tool is missing."""
+    a built library, by `cuobjdump -sass` from the toolkit that built it;
+    None where the tool is missing."""
     from stablediffusioneo_tpu_torch.ops.kernels.build import find_nvcc
 
     tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
@@ -238,7 +281,7 @@ def measure(name, desc, kern, plain, make_inputs, relative=False, others=None,
     call and the peak rate of their type, for the row's bound (the bytes
     are those of the inputs and the output). library: the one PyTorch call
     that computes the same function, timed in bf16 as a yardstick.
-    variants: the attention wrappers' per-variant launch counter."""
+    variants: the wrappers' launch counter by variant or plan."""
     row = dict(desc)
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         args = make_inputs(dtype)
@@ -253,7 +296,7 @@ def measure(name, desc, kern, plain, make_inputs, relative=False, others=None,
         del got
         torch.cuda.synchronize()
         if variants is not None:
-            row[f"{tag}_variant"] = "+".join(sorted(variants))
+            row[f"{tag}_variant"] = "+".join(sorted(map(str, variants)))
         if tag == "bf16":
             nbytes = sum(t.numel() * t.element_size() for t in args) + out_bytes
             row["bound_ms"], row["bound_by"] = bound_ms(ops, peak, nbytes)
@@ -348,14 +391,20 @@ def kernel_phase(cfg):
         w = torch.randn((n, k), generator=g, device="cuda") * (0.5 / k ** 0.5)
         w_q, w_scale = quantize_weights(w)
         w_bf16 = w.to(torch.bfloat16)
-        results["quantized_matmul"].append(measure(
+        row = measure(
             "quantized_matmul", {"m": m, "k": k, "n": n},
             kq.quantized_matmul, kq.quantized_matmul_plain,
             lambda dt: (randn((m, k), dt), w_q, w_scale),
             ops=2 * m * k * n, peak=PEAK_BF16,
             others={"dequant_linear": lambda x, q, sc: F.linear(
                         x, (q.float() * sc[:, None]).to(x.dtype)),
-                    "bf16_linear": lambda x, q, sc: F.linear(x, w_bf16)}))
+                    "bf16_linear": lambda x, q, sc: F.linear(x, w_bf16)},
+            variants=kq.plan_launches)
+        if not (row["bf16_variant"].startswith("wgmma ")
+                and row["fp32_variant"].startswith("cuda_core ")):
+            raise AssertionError(f"quantized_matmul {(m, k, n)} ran {row['bf16_variant']} "
+                                 f"(bf16) and {row['fp32_variant']} (fp32)")
+        results["quantized_matmul"].append(row)
         del w, w_q, w_scale, w_bf16
 
     # the one-pass GroupNorm at every gated main-path site, channels-last
@@ -372,7 +421,8 @@ def kernel_phase(cfg):
             lambda dt: (randn(shape, dt, channels_last=True), *affine(shape[1], dt)),
             ops=NORM_OPS * math.prod(shape),
             library=lambda x, w, b: (F.silu(F.group_norm(x, groups, w, b, eps)) if swish
-                                     else F.group_norm(x, groups, w, b, eps))))
+                                     else F.group_norm(x, groups, w, b, eps)),
+            variants=kg.plan_launches))
 
     # the two-pass pair, reached only by calling fused_group_norm directly
     for shape in ((1, 128, 512, 512), (2, 960, 64, 64)):
@@ -688,6 +738,8 @@ def main_path(model, cfg, config):
     "fused norms", "int8" (512x512) or "hires" (512 -> 1024)."""
     from stablediffusioneo_tpu_torch.ops import dispatch
     from stablediffusioneo_tpu_torch.ops.kernels.attention import variant_launches
+    from stablediffusioneo_tpu_torch.ops.kernels.groupnorm import plan_launches as gn_plans
+    from stablediffusioneo_tpu_torch.ops.kernels.quant import plan_launches as qmm_plans
     from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
 
     fused = config == "fused norms"
@@ -711,7 +763,8 @@ def main_path(model, cfg, config):
           flush=True)
     torch.cuda.synchronize()
     dispatch.reset_launches()
-    variant_launches.clear()
+    for counter in (variant_launches, gn_plans, qmm_plans):
+        counter.clear()
     images, latencies = [], []
     for seed in (1, 2):
         t0 = time.perf_counter()
@@ -742,18 +795,34 @@ def main_path(model, cfg, config):
             {k: v for k, v in want_variants.items() if v}:
         raise AssertionError(f"attention variants ({config}) {dict(variant_launches)} "
                              f"!= {want_variants}")
+    # every int8 matmul launch of the bf16 main path is the wgmma variant
+    by_plan = {str(plan): n for plan, n in qmm_plans.items()}
+    if by_plan or gn_plans:
+        print(f"main path ({config}) int8 matmul launches by plan: {by_plan}; "
+              f"one-pass GroupNorm launches by plan: "
+              f"{ {str(plan): n for plan, n in gn_plans.items()} }", flush=True)
+    if (sum(n for plan, n in qmm_plans.items() if plan.variant == "wgmma")
+            != want["quantized_matmul"] or sum(qmm_plans.values()) != want["quantized_matmul"]
+            or sum(gn_plans.values()) != want["fused_group_norm"]):
+        raise AssertionError(f"plans ({config}) {by_plan}, {dict(gn_plans)} do not add up "
+                             f"to {want}")
     if np.array_equal(images[0], images[1]):
         raise AssertionError("two seeds gave the same image")
     print(f"image stats ({config}): mean {images[0].mean():.2f} std "
           f"{images[0].std():.2f}; seeds differ in "
           f"{(images[0] != images[1]).mean():.3f} of values", flush=True)
-    traced = None
-    if config in ("default", "hires"):
-        ms, attn_ms, n_ops = traced_request(
-            lambda: pipe.process(img, "a house in the woods", seed=3, **kw))
-        traced = {"device_ms": ms, "attention_ms": attn_ms, "device_ops": n_ops}
+    trace = traced_request(lambda: pipe.process(img, "a house in the woods", seed=3, **kw))
+    if trace is None:
+        traced = None
+        print(f"main path ({config}) traced request: not measured (the profiler gave "
+              "no device events)", flush=True)
+    else:
+        ms, parts, n_ops = trace
+        traced = {"device_ms": ms, "device_ops": n_ops,
+                  **{f"{family}_ms": part for family, part in parts.items()}}
         print(f"main path ({config}) traced request: device time {ms:.1f} ms in "
-              f"{n_ops} device operations, attention kernels {attn_ms:.1f} ms",
+              f"{n_ops} device operations; this package's kernels, ms: "
+              + ", ".join(f"{family} {part:.1f}" for family, part in parts.items()),
               flush=True)
     pipe.runtime.release()
     dispatch.set_kernels(groupnorm=False, layernorm=False, int8_linear=False)
@@ -782,23 +851,24 @@ def main():
                           "quant": quant.SOURCES})
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s (nvcc, in "
           f"parallel: {build.build_seconds})", flush=True)
-    library = build.library_path("attention", attention.SOURCES)
-    regs = ptxas_report(library)
-    print(f"ptxas, tensor-core attention kernels, (most registers, spill bytes): "
-          f"{regs}", flush=True)
-    if len(regs) != 2 or any(spill for _, spill in regs.values()):
-        raise AssertionError(f"a tensor-core attention kernel spills or is missing: {regs}")
-    hgmma = tensor_core_instructions(library)
-    if hgmma is None:
-        print("SASS check skipped: no cuobjdump beside nvcc", flush=True)
-    else:
-        wanted = {kind: {n: c for n, c in hgmma.items() if kind in n}
-                  for kind in ("attention_split512_kernel", "attention_wgmma_kernel")}
-        print(f"SASS of the attention library, HGMMA (wgmma) instructions per kernel: "
+    for name, sources in (("attention", attention.SOURCES), ("quant", quant.SOURCES)):
+        kinds = TENSOR_CORE_KERNELS[name]
+        library = build.library_path(name, sources)
+        regs = ptxas_report(library, kinds)
+        print(f"ptxas, tensor-core kernels of the {name} library, (most registers, "
+              f"spill bytes): {regs}", flush=True)
+        if len(regs) != len(kinds) or any(spill for _, spill in regs.values()):
+            raise AssertionError(f"a tensor-core {name} kernel spills or is missing: {regs}")
+        hgmma = tensor_core_instructions(library)
+        if hgmma is None:
+            print("SASS check skipped: no cuobjdump beside nvcc", flush=True)
+            continue
+        wanted = {kind: {n: c for n, c in hgmma.items() if kind in n} for kind in kinds}
+        print(f"SASS of the {name} library, HGMMA (wgmma) instructions per kernel: "
               f"{ {kind: sorted(found.values()) for kind, found in wanted.items()} }",
               flush=True)
         if not all(wanted.values()):
-            raise AssertionError(f"a tensor-core attention kernel has no HGMMA: {hgmma}")
+            raise AssertionError(f"a tensor-core {name} kernel has no HGMMA: {hgmma}")
 
     cfg = sd15_pipeline(dtype="bfloat16")
     kernels = kernel_phase(cfg)
@@ -844,7 +914,7 @@ def main():
             "shapes": rows,
         })
     print(json.dumps({"kernels": out, "request_s": latencies,
-                      "traced": {config: r[3] for config, r in runs.items() if r[3]}}))
+                      "traced": {config: r[3] for config, r in runs.items()}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

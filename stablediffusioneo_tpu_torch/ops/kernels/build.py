@@ -2,8 +2,9 @@
 
 Each library is compiled at first use from the `.cu` files under
 `stablediffusioneo_tpu_torch/csrc/` into `csrc/build/`, named by a hash of
-its sources and flags, so an edited source rebuilds and an unchanged one
-loads the library already built. The libraries export plain C functions
+its sources, the shared headers (`csrc/*.cuh`) and the flags, so an edited
+source or header rebuilds and an unchanged one loads the library already
+built. The libraries export plain C functions
 (no PyTorch headers), which keeps a build to seconds.
 """
 
@@ -42,9 +43,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str, sources: Sequence[str]) -> Path:
+    """Where `lib<name>.so` of these sources is built. The headers are hashed
+    with the sources (any source may include any of them) but are not nvcc
+    inputs: a source finds them beside itself."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update((CSRC / src).read_bytes())
+    for path in [CSRC / src for src in sources] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -16,7 +16,9 @@ plain versions compute the same on CPU tensors.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -35,6 +37,87 @@ _BYTES_PER_ELEM_EST = 16
 # elements of one group per block of the two-pass kernels
 _TWO_PASS_CHUNK_ELEMS = 16384
 _MAX_CHUNKS = 65535  # grid y limit
+
+MAX_CLUSTER = 8              # portable thread block cluster size
+MAX_SLAB_BYTES = 232448 - 1024  # csrc/groupnorm.cu kMaxSlabBytes
+THREADS = 512                # csrc/groupnorm.cu kFusedThreads
+# Accesses (vectors) of one group beyond which it is spread over a cluster of
+# two blocks. Measured on the H100 at the SD-1.5 sites
+# (scripts/torch_kernel_sweep.py, PERF.md): up to four accesses a thread one
+# block is fastest (it needs no cluster launch and no exchange); beyond, two
+# blocks win at every site. Four blocks were level with two at the 64 x 64
+# sites on some cards and 2-4 us slower on others, and slower everywhere
+# else (a larger cluster costs more to schedule and to synchronise than its
+# blocks bring), so the cluster grows past two only to fit shared memory.
+SPREAD_BEYOND_VECTORS = 4 * THREADS
+
+
+class NormPlan(NamedTuple):
+    """What one launch of the one-pass kernel runs: elements per access, the
+    blocks (one cluster) that share a (sample, group), the spatial rows each
+    takes, and whether a block keeps its rows in shared memory between the
+    sums and the normalisation (else it reads them again)."""
+    vec: int
+    cluster: int
+    rows: int
+    keep: bool
+
+    def __str__(self) -> str:
+        return (f"vec {self.vec} cluster {self.cluster} rows {self.rows} "
+                f"{'kept' if self.keep else 'read twice'}")
+
+
+# launches of the one-pass kernel by plan since the last clear()
+# (chip_smoke.py reads it)
+plan_launches: "collections.Counter[NormPlan]" = collections.Counter()
+
+
+def access_width(shape, groups: int, itemsize: int, channels_last: bool,
+                 rows: int, aligned: bool = True) -> int:
+    """Elements per access: the widest vector of at most 16 bytes that
+    divides every run of a group's elements and the pitch between runs. In
+    channels-last memory a run is the group's C / groups channels of one
+    spatial row (pitch C); in NCHW memory it is `rows` spatial rows of one
+    channel (pitch H W). `aligned`: the tensors start on 16 bytes."""
+    _, c, h, w = shape
+    if not aligned:
+        return 1
+    units = (c // groups,) if channels_last else (rows, h * w)
+    return next(v for v in (8, 4, 2, 1)
+                if v * itemsize <= 16 and all(u % v == 0 for u in units))
+
+
+def group_norm_plan(shape, groups: int, dtype: torch.dtype,
+                    channels_last: bool, aligned: bool = True,
+                    cluster: Optional[int] = None) -> NormPlan:
+    """The plan one call of the one-pass kernel runs, a pure function of its
+    arguments. A group of more than `SPREAD_BEYOND_VECTORS` accesses is spread
+    over a cluster of two blocks, which doubles while a block's rows would
+    not fit its shared memory; a slab that does not fit the largest cluster
+    is read twice.
+    `cluster` forces a size (tests, measurements)."""
+    n, c, h, w = shape
+    hw, cg, itemsize = h * w, c // groups, dtype.itemsize
+
+    def rows_of(size: int) -> int:
+        rows = -(-hw // size)
+        if not channels_last:  # NCHW runs are `rows` long: keep them whole vectors
+            v = access_width(shape, groups, itemsize, False, hw, aligned)
+            rows = -(-rows // v) * v
+        return rows
+
+    def fits(size: int) -> bool:
+        return rows_of(size) * cg * itemsize <= MAX_SLAB_BYTES
+
+    if cluster is None:
+        vectors = cg * hw // access_width(shape, groups, itemsize, channels_last,
+                                          hw, aligned)
+        cluster = 1 if vectors <= SPREAD_BEYOND_VECTORS else 2
+        while cluster < MAX_CLUSTER and not fits(cluster):
+            cluster *= 2
+    rows = rows_of(cluster)
+    vec = access_width(shape, groups, itemsize, channels_last, rows, aligned)
+    return NormPlan(vec, cluster, rows, fits(cluster))
 
 
 def _spatial_chunk(hw: int, c: int) -> int:
@@ -137,9 +220,9 @@ def _library() -> ctypes.CDLL:
     lib = load_library("groupnorm", SOURCES)
     if lib.sdeo_group_norm_fused.argtypes is None:
         ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sdeo_group_norm_fused.argtypes = [ptr] * 4 + [i] * 7 + [f, f, i, ptr]
-        lib.sdeo_group_norm_stats.argtypes = [ptr] * 2 + [i] * 8 + [ptr]
-        lib.sdeo_group_norm_apply.argtypes = [ptr] * 5 + [i] * 9 + [f, f, i, ptr]
+        lib.sdeo_group_norm_fused.argtypes = [ptr] * 4 + [i] * 11 + [f, f, i, ptr]
+        lib.sdeo_group_norm_stats.argtypes = [ptr] * 2 + [i] * 9 + [ptr]
+        lib.sdeo_group_norm_apply.argtypes = [ptr] * 5 + [i] * 10 + [f, f, i, ptr]
         for fn in (lib.sdeo_group_norm_fused, lib.sdeo_group_norm_stats,
                    lib.sdeo_group_norm_apply):
             fn.restype = ctypes.c_int
@@ -176,6 +259,10 @@ def _check_affine(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor):
                         f"bfloat16 dtype, got {weight.dtype} and {bias.dtype}")
 
 
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -196,9 +283,11 @@ def group_norm_stats(x, groups: int, rows: int):
         raise ValueError(f"group norm stats: {chunks} chunks of {rows} rows")
     partials = torch.empty((n, groups, chunks, 2), dtype=torch.float32,
                            device=x.device)
+    vec = access_width(x.shape, groups, x.element_size(), bool(cl), rows,
+                       _aligned(x))
     _raise_on(_library().sdeo_group_norm_stats(
         x.data_ptr(), partials.data_ptr(), _DTYPE_CODE[x.dtype], cl, n, c,
-        h * w, groups, rows, chunks, _stream(x)), "group norm stats")
+        h * w, groups, rows, chunks, vec, _stream(x)), "group norm stats")
     dispatch.count_launch("group_norm_stats")
     return partials
 
@@ -217,20 +306,24 @@ def group_norm_apply(x, partials, weight, bias, rows: int, eps: float,
         raise ValueError(f"group norm partials {tuple(partials.shape)} "
                          f"{partials.dtype} do not fit x {tuple(x.shape)}")
     y = torch.empty_like(x)
+    vec = access_width(x.shape, groups, x.element_size(), bool(cl), rows,
+                       _aligned(x, y, weight, bias))
     _raise_on(_library().sdeo_group_norm_apply(
         x.data_ptr(), partials.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         y.data_ptr(), _DTYPE_CODE[x.dtype], _DTYPE_CODE[weight.dtype], cl, n, c,
-        h * w, groups, rows, chunks, 1.0 / (c // groups * h * w), eps,
+        h * w, groups, rows, chunks, vec, 1.0 / (c // groups * h * w), eps,
         int(swish), _stream(x)), "group norm apply")
     dispatch.count_launch("group_norm_apply")
     return y
 
 
 def fused_group_norm(x, weight, bias, groups: int, eps: float,
-                     swish: bool = False):
+                     swish: bool = False, plan: Optional[NormPlan] = None):
     """GroupNorm(+SiLU) of NCHW x with fp32 one-pass statistics: the
     one-pass kernel where the JAX entry runs its single pallas_call, the
-    stats+apply pair otherwise."""
+    stats+apply pair otherwise. plan: a NormPlan for the one-pass kernel to
+    run instead of `group_norm_plan`'s choice (tests, measurements); the C
+    entry refuses a plan that does not fit, and the refusal raises here."""
     n, c, h, w = x.shape
     if _spatial_chunk(h * w, c) != h * w:
         rows = chunk_rows(x, groups)
@@ -241,9 +334,15 @@ def fused_group_norm(x, weight, bias, groups: int, eps: float,
     cl = _check_input(x, groups)
     _check_affine(x, weight, bias)
     y = torch.empty_like(x)
+    if plan is None:
+        plan = group_norm_plan(x.shape, groups, x.dtype, bool(cl),
+                               _aligned(x, y, weight, bias))
     _raise_on(_library().sdeo_group_norm_fused(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
         _DTYPE_CODE[x.dtype], _DTYPE_CODE[weight.dtype], cl, n, c, h * w, groups,
-        1.0 / (c // groups * h * w), eps, int(swish), _stream(x)), "group norm")
+        plan.vec, plan.cluster, plan.rows, int(plan.keep),
+        1.0 / (c // groups * h * w), eps, int(swish), _stream(x)),
+        f"group norm ({plan})")
+    plan_launches[plan] += 1
     dispatch.count_launch("fused_group_norm")
     return y

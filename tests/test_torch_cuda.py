@@ -13,9 +13,13 @@ the same bounds, with inputs scaled to outputs of std ~0.5 (both round the
 same fp32 sum once).
 """
 
+import os
+import sys
+
 import pytest
 import torch
 
+from stablediffusioneo_tpu_torch.config import sd15_pipeline
 from stablediffusioneo_tpu_torch.ops import dispatch
 from stablediffusioneo_tpu_torch.ops.kernels import attention as ka
 from stablediffusioneo_tpu_torch.ops.kernels import groupnorm as kg
@@ -31,7 +35,19 @@ from stablediffusioneo_tpu_torch.ops.kernels.attention import (
 )
 from stablediffusioneo_tpu_torch.ops.quant import quantize_weights
 
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import chip_smoke  # noqa: E402  (the plan-derived main-path shapes; imports no JAX)
+
 pytestmark = pytest.mark.cuda
+
+CFG = sd15_pipeline()
+# the seven gated GEMMs and the 15 gated one-pass GroupNorm sites of a
+# 512x512 step at the SD-1.5 widths
+GEMMS = sorted(set(chip_smoke.quant_gated(chip_smoke.quant_sites(CFG, 512))))
+GN_SITES = sorted({(shape, swish, groups)
+                   for kind, shape, swish, groups in chip_smoke.norm_sites(CFG, 512)["step"]
+                   if kind == "gn" and chip_smoke.gated((kind, shape, swish, groups),
+                                                        torch.bfloat16)})
 
 
 @pytest.fixture
@@ -223,6 +239,75 @@ def test_group_norm_kernel_is_deterministic(gen):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("shape,swish,groups", GN_SITES,
+                         ids=[f"{s[1]}x{s[2]}x{s[3]}-{sw}" for s, sw, _ in GN_SITES])
+def test_group_norm_kernel_at_the_main_path_shapes(gen, dtype, channels_last, shape,
+                                                   swish, groups):
+    x = _randn(shape, gen, dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    w, b = _affine(shape[1], gen, dtype)
+    kg.plan_launches.clear()
+    out = kg.fused_group_norm(x, w, b, groups, 1e-5, swish)
+    assert dict(kg.plan_launches) == {
+        kg.group_norm_plan(shape, groups, dtype, channels_last): 1}
+    assert out.stride() == x.stride()
+    _check(out, kg.fused_group_norm_plain(x, w, b, groups, 1e-5, swish), dtype)
+    assert torch.equal(out, kg.fused_group_norm(x, w, b, groups, 1e-5, swish))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape,groups", [((2, 960, 32, 32), 32), ((1, 96, 24, 40), 8),
+                                          ((2, 33, 7, 9), 3)])
+def test_group_norm_every_cluster_size(gen, dtype, channels_last, cluster, shape, groups):
+    """Each cluster size forced once: 4-byte accesses at 60-byte runs, a
+    ragged last block (960 rows over 8 blocks of 120; 63 rows over 8 of 8),
+    and element accesses at an odd run length."""
+    x = _randn(shape, gen, dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    w, b = _affine(shape[1], gen, dtype)
+    plan = kg.group_norm_plan(shape, groups, dtype, channels_last, cluster=cluster)
+    assert plan.cluster == cluster
+    out = kg.fused_group_norm(x, w, b, groups, 1e-5, True, plan=plan)
+    _check(out, kg.fused_group_norm_plain(x, w, b, groups, 1e-5, True), dtype)
+    assert torch.equal(out, kg.fused_group_norm(x, w, b, groups, 1e-5, True, plan=plan))
+
+
+def test_group_norm_slab_read_twice(gen):
+    """A group too large for the cluster's shared memory (one group of 1M
+    elements in fp32) is read again for the normalisation."""
+    x = _randn((1, 64, 128, 128), gen, torch.float32).contiguous(
+        memory_format=torch.channels_last)
+    w, b = _affine(64, gen, torch.float32)
+    plan = kg.group_norm_plan(x.shape, 1, x.dtype, True)
+    assert not plan.keep and plan.cluster == 8
+    out = kg.fused_group_norm(x, w, b, 1, 1e-5, True, plan=plan)
+    _check(out, kg.fused_group_norm_plain(x, w, b, 1, 1e-5, True), torch.float32)
+
+
+def test_group_norm_plan_that_does_not_fit_raises(gen):
+    x = _randn((2, 320, 32, 32), gen, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    w, b = _affine(320, gen, torch.bfloat16)
+    good = kg.group_norm_plan(x.shape, 32, x.dtype, True)
+    for bad in (good._replace(vec=4),        # 10 channels a group: 4 does not divide
+                good._replace(cluster=3),    # not a power of two
+                good._replace(cluster=16),   # beyond the portable cluster size
+                good._replace(rows=100),     # 2 x 100 rows do not cover 1024
+                kg.NormPlan(2, 1, 1024, True)._replace(vec=16)):
+        with pytest.raises(RuntimeError, match="group norm"):
+            kg.fused_group_norm(x, w, b, 32, 1e-5, True, plan=bad)
+    big = _randn((1, 64, 128, 128), gen, torch.float32)
+    wb, bb = _affine(64, gen, torch.float32)
+    with pytest.raises(RuntimeError, match="group norm"):  # 4 MB do not fit one block
+        kg.fused_group_norm(big, wb, bb, 1, 1e-5, True, plan=kg.NormPlan(4, 1, 16384, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(2, 4096, 320), (2, 256, 1280), (3, 77, 768)])
 def test_layer_norm_kernel_matches_plain(gen, dtype, shape):
     x = _randn(shape, gen, dtype)
@@ -267,6 +352,72 @@ def test_quantized_matmul_matches_plain(gen, dtype, m, k, n):
     assert dispatch.launches["quantized_matmul"] == 1
     assert out.dtype == dtype and out.shape == (m, n)
     _check(out, kq.quantized_matmul_plain(x, w_q, scale), dtype)
+
+
+@pytest.mark.parametrize("m,k,n", GEMMS, ids=[f"{m}x{k}x{n}" for m, k, n in GEMMS])
+def test_quantized_matmul_at_the_main_path_shapes(gen, m, k, n):
+    """Every gated GEMM of a 512x512 step in bf16: the wgmma variant under
+    the plan the shape gives, and equal bytes from two runs."""
+    x, w_q, scale = _qmm_inputs(m, k, n, gen, torch.bfloat16)
+    kq.plan_launches.clear()
+    out = kq.quantized_matmul(x, w_q, scale)
+    plan = kq.matmul_plan(m, k, n, torch.bfloat16)
+    assert plan.variant == "wgmma" and dict(kq.plan_launches) == {plan: 1}
+    _check(out, kq.quantized_matmul_plain(x, w_q, scale), torch.bfloat16)
+    assert torch.equal(out, kq.quantized_matmul(x, w_q, scale))
+
+
+@pytest.mark.parametrize("m,k,n,variant", [
+    (8, 64, 128, "wgmma"), (136, 1024, 256, "wgmma"),  # M inside a tile
+    (40, 208, 384, "wgmma"), (136, 1040, 128, "wgmma"),  # K inside a slice
+    (8, 24, 128, "mma_sync"), (136, 100, 384, "mma_sync"),  # K % 16 != 0
+])
+def test_quantized_matmul_ragged_shapes(gen, m, k, n, variant):
+    x, w_q, scale = _qmm_inputs(m, k, n, gen, torch.bfloat16)
+    kq.plan_launches.clear()
+    out = kq.quantized_matmul(x, w_q, scale)
+    assert [plan.variant for plan in kq.plan_launches] == [variant]
+    _check(out, kq.quantized_matmul_plain(x, w_q, scale), torch.bfloat16)
+
+
+def test_quantized_matmul_unaligned_view_takes_mma_sync(gen):
+    x, w_q, scale = _qmm_inputs(64, 256, 128, gen, torch.bfloat16)
+    shifted = torch.empty(64 * 256 + 1, dtype=torch.bfloat16, device="cuda")[1:].view(64, 256)
+    shifted.copy_(x)  # rows start 2 bytes off 16
+    kq.plan_launches.clear()
+    out = kq.quantized_matmul(shifted, w_q, scale)
+    assert [plan.variant for plan in kq.plan_launches] == ["mma_sync"]
+    _check(out, kq.quantized_matmul_plain(x, w_q, scale), torch.bfloat16)
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("tm,bn", [(128, 128), (128, 64), (64, 128), (64, 64)])
+def test_quantized_matmul_every_plan(gen, tm, bn, split):
+    """Each tile and each K split forced once, at a shape with a ragged last
+    x tile (M = 200) and a last slice of 16 (K = 1040: 17 slices, so the last
+    block of a split of 8 has none); two runs give equal bytes."""
+    x, w_q, scale = _qmm_inputs(200, 1040, 256, gen, torch.bfloat16)
+    plan = kq.Plan("wgmma", tm, bn, split, 4)
+    out = kq._launch(x, w_q, scale, plan)
+    _check(out, kq.quantized_matmul_plain(x, w_q, scale), torch.bfloat16)
+    assert torch.equal(out, kq._launch(x, w_q, scale, plan))
+
+
+def test_quantized_matmul_plan_that_does_not_fit_raises(gen):
+    """No silent switch: the C entry refuses a plan that does not take the
+    arguments."""
+    x, w_q, scale = _qmm_inputs(64, 256, 256, gen, torch.bfloat16)
+    good = kq.matmul_plan(64, 256, 256, torch.bfloat16)
+    for bad in (good._replace(bn=256), good._replace(tm=32), good._replace(split=3),
+                good._replace(stages=3), good._replace(variant="cuda_core"),
+                kq.Plan("mma_sync", 128, 128, 2, 1)):
+        with pytest.raises(RuntimeError, match="quantized matmul"):
+            kq._launch(x, w_q, scale, bad)
+    with pytest.raises(RuntimeError, match="wgmma"):  # fp32 x
+        kq._launch(x.float(), w_q, scale, good)
+    x24, w24, s24 = _qmm_inputs(64, 24, 128, gen, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="wgmma"):  # K % 16 != 0
+        kq._launch(x24, w24, s24, good)
 
 
 def test_quantized_matmul_rejects_what_it_does_not_take(gen):
