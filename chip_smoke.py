@@ -10,7 +10,8 @@ source, all started together), then:
      (2, 16384, 320) self-attention, split attention at both VAE
      mid-blocks; the one-pass GroupNorm at every gated GroupNorm site, in
      the channels-last memory the networks hold; LayerNorm at the gated
-     transformer sites; the int8 matmul at every gated 512x512 GEMM) and
+     transformer sites of the 512x512 request and of the 1024x1024 hires
+     pass; the int8 matmul at every gated 512x512 GEMM) and
      the two-pass GroupNorm pair at two large slabs, in bf16 and fp32, with
      both timed on the device (torch.profiler's kernel durations over 20
      calls) and eagerly (CUDA events around one call, host launch cost
@@ -19,10 +20,12 @@ source, all started together), then:
      function, that call's device time as a yardstick (library_ms:
      scaled_dot_product_attention, F.group_norm (+ F.silu), F.layer_norm;
      the port itself never calls them); each attention row also names the
-     variant of csrc/attention.cu it ran, each int8 matmul and one-pass
-     GroupNorm row the plan it ran (variant, tile, K split; access width,
-     cluster size), and a bf16 attention or int8 matmul row on another
-     variant than the tensor-core one fails the run; the int8 matmul also
+     variant of csrc/attention.cu it ran, each int8 matmul, GroupNorm and
+     LayerNorm row the plan it ran (variant, tile, K split; access width,
+     cluster size; threads a row, rows a block; tile rows), and a bf16
+     attention or int8 matmul row on another variant than the tensor-core
+     one fails the run, as does a bf16 LayerNorm row slower than F.layer_norm
+     by more than LIBRARY_SPREAD; the int8 matmul also
      against the flag-off path (dequantise, then cuBLAS) and the
      unquantised bf16 F.linear;
   2. reference phase: one full-width controlled-UNet evaluation at 256x256
@@ -40,7 +43,7 @@ source, all started together), then:
      (hires_upscale=2.0, hires_denoise=0.7: the last 14 of 20 steps again
      at 1024x1024). Every run adds one traced request (torch.profiler) for
      the device time per request and the part of it spent in this package's
-     attention, GroupNorm and int8 matmul kernels.
+     attention, GroupNorm, LayerNorm and int8 matmul kernels.
 Launch counts must equal what the UNet, ControlNet, VAE and CLIP plans and
 the dispatch gates imply. Any failed check raises, so the script exits
 non-zero and prints no result. The last line is {"ok": true, "device":
@@ -90,6 +93,14 @@ BF16_TOL = (2e-2, 2e-3)  # max, mean |d| on standard-normal inputs
 FP32_TOL = 1e-4
 STATS_TOL = 1e-5  # GroupNorm partial sums, fp32, relative to max |plain|
 REF_TOL = 1e-3  # full-width UNet eval, card vs CPU, relative to max |ref|
+# A bf16 LayerNorm row may exceed F.layer_norm's time by this share before the
+# run fails. Two runs of one row in one call on one H100 differed by at most
+# 2.8% (F.layer_norm at (2, 4096, 640): 17.08 and 16.61 us), runs on different
+# cards by up to 8% (the kernel at (2, 4096, 320): 3.47 and 3.77 us).
+LIBRARY_SPREAD = 0.10
+# large channels-last slabs for the two-pass GroupNorm pair (no dispatch path
+# reaches it: the JAX package's gate keeps every SD-1.5 site on one pass)
+APPLY_SHAPES = ((1, 128, 512, 512), (2, 960, 64, 64))
 STEPS, RES, SCALE = 20, 512, 9.0
 HIRES_UPSCALE, HIRES_DENOISE = 2.0, 0.7
 HIRES_RES = int(round(RES * HIRES_UPSCALE / 64)) * 64
@@ -186,7 +197,8 @@ def device_ms(fn, calls=20):
 
 
 # kernel family -> what its kernels' names hold
-FAMILIES = {"attention": "attention_", "group_norm": "gn_", "quantized_matmul": "qmm_"}
+FAMILIES = {"attention": "attention_", "group_norm": "gn_", "layer_norm": "ln_held_",
+            "quantized_matmul": "qmm_"}
 
 
 def traced_request(fn):
@@ -205,11 +217,15 @@ def traced_request(fn):
 # the tensor-core kernels of each library, by what their names hold
 TENSOR_CORE_KERNELS = {"attention": ("attention_split512_kernel", "attention_wgmma_kernel"),
                        "quant": ("qmm_wgmma_kernel",)}
+# every kernel of the norm libraries, held to no spills
+NORM_KERNELS = {"groupnorm": ("gn_fused_kernel", "gn_stats_kernel", "gn_apply_kernel",
+                              "gn_apply_rows_kernel"),
+                "layernorm": ("ln_held_kernel", "ln_twice_kernel")}
 
 
 def ptxas_report(library, kinds):
     """{kernel kind: (most registers a thread, spill bytes)} of a library's
-    tensor-core kernels, from the `ptxas -v` report that the build keeps
+    kernels of these kinds, from the `ptxas -v` report that the build keeps
     beside the library."""
     report, kind = {}, None
     for line in library.with_suffix(".log").read_text().splitlines():
@@ -425,7 +441,7 @@ def kernel_phase(cfg):
             variants=kg.plan_launches))
 
     # the two-pass pair, reached only by calling fused_group_norm directly
-    for shape in ((1, 128, 512, 512), (2, 960, 64, 64)):
+    for shape in APPLY_SHAPES:
         x32 = randn(shape, torch.float32, channels_last=True)
         rows = kg.chunk_rows(x32, 32)
         desc = {"x": list(shape), "groups": 32, "chunk_rows": rows}
@@ -443,17 +459,23 @@ def kernel_phase(cfg):
             "group_norm_apply", desc,
             lambda x, p, w, b: kg.group_norm_apply(x, p, w, b, rows, 1e-6, True),
             lambda x, p, w, b: kg.group_norm_apply_plain(x, p, w, b, 1e-6, True),
-            apply_inputs, ops=NORM_OPS * x32.numel()))
+            apply_inputs, ops=NORM_OPS * x32.numel(),
+            variants=kg.apply_plan_launches))
         del x32
 
-    for shape in ((2, 4096, 320), (2, 1024, 640), (2, 256, 1280)):
-        results["fused_layer_norm"].append(measure(
+    for shape in layer_norm_shapes(cfg):
+        row = measure(
             "fused_layer_norm", {"x": list(shape)},
             lambda x, w, b: kl.fused_layer_norm(x, w, b, 1e-5),
             lambda x, w, b: kl.fused_layer_norm_plain(x, w, b, 1e-5),
             lambda dt: (randn(shape, dt), *affine(shape[-1], dt)),
             ops=NORM_OPS * math.prod(shape),
-            library=lambda x, w, b: F.layer_norm(x, x.shape[-1:], w, b, 1e-5)))
+            library=lambda x, w, b: F.layer_norm(x, x.shape[-1:], w, b, 1e-5),
+            variants=kl.plan_launches)
+        if row["bf16_ms"] > row["library_ms"] * (1 + LIBRARY_SPREAD):
+            raise AssertionError(f"fused_layer_norm {shape} bf16 {row['bf16_ms']:.4f} ms is "
+                                 f"slower than F.layer_norm {row['library_ms']:.4f} ms")
+        results["fused_layer_norm"].append(row)
     return results
 
 
@@ -625,6 +647,17 @@ def norm_sites(cfg, res, samples=1):
     }
 
 
+def layer_norm_shapes(cfg):
+    """The distinct kernel-gated LayerNorm shapes of a step of the 512x512
+    request, then those of the 1024x1024 hires pass."""
+    shapes = []
+    for res in (RES, HIRES_RES):
+        for site in norm_sites(cfg, res)["step"]:
+            if site[0] == "ln" and gated(site, torch.bfloat16) and site[1] not in shapes:
+                shapes.append(site[1])
+    return shapes
+
+
 def gated(site, dtype):
     """Whether the fused-norm configuration sends this site to a kernel."""
     from stablediffusioneo_tpu_torch.ops.kernels.groupnorm import group_norm_supported
@@ -639,6 +672,23 @@ def gated(site, dtype):
 def norm_launches(sites, dtype):
     return {name: sum(1 for s in sites if s[0] == kind and gated(s, dtype))
             for name, kind in (("fused_group_norm", "gn"), ("fused_layer_norm", "ln"))}
+
+
+def expected_layer_norm_plans(cfg, config):
+    """LayerNorm launches over the two timed requests of main_path, by the
+    plan each gated site's shape gives (bf16 rows and weights, aligned)."""
+    from stablediffusioneo_tpu_torch.ops.kernels.layernorm import layer_norm_plan
+
+    want = {}
+    if config != "fused norms":
+        return want
+    for part, times in (("step", STEPS), ("decode", 1), ("prompt", 1)):
+        for site in norm_sites(cfg, RES)[part]:
+            if site[0] == "ln" and gated(site, torch.bfloat16):
+                plan = layer_norm_plan(math.prod(site[1][:-1]), site[1][-1],
+                                       torch.bfloat16, torch.bfloat16)
+                want[plan] = want.get(plan, 0) + 2 * times
+    return want
 
 
 def expected_request_launches(cfg, config):
@@ -738,7 +788,9 @@ def main_path(model, cfg, config):
     "fused norms", "int8" (512x512) or "hires" (512 -> 1024)."""
     from stablediffusioneo_tpu_torch.ops import dispatch
     from stablediffusioneo_tpu_torch.ops.kernels.attention import variant_launches
+    from stablediffusioneo_tpu_torch.ops.kernels.groupnorm import apply_plan_launches
     from stablediffusioneo_tpu_torch.ops.kernels.groupnorm import plan_launches as gn_plans
+    from stablediffusioneo_tpu_torch.ops.kernels.layernorm import plan_launches as ln_plans
     from stablediffusioneo_tpu_torch.ops.kernels.quant import plan_launches as qmm_plans
     from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
 
@@ -763,7 +815,7 @@ def main_path(model, cfg, config):
           flush=True)
     torch.cuda.synchronize()
     dispatch.reset_launches()
-    for counter in (variant_launches, gn_plans, qmm_plans):
+    for counter in (variant_launches, gn_plans, qmm_plans, ln_plans, apply_plan_launches):
         counter.clear()
     images, latencies = [], []
     for seed in (1, 2):
@@ -797,15 +849,20 @@ def main_path(model, cfg, config):
                              f"!= {want_variants}")
     # every int8 matmul launch of the bf16 main path is the wgmma variant
     by_plan = {str(plan): n for plan, n in qmm_plans.items()}
-    if by_plan or gn_plans:
+    if by_plan or gn_plans or ln_plans:
         print(f"main path ({config}) int8 matmul launches by plan: {by_plan}; "
               f"one-pass GroupNorm launches by plan: "
-              f"{ {str(plan): n for plan, n in gn_plans.items()} }", flush=True)
+              f"{ {str(plan): n for plan, n in gn_plans.items()} }; "
+              f"LayerNorm launches by plan: "
+              f"{ {str(plan): n for plan, n in ln_plans.items()} }", flush=True)
     if (sum(n for plan, n in qmm_plans.items() if plan.variant == "wgmma")
             != want["quantized_matmul"] or sum(qmm_plans.values()) != want["quantized_matmul"]
-            or sum(gn_plans.values()) != want["fused_group_norm"]):
-        raise AssertionError(f"plans ({config}) {by_plan}, {dict(gn_plans)} do not add up "
-                             f"to {want}")
+            or sum(gn_plans.values()) != want["fused_group_norm"]
+            or sum(ln_plans.values()) != want["fused_layer_norm"]
+            or dict(ln_plans) != expected_layer_norm_plans(cfg, config)
+            or sum(apply_plan_launches.values()) != want["group_norm_apply"]):
+        raise AssertionError(f"plans ({config}) {by_plan}, {dict(gn_plans)}, {dict(ln_plans)}, "
+                             f"{dict(apply_plan_launches)} do not add up to {want}")
     if np.array_equal(images[0], images[1]):
         raise AssertionError("two seeds gave the same image")
     print(f"image stats ({config}): mean {images[0].mean():.2f} std "
@@ -869,6 +926,14 @@ def main():
               flush=True)
         if not all(wanted.values()):
             raise AssertionError(f"a tensor-core {name} kernel has no HGMMA: {hgmma}")
+
+    for name, sources in (("groupnorm", groupnorm.SOURCES), ("layernorm", layernorm.SOURCES)):
+        kinds = NORM_KERNELS[name]
+        regs = ptxas_report(build.library_path(name, sources), kinds)
+        print(f"ptxas, kernels of the {name} library, (most registers, spill bytes): {regs}",
+              flush=True)
+        if len(regs) != len(kinds) or any(spill for _, spill in regs.values()):
+            raise AssertionError(f"a {name} kernel spills or is missing: {regs}")
 
     cfg = sd15_pipeline(dtype="bfloat16")
     kernels = kernel_phase(cfg)

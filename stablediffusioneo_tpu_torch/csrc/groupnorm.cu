@@ -46,8 +46,21 @@
 //     C = 640, 16 at C = 1280;
 //   - a thread walks its vectors with a carried (run, position) pair: no
 //     integer division in the loops.
-// The two-pass kernels split each group into spatial chunks, one block each,
-// and share the loops. Measured times and bounds: PERF.md section 6.
+// The stats kernel splits each group into spatial chunks, one block each, and
+// shares the loops; so does the apply kernel for NCHW memory, whose runs are
+// whole chunks of a channel. In channels-last memory a (group, chunk) is runs
+// of C / groups elements at a pitch of C (8 bytes of every 256 at C = 128),
+// and the pass needs no reduction: it is an elementwise map with a constant
+// per (sample, group). There gn_apply_rows_kernel cuts the tensor by spatial
+// rows x all channels instead: a block takes a tile of whole rows of one
+// sample, one contiguous span, reduces that sample's partials in chunk order
+// into a table of (mean, rstd) per group in shared memory (the additions of
+// gn_apply_kernel in the same order: equal bytes), and streams the tile with
+// 16-byte accesses, four in flight a thread. A vector may straddle groups, so
+// group, gamma and beta are per element; when the block's width is a multiple
+// of a row's vectors a thread's column is fixed and they are registers, loaded
+// once (no division in the loop). The plan is ops/kernels/groupnorm.py:
+// apply_plan's. Measured times and bounds: PERF.md section 6.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -308,6 +321,97 @@ __global__ void __launch_bounds__(kChunkThreads) gn_apply_kernel(
                                 mean_rstd(s1, s2, inv_count, eps), swish);
 }
 
+constexpr int kRowsMaxThreads = 512;
+constexpr int kSumBatch = 8;  // partials a thread has in flight while it adds them in order
+
+// Block (tile, sample) of channels-last x: the spatial rows [tile * tile_rows,
+// ...) of the sample, all channels. FIXED: blockDim.x is a multiple of the
+// C / VEC vectors of a row, so a thread's column never changes.
+template <typename T, typename W, int VEC, bool FIXED>
+__global__ void __launch_bounds__(kRowsMaxThreads) gn_apply_rows_kernel(
+    const T* __restrict__ x, const float* __restrict__ partials, const W* __restrict__ gamma,
+    const W* __restrict__ beta, T* __restrict__ y, int c, int hw, int groups, int chunks,
+    int tile_rows, float inv_count, float eps, int swish) {
+  using P = Pack<T, VEC>;
+  extern __shared__ float2 gn_table[];  // (mean, rstd) of each group of this sample
+  const int n = blockIdx.y, cpg = c / groups, rv = c / VEC;
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    const float2* part =
+        reinterpret_cast<const float2*>(partials) + ((long long)n * groups + g) * chunks;
+    float s1 = 0.f, s2 = 0.f;
+    for (int j0 = 0; j0 < chunks; j0 += kSumBatch) {  // chunk order, as gn_apply_kernel
+      float2 q[kSumBatch];
+#pragma unroll
+      for (int u = 0; u < kSumBatch; ++u)
+        if (j0 + u < chunks) q[u] = part[j0 + u];
+#pragma unroll
+      for (int u = 0; u < kSumBatch; ++u) {
+        if (j0 + u < chunks) {
+          s1 += q[u].x;
+          s2 += q[u].y;
+        }
+      }
+    }
+    gn_table[g] = mean_rstd(s1, s2, inv_count, eps);
+  }
+  __syncthreads();
+  const int p0 = blockIdx.x * tile_rows;
+  const int count = min(tile_rows, hw - p0) * rv;  // vectors of the tile
+  const long long base = ((long long)n * hw + p0) * c;
+  const P* xv = reinterpret_cast<const P*>(x + base);
+  P* yv = reinterpret_cast<P*>(y + base);
+  int col = threadIdx.x % rv;
+  const int dcol = blockDim.x % rv;  // 0 when FIXED
+  float mean[VEC], rstd[VEC], ga[VEC], be[VEC];
+  if (FIXED) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const int ch = col * VEC + e;
+      const float2 st = gn_table[ch / cpg];
+      mean[e] = st.x;
+      rstd[e] = st.y;
+      ga[e] = Num<W>::load(gamma[ch]);
+      be[e] = Num<W>::load(beta[ch]);
+    }
+  }
+  for (int k = threadIdx.x; k < count; k += kBatch * blockDim.x) {
+    P v[kBatch];
+    int cols[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int kk = k + j * blockDim.x;
+      cols[j] = col;
+      if (kk < count) v[j] = xv[kk];
+      if (!FIXED) {
+        col += dcol;
+        if (col >= rv) col -= rv;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int kk = k + j * blockDim.x;
+      if (kk >= count) continue;
+      P o;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float m, r, g1, b1;
+        if (FIXED) {
+          m = mean[e], r = rstd[e], g1 = ga[e], b1 = be[e];
+        } else {
+          const int ch = cols[j] * VEC + e;
+          const float2 st = gn_table[ch / cpg];
+          m = st.x, r = st.y, g1 = Num<W>::load(gamma[ch]), b1 = Num<W>::load(beta[ch]);
+        }
+        float f = (Num<T>::load(v[j].v[e]) - m) * r;
+        f = f * g1 + b1;
+        if (swish) f = f * (1.f / (1.f + expf(-f)));
+        o.v[e] = Num<T>::store(f);
+      }
+      yv[kk] = o;
+    }
+  }
+}
+
 template <int V>
 using vec_c = std::integral_constant<int, V>;
 
@@ -424,14 +528,44 @@ extern "C" int sdeo_group_norm_stats(const void* x, float* partials, int dtype,
   });
 }
 
+// by_rows = 0: one block a (sample, group, chunk), `vec` as for the stats
+// kernel. by_rows = 1 (channels-last memory only): one block of `threads`
+// threads a tile of `tile_rows` spatial rows of a sample, all channels; `vec`
+// divides C. The plan is the caller's (ops/kernels/groupnorm.py: apply_plan);
+// a plan that does not fit the arguments is an error.
 extern "C" int sdeo_group_norm_apply(const void* x, const float* partials, const void* gamma,
                                      const void* beta, void* y, int dtype, int wdtype,
                                      int channels_last, int n, int c, int hw, int groups,
-                                     int chunk_rows, int chunks, int vec, float inv_count,
-                                     float eps, int swish, void* stream) {
+                                     int chunk_rows, int chunks, int by_rows, int vec,
+                                     int threads, int tile_rows, float inv_count, float eps,
+                                     int swish, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (groups < 1 || c % groups ||
-      !vectors_fit(vec, dtype == 0 ? 4 : 2, channels_last, c, hw, groups, chunk_rows, x, y) ||
+  const int esize = dtype == 0 ? 4 : 2;
+  if (groups < 1 || c % groups || chunks < 1) return (int)cudaErrorInvalidValue;
+  if (by_rows) {
+    const uintptr_t bytes = (uintptr_t)vec * esize;
+    if (!channels_last || vec < 1 || c % vec || bytes > 16 || threads < 32 ||
+        threads > kRowsMaxThreads || threads % 32 || tile_rows < 1 || n > 65535 ||
+        reinterpret_cast<uintptr_t>(x) % bytes || reinterpret_cast<uintptr_t>(y) % bytes ||
+        (size_t)groups * sizeof(float2) > 48 * 1024)
+      return (int)cudaErrorInvalidValue;
+    const dim3 grid((hw + tile_rows - 1) / tile_rows, n);
+    const bool fixed = threads % (c / vec) == 0;
+    return (int)by_types(dtype, wdtype, vec, [&](auto tp, auto wp, auto vc) {
+      using T = elem_t<decltype(tp)>;
+      using W = elem_t<decltype(wp)>;
+      constexpr int V = decltype(vc)::value;
+      auto kernel = fixed ? gn_apply_rows_kernel<T, W, V, true>
+                          : gn_apply_rows_kernel<T, W, V, false>;
+      kernel<<<grid, threads, groups * sizeof(float2), st>>>(
+          static_cast<const T*>(x), partials, static_cast<const W*>(gamma),
+          static_cast<const W*>(beta), static_cast<T*>(y), c, hw, groups, chunks, tile_rows,
+          inv_count, eps, swish);
+      return cudaGetLastError();
+    });
+  }
+  if (threads != kChunkThreads || tile_rows != chunk_rows ||
+      !vectors_fit(vec, esize, channels_last, c, hw, groups, chunk_rows, x, y) ||
       !affine_fits(vec, wdtype == 0 ? 4 : 2, channels_last, gamma, beta))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(n * groups, chunks);

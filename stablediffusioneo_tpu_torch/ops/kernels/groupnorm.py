@@ -71,6 +71,35 @@ class NormPlan(NamedTuple):
 # (chip_smoke.py reads it)
 plan_launches: "collections.Counter[NormPlan]" = collections.Counter()
 
+CHUNK_THREADS = 256      # csrc/groupnorm.cu kChunkThreads
+ROWS_MAX_THREADS = 512   # csrc/groupnorm.cu kRowsMaxThreads
+APPLY_BATCH = 4          # csrc/groupnorm.cu kBatch: accesses a thread has in flight
+SM_COUNT = 132           # blocks that fill an H100
+# Blocks the rows-by-channels apply kernel aims at for each SM: enough to hide
+# a block's prologue (the sample's partials, reduced in chunk order) behind
+# the others' streaming. Measured on the H100 (scripts/torch_kernel_sweep.py
+# apply, PERF.md section 6).
+APPLY_BLOCKS_PER_SM = 2
+
+
+class ApplyPlan(NamedTuple):
+    """What one launch of the apply pass runs. by_rows: a block takes a tile
+    of `tile_rows` whole spatial rows of one sample, all channels
+    (channels-last memory only); else a block takes one (sample, group,
+    chunk), `tile_rows` being the chunk's rows. vec: elements per access."""
+    by_rows: bool
+    vec: int
+    threads: int
+    tile_rows: int
+
+    def __str__(self) -> str:
+        return (f"{'rows x channels' if self.by_rows else 'group x chunk'} vec "
+                f"{self.vec} threads {self.threads} tile {self.tile_rows} rows")
+
+
+# launches of the apply kernel by plan since the last clear()
+apply_plan_launches: "collections.Counter[ApplyPlan]" = collections.Counter()
+
 
 def access_width(shape, groups: int, itemsize: int, channels_last: bool,
                  rows: int, aligned: bool = True) -> int:
@@ -118,6 +147,45 @@ def group_norm_plan(shape, groups: int, dtype: torch.dtype,
     rows = rows_of(cluster)
     vec = access_width(shape, groups, itemsize, channels_last, rows, aligned)
     return NormPlan(vec, cluster, rows, fits(cluster))
+
+
+def apply_plan(shape, groups: int, dtype: torch.dtype, channels_last: bool,
+               rows: int, aligned: bool = True,
+               by_rows: Optional[bool] = None) -> ApplyPlan:
+    """The plan one call of the apply pass runs, a pure function of its
+    arguments; `rows` are the spatial rows of a chunk of the partials.
+    Channels-last memory is cut by rows x all channels: accesses of the
+    widest vector of at most 16 bytes that divides C (it may straddle
+    groups), a block as wide as a whole number of rows' vectors where one
+    fits (then a thread's column, and with it its group, gamma and beta, is
+    fixed), and tiles of so many rows that each SM gets about
+    `APPLY_BLOCKS_PER_SM` blocks and a thread at least one batch of accesses.
+    NCHW memory, whose runs are whole chunks of a channel, keeps one block a
+    (sample, group, chunk). `by_rows` forces the cut (tests, measurements)."""
+    n, c, h, w = shape
+    hw = h * w
+    if by_rows is None:
+        by_rows = channels_last
+    if not by_rows:
+        return ApplyPlan(False, access_width(shape, groups, dtype.itemsize,
+                                             channels_last, rows, aligned),
+                         CHUNK_THREADS, rows)
+    if not channels_last:
+        raise ValueError("the rows x channels apply plan takes channels-last memory")
+    # a vector stays inside a spatial row (one "group" of all C channels)
+    vec = access_width(shape, 1, dtype.itemsize, True, rows, aligned)
+    rv = c // vec  # vectors of one spatial row
+    # the widest block of whole rows up to the most threads; a row wider
+    # than that is walked with a moving column
+    threads = CHUNK_THREADS
+    if rv <= ROWS_MAX_THREADS:
+        whole = [t for t in range(rv, ROWS_MAX_THREADS + 1, rv) if t % 32 == 0]
+        if whole:
+            threads = min(whole, key=lambda t: (abs(t - CHUNK_THREADS), t))
+    batch_rows = -(-threads * APPLY_BATCH // rv)  # rows one batch of the block covers
+    tile_rows = max(batch_rows, -(-n * hw // (APPLY_BLOCKS_PER_SM * SM_COUNT)))
+    tile_rows = -(-tile_rows // batch_rows) * batch_rows
+    return ApplyPlan(True, vec, threads, min(tile_rows, hw))
 
 
 def _spatial_chunk(hw: int, c: int) -> int:
@@ -222,7 +290,7 @@ def _library() -> ctypes.CDLL:
         ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sdeo_group_norm_fused.argtypes = [ptr] * 4 + [i] * 11 + [f, f, i, ptr]
         lib.sdeo_group_norm_stats.argtypes = [ptr] * 2 + [i] * 9 + [ptr]
-        lib.sdeo_group_norm_apply.argtypes = [ptr] * 5 + [i] * 10 + [f, f, i, ptr]
+        lib.sdeo_group_norm_apply.argtypes = [ptr] * 5 + [i] * 13 + [f, f, i, ptr]
         for fn in (lib.sdeo_group_norm_fused, lib.sdeo_group_norm_stats,
                    lib.sdeo_group_norm_apply):
             fn.restype = ctypes.c_int
@@ -293,8 +361,10 @@ def group_norm_stats(x, groups: int, rows: int):
 
 
 def group_norm_apply(x, partials, weight, bias, rows: int, eps: float,
-                     swish: bool):
-    """Normalize, affine and SiLU from the stats kernel's partials."""
+                     swish: bool, plan: Optional[ApplyPlan] = None):
+    """Normalize, affine and SiLU from the stats kernel's partials. plan: an
+    ApplyPlan to run instead of `apply_plan`'s choice (tests, measurements);
+    the C entry refuses a plan that does not fit, and the refusal raises."""
     if not dispatch.use_kernel(x, partials, weight, bias):
         return group_norm_apply_plain(x, partials, weight, bias, eps, swish)
     n, c, h, w = x.shape
@@ -306,13 +376,16 @@ def group_norm_apply(x, partials, weight, bias, rows: int, eps: float,
         raise ValueError(f"group norm partials {tuple(partials.shape)} "
                          f"{partials.dtype} do not fit x {tuple(x.shape)}")
     y = torch.empty_like(x)
-    vec = access_width(x.shape, groups, x.element_size(), bool(cl), rows,
-                       _aligned(x, y, weight, bias))
+    if plan is None:
+        plan = apply_plan(x.shape, groups, x.dtype, bool(cl), rows,
+                          _aligned(x, y, weight, bias))
     _raise_on(_library().sdeo_group_norm_apply(
         x.data_ptr(), partials.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         y.data_ptr(), _DTYPE_CODE[x.dtype], _DTYPE_CODE[weight.dtype], cl, n, c,
-        h * w, groups, rows, chunks, vec, 1.0 / (c // groups * h * w), eps,
-        int(swish), _stream(x)), "group norm apply")
+        h * w, groups, rows, chunks, int(plan.by_rows), plan.vec, plan.threads,
+        plan.tile_rows, 1.0 / (c // groups * h * w), eps, int(swish),
+        _stream(x)), f"group norm apply ({plan})")
+    apply_plan_launches[plan] += 1
     dispatch.count_launch("group_norm_apply")
     return y
 

@@ -53,6 +53,7 @@ class Canny2ImagePipeline:
                                    quantize_linears=quantize_linears)
         self.last_timings: Dict[str, float] = {}
         self.last_latents: Optional[torch.Tensor] = None
+        self.last_detected_maps: List[np.ndarray] = []
 
     def _annotate(self, img: np.ndarray, low: int, high: int) -> np.ndarray:
         from stablediffusioneo_tpu_torch.annotators.canny import CannyDetector
@@ -95,13 +96,18 @@ class Canny2ImagePipeline:
         hires_denoise: float = 0.7,
         tome_ratio: float = 0.0,
         hires_noise: Optional[np.ndarray] = None,
+        encoder_cache_interval: int = 1,
+        granular_timings: bool = False,
+        denoise_strength: float = 0.75,
+        cfg_rescale: float = 0.0,
     ) -> List[np.ndarray]:
         """Returns [detected_map] + num_samples uint8 HWC images.
 
         hires_upscale > 1: the hires fix (JAX canny2image.py:345-393); the
         images and the returned map are at round(H * hires_upscale / 64) *
         64. hires_noise: the refine's re-noise (NHWC latents at that size),
-        drawn from the seed's generator when None."""
+        drawn from the seed's generator when None. denoise_strength is read
+        with init_image only (img2img, not ported yet)."""
         hires = bool(hires_upscale and hires_upscale > 1.0)
         if hires and (init_image is not None or inpaint_image is not None):
             raise ValueError("hires_upscale composes with plain txt2img only "
@@ -114,7 +120,11 @@ class Canny2ImagePipeline:
                 (bool(long_prompt), "long prompts (3x77 windows)",
                  "models/text_encoding.py"),
                 (prompt_emphasis, "prompt emphasis", "models/text_encoding.py"),
-                (bool(tome_ratio), "ToMe", "Adapters and knobs")):
+                (bool(tome_ratio), "ToMe", "Adapters and knobs"),
+                (encoder_cache_interval != 1, "encoder-feature caching",
+                 "The rest of pipeline/ddim.py"),
+                (bool(cfg_rescale), "cfg_rescale", "The rest of pipeline/ddim.py"),
+                (granular_timings, "granular timings", "Runtime surface")):
             if on:
                 raise _not_ported(feature, item)
         from stablediffusioneo_tpu_torch.annotators.util import HWC3, resize_image
@@ -123,6 +133,7 @@ class Canny2ImagePipeline:
         img = resize_image(HWC3(input_image), image_resolution)
         H, W = img.shape[:2]
         detected_map = self._annotate(img, low_threshold, high_threshold)
+        self.last_detected_maps = [detected_map]
         rt = self.runtime
         hint = torch.from_numpy(np.repeat(detected_map[None], num_samples,
                                           axis=0)).to(rt.device)
@@ -149,9 +160,6 @@ class Canny2ImagePipeline:
         if hires:
             import cv2
 
-            # the JAX scan carries x_T's dtype: its base latents are rounded
-            # to the compute dtype before the fp32 upscale
-            z = z.to(rt.dtype).float()
             H2 = int(round(H * hires_upscale / 64)) * 64
             W2 = int(round(W * hires_upscale / 64)) * 64
             z_up = resize_latent_bilinear(z, H2 // f, W2 // f)

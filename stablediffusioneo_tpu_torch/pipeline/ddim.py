@@ -6,8 +6,9 @@ The JAX package's `lax.scan` becomes a Python loop. As there:
     uncond without, as two evaluations);
   * the hint-block embedding and every cross-attention K/V projection of
     the step-invariant contexts are computed once, before the loop;
-  * x is carried in fp32 and the DDIM update runs in fp32, whatever dtype
-    the nets run in.
+  * the DDIM update runs in fp32, whatever dtype the nets run in, and x is
+    carried between steps in the nets' dtype: rounded to it on entry and once
+    per step, after the noise is added (in fp32 that rounding changes nothing).
 
 Update (p_sample_ddim, ddim_hacked.py:208-231):
     e_t     = e_uncond + scale * (e_cond - e_uncond)
@@ -50,6 +51,28 @@ def _bc_scale(scale, like: torch.Tensor):
     return s.reshape(-1, 1, 1, 1) if s.dim() == 1 else s
 
 
+def ddim_update(x: torch.Tensor, e_t: torch.Tensor,
+                schedule: Dict[str, np.ndarray], i: int,
+                noise: Optional[torch.Tensor] = None,
+                temperature: float = 1.0) -> torch.Tensor:
+    """Step i of the schedule: x_prev from x and the guided prediction e_t
+    (same layout). The arithmetic is fp32 (sqrt of the fp32 constants, as the
+    JAX package), the noise is added in fp32, and the result is rounded once
+    to x's dtype, which is how the loop carries x."""
+    a_t = np.float32(schedule["alphas"][i])
+    a_prev = np.float32(schedule["alphas_prev"][i])
+    sigma = np.float32(schedule["sigmas"][i])
+    sqrt_1m_at = np.float32(schedule["sqrt_one_minus_alphas"][i])
+    ef = e_t.float()
+    pred_x0 = (x.float() - float(sqrt_1m_at) * ef) / float(np.sqrt(a_t))
+    dir_coef = np.sqrt(np.maximum(np.float32(1.0) - a_prev - sigma * sigma,
+                                  np.float32(0.0)))
+    x_prev = float(np.sqrt(a_prev)) * pred_x0 + float(dir_coef) * ef
+    if sigma > 0:
+        x_prev = x_prev + float(sigma) * noise.to(x.device, torch.float32) * temperature
+    return x_prev.to(x.dtype)
+
+
 def ddim_sample(
     unet: UNetModel,
     control: ControlNet,
@@ -66,7 +89,8 @@ def ddim_sample(
     noise: Optional[Sequence[torch.Tensor]] = None,
     dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """Full DDIM loop; returns the fp32 x_0 latents, NHWC (B, h, w, 4).
+    """Full DDIM loop; returns the x_0 latents, NHWC (B, h, w, 4), as fp32
+    (with bf16 nets: the bf16 values the loop carries, widened).
 
     schedule: DiffusionSchedule.ddim(...) (sampling order). x_T: NHWC
     latents; hint: NHWC (B, H, W, 3) in [0, 1]; ctx_*: (B, T, C) contexts in
@@ -89,14 +113,10 @@ def ddim_sample(
         gh2 = torch.cat([guided_hint, guided_hint], dim=0)
         cscales2 = _tile_cfg(control_scales)
 
-    x = x_T.float()
+    x = x_T.to(dtype)
     for i in range(len(schedule["timesteps"])):
         t = float(schedule["timesteps"][i])
-        a_t = np.float32(schedule["alphas"][i])
-        a_prev = np.float32(schedule["alphas_prev"][i])
-        sigma = np.float32(schedule["sigmas"][i])
-        sqrt_1m_at = np.float32(schedule["sqrt_one_minus_alphas"][i])
-        xn = nchw(x).to(dtype)
+        xn = nchw(x)
         if guess_mode:
             tb = torch.full((b,), t, dtype=torch.float32, device=x.device)
             e_cond = controlled_unet_forward(
@@ -113,17 +133,12 @@ def ddim_sample(
                 unet_ctx_kv=kv2[0], ctrl_ctx_kv=kv2[1])
             e_cond, e_uncond = eps2[:b], eps2[b:]
         e_t = e_uncond + _bc_scale(scale, e_uncond) * (e_cond - e_uncond)
-        # fp32 state update (sqrt of the fp32 constants, as the JAX package)
-        ef = nhwc(e_t).float()
-        pred_x0 = (x - float(sqrt_1m_at) * ef) / float(np.sqrt(a_t))
-        dir_coef = np.sqrt(np.maximum(np.float32(1.0) - a_prev - sigma * sigma,
-                                      np.float32(0.0)))
-        x = float(np.sqrt(a_prev)) * pred_x0 + float(dir_coef) * ef
-        if sigma > 0:
-            n = (noise[i].to(x.device, torch.float32) if noise is not None else
+        n = None
+        if schedule["sigmas"][i] > 0:
+            n = (noise[i] if noise is not None else
                  torch.randn(x.shape, generator=generator, device=x.device))
-            x = x + float(sigma) * n * temperature
-    return x
+        x = ddim_update(x, nhwc(e_t), schedule, i, n, temperature)
+    return x.float()
 
 
 def stochastic_tail_entry(

@@ -318,6 +318,158 @@ def test_layer_norm_kernel_matches_plain(gen, dtype, shape):
     _check(out, kl.fused_layer_norm_plain(x, w, b, 1e-5), dtype)
 
 
+# the gated LayerNorm shapes of a 512x512 step and of the 1024x1024 hires pass
+LN_SHAPES = [(2, 4096, 320), (2, 1024, 640), (2, 256, 1280),
+             (2, 16384, 320), (2, 4096, 640), (2, 1024, 1280)]
+
+
+def _layer_norm_plans(rows, c, dtype, aligned=True):
+    """Every way to share a row that holds it in registers, at three block
+    widths, with and without a second round of rows; and the read-twice
+    walk."""
+    vec = kl.layer_norm_plan(rows, c, dtype, dtype, aligned).vec
+    plans = set()
+    for tpr in kl.row_threads(c // vec):
+        if -(-(c // vec) // tpr) > kl.MAX_VECTORS:
+            continue
+        for threads in (128, 256, 512):
+            if tpr > threads:
+                continue
+            for loop in (1, 2):
+                plans.add(kl.layer_norm_plan(rows, c, dtype, dtype, aligned, tpr,
+                                             threads, loop))
+    plans.add(kl.layer_norm_plan(rows, c, dtype, dtype, aligned, 32)._replace(vectors=0))
+    plans.add(kl.layer_norm_plan(rows, c, dtype, dtype, aligned, 128, 256)._replace(vectors=0))
+    return sorted(plans)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", LN_SHAPES + [(3, 77, 768), (5, 7, 333), (2, 9, 40)])
+def test_layer_norm_every_plan(gen, dtype, shape):
+    """Each plan forced once per shape (the six main-path shapes, the CLIP
+    tower's, and ragged rows that no vector divides): against the plain
+    version, and equal bytes from two runs."""
+    x = _randn(shape, gen, dtype)
+    w, b = _affine(shape[-1], gen, dtype)
+    ref = kl.fused_layer_norm_plain(x, w, b, 1e-5)
+    rows = x.numel() // shape[-1]
+    plans = _layer_norm_plans(rows, shape[-1], dtype)
+    assert len(plans) >= 3
+    for plan in plans:
+        kl.plan_launches.clear()
+        out = kl.fused_layer_norm(x, w, b, 1e-5, plan=plan)
+        assert dict(kl.plan_launches) == {plan: 1}
+        _check(out, ref, dtype)
+        assert torch.equal(out, kl.fused_layer_norm(x, w, b, 1e-5, plan=plan)), plan
+    # the plan the shape gives is one the wrapper runs by itself
+    kl.plan_launches.clear()
+    out = kl.fused_layer_norm(x, w, b, 1e-5)
+    assert dict(kl.plan_launches) == {kl.layer_norm_plan(rows, shape[-1], dtype, dtype): 1}
+    _check(out, ref, dtype)
+
+
+def test_layer_norm_mixed_dtypes_and_unaligned_views(gen):
+    """bf16 x with fp32 gamma and beta (32-byte vectors of gamma: two
+    accesses), and an x that starts 2 bytes off 16: element accesses."""
+    x = _randn((2, 1024, 640), gen, torch.bfloat16)
+    w, b = _affine(640, gen, torch.float32)
+    _check(kl.fused_layer_norm(x, w, b, 1e-5), kl.fused_layer_norm_plain(x, w, b, 1e-5),
+           torch.bfloat16)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")[1:].view(x.shape)
+    shifted.copy_(x)
+    kl.plan_launches.clear()
+    out = kl.fused_layer_norm(shifted, w, b, 1e-5)
+    assert [plan.vec for plan in kl.plan_launches] == [1]
+    _check(out, kl.fused_layer_norm_plain(x, w, b, 1e-5), torch.bfloat16)
+
+
+def test_layer_norm_plan_that_does_not_fit_raises(gen):
+    x = _randn((2, 1024, 640), gen, torch.bfloat16)
+    w, b = _affine(640, gen, torch.bfloat16)
+    good = kl.layer_norm_plan(2048, 640, x.dtype, w.dtype)
+    for bad in (good._replace(vec=16),              # beyond 16 bytes
+                good._replace(vec=3),               # does not divide 640
+                good._replace(threads_per_row=24),  # neither a power of two nor warps
+                good._replace(threads_per_row=8),   # 8 x 3 vectors do not cover 80
+                good._replace(vectors=4),           # more than a thread holds
+                good._replace(rows_par=64),         # 2048 threads
+                good._replace(rows_block=good.rows_par + 1)):
+        with pytest.raises(RuntimeError, match="layer norm"):
+            kl.fused_layer_norm(x, w, b, 1e-5, plan=bad)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")[1:].view(x.shape)
+    with pytest.raises(RuntimeError, match="layer norm"):  # 16-byte accesses off 16
+        kl.fused_layer_norm(shifted, w, b, 1e-5, plan=good)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,groups,swish", [
+    ((1, 128, 256, 256), 32, True),   # 4 channels a group: two groups a vector
+    ((2, 960, 64, 64), 32, True),     # 30 a group: boundaries inside vectors
+    ((2, 960, 64, 64), 32, False),
+    ((1, 96, 24, 40), 8, True),       # a block of 288 threads, a ragged last tile
+    ((2, 33, 7, 9), 3, True),         # no block is whole rows: the column moves
+    ((3, 64, 5, 5), 32, False),
+])
+def test_group_norm_apply_by_rows_equals_by_groups(gen, dtype, shape, groups, swish):
+    """Channels-last: the rows x channels kernel against the plain version,
+    equal bytes from two runs, and equal bytes to the (sample, group, chunk)
+    kernel forced on the same inputs (the same partials added in the same
+    order, the same arithmetic per element)."""
+    x = _randn(shape, gen, dtype).contiguous(memory_format=torch.channels_last)
+    w, b = _affine(shape[1], gen, dtype)
+    rows = max(1, min(kg.chunk_rows(x, groups), shape[2] * shape[3] // 3))
+    parts = kg.group_norm_stats(x, groups, rows)
+    assert parts.shape[2] >= 3
+    by_rows = kg.apply_plan(shape, groups, dtype, True, rows)
+    by_groups = kg.apply_plan(shape, groups, dtype, True, rows, by_rows=False)
+    assert by_rows.by_rows and not by_groups.by_rows
+    kg.apply_plan_launches.clear()
+    dispatch.reset_launches()
+    out = kg.group_norm_apply(x, parts, w, b, rows, 1e-6, swish)
+    assert dict(kg.apply_plan_launches) == {by_rows: 1}
+    assert dispatch.launches["group_norm_apply"] == 1
+    assert out.stride() == x.stride()
+    _check(out, kg.group_norm_apply_plain(x, parts, w, b, 1e-6, swish), dtype)
+    assert torch.equal(out, kg.group_norm_apply(x, parts, w, b, rows, 1e-6, swish))
+    old = kg.group_norm_apply(x, parts, w, b, rows, 1e-6, swish, plan=by_groups)
+    assert torch.equal(out, old)
+    # other tiles and block widths give the same bytes
+    for plan in (by_rows._replace(tile_rows=1), by_rows._replace(tile_rows=7),
+                 by_rows._replace(threads=128), by_rows._replace(threads=512, tile_rows=3),
+                 by_rows._replace(vec=1)):
+        assert torch.equal(out, kg.group_norm_apply(x, parts, w, b, rows, 1e-6, swish,
+                                                    plan=plan)), plan
+
+
+def test_group_norm_apply_nchw_keeps_the_group_kernel(gen):
+    x = _randn((2, 960, 64, 64), gen, torch.bfloat16)
+    w, b = _affine(960, gen, torch.bfloat16)
+    rows = kg.chunk_rows(x, 32)
+    parts = kg.group_norm_stats_plain(x, 32, rows)
+    kg.apply_plan_launches.clear()
+    out = kg.group_norm_apply(x, parts, w, b, rows, 1e-6, True)
+    assert [plan.by_rows for plan in kg.apply_plan_launches] == [False]
+    _check(out, kg.group_norm_apply_plain(x, parts, w, b, 1e-6, True), torch.bfloat16)
+
+
+def test_group_norm_apply_plan_that_does_not_fit_raises(gen):
+    x = _randn((2, 960, 64, 64), gen, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    w, b = _affine(960, gen, torch.bfloat16)
+    rows = kg.chunk_rows(x, 32)
+    parts = kg.group_norm_stats_plain(x, 32, rows)
+    good = kg.apply_plan(x.shape, 32, x.dtype, True, rows)
+    old = kg.apply_plan(x.shape, 32, x.dtype, True, rows, by_rows=False)
+    for bad in (good._replace(vec=16), good._replace(vec=7), good._replace(threads=1024),
+                good._replace(threads=100), good._replace(tile_rows=0),
+                old._replace(vec=4),          # 30 channels a group: 4 does not divide
+                old._replace(threads=128), old._replace(tile_rows=rows + 1)):
+        with pytest.raises(RuntimeError, match="group norm apply"):
+            kg.group_norm_apply(x, parts, w, b, rows, 1e-6, True, plan=bad)
+    with pytest.raises(RuntimeError, match="group norm apply"):  # NCHW memory by rows
+        kg.group_norm_apply(x.contiguous(), parts, w, b, rows, 1e-6, True, plan=good)
+
+
 def test_norm_kernels_reject_what_they_do_not_take(gen):
     x = _randn((2, 64, 16, 16), gen, torch.bfloat16)
     w, b = _affine(64, gen, torch.bfloat16)

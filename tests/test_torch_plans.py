@@ -1,9 +1,10 @@
-"""The launch plans of the int8 matmul and the one-pass GroupNorm kernels.
+"""The launch plans of the int8 matmul, GroupNorm and LayerNorm kernels.
 
-Which variant, tile, K split, access width and cluster size a call runs is a
-pure function of its arguments (`ops/kernels/quant.py:matmul_plan`,
-`ops/kernels/groupnorm.py:group_norm_plan`), chosen in Python and passed to
-the C entry. Held here, on the CPU, over every main-path shape of the SD-1.5
+Which variant, tile, K split, access width, cluster size, threads a row and
+tile of rows a call runs is a pure function of its arguments
+(`ops/kernels/quant.py:matmul_plan`, `ops/kernels/groupnorm.py:
+group_norm_plan` and `apply_plan`, `ops/kernels/layernorm.py:
+layer_norm_plan`), chosen in Python and passed to the C entry. Held here, on the CPU, over every main-path shape of the SD-1.5
 configuration (the 512x512 request and the 1024x1024 hires pass) and over
 ragged ones: what the C entries would refuse never comes out of the plan
 functions. The kernels themselves run on the card (tests/test_torch_cuda.py).
@@ -20,6 +21,7 @@ import torch
 from stablediffusioneo_tpu_torch.config import sd15_pipeline
 from stablediffusioneo_tpu_torch.ops.kernels import build
 from stablediffusioneo_tpu_torch.ops.kernels import groupnorm as kg
+from stablediffusioneo_tpu_torch.ops.kernels import layernorm as kl
 from stablediffusioneo_tpu_torch.ops.kernels import quant as kq
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
@@ -193,6 +195,182 @@ def test_ragged_group_norm_plans():
     big = (1, 32, 128, 128)
     assert tuple(kg.group_norm_plan(big, 1, torch.bfloat16, True)) == (8, 8, 2048, True)
     assert tuple(kg.group_norm_plan(big, 1, torch.float32, True)) == (4, 8, 2048, False)
+
+
+# ---------------------------------------------------------------- LayerNorm
+
+LN = chip_smoke.layer_norm_shapes(CFG)
+BF16, FP32 = torch.bfloat16, torch.float32
+
+
+def _check_layer_norm_plan(plan, rows, c, dtype, wdtype):
+    """What csrc/layernorm.cu's entry demands of a plan, and that the launch
+    covers the tensor."""
+    assert plan.vec in (1, 2, 4, 8) and plan.vec * dtype.itemsize <= 16
+    assert c % plan.vec == 0                       # vectors divide the row
+    nvec, tpr = c // plan.vec, plan.threads_per_row
+    assert (tpr <= 32 and tpr & (tpr - 1) == 0) or tpr % 32 == 0
+    threads = tpr * plan.rows_par
+    assert threads % 32 == 0 and 32 <= threads <= kl.MAX_THREADS
+    assert 0 <= plan.vectors <= kl.MAX_VECTORS == 3
+    if plan.vectors:                               # threads cover the row
+        assert plan.vectors * tpr >= nvec > (plan.vectors - 1) * tpr
+    assert plan.rows_block % plan.rows_par == 0    # whole rounds
+    blocks = -(-rows // plan.rows_block)
+    assert blocks * plan.rows_block >= rows        # blocks cover the rows
+    return blocks
+
+
+def test_the_six_gated_layer_norm_shapes():
+    assert LN == [(2, 4096, 320), (2, 1024, 640), (2, 256, 1280),
+                  (2, 16384, 320), (2, 4096, 640), (2, 1024, 1280)]
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("dtype,wdtype", [(BF16, BF16), (FP32, FP32), (BF16, FP32)],
+                         ids=["bf16", "fp32", "bf16-fp32"])
+@pytest.mark.parametrize("shape", LN, ids=["x".join(map(str, s)) for s in LN])
+def test_main_path_layer_norm_plans(shape, dtype, wdtype, aligned):
+    rows, c = shape[0] * shape[1], shape[2]
+    plan = kl.layer_norm_plan(rows, c, dtype, wdtype, aligned)
+    blocks = _check_layer_norm_plan(plan, rows, c, dtype, wdtype)
+    assert plan.vec == ((8 if dtype == BF16 else 4) if aligned else 1)
+    assert plan.vectors, "a UNet row is held in registers"
+    # every SM has work wherever the rows allow, and a block takes a second
+    # round of rows only when the launch is beyond two blocks an SM
+    assert blocks >= min(kl.SM_COUNT, -(-rows // plan.rows_par)) - 4
+    if plan.rows_block > plan.rows_par:
+        assert blocks <= kl.BLOCKS_BEFORE_LOOP < 2 * blocks
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((2, 4096, 320), (8, 16, 3, 16, 32)),    # 40 vectors: 16 threads hold 3, two rounds
+    ((2, 1024, 640), (8, 32, 3, 8, 8)),      # 80 vectors: one warp a row
+    ((2, 256, 1280), (8, 64, 3, 4, 4)),      # 160 vectors: two warps a row
+    ((2, 16384, 320), (8, 16, 3, 16, 128)),
+    ((2, 4096, 640), (8, 32, 3, 8, 32)),
+    ((2, 1024, 1280), (8, 64, 3, 4, 8)),
+])
+def test_plans_of_named_layer_norm_shapes(shape, want):
+    plan = kl.layer_norm_plan(shape[0] * shape[1], shape[2], BF16, BF16)
+    assert tuple(plan) == want
+    assert str(plan).startswith("vec 8 threads/row ")
+
+
+@pytest.mark.parametrize("rows,c,dtype,vec,held", [
+    (231, 768, BF16, 8, True),      # the CLIP tower's rows
+    (35, 333, FP32, 1, True),       # no vector divides C
+    (35, 333, BF16, 1, True),
+    (18, 40, BF16, 8, True),        # 5 vectors: part of a warp
+    (7, 5, FP32, 1, True),
+    (3, 1, FP32, 1, True),          # one element a row
+    (64, 2052, BF16, 4, True),      # 513 vectors of 8 bytes
+    (10, 8200, FP32, 4, False),     # 2050 vectors: beyond 512 threads x 3, read twice
+    (10, 40000, BF16, 8, False),
+])
+def test_ragged_layer_norm_plans(rows, c, dtype, vec, held):
+    plan = kl.layer_norm_plan(rows, c, dtype, dtype)
+    _check_layer_norm_plan(plan, rows, c, dtype, dtype)
+    assert plan.vec == vec and bool(plan.vectors) == held
+    forced = kl.layer_norm_plan(rows, c, dtype, dtype, aligned=False)
+    _check_layer_norm_plan(forced, rows, c, dtype, dtype)
+    assert forced.vec == 1
+
+
+def test_forced_layer_norm_plans_stay_legal():
+    for tpr in kl.row_threads(160):
+        if -(-160 // tpr) > kl.MAX_VECTORS:
+            continue
+        for threads in (128, 256, 512):
+            if tpr > threads:
+                continue
+            for loop in (1, 2, 4):
+                plan = kl.layer_norm_plan(512, 1280, BF16, BF16, True, tpr, threads, loop)
+                _check_layer_norm_plan(plan, 512, 1280, BF16, BF16)
+                assert plan.threads_per_row == tpr
+                assert plan.rows_block == loop * plan.rows_par
+    assert kl.row_threads(160)[-1] == 288 and kl.row_threads(1) == [1]
+    # what the C entry refuses never comes out of the plan function: a row
+    # shared by 24 threads, or by so few that they cannot hold it
+    assert 24 not in kl.row_threads(160)
+    assert kl.layer_norm_plan(512, 1280, BF16, BF16, threads_per_row=8).vectors == 0
+
+
+# ------------------------------------------------------- GroupNorm apply pass
+
+APPLY = [(shape, dtype, cl) for shape in chip_smoke.APPLY_SHAPES
+         for dtype in (BF16, FP32) for cl in (True, False)]
+
+
+def _check_apply_plan(plan, shape, groups, dtype, channels_last, rows):
+    n, c, h, w = shape
+    hw = h * w
+    assert plan.vec in (1, 2, 4, 8) and plan.vec * dtype.itemsize <= 16
+    if not plan.by_rows:  # the (sample, group, chunk) kernel: the stats kernel's rule
+        assert plan.threads == kg.CHUNK_THREADS and plan.tile_rows == rows
+        assert plan.vec == kg.access_width(shape, groups, dtype.itemsize, channels_last, rows)
+        return
+    assert channels_last
+    assert c % plan.vec == 0                          # a vector stays inside a row
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= kg.ROWS_MAX_THREADS
+    assert 1 <= plan.tile_rows <= hw
+    tiles = -(-hw // plan.tile_rows)
+    assert tiles * plan.tile_rows >= hw and tiles * n >= 1   # tiles cover every row
+
+
+@pytest.mark.parametrize("shape,dtype,channels_last", APPLY,
+                         ids=[f"{s[1]}x{s[2]}-{str(d)[6:]}-{'cl' if cl else 'nchw'}"
+                              for s, d, cl in APPLY])
+def test_apply_plans_of_the_large_slabs(shape, dtype, channels_last):
+    rows = max(1, 16384 // (shape[1] // 32))
+    plan = kg.apply_plan(shape, 32, dtype, channels_last, rows)
+    _check_apply_plan(plan, shape, 32, dtype, channels_last, rows)
+    assert plan.by_rows == channels_last
+    if channels_last:
+        n, c, h, w = shape
+        assert plan.vec * dtype.itemsize == 16
+        assert plan.threads % (c // plan.vec) == 0   # a thread's column is fixed
+        blocks = n * -(-(h * w) // plan.tile_rows)
+        assert kg.SM_COUNT <= blocks <= 4 * kg.SM_COUNT
+        # a thread gets whole batches of accesses
+        assert plan.tile_rows * (c // plan.vec) % (plan.threads * kg.APPLY_BATCH) == 0
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((1, 128, 512, 512), BF16, (True, 8, 256, 1024)),
+    ((1, 128, 512, 512), FP32, (True, 4, 256, 1024)),
+    ((2, 960, 64, 64), BF16, (True, 8, 480, 32)),
+    ((2, 960, 64, 64), FP32, (True, 4, 480, 32)),
+])
+def test_plans_of_named_apply_shapes(shape, dtype, want):
+    plan = kg.apply_plan(shape, 32, dtype, True, 4096)
+    assert tuple(plan) == want
+    assert str(plan).startswith("rows x channels vec ")
+    assert str(kg.apply_plan(shape, 32, dtype, False, 4096)).startswith("group x chunk vec ")
+
+
+def test_ragged_apply_plans():
+    # 33 channels: no block of at most 512 threads is whole rows of 33
+    # element accesses and whole warps, so the column moves
+    plan = kg.apply_plan((2, 33, 7, 9), 3, FP32, True, 21)
+    _check_apply_plan(plan, (2, 33, 7, 9), 3, FP32, True, 21)
+    assert plan.vec == 1 and plan.threads % 33 != 0 and plan.tile_rows <= 63
+    # 96 channels in bf16: 12 vectors a row, a block of 288 threads
+    plan = kg.apply_plan((1, 96, 24, 40), 8, BF16, True, 100)
+    _check_apply_plan(plan, (1, 96, 24, 40), 8, BF16, True, 100)
+    assert (plan.vec, plan.threads) == (8, 288)
+    # unaligned tensors: element accesses
+    assert kg.apply_plan((2, 960, 64, 64), 32, BF16, True, 546, aligned=False).vec == 1
+    # a row of more vectors than a block has threads
+    plan = kg.apply_plan((1, 8200, 16, 16), 8, FP32, True, 64)
+    _check_apply_plan(plan, (1, 8200, 16, 16), 8, FP32, True, 64)
+    assert plan.threads == kg.CHUNK_THREADS and plan.tile_rows >= 1
+    # the present kernel stays reachable in channels-last memory, and the new
+    # one is refused for NCHW memory
+    old = kg.apply_plan((2, 960, 64, 64), 32, BF16, True, 546, by_rows=False)
+    assert tuple(old) == (False, 2, kg.CHUNK_THREADS, 546)
+    with pytest.raises(ValueError, match="channels-last"):
+        kg.apply_plan((2, 960, 64, 64), 32, BF16, False, 546, by_rows=True)
 
 
 # -------------------------------------------------------------- the build
