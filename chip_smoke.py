@@ -12,7 +12,8 @@ source, all started together), then:
      the channels-last memory the networks hold; LayerNorm at the gated
      transformer sites of the 512x512 request and of the 1024x1024 hires
      pass; the int8 matmul at every gated 512x512 GEMM) and
-     the two-pass GroupNorm pair at two large slabs, in bf16 and fp32, with
+     the two-pass GroupNorm pair at two large slabs (the stats pass also
+     with each of its two kernels forced), in bf16 and fp32, with
      both timed on the device (torch.profiler's kernel durations over 20
      calls) and eagerly (CUDA events around one call, host launch cost
      included); beside them the row's bound (the least time the card could
@@ -35,15 +36,22 @@ source, all started together), then:
      int8 linears (quantised once, the bytes shared by card and CPU) and
      set_kernels(int8_linear=True);
   3. main paths: Canny2ImagePipeline.process at the full SD-1.5 widths in
-     bf16, weights drawn from a fixed seed: one warm-up request, then two
-     timed requests (20 DDIM steps, scale 9, eta 0, batch 1), counting the
-     kernel launches of those two requests; 512x512 by default, with the
-     fused-norm configuration, and with int8 linears (quantize_linears=True,
-     set_kernels(int8_linear=True)); then the hires fix 512 -> 1024
-     (hires_upscale=2.0, hires_denoise=0.7: the last 14 of 20 steps again
-     at 1024x1024). Every run adds one traced request (torch.profiler) for
-     the device time per request and the part of it spent in this package's
-     attention, GroupNorm, LayerNorm and int8 matmul kernels.
+     bf16, weights drawn from a fixed seed, through the runtime's captured
+     engines (CUDA graphs): one warm-up request, which captures them (the
+     seconds and `report()` are printed), then two timed replayed requests
+     (20 DDIM steps, scale 9, eta 0, batch 1), counting the kernel launches
+     of those two requests, then one eager request (graphs=False) with the
+     first one's seed, whose image must equal the replayed one in bytes;
+     512x512 by default, with the fused-norm configuration, and with int8
+     linears (quantize_linears=True, set_kernels(int8_linear=True)); then
+     the hires fix 512 -> 1024 (hires_upscale=2.0, hires_denoise=0.7: the
+     last 14 of 20 steps again at 1024x1024). Every run adds one traced
+     replayed request (torch.profiler) for the device time per request and
+     the part of it spent in this package's attention, GroupNorm, LayerNorm
+     and int8 matmul kernels, and times one replay of each engine by CUDA
+     events. Then three short requests (4 steps) at full width: the default,
+     encoder_cache_interval=2 and cfg_rescale=0.7 (finite latents, images
+     that differ from the default's).
 Launch counts must equal what the UNet, ControlNet, VAE and CLIP plans and
 the dispatch gates imply. Any failed check raises, so the script exits
 non-zero and prints no result. The last line is {"ok": true, "device":
@@ -218,8 +226,8 @@ def traced_request(fn):
 TENSOR_CORE_KERNELS = {"attention": ("attention_split512_kernel", "attention_wgmma_kernel"),
                        "quant": ("qmm_wgmma_kernel",)}
 # every kernel of the norm libraries, held to no spills
-NORM_KERNELS = {"groupnorm": ("gn_fused_kernel", "gn_stats_kernel", "gn_apply_kernel",
-                              "gn_apply_rows_kernel"),
+NORM_KERNELS = {"groupnorm": ("gn_fused_kernel", "gn_stats_kernel", "gn_stats_rows_kernel",
+                              "gn_apply_kernel", "gn_apply_rows_kernel"),
                 "layernorm": ("ln_held_kernel", "ln_twice_kernel")}
 
 
@@ -445,11 +453,18 @@ def kernel_phase(cfg):
         x32 = randn(shape, torch.float32, channels_last=True)
         rows = kg.chunk_rows(x32, 32)
         desc = {"x": list(shape), "groups": 32, "chunk_rows": rows}
+        # beside the plan stats_plan picks, each of the two kernels forced
+        # (bf16): the (sample, group, chunk) kernel is the earlier one
+        forced = {name: kg.stats_plan(shape, 32, torch.bfloat16, True, rows, by_rows=by)
+                  for name, by in (("group_x_chunk", False), ("rows_x_channels", True))}
         results["group_norm_stats"].append(measure(
             "group_norm_stats", desc,
             lambda x: kg.group_norm_stats(x, 32, rows),
             lambda x: kg.group_norm_stats_plain(x, 32, rows),
-            lambda dt: (x32.to(dt),), relative=True, ops=3 * x32.numel()))
+            lambda dt: (x32.to(dt),), relative=True, ops=3 * x32.numel(),
+            others={name: (lambda x, plan=plan: kg.group_norm_stats(x, 32, rows, plan=plan))
+                    for name, plan in forced.items()},
+            variants=kg.stats_plan_launches))
 
         def apply_inputs(dt):
             x = x32.to(dt)
@@ -783,9 +798,36 @@ def reference_phase(model, cfg):
     torch.cuda.empty_cache()
 
 
+def engine_replay_ms(rt):
+    """{engine name: ms} of one replay of each captured engine of a runtime on
+    its static buffers, by CUDA events around the replay: device time with
+    no host launch cost, and no profiler."""
+    out = {}
+    for eng in rt._engines.values():
+        if not eng.compiled:
+            continue
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        eng.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out[eng.name] = start.elapsed_time(end)
+    return out
+
+
+def smoke_image():
+    rng = np.random.default_rng(0)
+    img = np.zeros((RES, RES, 3), np.uint8)
+    img[96:416, 128:384] = 200  # a box with edges, plus texture
+    return (img + rng.integers(0, 40, img.shape)).astype(np.uint8)
+
+
 def main_path(model, cfg, config):
-    """One warm-up and two timed requests of one configuration: "default",
-    "fused norms", "int8" (512x512) or "hires" (512 -> 1024)."""
+    """One warm-up request (it captures the engines), two timed replayed
+    requests, one eager request and one traced replayed request of one
+    configuration: "default", "fused norms", "int8" (512x512) or "hires"
+    (512 -> 1024)."""
     from stablediffusioneo_tpu_torch.ops import dispatch
     from stablediffusioneo_tpu_torch.ops.kernels.attention import variant_launches
     from stablediffusioneo_tpu_torch.ops.kernels.groupnorm import apply_plan_launches
@@ -799,10 +841,10 @@ def main_path(model, cfg, config):
                          int8_linear=config == "int8")
     pipe = Canny2ImagePipeline(model, stand_in_tokenizer, cfg, device="cuda",
                                quantize_linears=config == "int8")
-    rng = np.random.default_rng(0)
-    img = np.zeros((RES, RES, 3), np.uint8)
-    img[96:416, 128:384] = 200  # a box with edges, plus texture
-    img = (img + rng.integers(0, 40, img.shape)).astype(np.uint8)
+    rt = pipe.runtime
+    if not rt.capturing:
+        raise AssertionError("the runtime does not capture its engines on the card")
+    img = smoke_image()
     kw = dict(num_samples=1, image_resolution=RES, ddim_steps=STEPS,
               scale=SCALE, eta=0.0, strength=1.0)
     res = RES
@@ -811,8 +853,13 @@ def main_path(model, cfg, config):
         res = HIRES_RES
     t0 = time.perf_counter()
     pipe.process(img, "a house in the woods", seed=0, **kw)
-    print(f"main path ({config}) warm-up request: {time.perf_counter() - t0:.3f} s",
-          flush=True)
+    engines = {e.name: e.get_engine_infor() for e in rt._engines.values()}
+    print(f"main path ({config}) warm-up request, capturing {len(engines)} engines: "
+          f"{time.perf_counter() - t0:.3f} s, of which captures "
+          f"{sum(i['compile_seconds'] for i in engines.values()):.3f} s\n"
+          + rt.report(), flush=True)
+    if not all(i["compiled"] for i in engines.values()):
+        raise AssertionError(f"an engine was not captured: {engines}")
     torch.cuda.synchronize()
     dispatch.reset_launches()
     for counter in (variant_launches, gn_plans, qmm_plans, ln_plans, apply_plan_launches):
@@ -829,61 +876,113 @@ def main_path(model, cfg, config):
                 and out[0].shape == (res, res, 3)):
             raise AssertionError(f"image {out[1].shape} {out[1].dtype}, map {out[0].shape}")
         images.append(out[1])
-        print(f"main path ({config}) request seed={seed}: {latencies[-1]:.4f} s "
+        print(f"main path ({config}) replayed request seed={seed}: {latencies[-1]:.4f} s "
               f"({pipe.last_timings})", flush=True)
     launches = dict(dispatch.launches)
+    plans = [dict(c) for c in (variant_launches, qmm_plans, gn_plans, ln_plans,
+                               apply_plan_launches)]
+    if len(rt._engines) != len(engines):
+        raise AssertionError("a timed request built another engine: " + rt.report())
+    # the eager loop on the first request's seed: the same kernels in the same
+    # order, launched from the host one by one
+    rt.graphs = False
+    t0 = time.perf_counter()
+    eager = pipe.process(img, "a house in the woods", seed=1, **kw)
+    eager_latency = time.perf_counter() - t0
+    rt.graphs = None
+    differ = int((eager[1] != images[0]).sum())
+    print(f"main path ({config}) eager request seed=1: {eager_latency:.4f} s "
+          f"({pipe.last_timings}); bytes that differ from the replayed image: {differ} "
+          f"of {images[0].size}", flush=True)
+    if differ:
+        raise AssertionError(f"the replayed image ({config}) differs from the eager one in "
+                             f"{differ} bytes")
     want = expected_request_launches(cfg, config)
-    print(f"main path ({config}) kernel launches over the 2 requests: {launches} "
+    print(f"main path ({config}) kernel launches over the 2 replayed requests: {launches} "
           f"(expected from the plans and gates: {want})", flush=True)
     if launches != want:
         raise AssertionError(f"launch counts ({config}) {launches} != {want}")
+    variants, qmm, gn, ln, apply_plans = plans
     # every attention launch of the bf16 main path is a tensor-core variant
     want_variants = {"wgmma": want["fused_attention_packed"]
                      + want["fused_attention_packed_stream"],
                      "wgmma_split": want["fused_attention"]}
-    print(f"main path ({config}) attention launches by variant: "
-          f"{dict(variant_launches)}", flush=True)
-    if {k: v for k, v in variant_launches.items() if v} != \
+    print(f"main path ({config}) attention launches by variant: {variants}", flush=True)
+    if {k: v for k, v in variants.items() if v} != \
             {k: v for k, v in want_variants.items() if v}:
-        raise AssertionError(f"attention variants ({config}) {dict(variant_launches)} "
-                             f"!= {want_variants}")
+        raise AssertionError(f"attention variants ({config}) {variants} != {want_variants}")
     # every int8 matmul launch of the bf16 main path is the wgmma variant
-    by_plan = {str(plan): n for plan, n in qmm_plans.items()}
-    if by_plan or gn_plans or ln_plans:
+    by_plan = {str(plan): n for plan, n in qmm.items()}
+    if by_plan or gn or ln:
         print(f"main path ({config}) int8 matmul launches by plan: {by_plan}; "
               f"one-pass GroupNorm launches by plan: "
-              f"{ {str(plan): n for plan, n in gn_plans.items()} }; "
+              f"{ {str(plan): n for plan, n in gn.items()} }; "
               f"LayerNorm launches by plan: "
-              f"{ {str(plan): n for plan, n in ln_plans.items()} }", flush=True)
-    if (sum(n for plan, n in qmm_plans.items() if plan.variant == "wgmma")
-            != want["quantized_matmul"] or sum(qmm_plans.values()) != want["quantized_matmul"]
-            or sum(gn_plans.values()) != want["fused_group_norm"]
-            or sum(ln_plans.values()) != want["fused_layer_norm"]
-            or dict(ln_plans) != expected_layer_norm_plans(cfg, config)
-            or sum(apply_plan_launches.values()) != want["group_norm_apply"]):
-        raise AssertionError(f"plans ({config}) {by_plan}, {dict(gn_plans)}, {dict(ln_plans)}, "
-                             f"{dict(apply_plan_launches)} do not add up to {want}")
+              f"{ {str(plan): n for plan, n in ln.items()} }", flush=True)
+    if (sum(n for plan, n in qmm.items() if plan.variant == "wgmma")
+            != want["quantized_matmul"] or sum(qmm.values()) != want["quantized_matmul"]
+            or sum(gn.values()) != want["fused_group_norm"]
+            or sum(ln.values()) != want["fused_layer_norm"]
+            or ln != expected_layer_norm_plans(cfg, config)
+            or sum(apply_plans.values()) != want["group_norm_apply"]):
+        raise AssertionError(f"plans ({config}) {by_plan}, {gn}, {ln}, "
+                             f"{apply_plans} do not add up to {want}")
     if np.array_equal(images[0], images[1]):
         raise AssertionError("two seeds gave the same image")
     print(f"image stats ({config}): mean {images[0].mean():.2f} std "
           f"{images[0].std():.2f}; seeds differ in "
           f"{(images[0] != images[1]).mean():.3f} of values", flush=True)
+    graph_nodes = sum(i["device_ops"] for i in engines.values())
     trace = traced_request(lambda: pipe.process(img, "a house in the woods", seed=3, **kw))
     if trace is None:
         traced = None
-        print(f"main path ({config}) traced request: not measured (the profiler gave "
-              "no device events)", flush=True)
+        print(f"main path ({config}) traced replayed request: not measured (the profiler "
+              "gave no device events)", flush=True)
     else:
         ms, parts, n_ops = trace
         traced = {"device_ms": ms, "device_ops": n_ops,
                   **{f"{family}_ms": part for family, part in parts.items()}}
-        print(f"main path ({config}) traced request: device time {ms:.1f} ms in "
-              f"{n_ops} device operations; this package's kernels, ms: "
+        print(f"main path ({config}) traced replayed request: device time {ms:.1f} ms in "
+              f"{n_ops} device operations (the engines' graphs hold {graph_nodes} nodes: "
+              f"the profiler {'sees' if n_ops >= graph_nodes else 'does not see all'} "
+              "graph nodes); this package's kernels, ms: "
               + ", ".join(f"{family} {part:.1f}" for family, part in parts.items()),
               flush=True)
+    replays = engine_replay_ms(rt)
+    print(f"main path ({config}) one replay of each engine by CUDA events, ms: "
+          + ", ".join(f"{n} {ms:.1f}" for n, ms in replays.items()), flush=True)
     pipe.runtime.release()
     dispatch.set_kernels(groupnorm=False, layernorm=False, int8_linear=False)
-    return launches, latencies, images[0], traced
+    return {"launches": launches, "latencies": latencies, "eager_latency": eager_latency,
+            "image": images[0], "traced": traced, "engines": engines,
+            "replay_ms": replays}
+
+
+def loop_variants(model, cfg, steps=4):
+    """Three short requests at full width through captured engines: the
+    default loop, the encoder-cached loop and the rescaled guidance. The
+    variants' latents are finite and their images differ from the default's."""
+    from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
+
+    pipe = Canny2ImagePipeline(model, stand_in_tokenizer, cfg, device="cuda")
+    img = smoke_image()
+    kw = dict(num_samples=1, image_resolution=RES, ddim_steps=steps, scale=SCALE,
+              eta=0.0, seed=1)
+    base = pipe.process(img, "a house in the woods", **kw)[1]
+    for variant in ({"encoder_cache_interval": 2}, {"cfg_rescale": 0.7}):
+        out = pipe.process(img, "a house in the woods", **kw, **variant)[1]
+        z = pipe.last_latents
+        apart = float((out != base).mean())
+        print(f"loop variant {variant}: {steps} steps, {pipe.last_timings['total_ms']:.0f} "
+              f"ms with its capture; latents finite {bool(torch.isfinite(z).all())}, max |z| "
+              f"{z.abs().max().item():.3f}; image differs from the default's in "
+              f"{apart:.3f} of values", flush=True)
+        if not (torch.isfinite(z).all() and out.shape == (RES, RES, 3) and apart > 0):
+            raise AssertionError(f"loop variant {variant} failed")
+    print(pipe.runtime.report(), flush=True)
+    if not all(e.compiled for e in pipe.runtime._engines.values()):
+        raise AssertionError("a loop variant's engine was not captured")
+    pipe.runtime.release()
 
 
 def main():
@@ -946,17 +1045,20 @@ def main():
         runs[config] = main_path(model, cfg, config)
         print(f"main path ({config}) done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
-    latencies = {config: r[1] for config, r in runs.items()}
-    base = runs["default"][2].astype(np.int16)
-    print(f"request latency, s: {latencies}; seed-1 images against the default's, "
-          f"mean |d| of 255: fused norms "
-          f"{np.abs(base - runs['fused norms'][2]).mean():.3f}, int8 "
-          f"{np.abs(base - runs['int8'][2]).mean():.3f}", flush=True)
+    loop_variants(model, cfg)
+    print(f"loop variants done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    latencies = {config: r["latencies"] for config, r in runs.items()}
+    eager = {config: r["eager_latency"] for config, r in runs.items()}
+    base = runs["default"]["image"].astype(np.int16)
+    print(f"replayed request latency, s: {latencies}; eager request latency, s: {eager}; "
+          f"seed-1 images against the default's, mean |d| of 255: fused norms "
+          f"{np.abs(base - runs['fused norms']['image']).mean():.3f}, int8 "
+          f"{np.abs(base - runs['int8']['image']).mean():.3f}", flush=True)
 
     out = []
     for name, (source, replaces) in KERNELS.items():
         rows = kernels[name]
-        launches = runs[EXERCISED_BY.get(name, "fused norms")][0]
+        launches = runs[EXERCISED_BY.get(name, "fused norms")]["launches"]
         by = {kind: sum(r["bound_ms"] for r in rows if r["bound_by"] == kind)
               for kind in ("operations", "bytes")}
         library = [r["library_ms"] for r in rows]
@@ -978,8 +1080,11 @@ def main():
             "library_ms": None if None in library else sum(library),
             "shapes": rows,
         })
-    print(json.dumps({"kernels": out, "request_s": latencies,
-                      "traced": {config: r[3] for config, r in runs.items()}}))
+    print(json.dumps({"kernels": out, "request_s": latencies, "eager_request_s": eager,
+                      "traced": {config: r["traced"] for config, r in runs.items()},
+                      "engines": {config: r["engines"] for config, r in runs.items()},
+                      "engine_replay_ms": {config: r["replay_ms"]
+                                           for config, r in runs.items()}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

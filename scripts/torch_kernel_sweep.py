@@ -1,11 +1,12 @@
 """Sweep the launch plans of the PyTorch port's int8 matmul, one-pass
-GroupNorm, LayerNorm and GroupNorm apply kernels on one NVIDIA card.
+GroupNorm, LayerNorm and GroupNorm apply and stats kernels on one NVIDIA card.
 
-    python3 scripts/torch_kernel_sweep.py [quant] [gn] [ln] [apply] [--root DIR]
+    python3 scripts/torch_kernel_sweep.py [quant] [gn] [ln] [apply] [stats] [--root DIR]
 
 --root DIR takes the package (not this script, nor chip_smoke.py) from
 another checkout, to time an earlier tree's kernels at the same shapes in
-the same call; a LayerNorm kernel that takes no plan is timed as it is.
+the same call; a LayerNorm or GroupNorm stats kernel that takes no plan is
+timed as it is.
 
 For every gated GEMM of a 512x512 SD-1.5 step: each tile (x rows by weight
 rows) and K split of the wgmma variant forced once, and the mma.sync
@@ -23,9 +24,15 @@ fastest and the plan `layer_norm_plan` picks, beside F.layer_norm. For the
 two-pass GroupNorm's apply pass at two large channels-last slabs, bf16 and
 fp32: the rows x channels kernel at each block width of whole rows and tiles
 for 1 to 8 blocks an SM, and the (sample, group, chunk) kernel, checked
-for equal bytes among themselves. The card's name and power limit come
-last. The plan rules in ops/kernels/{quant,groupnorm,layernorm}.py were set
-from this output (PERF.md).
+for equal bytes among themselves. For the stats pass at the same slabs: the
+rows x channels kernel at each block width of whole rows and each cluster
+size (blocks that share a (sample, chunk), adding over distributed shared
+memory), the (sample, group, chunk) kernel, and, as a floor for the other way
+to fill the card (several blocks a chunk, then a second, ordered add in
+another launch), one block for each cluster-sized share of a chunk without any
+add; each held to 1e-5 x max |plain| and run twice for equal bytes. The
+card's name and power limit come last. The plan rules in
+ops/kernels/{quant,groupnorm,layernorm}.py were set from this output (PERF.md).
 """
 
 import os
@@ -198,10 +205,62 @@ def sweep_apply(gen):
             torch.cuda.empty_cache()
 
 
+def sweep_stats(gen):
+    for shape in chip_smoke.APPLY_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            x = x.contiguous(memory_format=torch.channels_last)
+            c, hw = shape[1], shape[2] * shape[3]
+            rows = kg.chunk_rows(x, 32)
+            ref = kg.group_norm_stats_plain(x, 32, rows)
+            tol = chip_smoke.STATS_TOL * ref.abs().max().item()
+            bound = x.numel() * x.element_size() / chip_smoke.PEAK_BYTES * 1e6
+            if not hasattr(kg, "stats_plan"):  # an earlier tree's kernel: one layout
+                if (kg.group_norm_stats(x, 32, rows) - ref).abs().max().item() > tol:
+                    raise AssertionError(f"{shape} disagrees with the plain version")
+                ms = chip_smoke.device_ms(lambda: kg.group_norm_stats(x, 32, rows))
+                print(f"group_norm_stats {shape} {dtype} us (no plans): {ms * 1e3:.1f} | "
+                      f"bound {bound:.1f}", flush=True)
+                continue
+            auto = kg.stats_plan(shape, 32, dtype, True, rows)
+            by_rows = kg.stats_plan(shape, 32, dtype, True, rows, by_rows=True)
+            rv = c // by_rows.vec
+            widths = sorted({t for t in range(rv, kg.ROWS_MAX_THREADS + 1, rv)
+                             if t % 32 == 0 and (t * by_rows.vec + c + 32) * 8
+                             <= kg.STATS_SMEM_BYTES} | {by_rows.threads})
+            widths = [t for t in widths if t >= 128]
+            plans = [kg.stats_plan(shape, 32, dtype, True, rows, by_rows=False)]
+            plans += [kg.StatsPlan(True, by_rows.vec, threads, cluster)
+                      for threads in widths for cluster in (1, 2, 4, 8)]
+            cells = []
+            for plan in plans:
+                out = kg.group_norm_stats(x, 32, rows, plan=plan)
+                if (out - ref).abs().max().item() > tol or not torch.equal(
+                        out, kg.group_norm_stats(x, 32, rows, plan=plan)):
+                    raise AssertionError(f"{shape} {plan} disagrees or differs between runs")
+                ms = chip_smoke.device_ms(
+                    lambda: kg.group_norm_stats(x, 32, rows, plan=plan))
+                name = (f"{plan.threads}t/c{plan.cluster}" if plan.by_rows
+                        else "group x chunk")
+                cells.append(f"{'*' if plan == auto else ''}{name} {ms * 1e3:.1f}")
+            shares = []  # one block a share of a chunk, no add across them
+            for cluster in (2, 4, 8):
+                share = -(-min(rows, hw) // cluster)
+                plan = by_rows._replace(cluster=1)
+                ms = chip_smoke.device_ms(
+                    lambda: kg.group_norm_stats(x, 32, share, plan=plan))
+                shares.append(f"1/{cluster} chunk {ms * 1e3:.1f}")
+            print(f"group_norm_stats {shape} {dtype} vec {by_rows.vec} us (threads / "
+                  f"cluster): {'; '.join(cells)} | no add: {'; '.join(shares)} | "
+                  f"bound {bound:.1f}", flush=True)
+            del x, ref
+            torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("torch_kernel_sweep: no CUDA device; this script runs on the card only")
-    what = sys.argv[1:] or ["quant", "gn", "ln", "apply"]
+    what = sys.argv[1:] or ["quant", "gn", "ln", "apply", "stats"]
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = sd15_pipeline(dtype="bfloat16")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -213,6 +272,8 @@ def main():
         sweep_layer_norm(cfg, gen)
     if "apply" in what:
         sweep_apply(gen)
+    if "stats" in what:
+        sweep_stats(gen)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())

@@ -60,7 +60,21 @@
 // group, gamma and beta are per element; when the block's width is a multiple
 // of a row's vectors a thread's column is fixed and they are registers, loaded
 // once (no division in the loop). The plan is ops/kernels/groupnorm.py:
-// apply_plan's. Measured times and bounds: PERF.md section 6.
+// apply_plan's. The stats pass in channels-last memory makes the same cut
+// where a group's run is narrower than a 32-byte sector
+// (gn_stats_rows_kernel): the (sample, group, chunk) blocks would each fetch
+// 8 bytes of every 256 at C = 128, so every sector is fetched by four blocks
+// and no access is wider than a group's run. A (sample, chunk) is one
+// contiguous span of chunk_rows x C elements instead; a cluster of 1 to 8
+// blocks shares it (there are fewer (sample, chunk) pairs than SMs at the
+// large slabs), each block streams its rows with 16-byte accesses, eight in
+// flight a thread, a thread keeping (sum, sum of squares) for each element of
+// its fixed column; the columns meet in shared memory and are added in a
+// fixed order (thread rows, then the group's channels), the blocks' group
+// sums meet over distributed shared memory and rank 0 adds them in rank
+// order and writes the chunk's `groups` partials. No atomics: two runs give
+// equal bytes. The plan is ops/kernels/groupnorm.py: stats_plan's. Measured
+// times and bounds: PERF.md section 6.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -412,6 +426,100 @@ __global__ void __launch_bounds__(kRowsMaxThreads) gn_apply_rows_kernel(
   }
 }
 
+constexpr int kStatsBatch = 8;  // loads a thread of the stats pass has in flight
+
+// Block (rank, chunk, sample) of channels-last x, a cluster (S, 1, 1) a
+// (sample, chunk): the block takes the spatial rows [rank * block_rows, ...) of
+// the chunk, all channels. blockDim.x is a multiple of the C / VEC vectors of
+// a row, so a thread's column never changes. Shared memory, float2 (sum, sum
+// of squares): [blockDim.x / rv][C] column sums of each thread row, [C]
+// channel sums, [groups] this block's group sums (read by rank 0).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kRowsMaxThreads) gn_stats_rows_kernel(
+    const T* __restrict__ x, float* __restrict__ partials, int c, int hw, int groups,
+    int chunk_rows, int block_rows) {
+  using P = Pack<T, VEC>;
+  extern __shared__ float2 gn_sums[];
+  const int rank = blockIdx.x, chunk = blockIdx.y, n = blockIdx.z;
+  const int rv = c / VEC, lanes = blockDim.x / rv, cpg = c / groups;
+  float2* chan = gn_sums + (size_t)lanes * c;
+  float2* part = chan + c;
+  const int chunk_end = min((chunk + 1) * chunk_rows, hw);
+  const int p0 = chunk * chunk_rows + rank * block_rows;
+  const int count = max(0, min(block_rows, chunk_end - p0)) * rv;  // vectors of this block
+  const P* xv = reinterpret_cast<const P*>(x + ((long long)n * hw + p0) * c);
+  float2 acc[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = make_float2(0.f, 0.f);
+  for (int k = threadIdx.x; k < count; k += kStatsBatch * blockDim.x) {
+    P v[kStatsBatch];
+#pragma unroll
+    for (int j = 0; j < kStatsBatch; ++j) {
+      const int kk = k + j * blockDim.x;
+      if (kk < count) v[j] = xv[kk];
+    }
+#pragma unroll
+    for (int j = 0; j < kStatsBatch; ++j) {
+      if (k + j * (int)blockDim.x >= count) continue;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float f = Num<T>::load(v[j].v[e]);
+        acc[e].x += f;
+        acc[e].y += f * f;
+      }
+    }
+  }
+  const int col = threadIdx.x % rv, lane = threadIdx.x / rv;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) gn_sums[(size_t)lane * c + col * VEC + e] = acc[e];
+  __syncthreads();
+  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {  // thread rows, in order
+    float2 s = make_float2(0.f, 0.f);
+    for (int l = 0; l < lanes; ++l) {
+      const float2 q = gn_sums[(size_t)l * c + ch];
+      s.x += q.x;
+      s.y += q.y;
+    }
+    chan[ch] = s;
+  }
+  __syncthreads();
+  const bool alone = gridDim.x == 1;
+  float2* out = reinterpret_cast<float2*>(partials);
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {  // the group's channels, in order
+    float2 s = make_float2(0.f, 0.f);
+    for (int j = 0; j < cpg; ++j) {
+      const float2 q = chan[g * cpg + j];
+      s.x += q.x;
+      s.y += q.y;
+    }
+    if (alone) out[((long long)n * groups + g) * gridDim.y + chunk] = s;
+    else part[g] = s;
+  }
+  if (alone) return;
+  cluster_arrive();
+  cluster_wait();  // every block's group sums are written
+  if (rank == 0) {
+    cg::cluster_group cluster = cg::this_cluster();
+    for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+      float2 q[8];  // every rank's sums in flight, then added in rank order
+#pragma unroll
+      for (unsigned b = 0; b < 8; ++b)
+        if (b < gridDim.x) q[b] = *cluster.map_shared_rank(&part[g], b);
+      float2 s = make_float2(0.f, 0.f);
+#pragma unroll
+      for (unsigned b = 0; b < 8; ++b) {
+        if (b < gridDim.x) {
+          s.x += q[b].x;
+          s.y += q[b].y;
+        }
+      }
+      out[((long long)n * groups + g) * gridDim.y + chunk] = s;
+    }
+  }
+  cluster_arrive();
+  cluster_wait();  // no block leaves while its sums may still be read
+}
+
 template <int V>
 using vec_c = std::integral_constant<int, V>;
 
@@ -510,12 +618,52 @@ extern "C" int sdeo_group_norm_fused(const void* x, const void* gamma, const voi
   });
 }
 
+// by_rows = 0: one block of kChunkThreads a (sample, group, chunk); `vec`
+// divides the group's runs; cluster = 1. by_rows = 1 (channels-last memory
+// only): a cluster of `cluster` blocks of `threads` threads a (sample, chunk),
+// all channels; `vec` divides C and `threads` is a multiple of C / vec. The
+// plan is the caller's (ops/kernels/groupnorm.py: stats_plan); a plan that
+// does not fit the arguments is an error.
 extern "C" int sdeo_group_norm_stats(const void* x, float* partials, int dtype,
                                      int channels_last, int n, int c, int hw, int groups,
-                                     int chunk_rows, int chunks, int vec, void* stream) {
+                                     int chunk_rows, int chunks, int by_rows, int vec,
+                                     int threads, int cluster, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (groups < 1 || c % groups ||
-      !vectors_fit(vec, dtype == 0 ? 4 : 2, channels_last, c, hw, groups, chunk_rows, x, x))
+  const int esize = dtype == 0 ? 4 : 2;
+  if (groups < 1 || c % groups || chunk_rows < 1 || chunks < 1 ||
+      (long long)chunks * chunk_rows < hw)
+    return (int)cudaErrorInvalidValue;
+  if (by_rows) {
+    const uintptr_t bytes = (uintptr_t)vec * esize;
+    if (!channels_last || vec < 1 || c % vec || bytes > 16 || threads < 32 ||
+        threads > kRowsMaxThreads || threads % 32 || threads % (c / vec) || cluster < 1 ||
+        cluster > 8 || (cluster & (cluster - 1)) || n > 65535 || chunks > 65535 ||
+        reinterpret_cast<uintptr_t>(x) % bytes)
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = ((size_t)threads * vec + c + groups) * sizeof(float2);
+    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+    const int block_rows = ((chunk_rows < hw ? chunk_rows : hw) + cluster - 1) / cluster;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(cluster, chunks, n);
+    config.blockDim = dim3(threads);
+    config.dynamicSmemBytes = smem;
+    config.stream = st;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    config.attrs = &attr;
+    config.numAttrs = cluster > 1;  // one block a chunk launches as a plain grid
+    return (int)by_types(dtype, 0, vec, [&](auto tp, auto, auto vc) {
+      using T = elem_t<decltype(tp)>;
+      constexpr int V = decltype(vc)::value;
+      return cudaLaunchKernelEx(&config, gn_stats_rows_kernel<T, V>, static_cast<const T*>(x),
+                                partials, c, hw, groups, chunk_rows, block_rows);
+    });
+  }
+  if (threads != kChunkThreads || cluster != 1 || chunks > 65535 ||
+      !vectors_fit(vec, esize, channels_last, c, hw, groups, chunk_rows, x, x))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(n * groups, chunks);
   return (int)by_types(dtype, 0, vec, [&](auto tp, auto, auto vc) {
@@ -529,7 +677,7 @@ extern "C" int sdeo_group_norm_stats(const void* x, float* partials, int dtype,
 }
 
 // by_rows = 0: one block a (sample, group, chunk), `vec` as for the stats
-// kernel. by_rows = 1 (channels-last memory only): one block of `threads`
+// kernel's by_rows = 0. by_rows = 1 (channels-last memory only): one block of `threads`
 // threads a tile of `tile_rows` spatial rows of a sample, all channels; `vec`
 // divides C. The plan is the caller's (ops/kernels/groupnorm.py: apply_plan);
 // a plan that does not fit the arguments is an error.

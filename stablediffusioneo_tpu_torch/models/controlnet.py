@@ -27,6 +27,7 @@ from stablediffusioneo_tpu_torch.models.unet import (
     unet_forward,
     unet_middle,
 )
+from stablediffusioneo_tpu_torch.ops.dispatch import const_tensor
 from stablediffusioneo_tpu_torch.ops.layers import nchw, nhwc
 
 # (cout, stride) of the hint block's convs before the last, cldm/cldm.py:209-225
@@ -104,7 +105,7 @@ def scale_control(control: List[torch.Tensor], control_scales):
     if isinstance(control_scales, torch.Tensor) and control_scales.dim() == 2:
         return [c * control_scales[:, i].to(c.device, c.dtype)[:, None, None, None]
                 for i, c in enumerate(control)]
-    return [c * torch.as_tensor(float(s), dtype=c.dtype, device=c.device)
+    return [c * const_tensor(float(s), c.dtype, c.device)
             for c, s in zip(control, control_scales)]
 
 

@@ -15,6 +15,7 @@ import torch.nn as nn
 from stablediffusioneo_tpu_torch.config import VAEConfig
 from stablediffusioneo_tpu_torch.models.unet import GroupNorm32, conv1x1_as_linear
 from stablediffusioneo_tpu_torch.ops.attention import attention
+from stablediffusioneo_tpu_torch.ops.dispatch import const_tensor
 from stablediffusioneo_tpu_torch.ops.layers import nchw, nhwc, upsample_nearest_2x
 
 
@@ -116,5 +117,5 @@ def vae_decode(vae: AutoencoderKL, z, scaled: bool = True):
     scaled=True: z is in LatentDiffusion units and is divided by the scale
     factor (in z's dtype) first."""
     if scaled:
-        z = z / torch.tensor(vae.cfg.scale_factor, dtype=z.dtype, device=z.device)
+        z = z / const_tensor(float(vae.cfg.scale_factor), z.dtype, z.device)
     return nhwc(vae.decoder(vae.post_quant_conv(nchw(z))))

@@ -16,12 +16,18 @@ given CPU tensors it runs the kernel's plain PyTorch version.
 
 `launches` holds one plain integer per kernel entry. A wrapper adds one
 exactly where it launches its kernel, so a run can show that its main path
-went through the kernels.
+went through the kernels. The wrappers' counters by variant or plan register
+here too (`register_counter`), so that a captured engine (runtime/engine.py)
+can take back what its capture counted (`counts` before and after, `add_counts`
+of the negated difference: a capture puts nothing on the device) and add the
+same difference at every replay: the counters go on meaning "kernels put on
+the device".
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Dict, List, MutableMapping, Tuple
 
 import torch
 
@@ -38,6 +44,10 @@ launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _FLAGS: Dict[str, bool] = {"groupnorm": False, "layernorm": False,
                            "int8_linear": False}
 
+# every launch counter of the package: `launches` and the wrappers' counters
+# by variant or plan
+_COUNTERS: List[MutableMapping] = [launches]
+
 
 def set_kernels(**flags: bool) -> None:
     """Turn kernel families on or off, e.g. set_kernels(groupnorm=True)."""
@@ -49,6 +59,34 @@ def set_kernels(**flags: bool) -> None:
 
 def kernels_enabled(name: str) -> bool:
     return _FLAGS.get(name, False)
+
+
+def kernel_flags() -> Tuple[Tuple[str, bool], ...]:
+    """The flags as a sorted tuple: part of a captured engine's key, since
+    they change which kernels a capture holds."""
+    return tuple(sorted(_FLAGS.items()))
+
+
+def register_counter(counter: MutableMapping) -> None:
+    _COUNTERS.append(counter)
+
+
+def counts() -> List[dict]:
+    """A copy of every registered counter, in registration order."""
+    return [dict(c) for c in _COUNTERS]
+
+
+def counts_since(before: List[dict]) -> List[dict]:
+    """What every counter gained since `before = counts()` (non-zero entries)."""
+    return [{k: v - was.get(k, 0) for k, v in c.items() if v != was.get(k, 0)}
+            for was, c in zip(before, _COUNTERS)]
+
+
+def add_counts(delta: List[dict], times: int = 1) -> None:
+    """Add `times` x `delta` (from `counts_since`) to the counters."""
+    for c, d in zip(_COUNTERS, delta):
+        for k, v in d.items():
+            c[k] = c.get(k, 0) + times * v
 
 
 def reset_launches() -> None:
@@ -69,3 +107,13 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     if devices == {"cpu"}:
         return False
     raise ValueError(f"kernel inputs on mixed or unsupported devices: {devices}")
+
+
+@functools.lru_cache(maxsize=256)
+def const_tensor(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A 0-dim tensor holding `value` rounded to `dtype`, made once for each
+    (value, dtype, device) and never written. A loop that multiplies by such a
+    scalar every step copies nothing from the host after its first pass, which
+    a CUDA graph capture requires; the rounding to `dtype` stays where a fresh
+    torch.tensor(value, dtype=dtype) put it."""
+    return torch.tensor(value, dtype=dtype, device=device)

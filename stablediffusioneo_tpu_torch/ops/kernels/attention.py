@@ -36,6 +36,7 @@ VARIANTS = {
 }
 # launches by variant name since the last clear() (chip_smoke.py reads it)
 variant_launches: "collections.Counter[str]" = collections.Counter()
+dispatch.register_counter(variant_launches)
 
 
 def attention_variant(dtype: torch.dtype, head_dim: int, tq: int, s: int,
@@ -75,7 +76,7 @@ def _library() -> ctypes.CDLL:
 
 def _scaled_q(q: torch.Tensor, scale: float) -> torch.Tensor:
     # the scale is rounded to q's dtype first, as jnp.asarray(scale, q.dtype)
-    return q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    return q * dispatch.const_tensor(float(scale), q.dtype, q.device)
 
 
 def _rounded_scale(scale: float, dtype: torch.dtype) -> float:

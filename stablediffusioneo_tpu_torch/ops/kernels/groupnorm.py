@@ -4,6 +4,9 @@ Counterpart of stablediffusioneo_tpu/ops/pallas/groupnorm.py. The kernels
 (csrc/groupnorm.cu) replace `_gn_fused_kernel` / `_gn_resident_kernel`
 (entry `fused_group_norm`, one pass), `_gn_stats_kernel` (entry
 `group_norm_stats`) and `_gn_apply_kernel` (entry `group_norm_apply`).
+Each entry's launch plan is a pure function here (`group_norm_plan`,
+`stats_plan`, `apply_plan`), handed to the C entry, which refuses a plan
+that does not fit its arguments.
 `fused_group_norm` takes the one-pass kernel wherever the JAX entry does
 (`_spatial_chunk(h*w, c) == h*w`) and the stats+apply pair otherwise.
 
@@ -100,6 +103,44 @@ class ApplyPlan(NamedTuple):
 # launches of the apply kernel by plan since the last clear()
 apply_plan_launches: "collections.Counter[ApplyPlan]" = collections.Counter()
 
+SECTOR_BYTES = 32        # what the card fetches from device memory at least
+STATS_BATCH = 8          # csrc/groupnorm.cu kStatsBatch: accesses a thread has in flight
+STATS_SMEM_BYTES = 48 * 1024  # shared memory the rows x channels stats kernel may take
+# The plan of the rows x channels stats kernel, measured on the H100
+# (scripts/torch_kernel_sweep.py stats, PERF.md section 6): the widest block of
+# whole rows is fastest (512 threads 26.9 us, 256 threads 30.7 at
+# (1,128,512,512) in bf16); the cluster of a (sample, chunk) doubles while the
+# launch stays within one block an SM (64 chunks: two blocks each 26.9 us, one
+# 30.9, four 37.0) and a block's share still gives every thread
+# `STATS_MIN_BATCHES` batches of accesses; it stops at four blocks, since 16
+# clusters of eight fit the card's GPCs only where every GPC has 16 free SMs
+# (14.1 us against 9.8 for clusters of four at (2,960,64,64) in bf16).
+STATS_MAX_CLUSTER = 4
+STATS_MIN_BATCHES = 4
+
+
+class StatsPlan(NamedTuple):
+    """What one launch of the stats pass runs. by_rows: a cluster of `cluster`
+    blocks of `threads` threads takes one (sample, chunk), all channels, each
+    block a share of the chunk's spatial rows (channels-last memory only);
+    else one block takes one (sample, group, chunk). vec: elements per
+    access."""
+    by_rows: bool
+    vec: int
+    threads: int
+    cluster: int
+
+    def __str__(self) -> str:
+        return (f"{'rows x channels' if self.by_rows else 'group x chunk'} vec "
+                f"{self.vec} threads {self.threads} cluster {self.cluster}")
+
+
+# launches of the stats kernel by plan since the last clear()
+stats_plan_launches: "collections.Counter[StatsPlan]" = collections.Counter()
+
+for _counter in (plan_launches, apply_plan_launches, stats_plan_launches):
+    dispatch.register_counter(_counter)
+
 
 def access_width(shape, groups: int, itemsize: int, channels_last: bool,
                  rows: int, aligned: bool = True) -> int:
@@ -177,15 +218,64 @@ def apply_plan(shape, groups: int, dtype: torch.dtype, channels_last: bool,
     rv = c // vec  # vectors of one spatial row
     # the widest block of whole rows up to the most threads; a row wider
     # than that is walked with a moving column
-    threads = CHUNK_THREADS
-    if rv <= ROWS_MAX_THREADS:
-        whole = [t for t in range(rv, ROWS_MAX_THREADS + 1, rv) if t % 32 == 0]
-        if whole:
-            threads = min(whole, key=lambda t: (abs(t - CHUNK_THREADS), t))
+    threads = _whole_row_threads(rv) or CHUNK_THREADS
     batch_rows = -(-threads * APPLY_BATCH // rv)  # rows one batch of the block covers
     tile_rows = max(batch_rows, -(-n * hw // (APPLY_BLOCKS_PER_SM * SM_COUNT)))
     tile_rows = -(-tile_rows // batch_rows) * batch_rows
     return ApplyPlan(True, vec, threads, min(tile_rows, hw))
+
+
+def _whole_row_threads(rv: int, widest: bool = False) -> int:
+    """The block width, a whole number of rows of `rv` vectors and of warps,
+    nearest to CHUNK_THREADS (widest: the widest within ROWS_MAX_THREADS); 0
+    when there is none."""
+    whole = [t for t in range(rv, ROWS_MAX_THREADS + 1, rv) if t % 32 == 0]
+    if not whole:
+        return 0
+    return max(whole) if widest else min(whole, key=lambda t: (abs(t - CHUNK_THREADS), t))
+
+
+def stats_plan(shape, groups: int, dtype: torch.dtype, channels_last: bool,
+               rows: int, aligned: bool = True, by_rows: Optional[bool] = None,
+               cluster: Optional[int] = None) -> StatsPlan:
+    """The plan one call of the stats pass runs, a pure function of its
+    arguments; `rows` are the spatial rows of a chunk of the partials.
+    Channels-last memory whose groups' runs are narrower than a sector (at
+    C = 128 a run is 8 bytes in bf16, so four (sample, group, chunk) blocks
+    would fetch each sector) is cut by rows x all channels where a block of
+    whole rows fits (the widest vector of at most 16 bytes that divides C; the
+    widest block of a whole number of rows' vectors, so a thread's column is
+    fixed; its column sums within `STATS_SMEM_BYTES`): a (sample, chunk) is
+    one contiguous span, shared by a cluster sized as the constants above say.
+    NCHW memory, whose runs are whole chunks of a channel, wider runs (at
+    C = 960 the (sample, group, chunk) kernel measured faster) and shapes with
+    no such block keep one block a (sample, group, chunk). `by_rows` and
+    `cluster` force the cut and the cluster size (tests, measurements)."""
+    n, c, h, w = shape
+    hw = h * w
+    vec = access_width(shape, 1, dtype.itemsize, True, rows, aligned)
+    threads = _whole_row_threads(c // vec, widest=True)
+    fits = (channels_last and threads > 0
+            and (threads * vec + c + groups) * 8 <= STATS_SMEM_BYTES)
+    if by_rows is None:
+        by_rows = fits and c // groups * dtype.itemsize < SECTOR_BYTES
+    if not by_rows:
+        return StatsPlan(False, access_width(shape, groups, dtype.itemsize,
+                                             channels_last, rows, aligned),
+                         CHUNK_THREADS, 1)
+    if not fits:
+        raise ValueError("the rows x channels stats plan takes channels-last "
+                         f"memory and a block of whole rows; got {tuple(shape)}")
+    if cluster is None:
+        rows = min(rows, hw)
+        pairs = n * -(-hw // rows)
+        # rows that give every thread of a block its least batches
+        least = STATS_MIN_BATCHES * -(-threads * STATS_BATCH // (c // vec))
+        cluster = 1
+        while (cluster < STATS_MAX_CLUSTER and 2 * cluster * pairs <= SM_COUNT
+               and rows >= 2 * cluster * least):
+            cluster *= 2
+    return StatsPlan(True, vec, threads, cluster)
 
 
 def _spatial_chunk(hw: int, c: int) -> int:
@@ -289,7 +379,7 @@ def _library() -> ctypes.CDLL:
     if lib.sdeo_group_norm_fused.argtypes is None:
         ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sdeo_group_norm_fused.argtypes = [ptr] * 4 + [i] * 11 + [f, f, i, ptr]
-        lib.sdeo_group_norm_stats.argtypes = [ptr] * 2 + [i] * 9 + [ptr]
+        lib.sdeo_group_norm_stats.argtypes = [ptr] * 2 + [i] * 12 + [ptr]
         lib.sdeo_group_norm_apply.argtypes = [ptr] * 5 + [i] * 13 + [f, f, i, ptr]
         for fn in (lib.sdeo_group_norm_fused, lib.sdeo_group_norm_stats,
                    lib.sdeo_group_norm_apply):
@@ -340,8 +430,12 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
 
 
-def group_norm_stats(x, groups: int, rows: int):
-    """(N, G, ceil(h*w / rows), 2) fp32 partial Σx, Σx² per spatial chunk."""
+def group_norm_stats(x, groups: int, rows: int,
+                     plan: Optional[StatsPlan] = None):
+    """(N, G, ceil(h*w / rows), 2) fp32 partial Σx, Σx² per spatial chunk.
+    plan: a StatsPlan to run instead of `stats_plan`'s choice (tests,
+    measurements); the C entry refuses a plan that does not fit, and the
+    refusal raises."""
     if not dispatch.use_kernel(x):
         return group_norm_stats_plain(x, groups, rows)
     cl = _check_input(x, groups)
@@ -351,11 +445,13 @@ def group_norm_stats(x, groups: int, rows: int):
         raise ValueError(f"group norm stats: {chunks} chunks of {rows} rows")
     partials = torch.empty((n, groups, chunks, 2), dtype=torch.float32,
                            device=x.device)
-    vec = access_width(x.shape, groups, x.element_size(), bool(cl), rows,
-                       _aligned(x))
+    if plan is None:
+        plan = stats_plan(x.shape, groups, x.dtype, bool(cl), rows, _aligned(x))
     _raise_on(_library().sdeo_group_norm_stats(
         x.data_ptr(), partials.data_ptr(), _DTYPE_CODE[x.dtype], cl, n, c,
-        h * w, groups, rows, chunks, vec, _stream(x)), "group norm stats")
+        h * w, groups, rows, chunks, int(plan.by_rows), plan.vec, plan.threads,
+        plan.cluster, _stream(x)), f"group norm stats ({plan})")
+    stats_plan_launches[plan] += 1
     dispatch.count_launch("group_norm_stats")
     return partials
 

@@ -58,6 +58,7 @@ class LayerNormPlan(NamedTuple):
 
 # launches by plan since the last clear() (chip_smoke.py reads it)
 plan_launches: "collections.Counter[LayerNormPlan]" = collections.Counter()
+dispatch.register_counter(plan_launches)
 
 
 def row_threads(vectors: int):

@@ -69,6 +69,7 @@ class Plan(NamedTuple):
 
 # launches by plan since the last clear() (chip_smoke.py reads it)
 plan_launches: "collections.Counter[Plan]" = collections.Counter()
+dispatch.register_counter(plan_launches)
 
 
 def plan_blocks(plan: Plan, m: int, n: int) -> int:

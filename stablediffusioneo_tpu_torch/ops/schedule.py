@@ -6,6 +6,7 @@ sinusoidal timestep embedding runs on the tensors' device in fp32.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
@@ -58,14 +59,20 @@ class DiffusionSchedule:
         }
 
 
+@functools.lru_cache(maxsize=32)
+def _embedding_freqs(half: int, max_period: int, device: torch.device) -> torch.Tensor:
+    """The embedding's frequencies, computed on the host in fp32 and put on
+    the device once: a sampling loop calls the embedding every step."""
+    freqs = np.exp((-np.log(max_period) * np.arange(half, dtype=np.float32)
+                    / half).astype(np.float32)).astype(np.float32)
+    return torch.from_numpy(freqs).to(device)
+
+
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
                        max_period: int = 10000) -> torch.Tensor:
     """(N,) timesteps -> (N, dim) fp32, laid out as [cos(args), sin(args)]."""
-    half = dim // 2
-    freqs = np.exp((-np.log(max_period) * np.arange(half, dtype=np.float32)
-                    / half).astype(np.float32)).astype(np.float32)
     args = (timesteps.float()[:, None]
-            * torch.from_numpy(freqs).to(timesteps.device)[None, :])
+            * _embedding_freqs(dim // 2, max_period, timesteps.device)[None, :])
     emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
     if dim % 2:
         emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)

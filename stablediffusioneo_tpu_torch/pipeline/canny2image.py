@@ -8,12 +8,18 @@ stablediffusioneo_tpu/pipeline/canny2image.py).
 plus `x_T=` (and, for the hires fix, `hires_noise=`) for seeded
 cross-framework comparison. Path: resize to /64 -> Canny -> HWC3 hint
 (uploaded as uint8) -> one CLIP call for cond and uncond -> DDIM with CFG ->
-VAE decode -> uint8. With hires_upscale > 1 (the hires fix): the base pass,
-a bilinear latent upscale, a fresh Canny of the input at the high
-resolution, and an img2img refine over the last round(hires_denoise *
-ddim_steps) steps. With quantize_linears=True the UNet and ControlNet run
-int8 weight-only linears (kernel with set_kernels(int8_linear=True)). The
-JAX package's other features are accepted by name and raise
+VAE decode -> uint8, the last three as ONE engine of the runtime
+(runtime/engine.py: a captured CUDA graph on the card, the eager loop on the
+CPU or with graphs=False). With hires_upscale > 1 (the hires fix): the base
+pass through the sampler engine, a bilinear latent upscale, a fresh Canny of
+the input at the high resolution, and an img2img refine over the last
+round(hires_denoise * ddim_steps) steps through the fused engine's init-latent
+variant. With quantize_linears=True the UNet and ControlNet run int8
+weight-only linears (kernel with set_kernels(int8_linear=True)).
+encoder_cache_interval and cfg_rescale select loop variants
+(pipeline/ddim.py); granular_timings=True runs sample and decode as two
+engines with a device synchronisation between, for an honest phase split.
+The JAX package's other features are accepted by name and raise
 NotImplementedError naming the ROADMAP item that brings them.
 """
 
@@ -43,17 +49,23 @@ class Canny2ImagePipeline:
 
     def __init__(self, model: ControlLDM, tokenizer: Callable,
                  cfg: Optional[PipelineConfig] = None, device="cuda",
-                 annotator=None, quantize_linears: bool = False):
+                 annotator=None, quantize_linears: bool = False,
+                 graphs: Optional[bool] = None):
         if isinstance(annotator, (list, tuple)):
             raise _not_ported("multi-ControlNet", "Adapters and knobs")
         self.cfg = cfg or sd15_pipeline()
         self.tokenizer = tokenizer
         self.annotator = annotator
         self.runtime = CNSDRuntime(model, self.cfg, device=device,
-                                   quantize_linears=quantize_linears)
+                                   quantize_linears=quantize_linears,
+                                   graphs=graphs)
         self.last_timings: Dict[str, float] = {}
         self.last_latents: Optional[torch.Tensor] = None
         self.last_detected_maps: List[np.ndarray] = []
+
+    def _sync(self) -> None:
+        if self.runtime.device.type == "cuda":
+            torch.cuda.synchronize(self.runtime.device)
 
     def _annotate(self, img: np.ndarray, low: int, high: int) -> np.ndarray:
         from stablediffusioneo_tpu_torch.annotators.canny import CannyDetector
@@ -107,24 +119,23 @@ class Canny2ImagePipeline:
         images and the returned map are at round(H * hires_upscale / 64) *
         64. hires_noise: the refine's re-noise (NHWC latents at that size),
         drawn from the seed's generator when None. denoise_strength is read
-        with init_image only (img2img, not ported yet)."""
-        hires = bool(hires_upscale and hires_upscale > 1.0)
+        with init_image only (img2img, not ported yet). granular_timings
+        takes the plain request only: with it hires_upscale is not read, as
+        in the JAX package."""
+        hires = bool(hires_upscale and hires_upscale > 1.0) and not granular_timings
         if hires and (init_image is not None or inpaint_image is not None):
             raise ValueError("hires_upscale composes with plain txt2img only "
                              "(no img2img/inpaint)")
         for on, feature, item in (
                 (sampler != "ddim", f"sampler {sampler!r}", "The other samplers"),
-                (init_image is not None, "img2img", "The other samplers"),
+                (init_image is not None, "img2img (it needs the VAE encoder)",
+                 "The VAE encoder"),
                 (inpaint_image is not None or inpaint_mask is not None,
-                 "inpainting", "The other model families"),
+                 "inpainting (it needs the VAE encoder)", "The VAE encoder"),
                 (bool(long_prompt), "long prompts (3x77 windows)",
                  "models/text_encoding.py"),
                 (prompt_emphasis, "prompt emphasis", "models/text_encoding.py"),
-                (bool(tome_ratio), "ToMe", "Adapters and knobs"),
-                (encoder_cache_interval != 1, "encoder-feature caching",
-                 "The rest of pipeline/ddim.py"),
-                (bool(cfg_rescale), "cfg_rescale", "The rest of pipeline/ddim.py"),
-                (granular_timings, "granular timings", "Runtime surface")):
+                (bool(tome_ratio), "ToMe", "Adapters and knobs")):
             if on:
                 raise _not_ported(feature, item)
         from stablediffusioneo_tpu_torch.annotators.util import HWC3, resize_image
@@ -154,33 +165,53 @@ class Canny2ImagePipeline:
             x_T = torch.randn((num_samples, H // f, W // f, 4), generator=gen,
                               device=rt.device)
         run = dict(guidance_scale=scale, strength=strength, eta=eta,
-                   guess_mode=guess_mode, generator=gen)
-        z = rt.sample(ddim_steps, torch.as_tensor(x_T, device=rt.device), hint,
-                      ctx_cond, ctx_uncond, **run)
-        if hires:
-            import cv2
+                   guess_mode=guess_mode, generator=gen,
+                   encoder_cache_interval=encoder_cache_interval,
+                   cfg_rescale=cfg_rescale)
+        x_T = torch.as_tensor(x_T, device=rt.device)
+        timings = {"preprocess_ms": (t_pre - t_start) * 1e3,
+                   "clip_ms": (t_clip - t_pre) * 1e3}
+        if granular_timings:
+            # diagnostic path: a device synchronisation between sample and
+            # decode, so the phase split is honest
+            z = rt.sample(ddim_steps, x_T, hint, ctx_cond, ctx_uncond, **run)
+            self._sync()
+            t_sample = time.perf_counter()
+            images_dev = rt.decode_latent_device(z)
+            self._sync()
+            t_decode = time.perf_counter()
+            images = images_dev.cpu().numpy()
+            t_end = time.perf_counter()
+            timings.update(sample_ms=(t_sample - t_clip) * 1e3,
+                           decode_ms=(t_decode - t_sample) * 1e3,
+                           fetch_ms=(t_end - t_decode) * 1e3)
+        else:
+            if hires:
+                import cv2
 
-            H2 = int(round(H * hires_upscale / 64)) * 64
-            W2 = int(round(W * hires_upscale / 64)) * 64
-            z_up = resize_latent_bilinear(z, H2 // f, W2 // f)
-            img_hi = cv2.resize(HWC3(input_image), (W2, H2),
-                                interpolation=cv2.INTER_LANCZOS4)
-            detected_map = self._annotate(img_hi, low_threshold, high_threshold)
-            hint_hi = torch.from_numpy(np.repeat(detected_map[None], num_samples,
-                                                 axis=0)).to(rt.device)
-            t_enc = max(1, min(ddim_steps, int(round(hires_denoise * ddim_steps))))
-            z = rt.sample(ddim_steps, None, hint_hi, ctx_cond, ctx_uncond,
-                          init_latent=z_up, t_enc=t_enc,
-                          renoise=None if hires_noise is None
-                          else torch.as_tensor(hires_noise, device=rt.device),
-                          **run)
-        self.last_latents = z
-        images = rt.decode(z).cpu().numpy()  # waits for the device
-        t_end = time.perf_counter()
-        self.last_timings = {
-            "preprocess_ms": (t_pre - t_start) * 1e3,
-            "clip_ms": (t_clip - t_pre) * 1e3,
-            "sample_decode_fetch_ms": (t_end - t_clip) * 1e3,
-            "total_ms": (t_end - t_start) * 1e3,
-        }
+                z = rt.sample(ddim_steps, x_T, hint, ctx_cond, ctx_uncond, **run)
+                H2 = int(round(H * hires_upscale / 64)) * 64
+                W2 = int(round(W * hires_upscale / 64)) * 64
+                z_up = resize_latent_bilinear(z, H2 // f, W2 // f)
+                img_hi = cv2.resize(HWC3(input_image), (W2, H2),
+                                    interpolation=cv2.INTER_LANCZOS4)
+                detected_map = self._annotate(img_hi, low_threshold, high_threshold)
+                hint_hi = torch.from_numpy(np.repeat(
+                    detected_map[None], num_samples, axis=0)).to(rt.device)
+                t_enc = max(1, min(ddim_steps, int(round(hires_denoise * ddim_steps))))
+                images_dev = rt.sample_decode(
+                    ddim_steps, None, hint_hi, ctx_cond, ctx_uncond,
+                    init_latent=z_up, t_enc=t_enc,
+                    renoise=None if hires_noise is None
+                    else torch.as_tensor(hires_noise, device=rt.device), **run)
+            else:
+                # the whole latent -> pixels path is one engine and one fetch
+                images_dev = rt.sample_decode(ddim_steps, x_T, hint, ctx_cond,
+                                              ctx_uncond, **run)
+            images = images_dev.cpu().numpy()  # waits for the device
+            t_end = time.perf_counter()
+            timings["sample_decode_fetch_ms"] = (t_end - t_clip) * 1e3
+        timings["total_ms"] = (t_end - t_start) * 1e3
+        self.last_timings = timings
+        self.last_latents = rt.last_latents
         return [detected_map] + [images[i] for i in range(num_samples)]

@@ -1,19 +1,42 @@
-"""Device runtime for canny2image (counterpart of
-stablediffusioneo_tpu/runtime/engine.py CNSDRuntime).
+"""Engine layer: one captured program per variant and shape (counterpart of
+stablediffusioneo_tpu/runtime/engine.py).
 
-Holds the four networks on one device in the compute dtype (cast once at
-construction; with quantize_linears=True the UNet's and ControlNet's
-eligible linears are then converted to int8 weight-only form, in a copy of
-the caller's model) and runs: the CLIP encode, the DDIM loop (from noise, or
-from a re-noised init latent over the schedule's tail), the VAE decode and
-the uint8 denormalisation. PyTorch runs eagerly, so there is no AOT step and
-no compile cache; CUDA graphs come later (ROADMAP queue 1: CUDA graphs).
+  JAX package                          this port, on one NVIDIA card
+  -----------------------------------  -----------------------------------
+  jax.jit(...).lower(shapes).compile() the function run once eagerly, then
+                                       captured into a torch.cuda.CUDAGraph
+  the compiled lax.scan program        the replayed graph: the whole DDIM
+                                       loop (+ VAE decode + uint8) is one
+                                       launch from the host
+  donated / abstract arguments         static input buffers the arguments
+                                       are copied into; a static output
+  schedules as engine inputs           the schedule's constants are baked
+                                       into the capture (pipeline/ddim.py
+                                       takes them as Python floats), so
+                                       (steps, eta, tail) are in the key
+  in-graph random numbers              every random number is drawn outside
+                                       the graph and handed in
+  cost_analysis / memory_analysis      graph nodes, bytes of the graph's pool
+
+`Engine` wraps one function; `CNSDRuntime` holds the four networks on one
+device in the compute dtype (cast once at construction; with
+quantize_linears=True the UNet's and ControlNet's eligible linears are then
+converted to int8 weight-only form, in a copy of the caller's model) and a
+dictionary of engines built at first use: CLIP encode, the DDIM loop (from
+noise, or from a re-noised init latent over the schedule's tail), the VAE
+decode with the uint8 denormalisation, and loop + decode fused. On the CPU,
+and with graphs=False, an engine runs its function eagerly: the same code,
+launched op by op from the host.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Optional, Sequence
+import ctypes
+import gc
+import logging
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,11 +47,158 @@ from stablediffusioneo_tpu_torch.models.clip import clip_text_apply
 from stablediffusioneo_tpu_torch.models.controlnet import guess_mode_scales
 from stablediffusioneo_tpu_torch.models.unet import encoder_plan
 from stablediffusioneo_tpu_torch.models.vae import vae_decode
-from stablediffusioneo_tpu_torch.ops import quant
+from stablediffusioneo_tpu_torch.ops import dispatch, quant
 from stablediffusioneo_tpu_torch.ops.schedule import DiffusionSchedule
-from stablediffusioneo_tpu_torch.pipeline.ddim import ddim_sample, stochastic_tail_entry
+from stablediffusioneo_tpu_torch.pipeline.ddim import (
+    ddim_sample,
+    schedule_tail,
+    stochastic_encode,
+)
+
+log = logging.getLogger("stablediffusioneo_tpu_torch")
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# resize_image rounds to multiples of 64, so this small set covers the
+# resolutions a deployment captures engines for.
+DEFAULT_BUCKETS = (256, 320, 384, 448, 512, 640, 768)
+
+
+def resolution_buckets(buckets=DEFAULT_BUCKETS):
+    return tuple(sorted(buckets))
+
+
+def snap_to_bucket(value: int, buckets=DEFAULT_BUCKETS) -> int:
+    """Smallest bucket >= value (the shape an engine is captured at)."""
+    for b in sorted(buckets):
+        if b >= value:
+            return b
+    return sorted(buckets)[-1]
+
+
+def _graph_nodes(graph: "torch.cuda.CUDAGraph") -> int:
+    """Nodes (kernels, copies, memsets) of a captured graph that was kept
+    beside its executable (keep_graph=True), by libcuda's cuGraphGetNodes."""
+    count = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
+    return count.value
+
+
+class Engine:
+    """One function as one captured program (the JAX package's Engine).
+
+    capture=True (CUDA): `load(*example)` copies the example tensors into
+    static buffers, runs the function once eagerly on a side stream (which
+    settles what a first call settles: kernel attributes, library handles and
+    workspaces, cached constants), captures a second run into a CUDA graph
+    with a memory pool of its own, and instantiates it; `compile_seconds` is
+    all of that. A call copies its arguments into the static buffers, replays
+    the graph on the current stream and returns the static output, which the
+    next call overwrites. A capture that fails raises: there is no eager
+    fallback behind a captured engine.
+
+    capture=False (the CPU, or graphs=False): a call runs the function.
+
+    Launch counters (ops/dispatch.py) count in Python, so a replay would
+    leave them standing: the engine takes back what its capture counted
+    (that run put nothing on the device) and adds the same counts at every
+    replay.
+
+    All arguments are tensors, and the output is a tensor or a tuple of them.
+    """
+
+    def __init__(self, fn: Callable, name: str = "engine", capture: bool = False):
+        self.name = name
+        self._fn = fn
+        self._capture = capture
+        self._graph = None
+        self._inputs: List[torch.Tensor] = []
+        self._output = None
+        self._counts: List[dict] = []
+        self._pool_bytes: Optional[int] = None
+        self._device_ops: Optional[int] = None
+        self.compile_seconds: Optional[float] = None
+
+    def load(self, *example: torch.Tensor) -> "Engine":
+        if not self._capture:
+            return self
+        t0 = time.perf_counter()
+        device = example[0].device
+        self._inputs = [a.clone() for a in example]
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream), torch.no_grad():
+            self._fn(*self._inputs)
+        stream.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        before = dispatch.counts()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept: its nodes are counted
+        with torch.cuda.graph(graph, stream=stream), torch.no_grad():
+            self._output = self._fn(*self._inputs)
+        self._counts = dispatch.counts_since(before)
+        dispatch.add_counts(self._counts, -1)  # the capture launched nothing
+        graph.instantiate()  # a kept graph is instantiated by its owner
+        self._pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        self._device_ops = _graph_nodes(graph)
+        self._graph = graph
+        self.compile_seconds = time.perf_counter() - t0
+        log.info("engine %s captured in %.1fs", self.name, self.compile_seconds)
+        return self
+
+    def __call__(self, *args: torch.Tensor):
+        if not self._capture:
+            with torch.no_grad():
+                return self._fn(*args)
+        if self._graph is None:
+            self.load(*args)
+        if len(args) != len(self._inputs):
+            raise ValueError(f"engine {self.name} takes {len(self._inputs)} "
+                             f"tensors, got {len(args)}")
+        for buf, a in zip(self._inputs, args):
+            if a.shape != buf.shape:
+                raise ValueError(f"engine {self.name} was captured for "
+                                 f"{tuple(buf.shape)}, got {tuple(a.shape)}")
+            buf.copy_(a, non_blocking=True)
+        self._graph.replay()
+        dispatch.add_counts(self._counts)
+        return self._output
+
+    infer = __call__
+
+    @property
+    def compiled(self) -> bool:
+        return self._graph is not None
+
+    def replay(self) -> None:
+        """Replay on the static buffers as they stand (measurements)."""
+        self._graph.replay()
+        dispatch.add_counts(self._counts)
+
+    def get_engine_infor(self) -> Dict[str, Any]:
+        if self._graph is None:
+            return {"compiled": False}
+        return {
+            "compiled": True,
+            "compile_seconds": self.compile_seconds,
+            "device_ops": self._device_ops,
+            "memory": {
+                "pool_bytes": self._pool_bytes,
+                "argument_bytes": sum(t.numel() * t.element_size()
+                                      for t in self._inputs),
+            },
+        }
+
+
+def _kept(out):
+    """A copy of an engine's output that the next call does not overwrite."""
+    if isinstance(out, tuple):
+        return tuple(_kept(o) for o in out)
+    return out.clone()
 
 
 class CNSDRuntime:
@@ -38,12 +208,21 @@ class CNSDRuntime:
     quantize_linears: int8 weight-only UNet and ControlNet linears
     (ops/quant.py), converted after the cast, as the JAX package does, so
     that the int8 bytes and scales are the same in both packages. The
-    conversion works on a copy: the caller's model keeps its nn.Linears."""
+    conversion works on a copy: the caller's model keeps its nn.Linears.
+
+    graphs: None captures engines on a CUDA device and runs eagerly on the
+    CPU; False keeps the eager loop on a CUDA device too (the attribute may
+    be changed between calls: engines are cached by it); True on the CPU is
+    refused."""
 
     def __init__(self, model: ControlLDM, cfg: PipelineConfig,
-                 device="cuda", quantize_linears: bool = False):
+                 device="cuda", quantize_linears: bool = False,
+                 graphs: Optional[bool] = None):
         self.cfg = cfg
         self.device = torch.device(device)
+        if graphs and self.device.type != "cuda":
+            raise ValueError("graphs=True needs a CUDA device")
+        self.graphs = graphs
         self.dtype = DTYPES[cfg.dtype]
         if quantize_linears:
             model = copy.deepcopy(model)
@@ -56,109 +235,445 @@ class CNSDRuntime:
         self.schedule = DiffusionSchedule(d.timesteps, d.linear_start,
                                           d.linear_end, d.schedule)
         self.n_taps = len(encoder_plan(cfg.unet)) + 1
+        self._engines: Dict[Tuple, Engine] = {}
+        self.last_latents: Optional[torch.Tensor] = None
 
     def _require_model(self) -> ControlLDM:
         if self.model is None:
             raise RuntimeError("runtime was released")
         return self.model
 
-    @torch.no_grad()
+    @property
+    def capturing(self) -> bool:
+        return self.device.type == "cuda" and self.graphs is not False
+
+    # ------------------------------------------------------------- engines
+
+    def _engine(self, key_t: Tuple, name: str, make_fn: Callable,
+                example: Callable) -> Engine:
+        """The engine of this key, built (and captured) at first use. The
+        kernel flags are part of the key: they change what a capture holds."""
+        key_t = key_t + (self.capturing, dispatch.kernel_flags())
+        eng = self._engines.get(key_t)
+        if eng is None:
+            eng = Engine(make_fn(), name=name, capture=self.capturing)
+            if self.capturing:
+                eng.load(*example())
+            self._engines[key_t] = eng
+        return eng
+
+    def _zeros(self, shape, dtype) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def _loop_schedule(self, num_steps: int, schedule_steps: Optional[int],
+                       eta: float):
+        """The schedule an engine of `num_steps` steps bakes in: that of
+        schedule_steps steps (default num_steps), cut to its last num_steps."""
+        sched = self.schedule.ddim(schedule_steps or num_steps, eta=eta)
+        return schedule_tail(sched, num_steps)
+
+    def _sampler_fn(self, num_steps: int, guess_mode: bool,
+                    encoder_cache_interval: int, hint_u8: bool, gen_xT,
+                    inpaint: bool, cfg_rescale: float, eta: float,
+                    schedule_steps: Optional[int]) -> Callable:
+        """The DDIM loop as a function of tensors only:
+        (x, hint, ctx_cond, ctx_uncond, scale (B,), control scales (B, taps)
+        [, step noise (steps, B, h, w, 4) when eta > 0]
+        [, re-noise (B, h, w, 4) when gen_xT == "img2img": x is then the init
+        latent] [, inpaint latent, inpaint mask, inpaint noise (steps, ...)])
+        -> x_0 latents, fp32 NHWC."""
+        if gen_xT not in (False, "img2img"):
+            raise NotImplementedError(
+                f"engine variant gen_xT={gen_xT!r}: the port draws x_T outside "
+                "the graph (x_T=, seeds= or generator=)")
+        if hint_u8 not in (False, True):
+            raise NotImplementedError(
+                f"hint variant {hint_u8!r} is not in the PyTorch port yet "
+                "(ROADMAP queue 1: Runtime surface)")
+        if encoder_cache_interval < 1:
+            raise ValueError("encoder_cache_interval must be >= 1")
+        model, dtype = self._require_model(), self.dtype
+        sched = self._loop_schedule(num_steps, schedule_steps, eta)
+        noisy = bool((sched["sigmas"] > 0).any())
+        parameterization = self.cfg.diffusion.parameterization
+
+        def run(x, hint, ctx_cond, ctx_uncond, scale, cscales, *rest):
+            rest = list(rest)
+            noise = rest.pop(0) if noisy else None
+            if gen_xT == "img2img":
+                x = stochastic_encode(x, float(sched["alphas"][0]), rest.pop(0))
+            ilat, imask, inoise = rest if inpaint else (None, None, None)
+            if hint.dtype == torch.uint8:  # /255 in fp32, then the compute dtype
+                hint = hint.float() / 255.0
+            return ddim_sample(
+                model.unet, model.control_model, sched, x, hint.to(dtype),
+                ctx_cond, ctx_uncond, scale, cscales, guess_mode=guess_mode,
+                noise=noise, dtype=dtype, parameterization=parameterization,
+                encoder_cache_interval=encoder_cache_interval,
+                inpaint_latent=ilat, inpaint_mask=imask, inpaint_noise=inoise,
+                cfg_rescale=cfg_rescale)
+
+        return run
+
+    def _sampler_example(self, num_steps, batch, h, w, ctx_len, hint_u8, gen_xT,
+                         inpaint, eta, schedule_steps):
+        f = self.cfg.vae.downsample_factor
+        lat = (batch, h // f, w // f, 4)
+        ctx = (batch, ctx_len, self.cfg.unet.context_dim)
+        sched = self._loop_schedule(num_steps, schedule_steps, eta)
+        ex = [self._zeros(lat, self.dtype),
+              self._zeros((batch, h, w, 3), torch.uint8 if hint_u8 else self.dtype),
+              self._zeros(ctx, self.dtype), self._zeros(ctx, self.dtype),
+              self._zeros((batch,), torch.float32),
+              self._zeros((batch, self.n_taps), torch.float32)]
+        if (sched["sigmas"] > 0).any():
+            ex.append(self._zeros((num_steps,) + lat, torch.float32))
+        if gen_xT == "img2img":
+            ex.append(self._zeros(lat, torch.float32))
+        if inpaint:
+            ex += [self._zeros(lat, self.dtype),
+                   self._zeros(lat[:3] + (1,), self.dtype),
+                   self._zeros((num_steps,) + lat, torch.float32)]
+        return ex
+
+    def _decode_u8(self, z: torch.Tensor) -> torch.Tensor:
+        img = vae_decode(self._require_model().first_stage_model,
+                         z.to(self.dtype), scaled=True)
+        return torch.clamp(img.float() * 127.5 + 127.5, 0, 255).to(torch.uint8)
+
+    def sample_decode_engine(
+        self, num_steps: int, batch: int, h: int, w: int,
+        guess_mode: bool = False, sampler: str = "ddim",
+        encoder_cache_interval: int = 1, ctx_len: Optional[int] = None,
+        hint_u8=False, gen_xT=False, inpaint: bool = False,
+        cfg_rescale: float = 0.0, tome_ratio: float = 0.0,
+        eta: float = 0.0, schedule_steps: Optional[int] = None,
+    ) -> Engine:
+        """The DDIM loop + VAE decode + uint8 denormalisation as ONE captured
+        program returning (image uint8 (B, H, W, 3), x_0 latents). The
+        arguments, key and name are the JAX package's; beyond them eta and
+        schedule_steps (the full discretisation when num_steps is a tail, the
+        img2img variant), which the JAX engine takes as inputs and this one
+        bakes in. hint_u8: the hint is uint8 pixels, normalised in the graph.
+        gen_xT="img2img": x is the init latent, re-noised in the graph with
+        the noise handed in."""
+        self._check_sampler(sampler, tome_ratio)
+        ctx_len = ctx_len or self.cfg.clip.max_length
+        key_t = ("sample_decode", sampler, num_steps, batch, h, w, guess_mode,
+                 encoder_cache_interval, ctx_len, hint_u8, gen_xT, inpaint,
+                 float(cfg_rescale), float(tome_ratio), float(eta),
+                 schedule_steps or num_steps)
+
+        def make():
+            sfn = self._sampler_fn(num_steps, guess_mode, encoder_cache_interval,
+                                   hint_u8, gen_xT, inpaint, cfg_rescale, eta,
+                                   schedule_steps)
+
+            def run(*args):
+                z = sfn(*args)
+                return self._decode_u8(z), z
+
+            return run
+
+        return self._engine(
+            key_t, f"{sampler}+decode_{num_steps}x{batch}x{h}x{w}"
+            + ("_guess" if guess_mode else "")
+            + (f"_genxT-{gen_xT}" if isinstance(gen_xT, str) else "")
+            + ("_inpaint" if inpaint else ""), make,
+            lambda: self._sampler_example(num_steps, batch, h, w, ctx_len, hint_u8,
+                                          gen_xT, inpaint, eta, schedule_steps))
+
+    def sampler_engine(
+        self, num_steps: int, batch: int, h: int, w: int,
+        guess_mode: bool = False, sampler: str = "ddim",
+        encoder_cache_interval: int = 1, ctx_len: Optional[int] = None,
+        hint_u8=False, cfg_rescale: float = 0.0, tome_ratio: float = 0.0,
+        eta: float = 0.0, schedule_steps: Optional[int] = None,
+        gen_xT=False, inpaint: bool = False,
+    ) -> Engine:
+        """The captured DDIM loop for (steps, batch, H x W), H and W in image
+        space; returns the x_0 latents. Arguments as `sample_decode_engine`."""
+        self._check_sampler(sampler, tome_ratio)
+        ctx_len = ctx_len or self.cfg.clip.max_length
+        key_t = ("sampler", sampler, num_steps, batch, h, w, guess_mode,
+                 encoder_cache_interval, ctx_len, hint_u8, float(cfg_rescale),
+                 float(tome_ratio), float(eta), schedule_steps or num_steps,
+                 gen_xT, inpaint)
+        return self._engine(
+            key_t, f"{sampler}_{num_steps}x{batch}x{h}x{w}"
+            + ("_guess" if guess_mode else "")
+            + (f"_ctx{ctx_len}" if ctx_len != self.cfg.clip.max_length else ""),
+            lambda: self._sampler_fn(num_steps, guess_mode, encoder_cache_interval,
+                                     hint_u8, gen_xT, inpaint, cfg_rescale, eta,
+                                     schedule_steps),
+            lambda: self._sampler_example(num_steps, batch, h, w, ctx_len, hint_u8,
+                                          gen_xT, inpaint, eta, schedule_steps))
+
+    @staticmethod
+    def _check_sampler(sampler: str, tome_ratio: float) -> None:
+        if sampler != "ddim":
+            raise NotImplementedError(
+                f"sampler {sampler!r} is not in the PyTorch port yet "
+                "(ROADMAP queue 1: The other samplers)")
+        if tome_ratio:
+            raise NotImplementedError(
+                "ToMe is not in the PyTorch port yet (ROADMAP queue 1: "
+                "Adapters and knobs)")
+
+    def clip_engine(self, batch: int, clip_skip: int = 0) -> Engine:
+        clip, dtype = self._require_model().clip, self.dtype
+        return self._engine(
+            ("clip", batch, clip_skip),
+            f"clip_b{batch}" + (f"_skip{clip_skip}" if clip_skip > 1 else ""),
+            lambda: lambda ids: clip_text_apply(clip, ids,
+                                                clip_skip=clip_skip).to(dtype),
+            lambda: [self._zeros((batch, self.cfg.clip.max_length), torch.long)])
+
+    def decoder_engine(self, batch: int, h: int, w: int) -> Engine:
+        f = self.cfg.vae.downsample_factor
+        return self._engine(
+            ("decoder", batch, h, w), f"decoder_b{batch}_{h}x{w}",
+            lambda: self._decode_u8,
+            lambda: [self._zeros((batch, h // f, w // f, 4), self.dtype)])
+
+    # ----------------------------------------------------------- user API
+
+    def _out(self, out):
+        """An engine's output for the caller: a captured engine's static
+        output is copied, since the engine's next call overwrites it."""
+        return _kept(out) if self.capturing else out
+
     def encode_prompt(self, ids, clip_skip: int = 0) -> torch.Tensor:
         """(N, T) token ids -> (N, T, hidden) contexts in the compute dtype."""
         ids = torch.as_tensor(np.asarray(ids), dtype=torch.long,
                               device=self.device)
-        return clip_text_apply(self._require_model().clip, ids,
-                               clip_skip=clip_skip).to(self.dtype)
+        return self._out(self.clip_engine(ids.shape[0], clip_skip)(ids))
 
-    def control_scales(self, batch: int, strength, guess_mode: bool):
-        """(B, 13) control strengths: strength per tap, or the guess-mode
-        decay; strength is a number or one per sample."""
+    def _per_sample_scales(self, batch: int, guidance_scale, strength,
+                           guess_mode: bool):
+        """guidance_scale and strength, each a number or one per sample, as a
+        (B,) scale vector and a (B, n_taps) matrix of control strengths
+        (strength per tap, or the guess-mode decay): one engine signature
+        serves uniform and mixed batches."""
+        gs = np.asarray(guidance_scale, np.float32).reshape(-1)
+        if gs.size == 1:
+            gs = np.full((batch,), gs[0], np.float32)
         st = np.asarray(strength, np.float32).reshape(-1)
         if st.size == 1:
             st = np.full((batch,), st[0], np.float32)
         if guess_mode:
-            cs = np.stack([guess_mode_scales(float(s), self.n_taps) for s in st])
+            cs = np.stack([np.asarray(guess_mode_scales(float(s), self.n_taps))
+                           for s in st]).astype(np.float32)
         else:
             cs = np.repeat(st[:, None], self.n_taps, axis=1)
-        return torch.as_tensor(cs.astype(np.float32), device=self.device)
+        return (torch.as_tensor(gs, device=self.device),
+                torch.as_tensor(cs, device=self.device))
 
-    @torch.no_grad()
-    def sample(self, num_steps: int, x_T: torch.Tensor, hint: torch.Tensor,
-               ctx_cond: torch.Tensor, ctx_uncond: torch.Tensor,
-               guidance_scale: float = 9.0, strength=1.0, eta: float = 0.0,
-               guess_mode: bool = False,
-               generator: Optional[torch.Generator] = None,
-               noise: Optional[Sequence[torch.Tensor]] = None,
-               init_latent: Optional[torch.Tensor] = None,
-               t_enc: Optional[int] = None,
-               renoise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """DDIM latents (fp32 NHWC). x_T: NHWC latents; hint: uint8 NHWC
-        pixels (normalised here: /255 in fp32, then the compute dtype) or
-        floats in [0, 1].
-
-        init_latent + t_enc (img2img semantics, the hires refine): x_T must
-        be None; the init latent, rounded to the compute dtype, is re-noised
-        to the entry step of the num_steps schedule (`renoise`, NHWC, or a
-        draw from `generator`) and only the last t_enc steps run."""
-        model = self._require_model()
-        schedule = self.schedule.ddim(num_steps, eta=eta)
-        if init_latent is not None:
+    def _loop_inputs(self, num_steps, x_T, hint, ctx_cond, ctx_uncond,
+                     guidance_scale, strength, eta, guess_mode, generator, noise,
+                     init_latent, t_enc, renoise, encoder_cache_interval,
+                     cfg_rescale, inpaint_latent, inpaint_mask, inpaint_noise,
+                     seeds):
+        """Checks a loop call's arguments, draws every random number it needs
+        (outside any graph) and returns (engine arguments, tensors to call it
+        with). Draws come from `generator`, or with `seeds` row by row from
+        each row's own generator, in the order: x_T or the re-noise, every
+        step's eta noise, every step's inpaint noise."""
+        self._require_model()
+        img2img = init_latent is not None
+        if seeds is not None and x_T is not None:
+            raise ValueError("seeds requires x_T=None (x_T is drawn from them)")
+        if img2img:
             if x_T is not None:
                 raise ValueError("img2img (init_latent) requires x_T=None")
             if t_enc is None or not 1 <= t_enc <= num_steps:
                 raise ValueError(f"img2img needs 1 <= t_enc <= {num_steps}")
-            z0 = torch.as_tensor(init_latent, device=self.device).to(self.dtype)
-            schedule, x_T = stochastic_tail_entry(schedule, t_enc, z0, renoise,
-                                                  generator)
-        hint = torch.as_tensor(hint, device=self.device)
-        if hint.dtype == torch.uint8:
-            hint = hint.float() / 255.0
-        b = x_T.shape[0]
-        gs = torch.as_tensor(np.broadcast_to(
-            np.asarray(guidance_scale, np.float32).reshape(-1), (b,)).copy(),
-            device=self.device)
-        return ddim_sample(
-            model.unet, model.control_model, schedule,
-            torch.as_tensor(x_T, device=self.device), hint.to(self.dtype),
-            ctx_cond.to(self.device, self.dtype),
-            ctx_uncond.to(self.device, self.dtype), gs,
-            self.control_scales(b, strength, guess_mode),
-            guess_mode=guess_mode, generator=generator, noise=noise,
-            dtype=self.dtype)
+        inpaint = inpaint_latent is not None
+        if inpaint and inpaint_mask is None:
+            raise ValueError("inpaint_latent requires inpaint_mask")
+        if inpaint and encoder_cache_interval > 1:
+            raise ValueError("inpainting + encoder caching is unsupported "
+                             "(the cached-step features would mix blended and "
+                             "unblended latents)")
+        dev = self.device
+        hint = torch.as_tensor(hint, device=dev)
+        b, h, w = hint.shape[:3]
+        f = self.cfg.vae.downsample_factor
+        lat = (b, h // f, w // f, 4)
+        steps = t_enc if img2img else num_steps
+        sched = self._loop_schedule(steps, num_steps, eta)
 
-    @torch.no_grad()
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        """Scaled latents -> uint8 NHWC pixels on the device."""
-        img = vae_decode(self._require_model().first_stage_model,
-                         z.to(self.device, self.dtype), scaled=True)
-        return torch.clamp(img.float() * 127.5 + 127.5, 0, 255).to(torch.uint8)
+        if seeds is not None:
+            if len(seeds) != b:
+                raise ValueError(f"{len(seeds)} seeds for a batch of {b}")
+            rows = [torch.Generator(device=dev).manual_seed(int(s)) for s in seeds]
+
+            def draw():  # each row from its own generator: batch-independent
+                return torch.stack([torch.randn(lat[1:], generator=g, device=dev)
+                                    for g in rows])
+        else:
+            def draw():
+                if generator is None:
+                    raise ValueError("this call draws random numbers: pass "
+                                     "generator= or seeds=")
+                return torch.randn(lat, generator=generator, device=dev)
+
+        def per_step(given, wanted):
+            """(steps, B, h, w, 4) fp32: `given` where there is one, else a
+            draw for each step that wants one."""
+            if given is not None:
+                return torch.stack([torch.as_tensor(n, device=dev).float()
+                                    for n in given])
+            return torch.stack([draw() if want else torch.zeros(lat, device=dev)
+                                for want in wanted])
+
+        if img2img:
+            x = torch.as_tensor(init_latent, device=dev)
+            extra = [draw() if renoise is None
+                     else torch.as_tensor(renoise, device=dev).float()]
+        else:
+            x = draw() if x_T is None else torch.as_tensor(x_T, device=dev)
+            extra = []
+        noisy = sched["sigmas"] > 0
+        if noisy.any():
+            extra.insert(0, per_step(noise, noisy))
+        if inpaint:
+            extra += [torch.as_tensor(inpaint_latent, device=dev).to(self.dtype),
+                      torch.as_tensor(inpaint_mask, device=dev).to(self.dtype),
+                      per_step(inpaint_noise, [True] * steps)]
+        gs, cs = self._per_sample_scales(b, guidance_scale, strength, guess_mode)
+        args = [x.to(self.dtype),
+                hint if hint.dtype == torch.uint8 else hint.to(self.dtype),
+                ctx_cond.to(dev, self.dtype), ctx_uncond.to(dev, self.dtype),
+                gs, cs] + extra
+        spec = dict(num_steps=steps, batch=b, h=h, w=w, guess_mode=guess_mode,
+                    encoder_cache_interval=encoder_cache_interval,
+                    ctx_len=ctx_cond.shape[1],
+                    hint_u8=hint.dtype == torch.uint8,
+                    gen_xT="img2img" if img2img else False, inpaint=inpaint,
+                    cfg_rescale=cfg_rescale, eta=eta, schedule_steps=num_steps)
+        return spec, args
+
+    def sample(self, num_steps: int, x_T: Optional[torch.Tensor],
+               hint: torch.Tensor, ctx_cond: torch.Tensor,
+               ctx_uncond: torch.Tensor, guidance_scale=9.0, strength=1.0,
+               eta: float = 0.0, guess_mode: bool = False,
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[Sequence[torch.Tensor]] = None,
+               init_latent: Optional[torch.Tensor] = None,
+               t_enc: Optional[int] = None,
+               renoise: Optional[torch.Tensor] = None,
+               encoder_cache_interval: int = 1, cfg_rescale: float = 0.0,
+               inpaint_latent: Optional[torch.Tensor] = None,
+               inpaint_mask: Optional[torch.Tensor] = None,
+               inpaint_noise: Optional[Sequence[torch.Tensor]] = None,
+               seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """DDIM latents (fp32 NHWC) through the sampler engine. x_T: NHWC
+        latents, or None to draw them (`seeds`: one per row, each row from its
+        own generator, so a row's bytes do not depend on the batch it ran in;
+        else `generator`); hint: uint8 NHWC pixels (normalised in the engine:
+        /255 in fp32, then the compute dtype) or floats in [0, 1].
+        guidance_scale, strength: a number or one per sample. With eta > 0
+        the step noise is `noise` (one NHWC tensor per step) or drawn.
+
+        init_latent + t_enc (img2img semantics, the hires refine): x_T must
+        be None; the init latent, rounded to the compute dtype, is re-noised
+        to the entry step of the num_steps schedule (`renoise`, NHWC, or
+        drawn) and only the last t_enc steps run.
+
+        encoder_cache_interval, cfg_rescale, inpaint_latent (B, h, w, 4) +
+        inpaint_mask (B, h, w, 1; 1 = generate) + inpaint_noise: see
+        pipeline/ddim.py:ddim_sample."""
+        spec, args = self._loop_inputs(
+            num_steps, x_T, hint, ctx_cond, ctx_uncond, guidance_scale, strength,
+            eta, guess_mode, generator, noise, init_latent, t_enc, renoise,
+            encoder_cache_interval, cfg_rescale, inpaint_latent, inpaint_mask,
+            inpaint_noise, seeds)
+        z = self._out(self.sampler_engine(**spec)(*args))
+        self.last_latents = z
+        return z
 
     def sample_decode(self, num_steps: int, x_T, hint, ctx_cond, ctx_uncond,
-                      **kwargs) -> torch.Tensor:
-        """DDIM + VAE decode + uint8 denormalisation; uint8 (B, H, W, 3).
-        kwargs: those of `sample`, init_latent / t_enc / renoise included."""
-        return self.decode(self.sample(num_steps, x_T, hint, ctx_cond,
-                                       ctx_uncond, **kwargs))
+                      guidance_scale=9.0, strength=1.0, eta: float = 0.0,
+                      guess_mode: bool = False, generator=None, noise=None,
+                      init_latent=None, t_enc=None, renoise=None,
+                      encoder_cache_interval: int = 1, cfg_rescale: float = 0.0,
+                      inpaint_latent=None, inpaint_mask=None, inpaint_noise=None,
+                      seeds=None) -> torch.Tensor:
+        """DDIM + VAE decode + uint8 denormalisation through the fused
+        engine: uint8 (B, H, W, 3) on the device; the latents are left in
+        `last_latents`. Arguments as `sample`."""
+        spec, args = self._loop_inputs(
+            num_steps, x_T, hint, ctx_cond, ctx_uncond, guidance_scale, strength,
+            eta, guess_mode, generator, noise, init_latent, t_enc, renoise,
+            encoder_cache_interval, cfg_rescale, inpaint_latent, inpaint_mask,
+            inpaint_noise, seeds)
+        img, z = self._out(self.sample_decode_engine(**spec)(*args))
+        self.last_latents = z
+        return img
+
+    def decode_latent_device(self, z: torch.Tensor) -> torch.Tensor:
+        """Scaled latents (B, h, w, 4) -> uint8 NHWC pixels on the device."""
+        z = torch.as_tensor(z, device=self.device).to(self.dtype)
+        b, lh, lw, _ = z.shape
+        f = self.cfg.vae.downsample_factor
+        return self._out(self.decoder_engine(b, lh * f, lw * f)(z))
+
+    def decode_latent(self, z: torch.Tensor) -> np.ndarray:
+        return self.decode_latent_device(z).cpu().numpy()
+
+    def report(self) -> str:
+        """Engine census: one line an engine, with its capture time, graph
+        nodes and the bytes of its graph's memory pool."""
+        lines = []
+        for _, eng in sorted(self._engines.items(), key=str):
+            info = eng.get_engine_infor()
+            if info["compiled"]:
+                lines.append(
+                    f"{eng.name}: capture {info['compile_seconds']:.1f}s, "
+                    f"{info['device_ops']} device ops, pool "
+                    f"{info['memory']['pool_bytes'] / 1e6:.0f} MB")
+            else:
+                lines.append(f"{eng.name}: eager")
+        return "\n".join(lines)
 
     def warmup(self, resolution: int = 256, num_steps: int = 1,
                batch: int = 1):
-        """Run every stage once at a small shape; returns the image shape."""
+        """Start-up self-test: build and run every engine once at one shape
+        (CLIP, the loop, the decoder, loop + decode fused) on a uint8 hint,
+        and hold the fused engine's image to the granular path's (`sample`
+        then `decode_latent`) on the same x_T: they must be equal in bytes.
+        On a capturing runtime an engine that is not a captured graph fails
+        the warm-up. Returns the image shape."""
         if resolution % 64:
             raise ValueError("resolutions are multiples of 64 (resize_image)")
         f = self.cfg.vae.downsample_factor
         ids = np.zeros((batch, self.cfg.clip.max_length), np.int64)
         ctx = self.encode_prompt(ids)
-        x_T = torch.zeros((batch, resolution // f, resolution // f, 4),
-                          device=self.device)
-        hint = torch.zeros((batch, resolution, resolution, 3),
-                           dtype=torch.uint8, device=self.device)
-        img = self.sample_decode(num_steps, x_T, hint, ctx, ctx)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        x_T = torch.randn((batch, resolution // f, resolution // f, 4),
+                          generator=torch.Generator().manual_seed(0)).to(self.device)
+        hint = self._zeros((batch, resolution, resolution, 3), torch.uint8)
+        img = self.decode_latent(self.sample(num_steps, x_T, hint, ctx, ctx))
+        fused = self.sample_decode(num_steps, x_T, hint, ctx, ctx).cpu().numpy()
+        if fused.shape != img.shape or not np.array_equal(fused, img):
+            raise RuntimeError(
+                f"warmup self-test: the fused engine's image {fused.shape} "
+                f"differs from the granular path's {img.shape} in "
+                f"{int((fused != img).sum()) if fused.shape == img.shape else 'shape'}"
+                " values")
+        if self.capturing:
+            eager = [e.name for k, e in self._engines.items()
+                     if k[-2] and not e.compiled]  # k[-2]: built while capturing
+            if eager:
+                raise RuntimeError(f"warmup: engines were not captured: {eager}")
         return tuple(img.shape)
 
     def release(self) -> None:
-        """Drop the weights and return the device memory they held."""
+        """Drop the engines (their graphs and memory pools) and the weights,
+        and return the device memory they held."""
+        self._engines.clear()
         self.model = None
+        self.last_latents = None
         if self.device.type == "cuda":
+            gc.collect()
             torch.cuda.empty_cache()

@@ -584,3 +584,216 @@ def test_quantized_matmul_rejects_what_it_does_not_take(gen):
         kq.quantized_matmul(x[:12], w_q, scale)
     with pytest.raises(ValueError, match="contiguous"):
         kq.quantized_matmul(_randn((256, 64), gen, torch.bfloat16).t(), w_q, scale)
+
+
+# ------------------------------------------------- GroupNorm stats, by rows
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,groups", [
+    ((1, 128, 256, 256), 32),   # 4 channels a group: two groups a vector
+    ((2, 960, 64, 64), 32),     # 30 a group: boundaries inside vectors
+    ((1, 96, 24, 40), 8),       # a block of 288 threads, a ragged last chunk
+    ((3, 64, 5, 5), 32),        # more thread rows than spatial rows
+    ((2, 33, 7, 9), 3),         # no block of whole rows: the group kernel stays
+])
+def test_group_norm_stats_every_plan(gen, dtype, shape, groups):
+    """Channels-last: the plan `stats_plan` picks, each cluster size forced
+    and the (sample, group, chunk) kernel forced, against the plain version
+    (1e-5 x max |plain|: fp32 sums in another order), and two runs of each
+    equal in bytes."""
+    x = _randn(shape, gen, dtype).contiguous(memory_format=torch.channels_last)
+    rows = max(1, min(kg.chunk_rows(x, groups), shape[2] * shape[3] // 3))
+    ref = kg.group_norm_stats_plain(x, groups, rows)
+    tol = 1e-5 * ref.abs().max().item()
+    auto = kg.stats_plan(shape, groups, dtype, True, rows)
+    kg.stats_plan_launches.clear()
+    dispatch.reset_launches()
+    out = kg.group_norm_stats(x, groups, rows)
+    assert dict(kg.stats_plan_launches) == {auto: 1}
+    assert dispatch.launches["group_norm_stats"] == 1
+    assert out.shape == ref.shape and (out - ref).abs().max().item() <= tol
+    plans = [kg.stats_plan(shape, groups, dtype, True, rows, by_rows=False)]
+    if shape[1] != 33:
+        by_rows = kg.stats_plan(shape, groups, dtype, True, rows, by_rows=True)
+        assert auto == (by_rows if shape[1] // groups * x.element_size() < 32
+                        else plans[0])
+        plans += [by_rows._replace(cluster=c) for c in (1, 2, 4, 8)]
+        plans += [by_rows._replace(vec=1, threads=t) for t in range(32, 513, 32)
+                  if t % shape[1] == 0][:1]
+    for plan in plans:
+        got = kg.group_norm_stats(x, groups, rows, plan=plan)
+        assert (got - ref).abs().max().item() <= tol, plan
+        assert torch.equal(got, kg.group_norm_stats(x, groups, rows, plan=plan)), plan
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", chip_smoke.APPLY_SHAPES, ids=["128x512x512", "960x64x64"])
+def test_group_norm_stats_at_the_large_slabs(gen, dtype, shape):
+    x = _randn(shape, gen, dtype).contiguous(memory_format=torch.channels_last)
+    rows = kg.chunk_rows(x, 32)
+    ref = kg.group_norm_stats_plain(x, 32, rows)
+    kg.stats_plan_launches.clear()
+    out = kg.group_norm_stats(x, 32, rows)
+    # by rows where a group's run is narrower than a sector
+    assert [p.by_rows for p in kg.stats_plan_launches] == [shape[1] == 128]
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert torch.equal(out, kg.group_norm_stats(x, 32, rows))
+    # NCHW memory keeps the (sample, group, chunk) kernel
+    kg.stats_plan_launches.clear()
+    nchw = kg.group_norm_stats(x.contiguous(), 32, rows)
+    assert [p.by_rows for p in kg.stats_plan_launches] == [False]
+    assert (nchw - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_group_norm_stats_plan_that_does_not_fit_raises(gen):
+    x = _randn((2, 960, 64, 64), gen, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    rows = kg.chunk_rows(x, 32)
+    good = kg.stats_plan(x.shape, 32, x.dtype, True, rows, by_rows=True)
+    old = kg.stats_plan(x.shape, 32, x.dtype, True, rows, by_rows=False)
+    for bad in (good._replace(vec=16), good._replace(vec=7), good._replace(threads=1024),
+                good._replace(threads=256),   # not whole rows of 120 vectors
+                good._replace(cluster=3), good._replace(cluster=16),
+                good._replace(cluster=0),
+                old._replace(vec=4),          # 30 channels a group: 4 does not divide
+                old._replace(threads=128), old._replace(cluster=2)):
+        with pytest.raises(RuntimeError, match="group norm stats"):
+            kg.group_norm_stats(x, 32, rows, plan=bad)
+    with pytest.raises(RuntimeError, match="group norm stats"):  # NCHW memory by rows
+        kg.group_norm_stats(x.contiguous(), 32, rows, plan=good)
+
+
+# ------------------------------------------------------------ captured engines
+
+
+def _tiny_runtime(dtype="bfloat16", model_channels=None, **kwargs):
+    """tiny_pipeline() on the card, weights from seed 0. model_channels=80:
+    head dim 40 at level 0, which the attention kernel takes (the tiny
+    config's 16 it does not; at 64x64 no site has the tokens to reach it)."""
+    import dataclasses
+
+    from stablediffusioneo_tpu_torch.config import ControlNetConfig, tiny_pipeline
+    from stablediffusioneo_tpu_torch.models.cldm import ControlLDM, init_weights
+    from stablediffusioneo_tpu_torch.runtime.engine import CNSDRuntime
+
+    cfg = dataclasses.replace(tiny_pipeline(), dtype=dtype)
+    if model_channels:
+        unet = dataclasses.replace(cfg.unet, model_channels=model_channels)
+        cfg = dataclasses.replace(cfg, unet=unet, controlnet=ControlNetConfig(unet=unet))
+    model = ControlLDM(cfg).to("cuda")
+    init_weights(model, torch.Generator(device="cuda").manual_seed(0))
+    return cfg, CNSDRuntime(model, cfg, device="cuda", **kwargs)
+
+
+def _tiny_inputs(cfg, gen, batch=1, res=64):
+    ctx = _randn((2 * batch, cfg.clip.max_length, cfg.unet.context_dim), gen, torch.float32)
+    hint = (torch.rand((batch, res, res, 3), generator=gen, device="cuda") > 0.7
+            ).to(torch.uint8) * 255
+    x_T = _randn((batch, res // 8, res // 8, 4), gen, torch.float32)
+    return x_T, hint, ctx[:batch], ctx[batch:]
+
+
+@pytest.mark.parametrize("kwargs", [
+    {}, {"eta": 0.5}, {"guess_mode": True, "strength": 0.7},
+    {"encoder_cache_interval": 2}, {"cfg_rescale": 0.7},
+], ids=["default", "eta", "guess", "enc_cache", "cfg_rescale"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_engine_replay_equals_eager(gen, dtype, kwargs):
+    """Tiny config: a captured engine's replays against the eager loop on the
+    same inputs and noise: equal bytes (the same kernels in the same order),
+    also for a second request through the same graph; and the fused engine
+    against the granular path."""
+    cfg, rt = _tiny_runtime(dtype)
+    assert rt.capturing
+    for seed in (3, 4):
+        x_T, hint, ctx_c, ctx_u = _tiny_inputs(cfg, gen)
+        g = lambda: torch.Generator(device="cuda").manual_seed(seed)
+        rt.graphs = None
+        img = rt.sample_decode(4, x_T, hint, ctx_c, ctx_u, generator=g(), **kwargs)
+        z = rt.last_latents
+        granular = rt.decode_latent_device(
+            rt.sample(4, x_T, hint, ctx_c, ctx_u, generator=g(), **kwargs))
+        rt.graphs = False
+        eager = rt.sample_decode(4, x_T, hint, ctx_c, ctx_u, generator=g(), **kwargs)
+        assert torch.isfinite(z).all() and img.shape == (1, 64, 64, 3)
+        assert torch.equal(z, rt.last_latents)
+        assert torch.equal(img, eager) and torch.equal(img, granular)
+    compiled = [e.get_engine_infor()["compiled"] for e in rt._engines.values()]
+    assert sorted(compiled) == [False, True, True, True]
+    lines = rt.report().splitlines()
+    assert len(lines) == 4 and sum("device ops, pool" in line for line in lines) == 3
+    rt.graphs = None
+    assert rt.warmup(resolution=64, num_steps=2) == (1, 64, 64, 3)
+    rt.release()
+    assert rt._engines == {}
+
+
+def test_engine_img2img_variant_replay_equals_eager(gen):
+    cfg, rt = _tiny_runtime()
+    x_T, hint, ctx_c, ctx_u = _tiny_inputs(cfg, gen)
+    for seed in (5, 6):
+        outs = []
+        for graphs in (None, False):
+            rt.graphs = graphs
+            outs.append(rt.sample_decode(
+                4, None, hint, ctx_c, ctx_u, init_latent=x_T, t_enc=3, eta=0.3,
+                generator=torch.Generator(device="cuda").manual_seed(seed)))
+        assert torch.equal(*outs)
+    assert sorted(e.name for e in rt._engines.values()) == [
+        "ddim+decode_3x1x64x64_genxT-img2img"] * 2
+
+
+@pytest.mark.parametrize("flags", [{}, {"groupnorm": True, "layernorm": True}],
+                         ids=["default", "fused_norms"])
+def test_counters_after_a_replay_equal_the_captures(gen, flags):
+    """256x256 at 80 channels, so that the level-0 sites (1024 tokens, head
+    dim 40) reach the attention kernel: the counters after a replay equal an
+    eager request's, the capture itself leaves them standing, and the latents
+    are equal in bytes (the sampler engine: the tiny VAE's mid-block has a
+    head dim the split kernel does not take)."""
+    dispatch.set_kernels(**flags)
+    try:
+        cfg, rt = _tiny_runtime(model_channels=80)
+        x_T, hint, ctx_c, ctx_u = _tiny_inputs(cfg, gen, res=256)
+        counters = (ka.variant_launches, kg.plan_launches, kl.plan_launches,
+                    kq.plan_launches)
+
+        def request(graphs):
+            rt.graphs = graphs
+            dispatch.reset_launches()
+            for c in counters:
+                c.clear()
+            z = rt.sample(3, x_T, hint, ctx_c, ctx_u)
+            return z, dict(dispatch.launches), [dict(c) for c in counters]
+
+        eager = request(False)
+        first = request(None)    # the eager pass of load(), the capture, a replay
+        replay = request(None)   # a replay alone
+        assert eager[1]["fused_attention_packed"] > 0
+        assert eager[2][0] == {"wgmma": eager[1]["fused_attention_packed"]}
+        assert (eager[1]["fused_group_norm"] > 0) == bool(flags)
+        assert replay[1:] == eager[1:]
+        assert first[1] == {k: 2 * v for k, v in eager[1].items()}
+        assert torch.equal(eager[0], replay[0]) and torch.equal(eager[0], first[0])
+        info = next(e for e in rt._engines.values() if e.compiled).get_engine_infor()
+        assert info["compile_seconds"] > 0 and info["memory"]["pool_bytes"] > 0
+        assert info["device_ops"] > 100
+    finally:
+        dispatch.set_kernels(groupnorm=False, layernorm=False, int8_linear=False)
+
+
+def test_a_capture_that_fails_raises(gen):
+    from stablediffusioneo_tpu_torch.runtime.engine import Engine
+
+    def syncs(x):
+        return x * float(x.sum().item())  # a device-to-host copy: not capturable
+
+    eng = Engine(syncs, name="syncs", capture=True)
+    with pytest.raises(Exception):
+        eng.load(torch.ones(4, device="cuda"))
+    assert not eng.compiled
+    ok = Engine(lambda x: x * 2, name="double", capture=True).load(torch.ones(4, device="cuda"))
+    assert ok.compiled and ok(torch.full((4,), 3.0, device="cuda")).tolist() == [6.0] * 4
+    with pytest.raises(ValueError, match="captured for"):
+        ok(torch.ones(5, device="cuda"))

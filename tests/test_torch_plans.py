@@ -373,6 +373,101 @@ def test_ragged_apply_plans():
         kg.apply_plan((2, 960, 64, 64), 32, BF16, False, 546, by_rows=True)
 
 
+# ------------------------------------------------------- GroupNorm stats pass
+
+
+def _check_stats_plan(plan, shape, groups, dtype, channels_last, rows):
+    n, c, h, w = shape
+    assert plan.vec in (1, 2, 4, 8) and plan.vec * dtype.itemsize <= 16
+    if not plan.by_rows:  # the (sample, group, chunk) kernel
+        assert plan.threads == kg.CHUNK_THREADS and plan.cluster == 1
+        assert plan.vec == kg.access_width(shape, groups, dtype.itemsize, channels_last, rows)
+        return
+    assert channels_last
+    assert c % plan.vec == 0                          # a vector stays inside a row
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= kg.ROWS_MAX_THREADS
+    assert plan.threads % (c // plan.vec) == 0        # a thread's column is fixed
+    assert plan.cluster in (1, 2, 4)
+    # the column sums, channel sums and group sums fit a block's shared memory
+    assert (plan.threads * plan.vec + c + groups) * 8 <= kg.STATS_SMEM_BYTES
+
+
+@pytest.mark.parametrize("shape,dtype,channels_last", APPLY,
+                         ids=[f"{s[1]}x{s[2]}-{str(d)[6:]}-{'cl' if cl else 'nchw'}"
+                              for s, d, cl in APPLY])
+def test_stats_plans_of_the_large_slabs(shape, dtype, channels_last):
+    rows = max(1, 16384 // (shape[1] // 32))
+    plan = kg.stats_plan(shape, 32, dtype, channels_last, rows)
+    _check_stats_plan(plan, shape, 32, dtype, channels_last, rows)
+    n, c, h, w = shape
+    # by rows where a group's run is narrower than a sector (C = 128: 8 or 16
+    # bytes; C = 960: 60 or 120)
+    assert plan.by_rows == (channels_last and c // 32 * dtype.itemsize < 32)
+    forced = kg.stats_plan(shape, 32, dtype, True, rows, by_rows=True)
+    _check_stats_plan(forced, shape, 32, dtype, True, rows)
+    assert forced.vec * dtype.itemsize == 16
+    chunks = -(-(h * w) // rows)
+    assert n * chunks < kg.SM_COUNT          # one block a chunk would not fill the card
+    assert kg.SM_COUNT // 4 < n * chunks * forced.cluster <= kg.SM_COUNT
+    # every thread of every block has its least batches of accesses
+    share = -(-min(rows, h * w) // forced.cluster)
+    assert share * (c // forced.vec) >= kg.STATS_MIN_BATCHES * forced.threads * kg.STATS_BATCH
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((1, 128, 512, 512), BF16, (True, 8, 512, 2)),
+    ((1, 128, 512, 512), FP32, (True, 4, 512, 2)),
+    ((2, 960, 64, 64), BF16, (True, 8, 480, 4)),
+    ((2, 960, 64, 64), FP32, (True, 4, 480, 4)),
+])
+def test_plans_of_named_stats_shapes(shape, dtype, want):
+    rows = max(1, 16384 // (shape[1] // 32))
+    plan = kg.stats_plan(shape, 32, dtype, True, rows, by_rows=True)
+    assert tuple(plan) == want
+    assert str(plan).startswith("rows x channels vec ")
+    old = kg.stats_plan(shape, 32, dtype, True, rows, by_rows=False)
+    assert str(old).startswith("group x chunk vec ")
+    assert kg.stats_plan(shape, 32, dtype, True, rows) == (plan if shape[1] == 128 else old)
+    assert kg.stats_plan(shape, 32, dtype, False, rows) == old._replace(
+        vec=kg.access_width(shape, 32, dtype.itemsize, False, rows))
+
+
+def test_ragged_stats_plans():
+    # 33 channels: no block of at most 512 threads is whole rows of 33 element
+    # accesses and whole warps: the (sample, group, chunk) kernel stays
+    plan = kg.stats_plan((2, 33, 7, 9), 3, FP32, True, 21)
+    _check_stats_plan(plan, (2, 33, 7, 9), 3, FP32, True, 21)
+    assert not plan.by_rows and plan.vec == 1
+    with pytest.raises(ValueError, match="whole rows"):
+        kg.stats_plan((2, 33, 7, 9), 3, FP32, True, 21, by_rows=True)
+    # 96 channels in bf16: 12 vectors a row, the widest block of whole rows
+    # and warps has 480 threads; 960 rows in 10 chunks of 100 do not give two
+    # blocks their batches: one block a chunk
+    plan = kg.stats_plan((1, 96, 24, 40), 8, BF16, True, 100)
+    _check_stats_plan(plan, (1, 96, 24, 40), 8, BF16, True, 100)
+    assert tuple(plan) == (True, 8, 480, 1)
+    # enough (sample, chunk) pairs for an SM each: no cluster
+    assert kg.stats_plan((2, 128, 512, 512), 32, BF16, True, 4096).cluster == 1
+    assert kg.stats_plan((1, 128, 256, 256), 32, BF16, True, 4096).cluster == 4
+    # unaligned tensors: element accesses, a row of 960 is wider than a block
+    plan = kg.stats_plan((2, 960, 64, 64), 32, BF16, True, 546, aligned=False)
+    assert not plan.by_rows and plan.vec == 1
+    # a row whose sums do not fit shared memory
+    assert not kg.stats_plan((1, 4096, 16, 16), 8, FP32, True, 64).by_rows
+    # NCHW memory keeps the (sample, group, chunk) kernel; it stays reachable
+    # in channels-last memory, and the new one is refused for NCHW memory
+    assert tuple(kg.stats_plan((2, 960, 64, 64), 32, BF16, False, 546)) == \
+        (False, 2, kg.CHUNK_THREADS, 1)
+    old = kg.stats_plan((2, 960, 64, 64), 32, BF16, True, 546, by_rows=False)
+    assert tuple(old) == (False, 2, kg.CHUNK_THREADS, 1)
+    with pytest.raises(ValueError, match="channels-last"):
+        kg.stats_plan((2, 960, 64, 64), 32, BF16, False, 546, by_rows=True)
+    # a forced cluster size is taken as it is
+    for cluster in (1, 2, 4, 8):
+        assert kg.stats_plan((2, 960, 64, 64), 32, BF16, True, 546, by_rows=True,
+                             cluster=cluster).cluster == cluster
+
+
 # -------------------------------------------------------------- the build
 
 
