@@ -51,7 +51,27 @@ source, all started together), then:
      and int8 matmul kernels, and times one replay of each engine by CUDA
      events. Then three short requests (4 steps) at full width: the default,
      encoder_cache_interval=2 and cfg_rescale=0.7 (finite latents, images
-     that differ from the default's).
+     that differ from the default's);
+  4. checkpoint: the seeded model's state dict (bf16, all 1,470 keys of
+     control_sd15_canny) written with torch.save to a temporary directory and
+     read back by checkpoint.load_controlnet_pipeline onto the card: its size
+     and the seconds to write and load it; every key consumed, none orphaned;
+     a default request on the loaded model gives the seeded model's image in
+     bytes. The phases below run on the loaded model, with a CLIP BPE
+     tokenizer read by CLIPTokenizer.from_pretrained from a merges file this
+     script writes (48,894 merges of byte-unicode pairs: CLIP's 49,408 ids);
+  5. img2img (init_image, denoise_strength=0.75: the last 15 of 20 steps)
+     and inpainting (a rectangular mask, 20 steps), by default and with
+     fused norms, each as a main path above: the VAE encoder's engine
+     (posterior mode) and the loop's init-latent or inpaint variant; two split
+     attention launches a request (encode and decode), the encoder's
+     GroupNorms with fused norms; encode_image alone: replayed equals eager
+     in bytes, and a sample with a fixed eps repeats;
+  6. the prompt front end as main paths: long_prompt=True (3 x 77 windows: the
+     14 cross-attention sites a step at S = 231), long_prompt="auto" on a
+     prompt of two windows (S = 154) and prompt_emphasis=True;
+  7. the reference's surface: hackathon(...).initialize(), then one request
+     with the 14 positional arguments and 2 samples: 2 images, no map.
 Launch counts must equal what the UNet, ControlNet, VAE and CLIP plans and
 the dispatch gates imply. Any failed check raises, so the script exits
 non-zero and prints no result. The last line is {"ok": true, "device":
@@ -60,6 +80,8 @@ before that lists the kernels.
 """
 
 import copy
+import gc
+import itertools
 import json
 import math
 import os
@@ -67,6 +89,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -113,6 +136,38 @@ STEPS, RES, SCALE = 20, 512, 9.0
 HIRES_UPSCALE, HIRES_DENOISE = 2.0, 0.7
 HIRES_RES = int(round(RES * HIRES_UPSCALE / 64)) * 64
 HIRES_T_ENC = max(1, min(STEPS, int(round(HIRES_DENOISE * STEPS))))
+IMG2IMG_STRENGTH = 0.75
+IMG2IMG_T_ENC = max(1, min(STEPS, int(round(IMG2IMG_STRENGTH * STEPS))))
+PROMPT = "a house in the woods"
+# with the smoke's BPE vocabulary (pairs of characters) and WINDOW_TEXTS,
+# about 220 tokens (3 windows of 75) and about 100 (2 windows)
+LONG_PROMPT = ", ".join([PROMPT] + [f"{w} morning light over the hills"
+                                    for w in ("soft", "warm", "pale", "golden", "misty",
+                                              "early", "quiet", "clear")])
+MID_PROMPT = ", ".join([PROMPT, "soft morning light over the hills",
+                        "warm mist on the river", "a red door and a garden",
+                        "roses by the old stone wall"])
+# the long-prompt runs' a_prompt and n_prompt: short, so that the prompt
+# alone sets the windows
+WINDOW_TEXTS = {"a_prompt": "best quality", "n_prompt": "lowres, bad anatomy"}
+EMPHASIS_PROMPT = "a (house:1.3) in the [woods], ((morning light))"
+# main-path runs: kernel flags, process() arguments, prompt, the parts a
+# request runs ("init": img2img, "inpaint": a mask, "windows": context windows)
+RUNS = {
+    "default": {},
+    "fused norms": {"norms": True},
+    "int8": {"int8": True},
+    "hires": {"process": {"hires_upscale": HIRES_UPSCALE, "hires_denoise": HIRES_DENOISE}},
+    "img2img": {"init": True},
+    "img2img, fused norms": {"init": True, "norms": True},
+    "inpaint": {"inpaint": True},
+    "inpaint, fused norms": {"inpaint": True, "norms": True},
+    "long prompt": {"process": {"long_prompt": True, **WINDOW_TEXTS}, "prompt": LONG_PROMPT,
+                    "windows": 3},
+    "long prompt, auto": {"process": {"long_prompt": "auto", **WINDOW_TEXTS},
+                          "prompt": MID_PROMPT, "windows": 2},
+    "emphasis": {"process": {"prompt_emphasis": True}, "prompt": EMPHASIS_PROMPT},
+}
 
 
 def stand_in_tokenizer(texts, max_length=77):
@@ -514,14 +569,15 @@ def _transformer_sites(cfg, lat):
     return sites + [mid] * (2 * ucfg.depth_for(levels - 1))
 
 
-def attention_sites(cfg, res, batch=2):
+def attention_sites(cfg, res, batch=2, ctx_len=None):
     """Every multi-head attention call of one DDIM step on the CFG batch, as
     (q shape (B, Tq, C), key length, heads): each transformer block runs a
-    self- (S = Tq) and a cross-attention (S = the context length)."""
+    self- (S = Tq) and a cross-attention (S = the context length: 77, or a
+    long prompt's windows x 77)."""
     sites = []
     for c, side in _transformer_sites(cfg, res // cfg.vae.downsample_factor):
         q, heads = (batch, side * side, c), cfg.unet.heads_for(c)
-        sites += [(q, side * side, heads), (q, cfg.clip.max_length, heads)]
+        sites += [(q, side * side, heads), (q, ctx_len or cfg.clip.max_length, heads)]
     return sites
 
 
@@ -538,14 +594,14 @@ def attention_route(q_shape, s, dtype):
     return "fused_attention_packed"
 
 
-def expected_launches(cfg, res, dtype=torch.bfloat16):
+def expected_launches(cfg, res, dtype=torch.bfloat16, ctx_len=None):
     """Attention launches of one DDIM step by kernel entry, and split
-    launches of one decode (the VAE mid-block attends once at latent
-    resolution)."""
+    launches of one decode or encode (the VAE mid-block attends once at
+    latent resolution)."""
     from stablediffusioneo_tpu_torch.ops.dispatch import ATTN_MIN_TQ
 
     step = {"fused_attention_packed": 0, "fused_attention_packed_stream": 0}
-    for q_shape, s, _ in attention_sites(cfg, res):
+    for q_shape, s, _ in attention_sites(cfg, res, ctx_len=ctx_len):
         route = attention_route(q_shape, s, dtype)
         if route:
             step[route] += 1
@@ -555,16 +611,21 @@ def expected_launches(cfg, res, dtype=torch.bfloat16):
 
 def attention_rows(cfg):
     """(entry, q shape, key length, heads) of every distinct kernel-gated
-    attention call of the 512x512 request and of the 1024x1024 hires pass."""
+    attention call of the 512x512 request, of the 1024x1024 hires pass, and
+    of the 512x512 request's long-prompt cross-attention (S = 154, 231)."""
     rows = []
-    for res in (RES, HIRES_RES):
-        for q_shape, s, heads in attention_sites(cfg, res):
+    passes = [(RES, None), (HIRES_RES, None)]
+    passes += [(RES, n * cfg.clip.max_length) for n in (2, 3)]
+    for res, ctx_len in passes:
+        for q_shape, s, heads in attention_sites(cfg, res, ctx_len=ctx_len):
             route = attention_route(q_shape, s, torch.bfloat16)
             if route and (route, q_shape, s, heads) not in rows:
                 rows.append((route, q_shape, s, heads))
         lat = res // cfg.vae.downsample_factor
-        rows.append(("fused_attention", (1, 1, lat * lat, cfg.vae.ch * cfg.vae.ch_mult[-1]),
-                     lat * lat, 1))
+        row = ("fused_attention", (1, 1, lat * lat, cfg.vae.ch * cfg.vae.ch_mult[-1]),
+               lat * lat, 1)
+        if row not in rows:
+            rows.append(row)
     return rows
 
 
@@ -646,6 +707,23 @@ def _vae_norms(vcfg, lat, batch):
     return sites + [gn(bi, side)]
 
 
+def _vae_encoder_norms(vcfg, res, batch):
+    """Norm calls of one VAE encode of a res x res image, in module order:
+    two a ResnetBlock, the mid-block's attention norm (no SiLU), norm_out."""
+    def gn(c, side, swish=True):
+        return ("gn", (batch, c, side, side), swish, vcfg.groups)
+
+    sites, bi, side = [], vcfg.ch, res
+    for i, mult in enumerate(vcfg.ch_mult):
+        for _ in range(vcfg.num_res_blocks):
+            sites += [gn(bi, side), gn(vcfg.ch * mult, side)]
+            bi = vcfg.ch * mult
+        if i != len(vcfg.ch_mult) - 1:
+            side //= 2
+    return sites + [gn(bi, side), gn(bi, side), gn(bi, side, False), gn(bi, side),
+                    gn(bi, side), gn(bi, side)]
+
+
 def norm_sites(cfg, res, samples=1):
     """Every GroupNorm and LayerNorm call of a request, from the plans, as
     (kind, shape, swish, groups): "step" = one DDIM step (UNet and
@@ -689,15 +767,20 @@ def norm_launches(sites, dtype):
             for name, kind in (("fused_group_norm", "gn"), ("fused_layer_norm", "ln"))}
 
 
+def run_steps(config):
+    """DDIM steps a request of this run takes at 512x512."""
+    return IMG2IMG_T_ENC if RUNS[config].get("init") else STEPS
+
+
 def expected_layer_norm_plans(cfg, config):
     """LayerNorm launches over the two timed requests of main_path, by the
     plan each gated site's shape gives (bf16 rows and weights, aligned)."""
     from stablediffusioneo_tpu_torch.ops.kernels.layernorm import layer_norm_plan
 
     want = {}
-    if config != "fused norms":
+    if not RUNS[config].get("norms"):
         return want
-    for part, times in (("step", STEPS), ("decode", 1), ("prompt", 1)):
+    for part, times in (("step", run_steps(config)), ("decode", 1), ("prompt", 1)):
         for site in norm_sites(cfg, RES)[part]:
             if site[0] == "ln" and gated(site, torch.bfloat16):
                 plan = layer_norm_plan(math.prod(site[1][:-1]), site[1][-1],
@@ -706,26 +789,40 @@ def expected_layer_norm_plans(cfg, config):
     return want
 
 
+def run_ctx_len(cfg, config):
+    return RUNS[config].get("windows", 1) * cfg.clip.max_length
+
+
 def expected_request_launches(cfg, config):
-    """Every kernel's launches over the two timed requests of main_path."""
-    step, per_decode = expected_launches(cfg, RES)
+    """Every kernel's launches over the two timed requests of main_path, and
+    the attention launches by key length."""
+    spec, steps = RUNS[config], run_steps(config)
+    ctx_len = run_ctx_len(cfg, config)
     want = dict.fromkeys(KERNELS, 0)
-    for name, n in step.items():
-        want[name] = STEPS * n
-    if config == "hires":  # the base pass is not decoded
-        hi_step, per_decode = expected_launches(cfg, HIRES_RES)
-        for name, n in hi_step.items():
-            want[name] += HIRES_T_ENC * n
-    want["fused_attention"] = per_decode
-    if config == "fused norms":
+    passes = [(RES, steps)] + ([(HIRES_RES, HIRES_T_ENC)] if config == "hires" else [])
+    by_key = {}
+    for res, n_steps in passes:  # the hires base pass is not decoded
+        step, per_decode = expected_launches(cfg, res, ctx_len=ctx_len)
+        for name, n in step.items():
+            want[name] += n_steps * n
+        for q_shape, s, _ in attention_sites(cfg, res, ctx_len=ctx_len):
+            if attention_route(q_shape, s, torch.bfloat16):
+                by_key[s] = by_key.get(s, 0) + 2 * n_steps
+    encodes = int(bool(spec.get("init") or spec.get("inpaint")))
+    want["fused_attention"] = per_decode * (1 + encodes)  # the encoder's mid-block too
+    if spec.get("norms"):
         sites = norm_sites(cfg, RES)
         step, decode, prompt = (norm_launches(sites[k], torch.bfloat16)
                                 for k in ("step", "decode", "prompt"))
+        encode = norm_launches(_vae_encoder_norms(cfg.vae, RES, 1), torch.bfloat16)
         for name in step:
-            want[name] = STEPS * step[name] + decode[name] + prompt[name]
-    if config == "int8":
-        want["quantized_matmul"] = STEPS * len(quant_gated(quant_sites(cfg, RES)))
-    return {name: 2 * n for name, n in want.items()}
+            want[name] = steps * step[name] + decode[name] + prompt[name] \
+                + encodes * encode[name]
+    if spec.get("int8"):
+        want["quantized_matmul"] = steps * len(quant_gated(quant_sites(cfg, RES)))
+    lat = passes[-1][0] // cfg.vae.downsample_factor  # the decoded pass
+    by_key[lat * lat] = by_key.get(lat * lat, 0) + 2 * want["fused_attention"]
+    return {name: 2 * n for name, n in want.items()}, by_key
 
 
 # ------------------------------------------------------ model-level phases
@@ -823,36 +920,63 @@ def smoke_image():
     return (img + rng.integers(0, 40, img.shape)).astype(np.uint8)
 
 
-def main_path(model, cfg, config):
+def smoke_source():
+    """The img2img and inpaint source: a colour gradient with a bright disc."""
+    yy, xx = np.mgrid[0:RES, 0:RES] / RES
+    img = np.stack([200 * xx, 160 * yy, 120 * (1 - xx)], axis=-1)
+    img[(xx - 0.6) ** 2 + (yy - 0.4) ** 2 < 0.04] = 240
+    return img.astype(np.uint8)
+
+
+def smoke_mask():
+    """A rectangular inpaint mask: 255 where the request regenerates."""
+    mask = np.zeros((RES, RES), np.uint8)
+    mask[128:384, 160:448] = 255
+    return mask
+
+
+def run_kwargs(config):
+    """process() keyword arguments of one main-path run, images included."""
+    spec = RUNS[config]
+    kw = dict(num_samples=1, image_resolution=RES, ddim_steps=STEPS, scale=SCALE,
+              eta=0.0, strength=1.0, **spec.get("process", {}))
+    if spec.get("init"):
+        kw.update(init_image=smoke_source(), denoise_strength=IMG2IMG_STRENGTH)
+    if spec.get("inpaint"):
+        kw.update(inpaint_image=smoke_source(), inpaint_mask=smoke_mask())
+    return kw
+
+
+def main_path(model, cfg, config, tokenizer=stand_in_tokenizer):
     """One warm-up request (it captures the engines), two timed replayed
     requests, one eager request and one traced replayed request of one
-    configuration: "default", "fused norms", "int8" (512x512) or "hires"
-    (512 -> 1024)."""
+    configuration of RUNS: "default", "fused norms", "int8" (512x512),
+    "hires" (512 -> 1024), img2img, inpainting and the prompt front end."""
     from stablediffusioneo_tpu_torch.ops import dispatch
-    from stablediffusioneo_tpu_torch.ops.kernels.attention import variant_launches
+    from stablediffusioneo_tpu_torch.ops.kernels.attention import (
+        key_length_launches,
+        variant_launches,
+    )
     from stablediffusioneo_tpu_torch.ops.kernels.groupnorm import apply_plan_launches
     from stablediffusioneo_tpu_torch.ops.kernels.groupnorm import plan_launches as gn_plans
     from stablediffusioneo_tpu_torch.ops.kernels.layernorm import plan_launches as ln_plans
     from stablediffusioneo_tpu_torch.ops.kernels.quant import plan_launches as qmm_plans
     from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
 
-    fused = config == "fused norms"
-    dispatch.set_kernels(groupnorm=fused, layernorm=fused,
-                         int8_linear=config == "int8")
-    pipe = Canny2ImagePipeline(model, stand_in_tokenizer, cfg, device="cuda",
-                               quantize_linears=config == "int8")
+    spec = RUNS[config]
+    fused, int8 = bool(spec.get("norms")), bool(spec.get("int8"))
+    dispatch.set_kernels(groupnorm=fused, layernorm=fused, int8_linear=int8)
+    pipe = Canny2ImagePipeline(model, tokenizer, cfg, device="cuda",
+                               quantize_linears=int8)
     rt = pipe.runtime
     if not rt.capturing:
         raise AssertionError("the runtime does not capture its engines on the card")
     img = smoke_image()
-    kw = dict(num_samples=1, image_resolution=RES, ddim_steps=STEPS,
-              scale=SCALE, eta=0.0, strength=1.0)
-    res = RES
-    if config == "hires":
-        kw.update(hires_upscale=HIRES_UPSCALE, hires_denoise=HIRES_DENOISE)
-        res = HIRES_RES
+    kw = run_kwargs(config)
+    prompt = spec.get("prompt", PROMPT)
+    res = HIRES_RES if config == "hires" else RES
     t0 = time.perf_counter()
-    pipe.process(img, "a house in the woods", seed=0, **kw)
+    pipe.process(img, prompt, seed=0, **kw)
     engines = {e.name: e.get_engine_infor() for e in rt._engines.values()}
     print(f"main path ({config}) warm-up request, capturing {len(engines)} engines: "
           f"{time.perf_counter() - t0:.3f} s, of which captures "
@@ -862,12 +986,13 @@ def main_path(model, cfg, config):
         raise AssertionError(f"an engine was not captured: {engines}")
     torch.cuda.synchronize()
     dispatch.reset_launches()
-    for counter in (variant_launches, gn_plans, qmm_plans, ln_plans, apply_plan_launches):
+    for counter in (variant_launches, gn_plans, qmm_plans, ln_plans, apply_plan_launches,
+                    key_length_launches):
         counter.clear()
     images, latencies = [], []
     for seed in (1, 2):
         t0 = time.perf_counter()
-        out = pipe.process(img, "a house in the woods", seed=seed, **kw)
+        out = pipe.process(img, prompt, seed=seed, **kw)
         latencies.append(time.perf_counter() - t0)
         z = pipe.last_latents
         if not (torch.isfinite(z).all() and z.shape == (1, res // 8, res // 8, 4)):
@@ -881,13 +1006,14 @@ def main_path(model, cfg, config):
     launches = dict(dispatch.launches)
     plans = [dict(c) for c in (variant_launches, qmm_plans, gn_plans, ln_plans,
                                apply_plan_launches)]
+    key_lengths = {s: n for s, n in key_length_launches.items() if n}
     if len(rt._engines) != len(engines):
         raise AssertionError("a timed request built another engine: " + rt.report())
     # the eager loop on the first request's seed: the same kernels in the same
     # order, launched from the host one by one
     rt.graphs = False
     t0 = time.perf_counter()
-    eager = pipe.process(img, "a house in the woods", seed=1, **kw)
+    eager = pipe.process(img, prompt, seed=1, **kw)
     eager_latency = time.perf_counter() - t0
     rt.graphs = None
     differ = int((eager[1] != images[0]).sum())
@@ -897,11 +1023,14 @@ def main_path(model, cfg, config):
     if differ:
         raise AssertionError(f"the replayed image ({config}) differs from the eager one in "
                              f"{differ} bytes")
-    want = expected_request_launches(cfg, config)
+    want, want_keys = expected_request_launches(cfg, config)
+    want_keys = {s: n for s, n in want_keys.items() if n}
     print(f"main path ({config}) kernel launches over the 2 replayed requests: {launches} "
-          f"(expected from the plans and gates: {want})", flush=True)
-    if launches != want:
-        raise AssertionError(f"launch counts ({config}) {launches} != {want}")
+          f"(expected from the plans and gates: {want}); attention launches by key "
+          f"length: {key_lengths} (expected {want_keys})", flush=True)
+    if launches != want or key_lengths != want_keys:
+        raise AssertionError(f"launch counts ({config}) {launches}, {key_lengths} != "
+                             f"{want}, {want_keys}")
     variants, qmm, gn, ln, apply_plans = plans
     # every attention launch of the bf16 main path is a tensor-core variant
     want_variants = {"wgmma": want["fused_attention_packed"]
@@ -933,7 +1062,7 @@ def main_path(model, cfg, config):
           f"{images[0].std():.2f}; seeds differ in "
           f"{(images[0] != images[1]).mean():.3f} of values", flush=True)
     graph_nodes = sum(i["device_ops"] for i in engines.values())
-    trace = traced_request(lambda: pipe.process(img, "a house in the woods", seed=3, **kw))
+    trace = traced_request(lambda: pipe.process(img, prompt, seed=3, **kw))
     if trace is None:
         traced = None
         print(f"main path ({config}) traced replayed request: not measured (the profiler "
@@ -953,9 +1082,9 @@ def main_path(model, cfg, config):
           + ", ".join(f"{n} {ms:.1f}" for n, ms in replays.items()), flush=True)
     pipe.runtime.release()
     dispatch.set_kernels(groupnorm=False, layernorm=False, int8_linear=False)
-    return {"launches": launches, "latencies": latencies, "eager_latency": eager_latency,
-            "image": images[0], "traced": traced, "engines": engines,
-            "replay_ms": replays}
+    return {"launches": launches, "key_lengths": key_lengths, "latencies": latencies,
+            "eager_latency": eager_latency, "image": images[0], "traced": traced,
+            "engines": engines, "replay_ms": replays}
 
 
 def loop_variants(model, cfg, steps=4):
@@ -968,9 +1097,9 @@ def loop_variants(model, cfg, steps=4):
     img = smoke_image()
     kw = dict(num_samples=1, image_resolution=RES, ddim_steps=steps, scale=SCALE,
               eta=0.0, seed=1)
-    base = pipe.process(img, "a house in the woods", **kw)[1]
+    base = pipe.process(img, PROMPT, **kw)[1]
     for variant in ({"encoder_cache_interval": 2}, {"cfg_rescale": 0.7}):
-        out = pipe.process(img, "a house in the woods", **kw, **variant)[1]
+        out = pipe.process(img, PROMPT, **kw, **variant)[1]
         z = pipe.last_latents
         apart = float((out != base).mean())
         print(f"loop variant {variant}: {steps} steps, {pipe.last_timings['total_ms']:.0f} "
@@ -983,6 +1112,122 @@ def loop_variants(model, cfg, steps=4):
     if not all(e.compiled for e in pipe.runtime._engines.values()):
         raise AssertionError("a loop variant's engine was not captured")
     pipe.runtime.release()
+
+
+def bpe_tokenizer(directory):
+    """A CLIPTokenizer read by from_pretrained(directory) from a merges file
+    written there in the OpenAI format: 48,894 distinct merges of byte-unicode
+    character pairs (a seeded choice), so 256 + 256 + 48,894 + 2 = 49,408 ids,
+    CLIP's vocabulary size. The real vocabulary is not in the repository."""
+    from stablediffusioneo_tpu_torch.models.tokenizer import CLIPTokenizer, bytes_to_unicode
+
+    chars = list(bytes_to_unicode().values())
+    pairs = list(itertools.product(chars, chars + [c + "</w>" for c in chars]))
+    order = np.random.default_rng(0).permutation(len(pairs))[:48894]
+    with open(os.path.join(directory, "bpe_simple_vocab_16e6.txt"), "w",
+              encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(" ".join(pairs[i]) for i in order))
+    tok = CLIPTokenizer.from_pretrained(directory)
+    if len(tok.encoder) != 49408 or tok.eot != 49407:
+        raise AssertionError(f"the smoke's vocabulary has {len(tok.encoder)} ids")
+    return tok
+
+
+def checkpoint_phase(model, cfg, want_image):
+    """The seeded model's state dict through a file and
+    load_controlnet_pipeline onto the card; a default request on the loaded
+    model must give `want_image` (the seeded model's) in bytes."""
+    from stablediffusioneo_tpu_torch.checkpoint import load_controlnet_pipeline
+    from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
+
+    with tempfile.TemporaryDirectory() as directory:
+        path = os.path.join(directory, "control_sd15_seeded.pth")
+        t0 = time.perf_counter()
+        torch.save(model.state_dict(), path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = load_controlnet_pipeline(path, cfg, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    report = loaded.load_report
+    dtypes = sorted({str(t.dtype) for t in model.state_dict().values()})
+    print(f"checkpoint: {len(model.state_dict())} keys ({', '.join(dtypes)}), "
+          f"{size / 1e9:.3f} GB written in {save_s:.2f} s, loaded onto the card in "
+          f"{load_s:.2f} s; consumed {len(report.consumed)}, ignored "
+          f"{len(report.ignored)}, orphans {len(report.orphans)}", flush=True)
+    devices = {t.device.type for t in loaded.state_dict().values()}
+    if not (len(report.consumed) == 1470 and report.complete and devices == {"cuda"}):
+        raise AssertionError(f"checkpoint load: {len(report.consumed)} keys consumed, "
+                             f"{report.problems()}, devices {devices}")
+    pipe = Canny2ImagePipeline(loaded, stand_in_tokenizer, cfg, device="cuda")
+    out = pipe.process(smoke_image(), PROMPT, seed=1, **run_kwargs("default"))[1]
+    differ = int((out != want_image).sum())
+    print(f"checkpoint: the loaded model's default request seed=1 differs from the "
+          f"seeded model's image in {differ} bytes", flush=True)
+    if differ:
+        raise AssertionError(f"the loaded checkpoint gives another image ({differ} bytes)")
+    pipe.runtime.release()
+    return loaded, {"bytes": size, "save_s": save_s, "load_s": load_s}
+
+
+def encode_phase(model, cfg):
+    """encode_image at 512x512 on its own: after a first call that captures,
+    two replays of the deterministic engine against the eager one (equal
+    bytes, one split attention launch each), and a sampled encode with a
+    fixed eps twice (equal bytes)."""
+    from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.runtime.engine import CNSDRuntime
+
+    rt = CNSDRuntime(model, cfg, device="cuda")
+    img = torch.from_numpy(smoke_source()[None].astype(np.float32) / 127.5 - 1.0)
+    rt.encode_image(img, deterministic=True)  # captures
+    dispatch.reset_launches()
+    replayed = [rt.encode_image(img, deterministic=True) for _ in range(2)]
+    split = dispatch.launches["fused_attention"]
+    rt.graphs = False
+    eager = rt.encode_image(img, deterministic=True)
+    rt.graphs = None
+    f = cfg.vae.downsample_factor
+    eps = torch.randn((1, RES // f, RES // f, 4), generator=torch.Generator(
+        device="cuda").manual_seed(5), device="cuda")
+    sampled = [rt.encode_image(img, eps=eps) for _ in range(2)]
+    ms = engine_replay_ms(rt)
+    print(f"encode_image 512x512: replayed = eager in bytes "
+          f"{torch.equal(replayed[1], eager)}; sampled twice equal "
+          f"{torch.equal(*sampled)}, equal to the mode {torch.equal(sampled[0], eager)}; "
+          f"latents {tuple(eager.shape)} {eager.dtype}, "
+          f"max |z| {eager.abs().max().item():.3f}; split attention launches over the 2 "
+          f"replays {split}; one replay of each engine, ms: {ms}", flush=True)
+    if not (torch.equal(replayed[0], eager) and torch.equal(replayed[1], eager)
+            and torch.equal(*sampled) and torch.isfinite(eager).all() and split == 2):
+        raise AssertionError("encode_image: replay, eager or sample disagree")
+    rt.release()
+    return ms
+
+
+def hackathon_phase(model, cfg, tokenizer):
+    """The reference's surface: initialize(), then one request with the 14
+    positional arguments and two samples: two images, and no map."""
+    from stablediffusioneo_tpu_torch.pipeline.hackathon import hackathon
+
+    h = hackathon(model, tokenizer, cfg, device="cuda")
+    t0 = time.perf_counter()
+    h.initialize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = h.process(smoke_image(), PROMPT, "best quality, extremely detailed",
+                    "lowres, bad anatomy", 2, RES, STEPS, False, 1.0, SCALE, 4, 0.0,
+                    100, 200)
+    request_s = time.perf_counter() - t0
+    print(f"hackathon: initialize() {init_s:.2f} s, one 2-sample request with its "
+          f"capture {request_s:.2f} s: {len(out)} images "
+          f"{[(o.shape, str(o.dtype)) for o in out]}", flush=True)
+    if not (len(out) == 2 and all(o.shape == (RES, RES, 3) and o.dtype == np.uint8
+                                  for o in out) and not np.array_equal(out[0], out[1])):
+        raise AssertionError("hackathon.process did not return 2 distinct images")
+    h.pipe.runtime.release()
+    return {"initialize_s": init_s, "request_s": request_s}
 
 
 def main():
@@ -1047,6 +1292,29 @@ def main():
               flush=True)
     loop_variants(model, cfg)
     print(f"loop variants done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    loaded, checkpoint = checkpoint_phase(model, cfg, runs["default"]["image"])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"checkpoint phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as directory:
+        tokenizer = bpe_tokenizer(directory)
+    encode_ms = encode_phase(loaded, cfg)
+    for config in ("img2img", "img2img, fused norms", "inpaint", "inpaint, fused norms",
+                   "long prompt", "long prompt, auto", "emphasis"):
+        if RUNS[config].get("windows"):
+            from stablediffusioneo_tpu_torch.models.text_encoding import needed_windows
+
+            texts = [RUNS[config]["prompt"] + ", " + WINDOW_TEXTS["a_prompt"],
+                     WINDOW_TEXTS["n_prompt"]]
+            if needed_windows(tokenizer, texts) != RUNS[config]["windows"]:
+                raise AssertionError(f"{config}: the prompt needs "
+                                     f"{needed_windows(tokenizer, texts)} windows")
+        runs[config] = main_path(loaded, cfg, config, tokenizer)
+        print(f"main path ({config}) done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+    hack = hackathon_phase(loaded, cfg, tokenizer)
+    print(f"hackathon phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     latencies = {config: r["latencies"] for config, r in runs.items()}
     eager = {config: r["eager_latency"] for config, r in runs.items()}
     base = runs["default"]["image"].astype(np.int16)
@@ -1069,6 +1337,8 @@ def main():
             # two requests
             "launches": launches[name],
             "launches_per_request": launches[name] / 2,
+            # every main-path run's launches of it, two requests each
+            "launches_by_path": {config: r["launches"][name] for config, r in runs.items()},
             "max_abs_err": max(r["bf16_max_abs_err"] for r in rows),
             # device time of one call at each main-path (or listed) shape,
             # bf16, summed over the shapes; the bound and the library call's
@@ -1081,6 +1351,9 @@ def main():
             "shapes": rows,
         })
     print(json.dumps({"kernels": out, "request_s": latencies, "eager_request_s": eager,
+                      "checkpoint": checkpoint, "hackathon": hack,
+                      "encode_image_replay_ms": encode_ms,
+                      "key_lengths": {config: r["key_lengths"] for config, r in runs.items()},
                       "traced": {config: r["traced"] for config, r in runs.items()},
                       "engines": {config: r["engines"] for config, r in runs.items()},
                       "engine_replay_ms": {config: r["replay_ms"]

@@ -5,9 +5,10 @@ The inverse of stablediffusioneo_tpu/checkpoint/convert.py (`convert_unet`,
 OIHW, (in, out) linears to (out, in), g/b norms to weight/bias, under the
 prefixes model.diffusion_model. / control_model. / first_stage_model. /
 cond_stage_model.transformer. The parameters arrive as arrays (numpy, or
-anything numpy can read), so this module needs no JAX. The port's
-`ControlLDM.load_checkpoint` then loads the result by the same names a real
-`.pth` uses.
+anything numpy can read), so this module needs no JAX. Every parameter of
+the port's `ControlLDM` gets one, and no other key is made, so
+`ControlLDM.load_checkpoint` loads the result with nothing left over, by the
+same names a real `.pth` uses.
 """
 
 from __future__ import annotations
@@ -135,8 +136,8 @@ def _vae_mid(sd, base, p):
 
 
 def vae_state_dict(sd, p, prefix="first_stage_model."):
-    """Both towers, so that the round trip through convert_vae is whole;
-    the port's decoder-only AutoencoderKL skips the encoder keys."""
+    """Both towers with quant_conv and post_quant_conv, under the names of
+    the port's AutoencoderKL (and of convert_vae's input)."""
     for tower, levels, sample in (("encoder", "down", "downsample"),
                                   ("decoder", "up", "upsample")):
         t = p[tower]

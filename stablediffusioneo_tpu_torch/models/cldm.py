@@ -4,30 +4,26 @@ cldm/cldm.py), and the seeded initialiser for runs without real weights.
 A `control_sd15_*.pth` state dict loads into `ControlLDM` by name:
   model.diffusion_model.*          -> UNetModel
   control_model.*                  -> ControlNet
-  first_stage_model.*              -> AutoencoderKL (decoder half)
+  first_stage_model.*              -> AutoencoderKL (encoder and decoder)
   cond_stage_model.transformer.*   -> CLIPTextModel
+Every other key must be one that checkpoint/accounting.py:SD_KNOWN_UNUSED
+documents (schedule buffers, logvar, model_ema.*, CLIP's position_ids).
 """
 
 from __future__ import annotations
 
 import math
-import re
 from typing import Dict
 
 import torch
 import torch.nn as nn
 
+from stablediffusioneo_tpu_torch.checkpoint.accounting import account_checkpoint
 from stablediffusioneo_tpu_torch.config import PipelineConfig
 from stablediffusioneo_tpu_torch.models.clip import CLIPTextModel
 from stablediffusioneo_tpu_torch.models.controlnet import ControlNet
 from stablediffusioneo_tpu_torch.models.unet import UNetModel
 from stablediffusioneo_tpu_torch.models.vae import AutoencoderKL
-
-# checkpoint keys the port reads nothing from: the VAE encoder half (it
-# comes with img2img) and HF CLIP's position-id buffer
-UNUSED_KEYS = re.compile(
-    r"^(first_stage_model\.(encoder\.|quant_conv\.)"
-    r"|cond_stage_model\.transformer\.text_model\.embeddings\.position_ids$)")
 
 
 class ControlLDM(nn.Module):
@@ -51,14 +47,11 @@ class ControlLDM(nn.Module):
 
     def load_checkpoint(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Strict load of a full ControlNet checkpoint state dict: every
-        parameter must be present, and every extra key must be one the port
-        knowingly skips (UNUSED_KEYS)."""
-        sd = {k: v for k, v in state_dict.items() if not UNUSED_KEYS.match(k)}
-        missing, unexpected = self.load_state_dict(sd, strict=False)
-        if missing or unexpected:
-            raise KeyError(f"checkpoint mismatch: missing {missing[:8]} "
-                           f"({len(missing)}), unexpected {unexpected[:8]} "
-                           f"({len(unexpected)})")
+        parameter must be present with its shape, and every extra key must
+        match SD_KNOWN_UNUSED (checkpoint/accounting.py), else
+        ConversionAccountingError names the keys."""
+        account_checkpoint(self, state_dict).assert_complete("ControlLDM")
+        self.load_state_dict({k: state_dict[k] for k in self.state_dict()})
 
 
 @torch.no_grad()

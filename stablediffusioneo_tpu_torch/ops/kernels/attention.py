@@ -37,6 +37,10 @@ VARIANTS = {
 # launches by variant name since the last clear() (chip_smoke.py reads it)
 variant_launches: "collections.Counter[str]" = collections.Counter()
 dispatch.register_counter(variant_launches)
+# launches by key length S since the last clear(): a long prompt's
+# cross-attention runs at S = 154 or 231 instead of 77 (chip_smoke.py reads it)
+key_length_launches: "collections.Counter[int]" = collections.Counter()
+dispatch.register_counter(key_length_launches)
 
 
 def attention_variant(dtype: torch.dtype, head_dim: int, tq: int, s: int,
@@ -114,6 +118,7 @@ def _launch(q, k, v, out, batch, heads, tq, s, head_dim, strides, scale,
         raise RuntimeError(f"attention kernel launch failed ({variant}): "
                            f"cudaError {err}")
     variant_launches[variant] += 1
+    key_length_launches[s] += 1
 
 
 # ------------------------------------------------------------- packed entry

@@ -5,8 +5,8 @@ stablediffusioneo_tpu/pipeline/canny2image.py).
   (input_image, prompt, a_prompt, n_prompt, num_samples, image_resolution,
    ddim_steps, guess_mode, strength, scale, seed, eta,
    low_threshold, high_threshold)
-plus `x_T=` (and, for the hires fix, `hires_noise=`) for seeded
-cross-framework comparison. Path: resize to /64 -> Canny -> HWC3 hint
+plus `x_T=` (and `hires_noise=`, `img2img_noise=`, `inpaint_noise=`) for
+seeded cross-framework comparison. Path: resize to /64 -> Canny -> HWC3 hint
 (uploaded as uint8) -> one CLIP call for cond and uncond -> DDIM with CFG ->
 VAE decode -> uint8, the last three as ONE engine of the runtime
 (runtime/engine.py: a captured CUDA graph on the card, the eager loop on the
@@ -16,7 +16,12 @@ the input at the high resolution, and an img2img refine over the last
 round(hires_denoise * ddim_steps) steps through the fused engine's init-latent
 variant. With quantize_linears=True the UNet and ControlNet run int8
 weight-only linears (kernel with set_kernels(int8_linear=True)).
-encoder_cache_interval and cfg_rescale select loop variants
+init_image (img2img) and inpaint_image + inpaint_mask (blended-latent
+inpainting) go through the VAE encoder's engine first (posterior mode), then
+the loop's init-latent and inpaint variants. long_prompt and prompt_emphasis
+select the prompt front end (models/text_encoding.py; they need a
+models/tokenizer.py:CLIPTokenizer). encoder_cache_interval and cfg_rescale
+select loop variants
 (pipeline/ddim.py); granular_timings=True runs sample and decode as two
 engines with a device synchronisation between, for an honest phase split.
 The JAX package's other features are accepted by name and raise
@@ -63,6 +68,12 @@ class Canny2ImagePipeline:
         self.last_latents: Optional[torch.Tensor] = None
         self.last_detected_maps: List[np.ndarray] = []
 
+    def initialize(self, warmup_resolution: int = 256, warmup_steps: int = 1):
+        """Build and run every engine once (hackathon.initialize + warm_up,
+        canny2image_TRT.py:20-50), with the runtime's self-test."""
+        self.runtime.warmup(warmup_resolution, warmup_steps)
+        return self
+
     def _sync(self) -> None:
         if self.runtime.device.type == "cuda":
             torch.cuda.synchronize(self.runtime.device)
@@ -108,6 +119,8 @@ class Canny2ImagePipeline:
         hires_denoise: float = 0.7,
         tome_ratio: float = 0.0,
         hires_noise: Optional[np.ndarray] = None,
+        img2img_noise: Optional[np.ndarray] = None,
+        inpaint_noise: Optional[np.ndarray] = None,
         encoder_cache_interval: int = 1,
         granular_timings: bool = False,
         denoise_strength: float = 0.75,
@@ -117,27 +130,54 @@ class Canny2ImagePipeline:
 
         hires_upscale > 1: the hires fix (JAX canny2image.py:345-393); the
         images and the returned map are at round(H * hires_upscale / 64) *
-        64. hires_noise: the refine's re-noise (NHWC latents at that size),
-        drawn from the seed's generator when None. denoise_strength is read
-        with init_image only (img2img, not ported yet). granular_timings
-        takes the plain request only: with it hires_upscale is not read, as
-        in the JAX package."""
+        64. granular_timings takes the plain request only: with it
+        hires_upscale is not read, as in the JAX package.
+
+        init_image + denoise_strength: img2img (DDIMSampler.encode/decode,
+        ddim_hacked.py:233-317): the source, resized to the hint's size, is
+        VAE-encoded (posterior mode), re-noised to step t_enc =
+        round(denoise_strength * ddim_steps) (at least 1) and the last t_enc
+        steps run. inpaint_image + inpaint_mask (uint8 HxW or HxWx1;
+        nonzero = region to regenerate): the kept region is VAE-encoded
+        (posterior mode) and re-imposed at every step's noise level
+        (pipeline/ddim.py). img2img takes no x_T; neither takes hires or
+        granular_timings.
+
+        long_prompt: True runs the prompts through 3 x 77-token windows
+        (hack_everything, hack.py:32-68), "auto" through the fewest windows
+        that hold them; prompt_emphasis: "(word:1.3)" weights (not together
+        with long_prompt). Both need a CLIPTokenizer (models/tokenizer.py).
+
+        Parity hooks (the JAX package draws these from its own PRNG, which
+        torch cannot reproduce): hires_noise, the hires refine's re-noise
+        (NHWC latents at the high resolution); img2img_noise, the img2img
+        re-noise (NHWC latents); inpaint_noise, the inpaint blend's noise of
+        every step run, (steps, B, h, w, 4). Each is drawn from the seed's
+        generator when None."""
         hires = bool(hires_upscale and hires_upscale > 1.0) and not granular_timings
         if hires and (init_image is not None or inpaint_image is not None):
             raise ValueError("hires_upscale composes with plain txt2img only "
                              "(no img2img/inpaint)")
         for on, feature, item in (
                 (sampler != "ddim", f"sampler {sampler!r}", "The other samplers"),
-                (init_image is not None, "img2img (it needs the VAE encoder)",
-                 "The VAE encoder"),
-                (inpaint_image is not None or inpaint_mask is not None,
-                 "inpainting (it needs the VAE encoder)", "The VAE encoder"),
-                (bool(long_prompt), "long prompts (3x77 windows)",
-                 "models/text_encoding.py"),
-                (prompt_emphasis, "prompt emphasis", "models/text_encoding.py"),
                 (bool(tome_ratio), "ToMe", "Adapters and knobs")):
             if on:
                 raise _not_ported(feature, item)
+        if inpaint_image is not None:
+            if inpaint_mask is None:
+                raise ValueError("inpaint_image requires inpaint_mask")
+            if granular_timings:
+                raise ValueError("inpainting is unsupported on the "
+                                 "granular-timings diagnostic path")
+        if init_image is not None:
+            if granular_timings:
+                raise ValueError("img2img is unsupported on the "
+                                 "granular-timings diagnostic path")
+            if x_T is not None:
+                raise ValueError("init_image and x_T are mutually exclusive")
+        if prompt_emphasis and long_prompt:
+            raise ValueError("prompt_emphasis + long_prompt is unsupported "
+                             "(pick one encoder path)")
         from stablediffusioneo_tpu_torch.annotators.util import HWC3, resize_image
 
         t_start = time.perf_counter()
@@ -153,22 +193,54 @@ class Canny2ImagePipeline:
         gen = torch.Generator(device=rt.device).manual_seed(seed)
         t_pre = time.perf_counter()
 
-        cond_text = prompt + ", " + a_prompt if a_prompt else prompt
-        ctx = rt.encode_prompt(self.tokenizer([cond_text, n_prompt]),
-                               clip_skip=clip_skip)
+        texts = [prompt + ", " + a_prompt if a_prompt else prompt, n_prompt]
+        if prompt_emphasis:
+            from stablediffusioneo_tpu_torch.models.text_encoding import (
+                apply_emphasis,
+                tokenize_weighted,
+            )
+
+            ids, weights = tokenize_weighted(self.tokenizer, texts)
+            ctx = apply_emphasis(rt.encode_prompt(ids, clip_skip=clip_skip), weights)
+        elif long_prompt:
+            ctx = rt.encode_prompt_windowed(
+                self.tokenizer, texts, clip_skip=clip_skip,
+                windows="auto" if long_prompt == "auto" else 3)
+        else:
+            ctx = rt.encode_prompt(self.tokenizer(texts), clip_skip=clip_skip)
         ctx_cond = ctx[0:1].repeat(num_samples, 1, 1)
         ctx_uncond = ctx[1:2].repeat(num_samples, 1, 1)
         t_clip = time.perf_counter()
 
         f = self.cfg.vae.downsample_factor
-        if x_T is None:
-            x_T = torch.randn((num_samples, H // f, W // f, 4), generator=gen,
-                              device=rt.device)
         run = dict(guidance_scale=scale, strength=strength, eta=eta,
                    guess_mode=guess_mode, generator=gen,
                    encoder_cache_interval=encoder_cache_interval,
                    cfg_rescale=cfg_rescale)
-        x_T = torch.as_tensor(x_T, device=rt.device)
+        if inpaint_image is not None:
+            from stablediffusioneo_tpu_torch.pipeline.inpaint import prepare_inpaint
+
+            src_f, m = prepare_inpaint(inpaint_image, inpaint_mask, H, W, f)
+            run.update(
+                inpaint_latent=rt.encode_image(
+                    np.repeat(src_f[None], num_samples, axis=0), deterministic=True),
+                inpaint_mask=torch.from_numpy(np.repeat(m[None], num_samples, axis=0)),
+                inpaint_noise=inpaint_noise)
+        if init_image is not None:
+            import cv2
+
+            src = cv2.resize(HWC3(init_image), (W, H), interpolation=cv2.INTER_AREA)
+            src_f = src.astype(np.float32) / 127.5 - 1.0
+            run.update(
+                init_latent=rt.encode_image(
+                    np.repeat(src_f[None], num_samples, axis=0), deterministic=True),
+                t_enc=max(1, min(ddim_steps, int(round(denoise_strength * ddim_steps)))),
+                renoise=img2img_noise)
+        elif x_T is None:
+            x_T = torch.randn((num_samples, H // f, W // f, 4), generator=gen,
+                              device=rt.device)
+        if x_T is not None:
+            x_T = torch.as_tensor(x_T, device=rt.device)
         timings = {"preprocess_ms": (t_pre - t_start) * 1e3,
                    "clip_ms": (t_clip - t_pre) * 1e3}
         if granular_timings:

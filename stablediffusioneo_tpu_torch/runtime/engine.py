@@ -24,9 +24,10 @@ quantize_linears=True the UNet's and ControlNet's eligible linears are then
 converted to int8 weight-only form, in a copy of the caller's model) and a
 dictionary of engines built at first use: CLIP encode, the DDIM loop (from
 noise, or from a re-noised init latent over the schedule's tail), the VAE
-decode with the uint8 denormalisation, and loop + decode fused. On the CPU,
-and with graphs=False, an engine runs its function eagerly: the same code,
-launched op by op from the host.
+decode with the uint8 denormalisation, loop + decode fused, and the VAE
+encode (posterior mode, or a sample with the noise handed in) for img2img and
+inpainting. On the CPU, and with graphs=False, an engine runs its function
+eagerly: the same code, launched op by op from the host.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ from stablediffusioneo_tpu_torch.models.cldm import ControlLDM
 from stablediffusioneo_tpu_torch.models.clip import clip_text_apply
 from stablediffusioneo_tpu_torch.models.controlnet import guess_mode_scales
 from stablediffusioneo_tpu_torch.models.unet import encoder_plan
-from stablediffusioneo_tpu_torch.models.vae import vae_decode
+from stablediffusioneo_tpu_torch.models.vae import vae_decode, vae_encode
 from stablediffusioneo_tpu_torch.ops import dispatch, quant
 from stablediffusioneo_tpu_torch.ops.schedule import DiffusionSchedule
 from stablediffusioneo_tpu_torch.pipeline.ddim import (
@@ -100,7 +101,12 @@ class Engine:
     next call overwrites. A capture that fails raises: there is no eager
     fallback behind a captured engine.
 
-    capture=False (the CPU, or graphs=False): a call runs the function.
+    capture=False (the CPU, or graphs=False): a call runs the function on
+    contiguous copies of its arguments where they are not contiguous, as a
+    captured engine's static buffers are: a convolution may take another
+    algorithm on another memory layout, and then a replay and an eager call
+    would give other bytes (an img2img init latent straight from the encoder
+    is a channel slice of NCHW memory).
 
     Launch counters (ops/dispatch.py) count in Python, so a replay would
     leave them standing: the engine takes back what its capture counted
@@ -153,7 +159,7 @@ class Engine:
     def __call__(self, *args: torch.Tensor):
         if not self._capture:
             with torch.no_grad():
-                return self._fn(*args)
+                return self._fn(*(a.contiguous() for a in args))
         if self._graph is None:
             self.load(*args)
         if len(args) != len(self._inputs):
@@ -436,6 +442,33 @@ class CNSDRuntime:
             lambda: self._decode_u8,
             lambda: [self._zeros((batch, h // f, w // f, 4), self.dtype)])
 
+    def encoder_engine(self, batch: int, h: int, w: int,
+                       deterministic: bool = False) -> Engine:
+        """VAE encoder -> scaled latents (B, h/8, w/8, 4) from NHWC pixels in
+        [-1, 1] in the compute dtype. deterministic=True takes the posterior
+        mode; else the engine takes a second input, the sample's noise eps
+        (the latents' shape, compute dtype), drawn by the caller. The scale
+        factor is rounded to the image's dtype, as in vae_decode."""
+        vae = self._require_model().first_stage_model
+        f = self.cfg.vae.downsample_factor
+        lat = (batch, h // f, w // f, self.cfg.vae.embed_dim)
+
+        def scaled(img, z):
+            return z * dispatch.const_tensor(float(self.cfg.vae.scale_factor),
+                                             img.dtype, img.device)
+
+        if deterministic:
+            def make():
+                return lambda img: scaled(img, vae_encode(vae, img).mode())
+        else:
+            def make():
+                return lambda img, eps: scaled(img, vae_encode(vae, img).sample(eps))
+        return self._engine(
+            ("encoder", batch, h, w, deterministic),
+            f"encoder_b{batch}_{h}x{w}" + ("_det" if deterministic else ""), make,
+            lambda: [self._zeros((batch, h, w, 3), self.dtype)]
+            + ([] if deterministic else [self._zeros(lat, self.dtype)]))
+
     # ----------------------------------------------------------- user API
 
     def _out(self, out):
@@ -448,6 +481,48 @@ class CNSDRuntime:
         ids = torch.as_tensor(np.asarray(ids), dtype=torch.long,
                               device=self.device)
         return self._out(self.clip_engine(ids.shape[0], clip_skip)(ids))
+
+    def encode_prompt_windowed(self, tokenizer, texts, windows=3,
+                               clip_skip: int = 0) -> torch.Tensor:
+        """Long-prompt contexts (B, windows * 77, hidden): the hack_everything
+        3x77 windowing (cldm/hack.py:32-68). The (B, windows, 77) ids run as
+        one CLIP engine call of batch B * windows. windows="auto" takes the
+        fewest windows that hold the longest text (1 to 3)."""
+        from stablediffusioneo_tpu_torch.models.text_encoding import (
+            needed_windows,
+            tokenize_windowed,
+        )
+
+        if windows == "auto":
+            windows = needed_windows(tokenizer, texts)
+        ids = tokenize_windowed(tokenizer, texts, windows=windows)
+        b, n, length = ids.shape
+        y = self.encode_prompt(ids.reshape(b * n, length), clip_skip=clip_skip)
+        return y.reshape(b, n * length, -1)
+
+    def encode_image(self, img, generator: Optional[torch.Generator] = None,
+                     deterministic: bool = False,
+                     eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """NHWC pixels (B, H, W, 3) in [-1, 1] -> scaled latents (B, H/8,
+        W/8, 4) in the compute dtype, through the encoder engine.
+        deterministic=True takes the posterior mode. Otherwise the posterior
+        is sampled with `eps` (the latents' shape) or, without it, noise drawn
+        from `generator` before the call; with neither the call is refused,
+        as the JAX runtime refuses a sample without a key."""
+        img = torch.as_tensor(img, device=self.device).to(self.dtype)
+        b, h, w, _ = img.shape
+        eng = self.encoder_engine(b, h, w, deterministic=deterministic)
+        if deterministic:
+            return self._out(eng(img))
+        f = self.cfg.vae.downsample_factor
+        lat = (b, h // f, w // f, self.cfg.vae.embed_dim)
+        if eps is None:
+            if generator is None:
+                raise ValueError("encode_image: generator= or eps= required "
+                                 "unless deterministic=True")
+            eps = torch.randn(lat, generator=generator, device=self.device)
+        return self._out(eng(img, torch.as_tensor(eps, device=self.device)
+                             .to(self.dtype)))
 
     def _per_sample_scales(self, batch: int, guidance_scale, strength,
                            guess_mode: bool):

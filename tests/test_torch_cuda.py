@@ -797,3 +797,77 @@ def test_a_capture_that_fails_raises(gen):
     assert ok.compiled and ok(torch.full((4,), 3.0, device="cuda")).tolist() == [6.0] * 4
     with pytest.raises(ValueError, match="captured for"):
         ok(torch.ones(5, device="cuda"))
+
+
+# ------------------------------------------- the VAE encoder, img2img, inpaint
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_encoder_engine_replay_equals_eager(gen, dtype):
+    """Tiny config at 64x64 and 128x96: the captured encoder (posterior mode,
+    and a sample with eps handed in) against the eager one, equal bytes."""
+    cfg, rt = _tiny_runtime(dtype)
+    for h, w in ((64, 64), (128, 96)):
+        img = torch.rand((2, h, w, 3), generator=gen, device="cuda") * 2 - 1
+        eps = _randn((2, h // 8, w // 8, 4), gen, torch.float32)
+        outs = {}
+        for graphs in (None, False):
+            rt.graphs = graphs
+            outs[graphs] = [rt.encode_image(img, deterministic=True) for _ in range(2)] \
+                + [rt.encode_image(img, eps=eps)]
+        for a, b in zip(outs[None], outs[False]):
+            assert torch.equal(a, b) and torch.isfinite(a).all()
+        assert torch.equal(outs[None][0], outs[None][1])
+        assert outs[None][0].shape == (2, h // 8, w // 8, 4)
+        assert outs[None][0].dtype == getattr(torch, dtype)
+    captured = sorted(e.name for e in rt._engines.values() if e.compiled)
+    assert captured == ["encoder_b2_128x96", "encoder_b2_128x96_det",
+                        "encoder_b2_64x64", "encoder_b2_64x64_det"]
+
+
+@pytest.mark.parametrize("kind", ["img2img", "inpaint"])
+def test_img2img_and_inpaint_process_replay_equals_eager(gen, kind):
+    """process() on the tiny config: the replayed engines' image equals the
+    eager loop's in bytes, for two seeds."""
+    import numpy as np
+
+    from stablediffusioneo_tpu_torch.models.tokenizer import toy_tokenizer
+    from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
+
+    cfg, rt = _tiny_runtime()
+    pipe = Canny2ImagePipeline(rt.model, toy_tokenizer(max_length=cfg.clip.max_length),
+                               cfg, device="cuda")
+    rng = np.random.default_rng(0)
+    image = (rng.random((64, 64, 3)) * 255).astype(np.uint8)
+    source = (rng.random((80, 72, 3)) * 255).astype(np.uint8)
+    mask = np.zeros((80, 72), np.uint8)
+    mask[10:50, 20:60] = 255
+    extra = ({"init_image": source, "denoise_strength": 0.6} if kind == "img2img"
+             else {"inpaint_image": source, "inpaint_mask": mask, "eta": 0.3})
+    for seed in (1, 2):
+        outs = []
+        for graphs in (None, False):
+            pipe.runtime.graphs = graphs
+            outs.append(pipe.process(image, "a bird", image_resolution=64, ddim_steps=4,
+                                     seed=seed, **extra)[1])
+        assert np.array_equal(*outs)
+    assert all(e.compiled for k, e in pipe.runtime._engines.items() if k[-2])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [154, 231])
+@pytest.mark.parametrize("b,tq,c", [(2, 4096, 320), (2, 1024, 640)])
+def test_packed_kernel_long_prompt_keys(gen, dtype, b, tq, c, s):
+    """The cross-attention sites of a long prompt: key lengths of 2 and 3
+    windows of 77, multiples of neither 64 nor 16, so the last K tile is
+    ragged (its zero-filled rows masked)."""
+    q = _randn((b, tq, c), gen, dtype)
+    k, v = _randn((b, s, c), gen, dtype), _randn((b, s, c), gen, dtype)
+    scale = (c // 8) ** -0.5
+    ka.variant_launches.clear()
+    ka.key_length_launches.clear()
+    out = fused_attention_packed(q, k, v, 8, scale)
+    assert dict(ka.variant_launches) == {
+        "wgmma" if dtype == torch.bfloat16 else "cuda_core": 1}
+    assert dict(ka.key_length_launches) == {s: 1}
+    _check(out, fused_attention_packed_plain(q, k, v, 8, scale), dtype)

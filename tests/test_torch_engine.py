@@ -111,6 +111,13 @@ def test_other_engine_names_and_keys(runtimes, rt, monkeypatch):
     assert rt.clip_engine(2).name == jax_rt.clip_engine(2).name == "clip_b2"
     assert rt.clip_engine(2, 2).name == jax_rt.clip_engine(2, 2).name
     assert rt.decoder_engine(1, 64, 128).name == jax_rt.decoder_engine(1, 64, 128).name
+    for det in (False, True):
+        eng = rt.encoder_engine(2, 64, 128, deterministic=det)
+        assert eng.name == jax_rt.encoder_engine(2, 64, 128, deterministic=det).name
+        assert rt.encoder_engine(2, 64, 128, deterministic=det) is eng
+    # the JAX keys, with the capture flag and the kernel flags after them
+    assert {k[:5] for k in rt._engines if k[0] == "encoder"} == \
+        {k for k in jax_rt._engines if k[0] == "encoder"}
     assert rt.sampler_engine(2, 1, 64, 64, ctx_len=48).name == \
         jax_rt.sampler_engine(2, 1, 64, 64, ctx_len=48).name
     n = len(rt._engines)
@@ -275,6 +282,15 @@ def test_eager_engine_runs_its_function():
     assert s.tolist() == [4.0, 6.0] and p.tolist() == [3.0, 8.0]
     assert eng.infer(torch.ones(1), torch.ones(1))[0].item() == 2.0
     assert eng.compile_seconds is None
+
+
+def test_eager_engine_sees_the_layout_of_a_capture():
+    """An eager call gets contiguous arguments, as a captured engine's static
+    buffers are, whatever the caller's strides."""
+    eng = port_engine.Engine(lambda a: torch.tensor(a.is_contiguous()) + a.sum(), name="c")
+    strided = torch.arange(24.0).reshape(2, 3, 4).permute(0, 2, 1)
+    assert not strided.is_contiguous()
+    assert eng(strided).item() == 1 + strided.sum().item()
 
 
 def test_counters_can_be_taken_back_and_replayed():

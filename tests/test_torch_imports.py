@@ -24,7 +24,9 @@ from stablediffusioneo_tpu_torch import config as port_config
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "stablediffusioneo_tpu_torch").rglob("*.py")) \
     + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("stablediffusioneo_tpu", "jax")
+# the JAX package and JAX; and two packages the card machine does not have
+# (the port's tokenizer and checkpoint reader do without them)
+FORBIDDEN = ("stablediffusioneo_tpu", "jax", "regex", "safetensors")
 
 
 def _imported_modules(path):
@@ -39,7 +41,8 @@ def _imported_modules(path):
                          ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
 def test_port_file_imports_neither_the_jax_package_nor_jax(path):
     """Every `import` / `from` of the file, at any depth of nesting; the
-    exact packages, so `stablediffusioneo_tpu_torch` is allowed."""
+    exact packages, so `stablediffusioneo_tpu_torch` is allowed; nor
+    `regex` or `safetensors`."""
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
@@ -50,18 +53,25 @@ def test_the_walk_covers_the_port():
     for must in ("chip_smoke.py", "stablediffusioneo_tpu_torch/config.py",
                  "stablediffusioneo_tpu_torch/annotators/canny.py",
                  "stablediffusioneo_tpu_torch/pipeline/canny2image.py",
-                 "stablediffusioneo_tpu_torch/ops/kernels/attention.py"):
+                 "stablediffusioneo_tpu_torch/ops/kernels/attention.py",
+                 "stablediffusioneo_tpu_torch/models/tokenizer.py",
+                 "stablediffusioneo_tpu_torch/checkpoint/torch_reader.py",
+                 "stablediffusioneo_tpu_torch/pipeline/hackathon.py"):
         assert must in names
     assert len(names) >= 30
 
 
 def test_tiny_process_runs_with_both_packages_blocked():
-    """With `stablediffusioneo_tpu` and `jax` made unimportable, the port's
-    pipeline imports and runs a tiny process() on the CPU."""
+    """With `stablediffusioneo_tpu` and `jax` (and `regex`, `safetensors`)
+    made unimportable, the port's pipeline imports and runs a tiny process()
+    on the CPU, and its tokenizer, checkpoint reader and hackathon import."""
     code = textwrap.dedent("""
         import sys
-        sys.modules["jax"] = None
-        sys.modules["stablediffusioneo_tpu"] = None
+        for name in ("jax", "stablediffusioneo_tpu", "regex", "safetensors"):
+            sys.modules[name] = None
+        import stablediffusioneo_tpu_torch.models.tokenizer
+        import stablediffusioneo_tpu_torch.checkpoint.torch_reader
+        import stablediffusioneo_tpu_torch.pipeline.hackathon
         import numpy as np, torch
         from stablediffusioneo_tpu_torch.config import tiny_pipeline
         from stablediffusioneo_tpu_torch.models.cldm import ControlLDM, init_weights
@@ -79,7 +89,8 @@ def test_tiny_process_runs_with_both_packages_blocked():
         assert out[0].shape == (64, 64, 3) and out[0].any()  # the Canny map
         assert out[1].shape == (64, 64, 3) and out[1].dtype == np.uint8
         loaded = [m for m in sys.modules if sys.modules[m] is not None
-                  and m.split(".")[0] in ("jax", "stablediffusioneo_tpu")]
+                  and m.split(".")[0] in ("jax", "stablediffusioneo_tpu", "regex",
+                                          "safetensors")]
         assert not loaded, loaded
         print("OK")
     """)

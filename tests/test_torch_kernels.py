@@ -117,9 +117,13 @@ def test_main_path_rows_cover_the_sites_the_redesign_names():
                  ("fused_attention_packed_stream", (2, 16384, 320), 16384),
                  ("fused_attention_packed", (2, 4096, 320), 4096),
                  ("fused_attention_packed", (2, 4096, 640), 4096),
-                 ("fused_attention_packed", (2, 4096, 320), 77)):
+                 ("fused_attention_packed", (2, 4096, 320), 77),
+                 # a long prompt's cross-attention at 2 and 3 windows
+                 ("fused_attention_packed", (2, 4096, 320), 154),
+                 ("fused_attention_packed", (2, 1024, 640), 231)):
         assert want in rows, want
-    assert len(ROWS) == 12
+    # 12 of the 512x512 and 1024x1024 requests, 4 of the long prompts
+    assert len(ROWS) == 16
 
 
 @pytest.mark.parametrize("dtype,d,tq,s,aligned,want", [

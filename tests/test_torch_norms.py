@@ -27,6 +27,7 @@ from stablediffusioneo_tpu.models.controlnet import (
     controlled_unet_apply as jax_controlled_unet,
 )
 from stablediffusioneo_tpu.models.vae import vae_decode as jax_vae_decode
+from stablediffusioneo_tpu.models.vae import vae_encode as jax_vae_encode
 from stablediffusioneo_tpu.ops import dispatch as jax_dispatch
 from stablediffusioneo_tpu.ops import norms as jax_norms
 from stablediffusioneo_tpu.ops.pallas.groupnorm import (
@@ -41,7 +42,7 @@ from stablediffusioneo_tpu.ops.pallas.layernorm import (
 from stablediffusioneo_tpu_torch.models import unet as unet_module
 from stablediffusioneo_tpu_torch.models.clip import clip_text_apply
 from stablediffusioneo_tpu_torch.models.controlnet import controlled_unet_apply
-from stablediffusioneo_tpu_torch.models.vae import vae_decode
+from stablediffusioneo_tpu_torch.models.vae import vae_decode, vae_encode
 from stablediffusioneo_tpu_torch.ops import dispatch, norms
 from stablediffusioneo_tpu_torch.ops.kernels.groupnorm import (
     _spatial_chunk,
@@ -348,6 +349,35 @@ def test_vae_decode_fused_norms(params, model, rng, fused_norms):
     ref = jax_vae_decode(params["vae"], CFG.vae, jnp.asarray(z), scaled=True)
     out = vae_decode(model.first_stage_model, _t(z), scaled=True)
     assert_close_scaled(out.numpy(), ref)
+
+
+def test_vae_encode_fused_norms(params, model, rng, fused_norms):
+    x = rng.uniform(-1, 1, (1, 64, 64, 3)).astype(np.float32)
+    ref = jax_vae_encode(params["vae"], CFG.vae, jnp.asarray(x))
+    out = vae_encode(model.first_stage_model, _t(x))
+    assert_close_scaled(out.mean.numpy(), np.asarray(ref.mean))
+    assert_close_scaled(out.logvar.numpy(), np.asarray(ref.logvar))
+
+
+@pytest.mark.parametrize("res", [64, 96])
+def test_encoder_plan_sites_are_the_modules_calls(model, rng, monkeypatch, res):
+    """_vae_encoder_norms (the smoke run's launch expectation for an encode)
+    lists exactly the GroupNorm calls of the encoder, in order; at the SD-1.5
+    512x512 widths the gate admits none of its 22."""
+    calls = []
+    gn = unet_module.group_norm
+
+    def record_gn(x, weight, bias, groups, eps, swish=False):
+        calls.append(("gn", tuple(x.shape), swish, groups))
+        return gn(x, weight, bias, groups, eps, swish)
+
+    monkeypatch.setattr(unet_module, "group_norm", record_gn)
+    with torch.no_grad():
+        vae_encode(model.first_stage_model, _t(rng.uniform(-1, 1, (2, res, res, 3))))
+    assert calls == chip_smoke._vae_encoder_norms(PORT_CFG.vae, res, 2)
+    sites = chip_smoke._vae_encoder_norms(sd15_pipeline().vae, 512, 1)
+    assert len(sites) == 22
+    assert chip_smoke.norm_launches(sites, torch.bfloat16)["fused_group_norm"] == 0
 
 
 def test_plan_sites_are_the_modules_calls(model, rng, fused_norms, monkeypatch):

@@ -104,14 +104,7 @@ def test_guess_mode_matches_jax(pipes, slice_inputs):
     assert np.abs(out[1].astype(int) - ref[1].astype(int)).max() <= 1
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"sampler": "dpmpp"}, {"long_prompt": True}, {"prompt_emphasis": True},
-    {"tome_ratio": 0.5},
-    {"init_image": np.zeros((64, 64, 3), np.uint8)},
-    {"inpaint_image": np.zeros((64, 64, 3), np.uint8),
-     "inpaint_mask": np.zeros((64, 64), np.uint8)},
-    {"init_image": np.zeros((64, 64, 3), np.uint8), "denoise_strength": 0.5},
-])
+@pytest.mark.parametrize("kwargs", [{"sampler": "dpmpp"}, {"tome_ratio": 0.5}])
 def test_features_outside_the_slice_raise(pipes, slice_inputs, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipes[1].process(slice_inputs["image"], "a bird", image_resolution=64,
