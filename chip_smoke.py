@@ -45,13 +45,19 @@ source, all started together), then:
      512x512 by default, with the fused-norm configuration, and with int8
      linears (quantize_linears=True, set_kernels(int8_linear=True)); then
      the hires fix 512 -> 1024 (hires_upscale=2.0, hires_denoise=0.7: the
-     last 14 of 20 steps again at 1024x1024). Every run adds one traced
+     last 14 of 20 steps again at 1024x1024); then the other samplers, each
+     a main path of 20 steps: DPM-Solver++(2M) Karras, Euler-a (its step noise
+     drawn from the seed), Heun (39 evaluations), and DDIM with token merging
+     (tome_ratio=0.5: the 7 level-0 self-attentions of an evaluation at 2048 of
+     4096 tokens). Every run adds one traced
      replayed request (torch.profiler) for the device time per request and
      the part of it spent in this package's attention, GroupNorm, LayerNorm
      and int8 matmul kernels, and times one replay of each engine by CUDA
      events. Then three short requests (4 steps) at full width: the default,
      encoder_cache_interval=2 and cfg_rescale=0.7 (finite latents, images
-     that differ from the default's);
+     that differ from the default's); and every other sampler name at 4 steps
+     (sampler_variants: a replayed request equal to the eager one in bytes,
+     another image than DDIM's, launches as its evaluations say);
   4. checkpoint: the seeded model's state dict (bf16, all 1,470 keys of
      control_sd15_canny) written with torch.save to a temporary directory and
      read back by checkpoint.load_controlnet_pipeline onto the card: its size
@@ -138,6 +144,7 @@ HIRES_RES = int(round(RES * HIRES_UPSCALE / 64)) * 64
 HIRES_T_ENC = max(1, min(STEPS, int(round(HIRES_DENOISE * STEPS))))
 IMG2IMG_STRENGTH = 0.75
 IMG2IMG_T_ENC = max(1, min(STEPS, int(round(IMG2IMG_STRENGTH * STEPS))))
+TOME_RATIO = 0.5
 PROMPT = "a house in the woods"
 # with the smoke's BPE vocabulary (pairs of characters) and WINDOW_TEXTS,
 # about 220 tokens (3 windows of 75) and about 100 (2 windows)
@@ -167,7 +174,14 @@ RUNS = {
     "long prompt, auto": {"process": {"long_prompt": "auto", **WINDOW_TEXTS},
                           "prompt": MID_PROMPT, "windows": 2},
     "emphasis": {"process": {"prompt_emphasis": True}, "prompt": EMPHASIS_PROMPT},
+    "dpmpp-karras": {"process": {"sampler": "dpmpp-karras"}},
+    "euler-a": {"process": {"sampler": "euler-a"}},
+    "heun": {"process": {"sampler": "heun"}},
+    "tome 0.5": {"process": {"tome_ratio": TOME_RATIO}},
 }
+# the other sampler names, at 4 steps (sampler_variants)
+SAMPLER_VARIANTS = ("plms", "dpmpp", "unipc", "unipc-karras", "euler", "euler-uniform",
+                    "euler-a-uniform", "heun-uniform")
 
 
 def stand_in_tokenizer(texts, max_length=77):
@@ -569,15 +583,24 @@ def _transformer_sites(cfg, lat):
     return sites + [mid] * (2 * ucfg.depth_for(levels - 1))
 
 
-def attention_sites(cfg, res, batch=2, ctx_len=None):
-    """Every multi-head attention call of one DDIM step on the CFG batch, as
-    (q shape (B, Tq, C), key length, heads): each transformer block runs a
-    self- (S = Tq) and a cross-attention (S = the context length: 77, or a
-    long prompt's windows x 77)."""
+def attention_sites(cfg, res, batch=2, ctx_len=None, tome_ratio=0.0):
+    """Every multi-head attention call of one evaluation of the nets on the
+    CFG batch, as (q shape (B, Tq, C), key length, heads): each transformer
+    block runs a self- (S = Tq) and a cross-attention (S = the context
+    length: 77, or a long prompt's windows x 77). tome_ratio > 0: a
+    self-attention of at least tome_min_tokens tokens runs on the tokens
+    left after merging (ops/tome.py:merge_count)."""
+    from stablediffusioneo_tpu_torch.ops.tome import merge_count
+
+    ucfg = cfg.controlnet.unet
     sites = []
     for c, side in _transformer_sites(cfg, res // cfg.vae.downsample_factor):
-        q, heads = (batch, side * side, c), cfg.unet.heads_for(c)
-        sites += [(q, side * side, heads), (q, ctx_len or cfg.clip.max_length, heads)]
+        n, heads = side * side, cfg.unet.heads_for(c)
+        kept = n
+        if tome_ratio and n >= ucfg.tome_min_tokens:
+            kept = n - merge_count(side, side, tome_ratio, ucfg.tome_sx, ucfg.tome_sy)
+        sites += [((batch, kept, c), kept, heads),
+                  ((batch, n, c), ctx_len or cfg.clip.max_length, heads)]
     return sites
 
 
@@ -594,14 +617,14 @@ def attention_route(q_shape, s, dtype):
     return "fused_attention_packed"
 
 
-def expected_launches(cfg, res, dtype=torch.bfloat16, ctx_len=None):
-    """Attention launches of one DDIM step by kernel entry, and split
-    launches of one decode or encode (the VAE mid-block attends once at
+def expected_launches(cfg, res, dtype=torch.bfloat16, ctx_len=None, tome_ratio=0.0):
+    """Attention launches of one evaluation of the nets by kernel entry, and
+    split launches of one decode or encode (the VAE mid-block attends once at
     latent resolution)."""
     from stablediffusioneo_tpu_torch.ops.dispatch import ATTN_MIN_TQ
 
     step = {"fused_attention_packed": 0, "fused_attention_packed_stream": 0}
-    for q_shape, s, _ in attention_sites(cfg, res, ctx_len=ctx_len):
+    for q_shape, s, _ in attention_sites(cfg, res, ctx_len=ctx_len, tome_ratio=tome_ratio):
         route = attention_route(q_shape, s, dtype)
         if route:
             step[route] += 1
@@ -611,13 +634,16 @@ def expected_launches(cfg, res, dtype=torch.bfloat16, ctx_len=None):
 
 def attention_rows(cfg):
     """(entry, q shape, key length, heads) of every distinct kernel-gated
-    attention call of the 512x512 request, of the 1024x1024 hires pass, and
-    of the 512x512 request's long-prompt cross-attention (S = 154, 231)."""
+    attention call of the 512x512 request, of the 1024x1024 hires pass, of
+    the 512x512 request's long-prompt cross-attention (S = 154, 231) and of
+    its self-attention after token merging (S = 2048 at TOME_RATIO)."""
     rows = []
-    passes = [(RES, None), (HIRES_RES, None)]
-    passes += [(RES, n * cfg.clip.max_length) for n in (2, 3)]
-    for res, ctx_len in passes:
-        for q_shape, s, heads in attention_sites(cfg, res, ctx_len=ctx_len):
+    passes = [(RES, None, 0.0), (HIRES_RES, None, 0.0)]
+    passes += [(RES, n * cfg.clip.max_length, 0.0) for n in (2, 3)]
+    passes.append((RES, None, TOME_RATIO))
+    for res, ctx_len, tome_ratio in passes:
+        for q_shape, s, heads in attention_sites(cfg, res, ctx_len=ctx_len,
+                                                 tome_ratio=tome_ratio):
             route = attention_route(q_shape, s, torch.bfloat16)
             if route and (route, q_shape, s, heads) not in rows:
                 rows.append((route, q_shape, s, heads))
@@ -767,9 +793,20 @@ def norm_launches(sites, dtype):
             for name, kind in (("fused_group_norm", "gn"), ("fused_layer_norm", "ln"))}
 
 
-def run_steps(config):
-    """DDIM steps a request of this run takes at 512x512."""
-    return IMG2IMG_T_ENC if RUNS[config].get("init") else STEPS
+def sampler_evals(sampler, steps):
+    """Evaluations of the nets (ControlNet + UNet on the CFG batch) that a
+    sampler's loop of `steps` steps runs: PLMS one more, Heun 2N - 1 (its
+    last step is a plain Euler step), the others one a step."""
+    from stablediffusioneo_tpu_torch.runtime.engine import _canon_sampler
+
+    return {"plms": steps + 1, "heun": 2 * steps - 1}.get(_canon_sampler(sampler), steps)
+
+
+def run_evals(config):
+    """Evaluations of the nets a request of this run takes at 512x512."""
+    spec = RUNS[config]
+    return sampler_evals(spec.get("process", {}).get("sampler", "ddim"),
+                         IMG2IMG_T_ENC if spec.get("init") else STEPS)
 
 
 def expected_layer_norm_plans(cfg, config):
@@ -780,7 +817,7 @@ def expected_layer_norm_plans(cfg, config):
     want = {}
     if not RUNS[config].get("norms"):
         return want
-    for part, times in (("step", run_steps(config)), ("decode", 1), ("prompt", 1)):
+    for part, times in (("step", run_evals(config)), ("decode", 1), ("prompt", 1)):
         for site in norm_sites(cfg, RES)[part]:
             if site[0] == "ln" and gated(site, torch.bfloat16):
                 plan = layer_norm_plan(math.prod(site[1][:-1]), site[1][-1],
@@ -796,16 +833,17 @@ def run_ctx_len(cfg, config):
 def expected_request_launches(cfg, config):
     """Every kernel's launches over the two timed requests of main_path, and
     the attention launches by key length."""
-    spec, steps = RUNS[config], run_steps(config)
+    spec, steps = RUNS[config], run_evals(config)
     ctx_len = run_ctx_len(cfg, config)
+    tome_ratio = spec.get("process", {}).get("tome_ratio", 0.0)
     want = dict.fromkeys(KERNELS, 0)
     passes = [(RES, steps)] + ([(HIRES_RES, HIRES_T_ENC)] if config == "hires" else [])
     by_key = {}
     for res, n_steps in passes:  # the hires base pass is not decoded
-        step, per_decode = expected_launches(cfg, res, ctx_len=ctx_len)
+        step, per_decode = expected_launches(cfg, res, ctx_len=ctx_len, tome_ratio=tome_ratio)
         for name, n in step.items():
             want[name] += n_steps * n
-        for q_shape, s, _ in attention_sites(cfg, res, ctx_len=ctx_len):
+        for q_shape, s, _ in attention_sites(cfg, res, ctx_len=ctx_len, tome_ratio=tome_ratio):
             if attention_route(q_shape, s, torch.bfloat16):
                 by_key[s] = by_key.get(s, 0) + 2 * n_steps
     encodes = int(bool(spec.get("init") or spec.get("inpaint")))
@@ -1114,6 +1152,55 @@ def loop_variants(model, cfg, steps=4):
     pipe.runtime.release()
 
 
+def sampler_variants(model, cfg, steps=4):
+    """Every sampler name that no main-path run takes (SAMPLER_VARIANTS), at
+    full width through captured engines, after a DDIM request of as many
+    steps: for each, a request that captures its engine, one replayed request
+    and one eager request (graphs=False) with the same seed. The replayed
+    latents are finite, its image equals the eager one in bytes and differs
+    from DDIM's, and its attention launches are its evaluations' (packed)
+    and one decode's (split). Returns {sampler: replayed request seconds}."""
+    from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
+
+    pipe = Canny2ImagePipeline(model, stand_in_tokenizer, cfg, device="cuda")
+    img = smoke_image()
+    kw = dict(num_samples=1, image_resolution=RES, ddim_steps=steps, scale=SCALE,
+              eta=0.0, seed=1)
+    ddim = pipe.process(img, PROMPT, **kw)[1]
+    per_eval, per_decode = expected_launches(cfg, RES)
+    latencies = {}
+    for sampler in SAMPLER_VARIANTS:
+        pipe.process(img, PROMPT, sampler=sampler, **kw)  # captures
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        out = pipe.process(img, PROMPT, sampler=sampler, **kw)[1]
+        latencies[sampler] = time.perf_counter() - t0
+        launches = {k: v for k, v in dispatch.launches.items() if v}
+        z = pipe.last_latents
+        pipe.runtime.graphs = False
+        eager = pipe.process(img, PROMPT, sampler=sampler, **kw)[1]
+        pipe.runtime.graphs = None
+        evals = sampler_evals(sampler, steps)
+        want = {"fused_attention_packed": evals * per_eval["fused_attention_packed"],
+                "fused_attention": per_decode}
+        differ = int((eager != out).sum())
+        apart = float((out != ddim).mean())
+        print(f"sampler {sampler}: {steps} steps, {evals} evaluations, replayed request "
+              f"{latencies[sampler]:.4f} s; latents finite {bool(torch.isfinite(z).all())}, "
+              f"max |z| {z.abs().max().item():.3f}; bytes that differ from the eager image "
+              f"{differ}; image differs from DDIM's in {apart:.3f} of values; launches "
+              f"{launches} (expected {want})", flush=True)
+        if not (torch.isfinite(z).all() and differ == 0 and apart > 0 and launches == want):
+            raise AssertionError(f"sampler variant {sampler} failed")
+    print(pipe.runtime.report(), flush=True)
+    # k[-2]: built while capturing (the eager requests' engines are not)
+    if not all(e.compiled for k, e in pipe.runtime._engines.items() if k[-2]):
+        raise AssertionError("a sampler variant's engine was not captured")
+    pipe.runtime.release()
+    return latencies
+
+
 def bpe_tokenizer(directory):
     """A CLIPTokenizer read by from_pretrained(directory) from a merges file
     written there in the OpenAI format: 48,894 distinct merges of byte-unicode
@@ -1286,12 +1373,15 @@ def main():
     reference_phase(model, cfg)
     print(f"reference phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     runs = {}
-    for config in ("default", "fused norms", "int8", "hires"):
+    for config in ("default", "fused norms", "int8", "hires", "dpmpp-karras", "euler-a",
+                   "heun", "tome 0.5"):
         runs[config] = main_path(model, cfg, config)
         print(f"main path ({config}) done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
     loop_variants(model, cfg)
     print(f"loop variants done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    variants_s = sampler_variants(model, cfg)
+    print(f"sampler variants done at {time.perf_counter() - t_start:.1f} s", flush=True)
     loaded, checkpoint = checkpoint_phase(model, cfg, runs["default"]["image"])
     del model
     gc.collect()
@@ -1352,6 +1442,7 @@ def main():
         })
     print(json.dumps({"kernels": out, "request_s": latencies, "eager_request_s": eager,
                       "checkpoint": checkpoint, "hackathon": hack,
+                      "sampler_variants_request_s": variants_s,
                       "encode_image_replay_ms": encode_ms,
                       "key_lengths": {config: r["key_lengths"] for config, r in runs.items()},
                       "traced": {config: r["traced"] for config, r in runs.items()},

@@ -70,9 +70,10 @@ def precompute_controlnet_context_kv(control: ControlNet, context):
 
 
 def controlnet_forward(control: ControlNet, x, hint, timesteps, context,
-                       guided_hint=None, ctx_kv=None) -> List[torch.Tensor]:
+                       guided_hint=None, ctx_kv=None, tome=None) -> List[torch.Tensor]:
     """ControlNet.forward on NCHW: 13 NCHW taps. guided_hint: optional
-    precomputed hint-block output (samplers hoist it out of the loop)."""
+    precomputed hint-block output (samplers hoist it out of the loop); tome:
+    token merging at its self-attention sites (ops/tome.py)."""
     emb = embed_timesteps(control.time_embed, control.cfg.unet.model_channels,
                           timesteps, x.dtype)
     if guided_hint is None:
@@ -81,11 +82,11 @@ def controlnet_forward(control: ControlNet, x, hint, timesteps, context,
     kvs = ctx_kv["input"] if ctx_kv is not None else None
     outs, h = [], x
     for i, (blk, zc) in enumerate(zip(control.input_blocks, control.zero_convs)):
-        h = blk(h, emb, context, None if kvs is None else kvs[i])
+        h = blk(h, emb, context, None if kvs is None else kvs[i], tome)
         if i == 0:
             h = h + guided_hint
         outs.append(zc(h))
-    h = unet_middle(control, h, emb, context, ctx_kv)
+    h = unet_middle(control, h, emb, context, ctx_kv, tome)
     outs.append(control.middle_block_out(h))
     return outs
 
@@ -112,31 +113,32 @@ def scale_control(control: List[torch.Tensor], control_scales):
 def controlled_unet_forward(unet: UNetModel, control: ControlNet, x, hint,
                             timesteps, context, control_scales=None,
                             only_mid_control: bool = False, guided_hint=None,
-                            unet_ctx_kv=None, ctrl_ctx_kv=None):
+                            unet_ctx_kv=None, ctrl_ctx_kv=None, tome=None):
     """ControlLDM.apply_model (cldm/cldm.py:328-341) on NCHW tensors.
     hint=None and guided_hint=None run the UNet without control (the uncond
-    branch of guess mode)."""
+    branch of guess mode). tome: token merging in both nets (ops/tome.py)."""
     if hint is None and guided_hint is None:
-        return unet_forward(unet, x, timesteps, context, ctx_kv=unet_ctx_kv)
+        return unet_forward(unet, x, timesteps, context, ctx_kv=unet_ctx_kv,
+                            tome=tome)
     taps = controlnet_forward(control, x, hint, timesteps, context,
-                              guided_hint=guided_hint, ctx_kv=ctrl_ctx_kv)
+                              guided_hint=guided_hint, ctx_kv=ctrl_ctx_kv, tome=tome)
     if control_scales is not None:
         taps = scale_control(taps, control_scales)
     return unet_forward(unet, x, timesteps, context, taps, only_mid_control,
-                        ctx_kv=unet_ctx_kv)
+                        ctx_kv=unet_ctx_kv, tome=tome)
 
 
 def controlled_unet_apply(unet: UNetModel, control: ControlNet, x, hint,
                           timesteps, context,
                           control_scales: Optional[Sequence[float]] = None,
                           only_mid_control: bool = False, guided_hint=None,
-                          unet_ctx_kv=None, ctrl_ctx_kv=None):
+                          unet_ctx_kv=None, ctrl_ctx_kv=None, tome=None):
     """NHWC x, hint and guided_hint -> NHWC eps prediction."""
     return nhwc(controlled_unet_forward(
         unet, control, nchw(x), None if hint is None else nchw(hint),
         timesteps, context, control_scales, only_mid_control,
         None if guided_hint is None else nchw(guided_hint),
-        unet_ctx_kv, ctrl_ctx_kv))
+        unet_ctx_kv, ctrl_ctx_kv, tome))
 
 
 def guess_mode_scales(strength: float, n: int = 13) -> List[float]:

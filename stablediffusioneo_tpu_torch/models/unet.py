@@ -10,6 +10,9 @@ As in the JAX package: self-attention runs one fused QKV projection,
 proj_in/proj_out (1x1 convs in the checkpoint) run as linears over the
 token view, and samplers hoist every cross-attention K/V projection of the
 step-invariant context out of the loop (`precompute_context_kv`).
+`tome` (ops/tome.py:ToMe, or None) merges tokens around every self-attention
+of at least `min_tokens` tokens; it is an argument of each evaluation, not a
+module attribute, so engines built with and without it share the modules.
 Eps: ResBlock GroupNorm cfg.norm_eps (1e-5); SpatialTransformer GroupNorm
 1e-6; transformer LayerNorms 1e-5.
 """
@@ -37,6 +40,7 @@ from stablediffusioneo_tpu_torch.ops.layers import (
 )
 from stablediffusioneo_tpu_torch.ops.norms import group_norm, layer_norm
 from stablediffusioneo_tpu_torch.ops.schedule import timestep_embedding
+from stablediffusioneo_tpu_torch.ops.tome import build_merge, merge_count
 
 ATTN_NORM_EPS = 1e-6  # ldm/modules/attention.py Normalize eps
 LN_EPS = 1e-5
@@ -152,7 +156,10 @@ class FeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """Self-attention, cross-attention, GEGLU FF (attention.py:355-385)."""
+    """Self-attention, cross-attention, GEGLU FF (attention.py:355-385).
+    With `tome` and the token grid `grid_hw`, the self-attention runs on the
+    merged tokens (the JAX transformer_block_apply); the merge is matched on
+    the block input x, before norm1, as tomesd does."""
 
     def __init__(self, dim: int, heads: int, context_dim: int):
         super().__init__()
@@ -163,8 +170,17 @@ class BasicTransformerBlock(nn.Module):
         self.norm2 = LayerNorm(dim, eps=LN_EPS)
         self.norm3 = LayerNorm(dim, eps=LN_EPS)
 
-    def forward(self, x, context, ctx_kv=None):
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x, context, ctx_kv=None, tome=None, grid_hw=None):
+        r = 0
+        if tome is not None and grid_hw is not None and x.shape[1] >= tome.min_tokens:
+            r = merge_count(grid_hw[0], grid_hw[1], tome.ratio, tome.sx, tome.sy)
+        h = self.norm1(x)
+        if r > 0:
+            merge, unmerge, _ = build_merge(x, grid_hw[0], grid_hw[1], r,
+                                            tome.sx, tome.sy)
+            x = x + unmerge(self.attn1(merge(h)))
+        else:
+            x = x + self.attn1(h)
         x = x + self.attn2(self.norm2(x), context, kv=ctx_kv)
         return x + self.ff(self.norm3(x))
 
@@ -182,13 +198,13 @@ class SpatialTransformer(nn.Module):
              for _ in range(depth)])
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
-    def forward(self, x, context, ctx_kv=None):
+    def forward(self, x, context, ctx_kv=None, tome=None):
         """x: NCHW; ctx_kv: optional per-block list of hoisted (k, v)."""
         n, c, h, w = x.shape
         t = nhwc(self.norm(x)).reshape(n, h * w, c)
         t = conv1x1_as_linear(t, self.proj_in)
         for i, blk in enumerate(self.transformer_blocks):
-            t = blk(t, context, None if ctx_kv is None else ctx_kv[i])
+            t = blk(t, context, None if ctx_kv is None else ctx_kv[i], tome, (h, w))
         t = conv1x1_as_linear(t, self.proj_out)
         return nchw(t.reshape(n, h, w, c)) + x
 
@@ -238,14 +254,14 @@ class Upsample(nn.Module):
 
 
 class TimestepEmbedSequential(nn.Sequential):
-    """A block of layers fed (x, emb, context, ctx_kv), as in openaimodel."""
+    """A block of layers fed (x, emb, context, ctx_kv, tome), as in openaimodel."""
 
-    def forward(self, x, emb=None, context=None, ctx_kv=None):
+    def forward(self, x, emb=None, context=None, ctx_kv=None, tome=None):
         for layer in self:
             if isinstance(layer, ResBlock):
                 x = layer(x, emb)
             elif isinstance(layer, SpatialTransformer):
-                x = layer(x, context, ctx_kv)
+                x = layer(x, context, ctx_kv, tome)
             else:
                 x = layer(x)
         return x
@@ -255,11 +271,10 @@ class TimestepEmbedSequential(nn.Sequential):
 
 
 def _check_supported(cfg: UNetConfig) -> None:
-    if cfg.use_scale_shift_norm or cfg.adm_in_channels or cfg.tome_ratio:
+    if cfg.use_scale_shift_norm or cfg.adm_in_channels:
         raise NotImplementedError(
-            "scale-shift norm, ADM conditioning (SDXL) and ToMe are not in "
-            "the port yet (ROADMAP queue 1: The other model families; "
-            "Adapters and knobs)")
+            "scale-shift norm and ADM conditioning (SDXL) are not in the port "
+            "yet (ROADMAP queue 1: The other model families)")
 
 
 def time_embed_modules(cfg: UNetConfig) -> nn.Sequential:
@@ -350,23 +365,23 @@ def precompute_context_kv(unet: UNetModel, context):
             "output": _site_kv(unet.output_blocks, context)}
 
 
-def unet_encode(unet: UNetModel, x, emb, context, ctx_kv=None):
+def unet_encode(unet: UNetModel, x, emb, context, ctx_kv=None, tome=None):
     """Input blocks on NCHW x; returns (h, skip list)."""
     kvs = ctx_kv["input"] if ctx_kv is not None else None
     hs, h = [], x
     for i, blk in enumerate(unet.input_blocks):
-        h = blk(h, emb, context, None if kvs is None else kvs[i])
+        h = blk(h, emb, context, None if kvs is None else kvs[i], tome)
         hs.append(h)
     return h, hs
 
 
-def unet_middle(model, h, emb, context, ctx_kv=None):
+def unet_middle(model, h, emb, context, ctx_kv=None, tome=None):
     return model.middle_block(h, emb, context,
-                              None if ctx_kv is None else ctx_kv["middle"])
+                              None if ctx_kv is None else ctx_kv["middle"], tome)
 
 
 def unet_decode(unet: UNetModel, h, hs, emb, context, control=None,
-                only_mid_control: bool = False, ctx_kv=None):
+                only_mid_control: bool = False, ctx_kv=None, tome=None):
     """Output blocks; control (NCHW taps) adds to the skips, consumed from
     the end like the reference's control.pop()."""
     kvs = ctx_kv["output"] if ctx_kv is not None else None
@@ -377,7 +392,7 @@ def unet_decode(unet: UNetModel, h, hs, emb, context, control=None,
         if ctrl is not None and not only_mid_control:
             skip = skip + ctrl.pop()
         h = torch.cat([h, skip.to(h.dtype)], dim=1)
-        h = blk(h, emb, context, None if kvs is None else kvs[i])
+        h = blk(h, emb, context, None if kvs is None else kvs[i], tome)
     return h
 
 
@@ -386,16 +401,16 @@ def unet_out(unet: UNetModel, h):
 
 
 def unet_forward(unet: UNetModel, x, timesteps, context, control=None,
-                 only_mid_control: bool = False, ctx_kv=None):
+                 only_mid_control: bool = False, ctx_kv=None, tome=None):
     """ControlledUnetModel.forward on NCHW x and NCHW control taps."""
     emb = embed_timesteps(unet.time_embed, unet.cfg.model_channels,
                           timesteps, x.dtype)
-    h, hs = unet_encode(unet, x, emb, context, ctx_kv)
-    h = unet_middle(unet, h, emb, context, ctx_kv)
+    h, hs = unet_encode(unet, x, emb, context, ctx_kv, tome)
+    h = unet_middle(unet, h, emb, context, ctx_kv, tome)
     if control is not None:
         control = list(control)
         h = h + control.pop().to(h.dtype)  # middle-block control
     h = unet_decode(unet, h, hs, emb, context, control, only_mid_control,
-                    ctx_kv)
+                    ctx_kv, tome)
     return unet_out(unet, h)
 

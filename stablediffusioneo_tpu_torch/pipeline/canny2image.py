@@ -5,7 +5,8 @@ stablediffusioneo_tpu/pipeline/canny2image.py).
   (input_image, prompt, a_prompt, n_prompt, num_samples, image_resolution,
    ddim_steps, guess_mode, strength, scale, seed, eta,
    low_threshold, high_threshold)
-plus `x_T=` (and `hires_noise=`, `img2img_noise=`, `inpaint_noise=`) for
+plus `x_T=` (and `hires_noise=`, `img2img_noise=`, `inpaint_noise=`,
+`step_noise=`) for
 seeded cross-framework comparison. Path: resize to /64 -> Canny -> HWC3 hint
 (uploaded as uint8) -> one CLIP call for cond and uncond -> DDIM with CFG ->
 VAE decode -> uint8, the last three as ONE engine of the runtime
@@ -22,7 +23,9 @@ the loop's init-latent and inpaint variants. long_prompt and prompt_emphasis
 select the prompt front end (models/text_encoding.py; they need a
 models/tokenizer.py:CLIPTokenizer). encoder_cache_interval and cfg_rescale
 select loop variants
-(pipeline/ddim.py); granular_timings=True runs sample and decode as two
+(pipeline/ddim.py), `sampler` the loop (DDIM, PLMS, DPM-Solver++(2M), UniPC,
+Euler, Euler-a, Heun; pipeline/{plms,dpm_solver,unipc,k_diffusion}.py) and
+tome_ratio token merging in both nets (ops/tome.py); granular_timings=True runs sample and decode as two
 engines with a device synchronisation between, for an honest phase split.
 The JAX package's other features are accepted by name and raise
 NotImplementedError naming the ROADMAP item that brings them.
@@ -121,6 +124,7 @@ class Canny2ImagePipeline:
         hires_noise: Optional[np.ndarray] = None,
         img2img_noise: Optional[np.ndarray] = None,
         inpaint_noise: Optional[np.ndarray] = None,
+        step_noise: Optional[np.ndarray] = None,
         encoder_cache_interval: int = 1,
         granular_timings: bool = False,
         denoise_strength: float = 0.75,
@@ -152,17 +156,28 @@ class Canny2ImagePipeline:
         torch cannot reproduce): hires_noise, the hires refine's re-noise
         (NHWC latents at the high resolution); img2img_noise, the img2img
         re-noise (NHWC latents); inpaint_noise, the inpaint blend's noise of
-        every step run, (steps, B, h, w, 4). Each is drawn from the seed's
-        generator when None."""
+        every step run, (steps, B, h, w, 4); step_noise, the loop's own noise
+        of every step run (DDIM's with eta > 0, Euler-a's), (steps, B, h, w,
+        4), not with the hires fix. Each is drawn from the seed's generator
+        when None.
+
+        sampler: "ddim", "plms" (eta 0 only), "dpmpp[-karras]",
+        "unipc[-karras]", or "euler", "euler-a", "heun" (Karras spacing, or
+        "-uniform"); eta is read by DDIM only, and Euler-a draws its step
+        noise from the seed's generator. img2img, inpainting, the hires fix and
+        encoder_cache_interval are DDIM-path features: other samplers with
+        them raise ValueError before any work, as in the JAX package.
+        tome_ratio > 0: token merging at the self-attention sites of at least
+        cfg.controlnet.unet.tome_min_tokens tokens, in both nets."""
         hires = bool(hires_upscale and hires_upscale > 1.0) and not granular_timings
+        if hires and step_noise is not None:
+            raise ValueError("step_noise takes a request without the hires fix")
         if hires and (init_image is not None or inpaint_image is not None):
             raise ValueError("hires_upscale composes with plain txt2img only "
                              "(no img2img/inpaint)")
-        for on, feature, item in (
-                (sampler != "ddim", f"sampler {sampler!r}", "The other samplers"),
-                (bool(tome_ratio), "ToMe", "Adapters and knobs")):
-            if on:
-                raise _not_ported(feature, item)
+        self.runtime.check_sampler(sampler, eta, encoder_cache_interval,
+                                   inpaint=inpaint_image is not None,
+                                   img2img=init_image is not None or hires)
         if inpaint_image is not None:
             if inpaint_mask is None:
                 raise ValueError("inpaint_image requires inpaint_mask")
@@ -216,7 +231,8 @@ class Canny2ImagePipeline:
         run = dict(guidance_scale=scale, strength=strength, eta=eta,
                    guess_mode=guess_mode, generator=gen,
                    encoder_cache_interval=encoder_cache_interval,
-                   cfg_rescale=cfg_rescale)
+                   cfg_rescale=cfg_rescale, sampler=sampler, tome_ratio=tome_ratio,
+                   noise=step_noise)
         if inpaint_image is not None:
             from stablediffusioneo_tpu_torch.pipeline.inpaint import prepare_inpaint
 

@@ -5,7 +5,9 @@ The JAX package's `lax.scan` becomes a Python loop. As there:
     through ControlNet + UNet per step (guess mode: cond with control,
     uncond without, as two evaluations);
   * the hint-block embedding and every cross-attention K/V projection of
-    the step-invariant contexts are computed once, before the loop;
+    the step-invariant contexts are computed once, before the loop
+    (`_hoist_context_kv`; `_cfg_eval` runs one CFG evaluation, and the other
+    samplers, pipeline/{plms,dpm_solver,unipc,k_diffusion}.py, use both);
   * the DDIM update runs in fp32, whatever dtype the nets run in, and x is
     carried between steps in the nets' dtype: rounded to it on entry and once
     per step, after the noise is added (in fp32 that rounding changes nothing);
@@ -31,7 +33,7 @@ Update (p_sample_ddim, ddim_hacked.py:208-231):
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -95,6 +97,79 @@ def _cfg_combine(e_c: torch.Tensor, e_u: torch.Tensor, scale,
     return out
 
 
+class CfgInputs(NamedTuple):
+    """The step-invariant inputs of a CFG evaluation, made once before a
+    sampler's loop by `_hoist_context_kv`. Normal mode: the hint embedding
+    and the control scales tiled to the batch-2B concat, ctx = (ctx2,), kv =
+    (UNet K/V, ControlNet K/V) of ctx2. Guess mode: the hint embedding and
+    scales as given, ctx = (ctx_cond, ctx_uncond), kv = (UNet K/V of cond,
+    ControlNet K/V of cond, UNet K/V of uncond)."""
+
+    guided_hint: torch.Tensor
+    ctx: Tuple[torch.Tensor, ...]
+    kv: tuple
+    control_scales: object
+
+
+def _hoist_context_kv(unet: UNetModel, control: ControlNet, hint: torch.Tensor,
+                      ctx_cond: torch.Tensor, ctx_uncond: torch.Tensor,
+                      control_scales, guess_mode: bool, dtype) -> CfgInputs:
+    """Everything an evaluation needs that does not change from step to step
+    (the JAX `_hoist_context_kv`, with the hint-block embedding the JAX scans
+    hoist beside it): every cross-attention K/V projection of the contexts,
+    the embedding of the NHWC hint, and in normal mode the batch-2 concats,
+    so that no step repeats them."""
+    guided_hint = hint_block_apply(control.input_hint_block, nchw(hint).to(dtype))
+    if guess_mode:
+        return CfgInputs(guided_hint, (ctx_cond, ctx_uncond),
+                         (precompute_context_kv(unet, ctx_cond),
+                          precompute_controlnet_context_kv(control, ctx_cond),
+                          precompute_context_kv(unet, ctx_uncond)),
+                         control_scales)
+    ctx2 = torch.cat([ctx_cond, ctx_uncond], dim=0)
+    return CfgInputs(torch.cat([guided_hint, guided_hint], dim=0), (ctx2,),
+                     (precompute_context_kv(unet, ctx2),
+                      precompute_controlnet_context_kv(control, ctx2)),
+                     _tile_cfg(control_scales))
+
+
+def _cfg_eval(unet: UNetModel, control: ControlNet, xn: torch.Tensor, t: float,
+              hoisted: CfgInputs, guess_mode: bool, tome=None):
+    """One CFG evaluation at timestep t (a float: Karras spacings evaluate
+    between the trained steps) on NCHW x: (e_cond, e_uncond), NCHW. Normal
+    mode: cond and uncond as one batch-2 concat through ControlNet + UNet;
+    guess mode: cond with control, uncond without (cldm/cldm.py:334-335)."""
+    b = xn.shape[0]
+    if guess_mode:
+        tb = torch.full((b,), t, dtype=torch.float32, device=xn.device)
+        kv_c, ckv_c, kv_u = hoisted.kv
+        e_cond = controlled_unet_forward(
+            unet, control, xn, None, tb, hoisted.ctx[0],
+            control_scales=hoisted.control_scales, guided_hint=hoisted.guided_hint,
+            unet_ctx_kv=kv_c, ctrl_ctx_kv=ckv_c, tome=tome)
+        e_uncond = controlled_unet_forward(
+            unet, control, xn, None, tb, hoisted.ctx[1], unet_ctx_kv=kv_u, tome=tome)
+        return e_cond, e_uncond
+    tb = torch.full((2 * b,), t, dtype=torch.float32, device=xn.device)
+    eps2 = controlled_unet_forward(
+        unet, control, torch.cat([xn, xn], dim=0), None, tb, hoisted.ctx[0],
+        control_scales=hoisted.control_scales, guided_hint=hoisted.guided_hint,
+        unet_ctx_kv=hoisted.kv[0], ctrl_ctx_kv=hoisted.kv[1], tome=tome)
+    return eps2[:b], eps2[b:]
+
+
+def guided_model(unet: UNetModel, control: ControlNet, hoisted: CfgInputs,
+                 guess_mode: bool, scale, cfg_rescale: float = 0.0, tome=None):
+    """The guided prediction as a function (x NHWC, t) -> NHWC, in the nets'
+    dtype: `_cfg_eval` then `_cfg_combine`. The samplers of the other
+    modules (plms, dpm_solver, unipc, k_diffusion) evaluate through it."""
+    def model(x: torch.Tensor, t: float) -> torch.Tensor:
+        e_c, e_u = _cfg_eval(unet, control, nchw(x), t, hoisted, guess_mode, tome)
+        return nhwc(_cfg_combine(e_c, e_u, scale, cfg_rescale))
+
+    return model
+
+
 def ddim_update(x: torch.Tensor, e_t: torch.Tensor,
                 schedule: Dict[str, np.ndarray], i: int,
                 noise: Optional[torch.Tensor] = None,
@@ -126,9 +201,9 @@ def ddim_update(x: torch.Tensor, e_t: torch.Tensor,
     return x_prev.to(x.dtype)
 
 
-def _ddim_loop_enc_cached(unet, control, schedule, x, gh2, ctx2, kv2, scale,
-                          cscales2, step_noise, temperature, parameterization,
-                          interval: int, cfg_rescale: float) -> torch.Tensor:
+def _ddim_loop_enc_cached(unet, control, schedule, x, hoisted: CfgInputs, scale,
+                          step_noise, temperature, parameterization,
+                          interval: int, cfg_rescale: float, tome=None) -> torch.Tensor:
     """Encoder-cached loop (arXiv:2312.09608; the JAX `_ddim_scan_enc_cached`):
     steps `[::interval]` and the last two run ControlNet and the UNet's
     encoder and middle block and refresh the cached control-merged features;
@@ -141,6 +216,7 @@ def _ddim_loop_enc_cached(unet, control, schedule, x, gh2, ctx2, kv2, scale,
     run_full[::interval] = True
     run_full[-2:] = True
     mc = unet.cfg.model_channels
+    gh2, (ctx2,), kv2, cscales2 = hoisted
     cache = None
     for i in range(n_steps):
         t2 = torch.full((2 * b,), float(schedule["timesteps"][i]),
@@ -150,14 +226,14 @@ def _ddim_loop_enc_cached(unet, control, schedule, x, gh2, ctx2, kv2, scale,
             x2 = torch.cat([xn, xn], dim=0)
             emb = embed_timesteps(unet.time_embed, mc, t2, x2.dtype)
             ctrl = scale_control(
-                controlnet_forward(control, x2, None, t2, ctx2,
-                                   guided_hint=gh2, ctx_kv=kv2[1]), cscales2)
-            h, hs = unet_encode(unet, x2, emb, ctx2, kv2[0])
-            h = unet_middle(unet, h, emb, ctx2, kv2[0]) + ctrl[-1].to(x2.dtype)
+                controlnet_forward(control, x2, None, t2, ctx2, guided_hint=gh2,
+                                   ctx_kv=kv2[1], tome=tome), cscales2)
+            h, hs = unet_encode(unet, x2, emb, ctx2, kv2[0], tome)
+            h = unet_middle(unet, h, emb, ctx2, kv2[0], tome) + ctrl[-1].to(x2.dtype)
             cache = (h, [s + c.to(s.dtype) for s, c in zip(hs, ctrl[:-1])])
         emb = embed_timesteps(unet.time_embed, mc, t2, cache[0].dtype)
         eps2 = unet_out(unet, unet_decode(unet, cache[0], cache[1], emb, ctx2,
-                                          ctx_kv=kv2[0]))
+                                          ctx_kv=kv2[0], tome=tome))
         e_t = _cfg_combine(eps2[:b], eps2[b:], scale, cfg_rescale)
         x = ddim_update(x, nhwc(e_t), schedule, i, step_noise(i, x),
                         temperature, parameterization)
@@ -185,6 +261,7 @@ def ddim_sample(
     inpaint_mask: Optional[torch.Tensor] = None,
     inpaint_noise: Optional[Sequence[torch.Tensor]] = None,
     cfg_rescale: float = 0.0,
+    tome=None,
 ) -> torch.Tensor:
     """Full DDIM loop; returns the x_0 latents, NHWC (B, h, w, 4), as fp32
     (with bf16 nets: the bf16 values the loop carries, widened).
@@ -203,7 +280,7 @@ def ddim_sample(
     draw from `generator`), and the final x_0 blends the clean original
     back in. Not together with encoder caching. encoder_cache_interval > 1:
     see `_ddim_loop_enc_cached`; in guess mode it is ignored, as in the JAX
-    package.
+    package. tome: token merging in both nets (ops/tome.py:ToMe, or None).
     """
     dtype = dtype or ctx_cond.dtype
     b = x_T.shape[0]
@@ -214,18 +291,8 @@ def ddim_sample(
         raise ValueError("inpainting + encoder caching is unsupported "
                          "(the cached-step features would mix blended and "
                          "unblended latents)")
-    guided_hint = hint_block_apply(control.input_hint_block,
-                                   nchw(hint).to(dtype))
-    if guess_mode:
-        kv_cond = (precompute_context_kv(unet, ctx_cond),
-                   precompute_controlnet_context_kv(control, ctx_cond))
-        kv_uncond = precompute_context_kv(unet, ctx_uncond)
-    else:
-        ctx2 = torch.cat([ctx_cond, ctx_uncond], dim=0)
-        kv2 = (precompute_context_kv(unet, ctx2),
-               precompute_controlnet_context_kv(control, ctx2))
-        gh2 = torch.cat([guided_hint, guided_hint], dim=0)
-        cscales2 = _tile_cfg(control_scales)
+    hoisted = _hoist_context_kv(unet, control, hint, ctx_cond, ctx_uncond,
+                                control_scales, guess_mode, dtype)
 
     def drawn(given, i, like):
         return (given[i] if given is not None else
@@ -237,31 +304,16 @@ def ddim_sample(
     x = x_T.to(dtype)
     if encoder_cache_interval > 1 and not guess_mode:
         return _ddim_loop_enc_cached(
-            unet, control, schedule, x, gh2, ctx2, kv2, scale, cscales2,
-            step_noise, temperature, parameterization, encoder_cache_interval,
-            cfg_rescale).float()
+            unet, control, schedule, x, hoisted, scale, step_noise, temperature,
+            parameterization, encoder_cache_interval, cfg_rescale, tome).float()
     if inpaint:
         keep = 1.0 - inpaint_mask.to(x.device, torch.float32)
         mask = inpaint_mask.to(x.device, torch.float32)
         original = inpaint_latent.to(x.device, torch.float32)
     for i in range(len(schedule["timesteps"])):
-        t = float(schedule["timesteps"][i])
-        xn = nchw(x)
-        if guess_mode:
-            tb = torch.full((b,), t, dtype=torch.float32, device=x.device)
-            e_cond = controlled_unet_forward(
-                unet, control, xn, None, tb, ctx_cond,
-                control_scales=control_scales, guided_hint=guided_hint,
-                unet_ctx_kv=kv_cond[0], ctrl_ctx_kv=kv_cond[1])
-            e_uncond = controlled_unet_forward(
-                unet, control, xn, None, tb, ctx_uncond, unet_ctx_kv=kv_uncond)
-        else:
-            tb = torch.full((2 * b,), t, dtype=torch.float32, device=x.device)
-            eps2 = controlled_unet_forward(
-                unet, control, torch.cat([xn, xn], dim=0), None, tb, ctx2,
-                control_scales=cscales2, guided_hint=gh2,
-                unet_ctx_kv=kv2[0], ctrl_ctx_kv=kv2[1])
-            e_cond, e_uncond = eps2[:b], eps2[b:]
+        e_cond, e_uncond = _cfg_eval(unet, control, nchw(x),
+                                     float(schedule["timesteps"][i]), hoisted,
+                                     guess_mode, tome)
         e_t = _cfg_combine(e_cond, e_uncond, scale, cfg_rescale)
         x = ddim_update(x, nhwc(e_t), schedule, i, step_noise(i, x), temperature,
                         parameterization)

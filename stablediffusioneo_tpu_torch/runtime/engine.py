@@ -11,9 +11,10 @@ stablediffusioneo_tpu/runtime/engine.py).
   donated / abstract arguments         static input buffers the arguments
                                        are copied into; a static output
   schedules as engine inputs           the schedule's constants are baked
-                                       into the capture (pipeline/ddim.py
-                                       takes them as Python floats), so
-                                       (steps, eta, tail) are in the key
+                                       into the capture (the samplers take
+                                       them as float32 host scalars), so
+                                       (sampler with its spacing, steps,
+                                       eta, tail) are in the key
   in-graph random numbers              every random number is drawn outside
                                        the graph and handed in
   cost_analysis / memory_analysis      graph nodes, bytes of the graph's pool
@@ -23,7 +24,8 @@ device in the compute dtype (cast once at construction; with
 quantize_linears=True the UNet's and ControlNet's eligible linears are then
 converted to int8 weight-only form, in a copy of the caller's model) and a
 dictionary of engines built at first use: CLIP encode, the DDIM loop (from
-noise, or from a re-noised init latent over the schedule's tail), the VAE
+noise, or from a re-noised init latent over the schedule's tail; DDIM or
+one of the other samplers, with or without token merging), the VAE
 decode with the uint8 denormalisation, loop + decode fused, and the VAE
 encode (posterior mode, or a sample with the noise handed in) for img2img and
 inpainting. On the CPU, and with graphs=False, an engine runs its function
@@ -50,11 +52,20 @@ from stablediffusioneo_tpu_torch.models.unet import encoder_plan
 from stablediffusioneo_tpu_torch.models.vae import vae_decode, vae_encode
 from stablediffusioneo_tpu_torch.ops import dispatch, quant
 from stablediffusioneo_tpu_torch.ops.schedule import DiffusionSchedule
+from stablediffusioneo_tpu_torch.ops.tome import tome_of
 from stablediffusioneo_tpu_torch.pipeline.ddim import (
     ddim_sample,
     schedule_tail,
     stochastic_encode,
 )
+from stablediffusioneo_tpu_torch.pipeline.dpm_solver import dpmpp_sample, dpmpp_schedule
+from stablediffusioneo_tpu_torch.pipeline.k_diffusion import (
+    KDIFF_SAMPLERS,
+    kdiff_sample,
+    kdiff_schedule,
+)
+from stablediffusioneo_tpu_torch.pipeline.plms import plms_sample
+from stablediffusioneo_tpu_torch.pipeline.unipc import unipc_sample
 
 log = logging.getLogger("stablediffusioneo_tpu_torch")
 
@@ -63,6 +74,31 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # resize_image rounds to multiples of 64, so this small set covers the
 # resolutions a deployment captures engines for.
 DEFAULT_BUCKETS = (256, 320, 384, 448, 512, 640, 768)
+
+
+# the loops other than DDIM's, by canonical sampler name
+_ODE_SAMPLERS = {"plms": plms_sample, "dpmpp": dpmpp_sample, "unipc": unipc_sample}
+
+
+def _canon_sampler(sampler: str) -> str:
+    """A sampler string without its spacing suffix ("-karras" / "-uniform"):
+    the engine's name and the loop it runs. The port's engine key keeps the
+    whole string, since the spacing's schedule is baked into a capture."""
+    for suffix in ("-karras", "-uniform"):
+        if sampler.endswith(suffix):
+            return sampler[: -len(suffix)]
+    return sampler
+
+
+def _noisy_steps(sampler: str, sched: Dict[str, np.ndarray]) -> np.ndarray:
+    """The steps that add fresh noise: DDIM's with sigma > 0, Euler-a's with
+    sigk_up > 0, none of the deterministic solvers'."""
+    base = _canon_sampler(sampler)
+    if base == "ddim":
+        return sched["sigmas"] > 0
+    if base == "euler-a":
+        return sched["sigk_up"] > 0
+    return np.zeros(len(next(iter(sched.values()))), bool)
 
 
 def resolution_buckets(buckets=DEFAULT_BUCKETS):
@@ -271,23 +307,78 @@ class CNSDRuntime:
     def _zeros(self, shape, dtype) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, device=self.device)
 
+    def _make_schedule(self, num_steps: int, sampler: str, eta: float = 0.0):
+        """The schedule of a sampler string (the JAX runtime's, refusals and
+        words included): dpmpp and unipc on `dpmpp_schedule` (uniform unless
+        "-karras"), the k-diffusion samplers on `kdiff_schedule` (Karras
+        unless "-uniform"), PLMS (eta 0 only) and DDIM on the DDIM one."""
+        spacing = "karras" if sampler.endswith("-karras") else "uniform"
+        base = _canon_sampler(sampler)
+        if base in ("dpmpp", "unipc"):
+            return dpmpp_schedule(self.schedule, num_steps, spacing=spacing)
+        if base in KDIFF_SAMPLERS:
+            sp = "uniform" if sampler.endswith("-uniform") else "karras"
+            return kdiff_schedule(self.schedule, num_steps, spacing=sp)
+        if base == "plms":
+            if float(eta) != 0.0:
+                raise ValueError(
+                    f"PLMS requires eta == 0 (got {eta}); the upstream "
+                    "PLMSSampler asserts ddim_eta == 0")
+            return self.schedule.ddim(num_steps, eta=0.0)
+        if base != "ddim":
+            raise ValueError(f"unknown sampler {sampler!r} (expected 'ddim', "
+                             "'plms', 'dpmpp[-karras]', 'unipc[-karras]', "
+                             "'euler[-a|-uniform]' or 'heun[-uniform]')")
+        return self.schedule.ddim(num_steps, eta=eta)
+
+    def check_sampler(self, sampler: str = "ddim", eta: float = 0.0,
+                      encoder_cache_interval: int = 1, inpaint: bool = False,
+                      img2img: bool = False) -> float:
+        """The JAX runtime's refusals of a sampler and what it is combined
+        with, with its error types and words, before any work: img2img (and
+        so the hires refine), encoder caching and inpainting are DDIM-path
+        features; an unknown name; PLMS with eta != 0. Returns the eta the
+        loop runs with: the other solvers ignore it (0.0)."""
+        base = _canon_sampler(sampler)
+        if img2img and base != "ddim":
+            raise ValueError("img2img (init_image/denoise_strength) is a "
+                             f"DDIM-path feature (sampler='ddim', got {base!r})")
+        if encoder_cache_interval != 1 and base != "ddim":
+            raise ValueError(
+                "encoder_cache_interval is a DDIM-path feature "
+                f"(sampler='ddim'); got interval {encoder_cache_interval} "
+                f"with sampler {base!r}")
+        if inpaint and base != "ddim":
+            raise ValueError("inpainting is a DDIM-path feature "
+                             "(sampler='ddim')")
+        self._make_schedule(1, sampler, eta)
+        return float(eta) if base == "ddim" else 0.0
+
     def _loop_schedule(self, num_steps: int, schedule_steps: Optional[int],
-                       eta: float):
+                       eta: float, sampler: str = "ddim"):
         """The schedule an engine of `num_steps` steps bakes in: that of
-        schedule_steps steps (default num_steps), cut to its last num_steps."""
-        sched = self.schedule.ddim(schedule_steps or num_steps, eta=eta)
+        schedule_steps steps (default num_steps), cut to its last num_steps
+        (a tail: DDIM only)."""
+        sched = self._make_schedule(schedule_steps or num_steps, sampler, eta)
+        if (schedule_steps or num_steps) == num_steps:
+            return sched
         return schedule_tail(sched, num_steps)
 
     def _sampler_fn(self, num_steps: int, guess_mode: bool,
                     encoder_cache_interval: int, hint_u8: bool, gen_xT,
                     inpaint: bool, cfg_rescale: float, eta: float,
-                    schedule_steps: Optional[int]) -> Callable:
-        """The DDIM loop as a function of tensors only:
+                    schedule_steps: Optional[int], sampler: str = "ddim",
+                    tome_ratio: float = 0.0) -> Callable:
+        """The sampler's loop as a function of tensors only:
         (x, hint, ctx_cond, ctx_uncond, scale (B,), control scales (B, taps)
-        [, step noise (steps, B, h, w, 4) when eta > 0]
+        [, step noise (steps, B, h, w, 4) when a step adds noise: DDIM with
+        eta > 0, Euler-a]
         [, re-noise (B, h, w, 4) when gen_xT == "img2img": x is then the init
         latent] [, inpaint latent, inpaint mask, inpaint noise (steps, ...)])
-        -> x_0 latents, fp32 NHWC."""
+        -> x_0 latents, fp32 NHWC. The arguments have passed `check_sampler`
+        (eta is the one the loop reads). tome_ratio > 0 merges tokens in both
+        nets (the JAX `_cfg_with_tome`; the other settings from the
+        ControlNet's UNet configuration), bound here for the engine's life."""
         if gen_xT not in (False, "img2img"):
             raise NotImplementedError(
                 f"engine variant gen_xT={gen_xT!r}: the port draws x_T outside "
@@ -299,40 +390,46 @@ class CNSDRuntime:
         if encoder_cache_interval < 1:
             raise ValueError("encoder_cache_interval must be >= 1")
         model, dtype = self._require_model(), self.dtype
-        sched = self._loop_schedule(num_steps, schedule_steps, eta)
-        noisy = bool((sched["sigmas"] > 0).any())
-        parameterization = self.cfg.diffusion.parameterization
+        sched = self._loop_schedule(num_steps, schedule_steps, eta, sampler)
+        noisy = bool(_noisy_steps(sampler, sched).any())
+        base = _canon_sampler(sampler)
+        common = dict(guess_mode=guess_mode, dtype=dtype, cfg_rescale=cfg_rescale,
+                      parameterization=self.cfg.diffusion.parameterization,
+                      tome=tome_of(self.cfg.controlnet.unet, tome_ratio))
 
         def run(x, hint, ctx_cond, ctx_uncond, scale, cscales, *rest):
             rest = list(rest)
             noise = rest.pop(0) if noisy else None
             if gen_xT == "img2img":
                 x = stochastic_encode(x, float(sched["alphas"][0]), rest.pop(0))
-            ilat, imask, inoise = rest if inpaint else (None, None, None)
             if hint.dtype == torch.uint8:  # /255 in fp32, then the compute dtype
                 hint = hint.float() / 255.0
+            args = (model.unet, model.control_model, sched, x, hint.to(dtype),
+                    ctx_cond, ctx_uncond, scale, cscales)
+            if base in KDIFF_SAMPLERS:
+                return kdiff_sample(*args, sampler=base, noise=noise, **common)
+            if base != "ddim":
+                return _ODE_SAMPLERS[base](*args, **common)
+            ilat, imask, inoise = rest if inpaint else (None, None, None)
             return ddim_sample(
-                model.unet, model.control_model, sched, x, hint.to(dtype),
-                ctx_cond, ctx_uncond, scale, cscales, guess_mode=guess_mode,
-                noise=noise, dtype=dtype, parameterization=parameterization,
-                encoder_cache_interval=encoder_cache_interval,
+                *args, noise=noise, encoder_cache_interval=encoder_cache_interval,
                 inpaint_latent=ilat, inpaint_mask=imask, inpaint_noise=inoise,
-                cfg_rescale=cfg_rescale)
+                **common)
 
         return run
 
     def _sampler_example(self, num_steps, batch, h, w, ctx_len, hint_u8, gen_xT,
-                         inpaint, eta, schedule_steps):
+                         inpaint, eta, schedule_steps, sampler="ddim"):
         f = self.cfg.vae.downsample_factor
         lat = (batch, h // f, w // f, 4)
         ctx = (batch, ctx_len, self.cfg.unet.context_dim)
-        sched = self._loop_schedule(num_steps, schedule_steps, eta)
+        sched = self._loop_schedule(num_steps, schedule_steps, eta, sampler)
         ex = [self._zeros(lat, self.dtype),
               self._zeros((batch, h, w, 3), torch.uint8 if hint_u8 else self.dtype),
               self._zeros(ctx, self.dtype), self._zeros(ctx, self.dtype),
               self._zeros((batch,), torch.float32),
               self._zeros((batch, self.n_taps), torch.float32)]
-        if (sched["sigmas"] > 0).any():
+        if _noisy_steps(sampler, sched).any():
             ex.append(self._zeros((num_steps,) + lat, torch.float32))
         if gen_xT == "img2img":
             ex.append(self._zeros(lat, torch.float32))
@@ -355,15 +452,18 @@ class CNSDRuntime:
         cfg_rescale: float = 0.0, tome_ratio: float = 0.0,
         eta: float = 0.0, schedule_steps: Optional[int] = None,
     ) -> Engine:
-        """The DDIM loop + VAE decode + uint8 denormalisation as ONE captured
-        program returning (image uint8 (B, H, W, 3), x_0 latents). The
-        arguments, key and name are the JAX package's; beyond them eta and
+        """The sampler's loop + VAE decode + uint8 denormalisation as ONE
+        captured program returning (image uint8 (B, H, W, 3), x_0 latents).
+        The arguments and name are the JAX package's; beyond them eta and
         schedule_steps (the full discretisation when num_steps is a tail, the
         img2img variant), which the JAX engine takes as inputs and this one
-        bakes in. hint_u8: the hint is uint8 pixels, normalised in the graph.
-        gen_xT="img2img": x is the init latent, re-noised in the graph with
-        the noise handed in."""
-        self._check_sampler(sampler, tome_ratio)
+        bakes in, as it bakes in the sampler's spacing: the key holds the whole
+        sampler string ("dpmpp-karras" is not "dpmpp") and the eta the loop
+        reads (0.0 for the solvers that ignore it). hint_u8: the hint is uint8
+        pixels, normalised in the graph. gen_xT="img2img": x is the init
+        latent, re-noised in the graph with the noise handed in."""
+        eta = self.check_sampler(sampler, eta, encoder_cache_interval, inpaint,
+                                 gen_xT == "img2img")
         ctx_len = ctx_len or self.cfg.clip.max_length
         key_t = ("sample_decode", sampler, num_steps, batch, h, w, guess_mode,
                  encoder_cache_interval, ctx_len, hint_u8, gen_xT, inpaint,
@@ -373,7 +473,7 @@ class CNSDRuntime:
         def make():
             sfn = self._sampler_fn(num_steps, guess_mode, encoder_cache_interval,
                                    hint_u8, gen_xT, inpaint, cfg_rescale, eta,
-                                   schedule_steps)
+                                   schedule_steps, sampler, tome_ratio)
 
             def run(*args):
                 z = sfn(*args)
@@ -382,12 +482,13 @@ class CNSDRuntime:
             return run
 
         return self._engine(
-            key_t, f"{sampler}+decode_{num_steps}x{batch}x{h}x{w}"
+            key_t, f"{_canon_sampler(sampler)}+decode_{num_steps}x{batch}x{h}x{w}"
             + ("_guess" if guess_mode else "")
             + (f"_genxT-{gen_xT}" if isinstance(gen_xT, str) else "")
             + ("_inpaint" if inpaint else ""), make,
             lambda: self._sampler_example(num_steps, batch, h, w, ctx_len, hint_u8,
-                                          gen_xT, inpaint, eta, schedule_steps))
+                                          gen_xT, inpaint, eta, schedule_steps,
+                                          sampler))
 
     def sampler_engine(
         self, num_steps: int, batch: int, h: int, w: int,
@@ -397,34 +498,26 @@ class CNSDRuntime:
         eta: float = 0.0, schedule_steps: Optional[int] = None,
         gen_xT=False, inpaint: bool = False,
     ) -> Engine:
-        """The captured DDIM loop for (steps, batch, H x W), H and W in image
-        space; returns the x_0 latents. Arguments as `sample_decode_engine`."""
-        self._check_sampler(sampler, tome_ratio)
+        """The captured sampler loop for (steps, batch, H x W), H and W in
+        image space; returns the x_0 latents. Arguments as
+        `sample_decode_engine`."""
+        eta = self.check_sampler(sampler, eta, encoder_cache_interval, inpaint,
+                                 gen_xT == "img2img")
         ctx_len = ctx_len or self.cfg.clip.max_length
         key_t = ("sampler", sampler, num_steps, batch, h, w, guess_mode,
                  encoder_cache_interval, ctx_len, hint_u8, float(cfg_rescale),
                  float(tome_ratio), float(eta), schedule_steps or num_steps,
                  gen_xT, inpaint)
         return self._engine(
-            key_t, f"{sampler}_{num_steps}x{batch}x{h}x{w}"
+            key_t, f"{_canon_sampler(sampler)}_{num_steps}x{batch}x{h}x{w}"
             + ("_guess" if guess_mode else "")
             + (f"_ctx{ctx_len}" if ctx_len != self.cfg.clip.max_length else ""),
             lambda: self._sampler_fn(num_steps, guess_mode, encoder_cache_interval,
                                      hint_u8, gen_xT, inpaint, cfg_rescale, eta,
-                                     schedule_steps),
+                                     schedule_steps, sampler, tome_ratio),
             lambda: self._sampler_example(num_steps, batch, h, w, ctx_len, hint_u8,
-                                          gen_xT, inpaint, eta, schedule_steps))
-
-    @staticmethod
-    def _check_sampler(sampler: str, tome_ratio: float) -> None:
-        if sampler != "ddim":
-            raise NotImplementedError(
-                f"sampler {sampler!r} is not in the PyTorch port yet "
-                "(ROADMAP queue 1: The other samplers)")
-        if tome_ratio:
-            raise NotImplementedError(
-                "ToMe is not in the PyTorch port yet (ROADMAP queue 1: "
-                "Adapters and knobs)")
+                                          gen_xT, inpaint, eta, schedule_steps,
+                                          sampler))
 
     def clip_engine(self, batch: int, clip_skip: int = 0) -> Engine:
         clip, dtype = self._require_model().clip, self.dtype
@@ -548,12 +641,13 @@ class CNSDRuntime:
                      guidance_scale, strength, eta, guess_mode, generator, noise,
                      init_latent, t_enc, renoise, encoder_cache_interval,
                      cfg_rescale, inpaint_latent, inpaint_mask, inpaint_noise,
-                     seeds):
+                     seeds, sampler="ddim", tome_ratio=0.0):
         """Checks a loop call's arguments, draws every random number it needs
         (outside any graph) and returns (engine arguments, tensors to call it
         with). Draws come from `generator`, or with `seeds` row by row from
         each row's own generator, in the order: x_T or the re-noise, every
-        step's eta noise, every step's inpaint noise."""
+        step's noise (DDIM's eta noise, Euler-a's ancestral noise), every
+        step's inpaint noise."""
         self._require_model()
         img2img = init_latent is not None
         if seeds is not None and x_T is not None:
@@ -564,6 +658,8 @@ class CNSDRuntime:
             if t_enc is None or not 1 <= t_enc <= num_steps:
                 raise ValueError(f"img2img needs 1 <= t_enc <= {num_steps}")
         inpaint = inpaint_latent is not None
+        eta = self.check_sampler(sampler, eta, encoder_cache_interval, inpaint,
+                                 img2img)
         if inpaint and inpaint_mask is None:
             raise ValueError("inpaint_latent requires inpaint_mask")
         if inpaint and encoder_cache_interval > 1:
@@ -576,7 +672,7 @@ class CNSDRuntime:
         f = self.cfg.vae.downsample_factor
         lat = (b, h // f, w // f, 4)
         steps = t_enc if img2img else num_steps
-        sched = self._loop_schedule(steps, num_steps, eta)
+        sched = self._loop_schedule(steps, num_steps, eta, sampler)
 
         if seeds is not None:
             if len(seeds) != b:
@@ -609,7 +705,7 @@ class CNSDRuntime:
         else:
             x = draw() if x_T is None else torch.as_tensor(x_T, device=dev)
             extra = []
-        noisy = sched["sigmas"] > 0
+        noisy = _noisy_steps(sampler, sched)
         if noisy.any():
             extra.insert(0, per_step(noise, noisy))
         if inpaint:
@@ -626,7 +722,8 @@ class CNSDRuntime:
                     ctx_len=ctx_cond.shape[1],
                     hint_u8=hint.dtype == torch.uint8,
                     gen_xT="img2img" if img2img else False, inpaint=inpaint,
-                    cfg_rescale=cfg_rescale, eta=eta, schedule_steps=num_steps)
+                    cfg_rescale=cfg_rescale, eta=eta, schedule_steps=num_steps,
+                    sampler=sampler, tome_ratio=tome_ratio)
         return spec, args
 
     def sample(self, num_steps: int, x_T: Optional[torch.Tensor],
@@ -642,14 +739,21 @@ class CNSDRuntime:
                inpaint_latent: Optional[torch.Tensor] = None,
                inpaint_mask: Optional[torch.Tensor] = None,
                inpaint_noise: Optional[Sequence[torch.Tensor]] = None,
-               seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
-        """DDIM latents (fp32 NHWC) through the sampler engine. x_T: NHWC
+               seeds: Optional[Sequence[int]] = None, sampler: str = "ddim",
+               tome_ratio: float = 0.0) -> torch.Tensor:
+        """The sampler's latents (fp32 NHWC) through the sampler engine. x_T: NHWC
         latents, or None to draw them (`seeds`: one per row, each row from its
         own generator, so a row's bytes do not depend on the batch it ran in;
         else `generator`); hint: uint8 NHWC pixels (normalised in the engine:
         /255 in fp32, then the compute dtype) or floats in [0, 1].
         guidance_scale, strength: a number or one per sample. With eta > 0
-        the step noise is `noise` (one NHWC tensor per step) or drawn.
+        (DDIM) or sampler "euler-a[-uniform]" the step noise is `noise` (one
+        NHWC tensor per step) or drawn.
+
+        sampler: "ddim", "plms" (eta 0 only), "dpmpp[-karras]",
+        "unipc[-karras]", "euler[-uniform]", "euler-a[-uniform]" or
+        "heun[-uniform]"; eta is read by DDIM only. tome_ratio > 0: token
+        merging in both nets (ops/tome.py).
 
         init_latent + t_enc (img2img semantics, the hires refine): x_T must
         be None; the init latent, rounded to the compute dtype, is re-noised
@@ -658,12 +762,12 @@ class CNSDRuntime:
 
         encoder_cache_interval, cfg_rescale, inpaint_latent (B, h, w, 4) +
         inpaint_mask (B, h, w, 1; 1 = generate) + inpaint_noise: see
-        pipeline/ddim.py:ddim_sample."""
+        pipeline/ddim.py:ddim_sample (DDIM only)."""
         spec, args = self._loop_inputs(
             num_steps, x_T, hint, ctx_cond, ctx_uncond, guidance_scale, strength,
             eta, guess_mode, generator, noise, init_latent, t_enc, renoise,
             encoder_cache_interval, cfg_rescale, inpaint_latent, inpaint_mask,
-            inpaint_noise, seeds)
+            inpaint_noise, seeds, sampler, tome_ratio)
         z = self._out(self.sampler_engine(**spec)(*args))
         self.last_latents = z
         return z
@@ -674,15 +778,16 @@ class CNSDRuntime:
                       init_latent=None, t_enc=None, renoise=None,
                       encoder_cache_interval: int = 1, cfg_rescale: float = 0.0,
                       inpaint_latent=None, inpaint_mask=None, inpaint_noise=None,
-                      seeds=None) -> torch.Tensor:
-        """DDIM + VAE decode + uint8 denormalisation through the fused
+                      seeds=None, sampler: str = "ddim",
+                      tome_ratio: float = 0.0) -> torch.Tensor:
+        """The sampler + VAE decode + uint8 denormalisation through the fused
         engine: uint8 (B, H, W, 3) on the device; the latents are left in
         `last_latents`. Arguments as `sample`."""
         spec, args = self._loop_inputs(
             num_steps, x_T, hint, ctx_cond, ctx_uncond, guidance_scale, strength,
             eta, guess_mode, generator, noise, init_latent, t_enc, renoise,
             encoder_cache_interval, cfg_rescale, inpaint_latent, inpaint_mask,
-            inpaint_noise, seeds)
+            inpaint_noise, seeds, sampler, tome_ratio)
         img, z = self._out(self.sample_decode_engine(**spec)(*args))
         self.last_latents = z
         return img

@@ -75,6 +75,7 @@ def _check(out, ref, dtype):
 @pytest.mark.parametrize("b,tq,c,s,heads", [
     (2, 4096, 320, 4096, 8), (2, 4096, 320, 77, 8),
     (2, 1024, 640, 1024, 8), (2, 1024, 640, 77, 8),
+    (2, 2048, 320, 2048, 8),  # a level-0 self-attention after ToMe at ratio 0.5
     (2, 1000, 1280, 300, 8),  # ragged q and k tiles, d = 160
     (1, 200, 256, 77, 4),     # d = 64
 ])
@@ -667,10 +668,12 @@ def test_group_norm_stats_plan_that_does_not_fit_raises(gen):
 # ------------------------------------------------------------ captured engines
 
 
-def _tiny_runtime(dtype="bfloat16", model_channels=None, **kwargs):
+def _tiny_runtime(dtype="bfloat16", model_channels=None, tome_min_tokens=None, **kwargs):
     """tiny_pipeline() on the card, weights from seed 0. model_channels=80:
     head dim 40 at level 0, which the attention kernel takes (the tiny
-    config's 16 it does not; at 64x64 no site has the tokens to reach it)."""
+    config's 16 it does not; at 64x64 no site has the tokens to reach it).
+    tome_min_tokens: ToMe's site threshold (64: the 8x8 sites of a 64x64
+    image merge)."""
     import dataclasses
 
     from stablediffusioneo_tpu_torch.config import ControlNetConfig, tiny_pipeline
@@ -678,8 +681,10 @@ def _tiny_runtime(dtype="bfloat16", model_channels=None, **kwargs):
     from stablediffusioneo_tpu_torch.runtime.engine import CNSDRuntime
 
     cfg = dataclasses.replace(tiny_pipeline(), dtype=dtype)
-    if model_channels:
-        unet = dataclasses.replace(cfg.unet, model_channels=model_channels)
+    if model_channels or tome_min_tokens:
+        unet = dataclasses.replace(cfg.unet, model_channels=model_channels
+                                   or cfg.unet.model_channels,
+                                   tome_min_tokens=tome_min_tokens or cfg.unet.tome_min_tokens)
         cfg = dataclasses.replace(cfg, unet=unet, controlnet=ControlNetConfig(unet=unet))
     model = ControlLDM(cfg).to("cuda")
     init_weights(model, torch.Generator(device="cuda").manual_seed(0))
@@ -727,6 +732,51 @@ def test_engine_replay_equals_eager(gen, dtype, kwargs):
     assert rt.warmup(resolution=64, num_steps=2) == (1, 64, 64, 3)
     rt.release()
     assert rt._engines == {}
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"sampler": "plms"}, {"sampler": "dpmpp-karras"}, {"sampler": "unipc"},
+    {"sampler": "euler-a"}, {"sampler": "heun-uniform"}, {"tome_ratio": 0.5},
+    {"sampler": "euler-a", "tome_ratio": 0.5, "guess_mode": True},
+], ids=["plms", "dpmpp-karras", "unipc", "euler-a", "heun-uniform", "tome", "euler-a_tome_guess"])
+def test_sampler_engine_replay_equals_eager(gen, kwargs):
+    """Tiny config in bf16, ToMe's threshold at the 8x8 sites: the captured
+    loop of each sampler (and with token merging) against the eager one on
+    the same inputs and noise, equal bytes, for two requests through the
+    same graph; Euler-a's noise drawn outside the graph from the generator."""
+    cfg, rt = _tiny_runtime(tome_min_tokens=64)
+    for seed in (3, 4):
+        x_T, hint, ctx_c, ctx_u = _tiny_inputs(cfg, gen)
+        outs = []
+        for graphs in (None, False):
+            rt.graphs = graphs
+            outs.append(rt.sample_decode(
+                4, x_T, hint, ctx_c, ctx_u,
+                generator=torch.Generator(device="cuda").manual_seed(seed), **kwargs))
+            assert torch.isfinite(rt.last_latents).all()
+        assert torch.equal(*outs)
+    assert sum(e.compiled for e in rt._engines.values()) == 1
+
+
+def test_tome_merge_is_deterministic_on_the_card(gen):
+    """build_merge at the SD-1.5 level-0 site in bf16 (2 x 4096 tokens of
+    320 channels, 2048 merged): twice on the same metric, the merged and
+    unmerged tensors are equal in bytes (the mean into the dst tokens is a
+    matmul, not float atomics), and the merged length is the packed
+    kernel's."""
+    from stablediffusioneo_tpu_torch.ops.tome import build_merge, merge_count
+
+    metric = _randn((2, 4096, 320), gen, torch.bfloat16)
+    payload = _randn((2, 4096, 320), gen, torch.bfloat16)
+    r = merge_count(64, 64, 0.5)
+    outs = []
+    for _ in range(2):
+        merge, unmerge, n = build_merge(metric, 64, 64, r)
+        merged = merge(payload)
+        outs.append((merged, unmerge(merged)))
+    assert n == 2048 and outs[0][0].shape == (2, 2048, 320)
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    assert torch.isfinite(outs[0][1].float()).all()
 
 
 def test_engine_img2img_variant_replay_equals_eager(gen):

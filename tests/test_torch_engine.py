@@ -80,6 +80,9 @@ ENGINE_ARGS = [
     (2, 1, 64, 64, False, "ddim", 1, None, False, False, True),
     (2, 1, 64, 64, False, "ddim", 1, None, False, False, False, 0.7),
     (2, 1, 128, 64, True, "ddim", 1, None, True, "img2img", True),
+    (2, 1, 64, 64, False, "dpmpp-karras"),
+    (3, 1, 64, 64, True, "euler-a-uniform", 1, None, True),
+    (4, 2, 64, 64, False, "plms", 1, None, False, False, False, 0.7),
 ]
 
 
@@ -137,12 +140,108 @@ def test_other_engine_names_and_keys(runtimes, rt, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"sampler": "dpmpp"}, "ROADMAP"), ({"tome_ratio": 0.5}, "ROADMAP"),
+    ({"hint_u8": "multi"}, "ROADMAP"), ({"hint_u8": "multi", "sampler": "dpmpp"}, "ROADMAP"),
     ({"hint_u8": "packed"}, "ROADMAP"), ({"gen_xT": "seeds"}, "outside the graph"),
 ])
 def test_engine_variants_outside_the_port_raise(rt, kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         rt.sample_decode_engine(2, 1, 64, 64, **kwargs)
+
+
+# sampler arguments the JAX runtime refuses: (sample_decode_engine keywords,
+# sample_decode keywords the refusal needs there)
+SAMPLER_REFUSALS = [
+    ({"sampler": "dpmpp", "inpaint": True}, {}),
+    ({"sampler": "heun-uniform", "encoder_cache_interval": 2}, {}),
+    ({"sampler": "euler-a", "gen_xT": "img2img"}, {}),
+    ({"sampler": "plms"}, {"eta": 0.5}),
+    ({"sampler": "lms"}, {}),
+    ({"sampler": "dpmpp-exponential"}, {}),
+]
+
+
+@pytest.mark.parametrize("engine_kw,call_kw", SAMPLER_REFUSALS,
+                         ids=[str(i) for i in range(len(SAMPLER_REFUSALS))])
+def test_sampler_refusals_match_jax(runtimes, rt, monkeypatch, engine_kw, call_kw):
+    """Where the JAX runtime raises ValueError on a sampler and what it is
+    combined with (its sample_decode_engine with the compile skipped, then
+    its schedule), the port's sample_decode_engine raises ValueError with
+    its words."""
+    jax_rt = runtimes[0]
+    monkeypatch.setattr(jax_engine.Engine, "load", lambda self, *a, **k: self)
+    monkeypatch.setattr(jax_rt, "_engines", {})
+    with pytest.raises(ValueError) as ref:
+        jax_rt.sample_decode_engine(2, 1, 64, 64, **engine_kw)
+        jax_rt._sched_device(2, engine_kw["sampler"], call_kw.get("eta", 0.0))
+    with pytest.raises(ValueError) as got:
+        rt.sample_decode_engine(2, 1, 64, 64, **engine_kw, **call_kw)
+    assert str(got.value) == str(ref.value)
+    assert rt._engines == {}
+
+
+@pytest.mark.parametrize("sampler", ["ddim", "plms", "dpmpp", "dpmpp-karras", "unipc",
+                                     "unipc-karras", "euler", "euler-uniform", "euler-a",
+                                     "euler-a-uniform", "heun", "heun-uniform"])
+def test_every_sampler_the_jax_package_accepts_runs(runtimes, rt, monkeypatch, sampler):
+    """The twelve names: the JAX runtime builds an engine for each (compile
+    skipped) under the same name, and the port's sample_decode gives finite
+    uint8 images through it; a spacing is its own engine here, since the
+    schedule is baked in, and eta is read by DDIM only."""
+    jax_rt = runtimes[0]
+    monkeypatch.setattr(jax_engine.Engine, "load", lambda self, *a, **k: self)
+    monkeypatch.setattr(jax_rt, "_engines", {})
+    x_T, hint, ctx_c, ctx_u = _inputs()
+    img = rt.sample_decode(2, x_T, hint, ctx_c, ctx_u, sampler=sampler,
+                           generator=torch.Generator().manual_seed(0))
+    assert img.dtype == torch.uint8 and img.shape == (1, 64, 64, 3)
+    assert torch.isfinite(rt.last_latents).all()
+    (key, eng), = rt._engines.items()
+    assert key[1] == sampler
+    assert eng.name == jax_rt.sample_decode_engine(2, 1, 64, 64, False, sampler).name
+    if sampler != "ddim":  # no second engine for an eta the loop does not read
+        again = rt.sample_decode(2, x_T, hint, ctx_c, ctx_u, sampler=sampler, eta=0.0
+                                 if sampler == "plms" else 0.7,
+                                 generator=torch.Generator().manual_seed(0))
+        assert len(rt._engines) == 1 and torch.equal(again, img)
+
+
+def test_sampler_engines_are_keyed_by_spacing_and_tome(rt):
+    """The schedule and the merge settings are baked into a capture, so the
+    key holds the whole sampler string and the ToMe ratio: "dpmpp-karras"
+    does not replay "dpmpp"'s loop, nor tome_ratio 0.5 the plain one."""
+    a = rt.sample_decode_engine(2, 1, 64, 64, sampler="dpmpp")
+    b = rt.sample_decode_engine(2, 1, 64, 64, sampler="dpmpp-karras")
+    c = rt.sample_decode_engine(2, 1, 64, 64, sampler="dpmpp", tome_ratio=0.5)
+    assert len({id(a), id(b), id(c)}) == 3 and a.name == b.name == c.name
+    x_T, hint, ctx_c, ctx_u = _inputs()
+    z = [rt.sample(2, x_T, hint, ctx_c, ctx_u, sampler=s) for s in ("dpmpp", "dpmpp-karras")]
+    assert not torch.equal(z[0], z[1])
+
+
+@pytest.mark.parametrize("seeds", [None, [11]])
+def test_euler_a_noise_is_drawn_outside_the_loop(rt, seeds):
+    """Euler-a's step noise is an engine input (steps, B, h, w, 4) drawn from
+    generator= (or seeds= row by row) before the call, as DDIM's eta noise;
+    handed in as noise= it gives the same latents; the last step, to sigma
+    0, draws none."""
+    x_T, hint, ctx_c, ctx_u = _inputs()
+    gen = torch.Generator().manual_seed(4)
+    kw = dict(sampler="euler-a", seeds=seeds) if seeds else dict(sampler="euler-a")
+    first = None if seeds else x_T
+    spec, args = rt._loop_inputs(3, first, hint, ctx_c, ctx_u, 9.0, 1.0, 0.0, False, gen,
+                                 None, None, None, None, 1, 0.0, None, None, None, seeds,
+                                 "euler-a")
+    noise = args[6]
+    assert noise.shape == (3, 1, 8, 8, 4) and noise[:2].abs().sum() > 0
+    assert torch.equal(noise[2], torch.zeros_like(noise[2]))
+    z = rt.sample(3, args[0] if seeds else x_T, hint, ctx_c, ctx_u, noise=list(noise),
+                  sampler="euler-a")
+    again = rt.sample(3, None if seeds else x_T, hint, ctx_c, ctx_u,
+                      generator=torch.Generator().manual_seed(4), **kw)
+    assert torch.equal(z, again)
+    other = rt.sample(3, x_T, hint, ctx_c, ctx_u, sampler="euler-a",
+                      generator=torch.Generator().manual_seed(5))
+    assert not torch.equal(other, z)
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -56,9 +56,54 @@ def test_the_walk_covers_the_port():
                  "stablediffusioneo_tpu_torch/ops/kernels/attention.py",
                  "stablediffusioneo_tpu_torch/models/tokenizer.py",
                  "stablediffusioneo_tpu_torch/checkpoint/torch_reader.py",
-                 "stablediffusioneo_tpu_torch/pipeline/hackathon.py"):
+                 "stablediffusioneo_tpu_torch/pipeline/hackathon.py",
+                 "stablediffusioneo_tpu_torch/pipeline/plms.py",
+                 "stablediffusioneo_tpu_torch/pipeline/dpm_solver.py",
+                 "stablediffusioneo_tpu_torch/pipeline/unipc.py",
+                 "stablediffusioneo_tpu_torch/pipeline/k_diffusion.py",
+                 "stablediffusioneo_tpu_torch/ops/tome.py"):
         assert must in names
-    assert len(names) >= 30
+    assert len(names) >= 35
+
+
+# numpy-only functions of the JAX package the port keeps its own copy of,
+# under the same name: (port module, JAX module, name)
+COPIES = [
+    ("pipeline.dpm_solver", "pipeline.dpm_solver", "dpmpp_schedule"),
+    ("pipeline.k_diffusion", "pipeline.k_diffusion", "kdiff_schedule"),
+    ("ops.tome", "ops.tome", "_dst_src_partition"),
+    ("ops.tome", "ops.tome", "merge_count"),
+]
+
+
+@pytest.mark.parametrize("port_mod,jax_mod,name", COPIES, ids=[c[2] for c in COPIES])
+def test_numpy_copies_are_their_originals(port_mod, jax_mod, name):
+    """The copy's source is the original's, line for line, and it gives the
+    original's results (schedules on the SD-1.5 DDPM schedule for 1, 2, 7 and
+    20 steps in both spacings; partitions and merge counts over grids)."""
+    import importlib
+    import inspect
+
+    port = getattr(importlib.import_module(f"stablediffusioneo_tpu_torch.{port_mod}"), name)
+    ref = getattr(importlib.import_module(f"stablediffusioneo_tpu.{jax_mod}"), name)
+    assert inspect.getsource(port) == inspect.getsource(ref)
+    if name.endswith("_schedule"):
+        from stablediffusioneo_tpu.ops.schedule import DiffusionSchedule as JaxSchedule
+        from stablediffusioneo_tpu_torch.ops.schedule import DiffusionSchedule
+
+        for n in (1, 2, 7, 20):
+            for spacing in ("uniform", "karras"):
+                got, want = port(DiffusionSchedule(), n, spacing), ref(JaxSchedule(), n, spacing)
+                assert got.keys() == want.keys()
+                assert all(np.array_equal(got[k], want[k]) for k in want)
+    else:
+        args = (0.5,) if name == "merge_count" else (2, 2)
+        for h, w in ((8, 8), (64, 64), (7, 9), (128, 96)):
+            got, want = port(h, w, *args), ref(h, w, *args)
+            if name == "merge_count":
+                assert got == want
+            else:
+                assert all(np.array_equal(a, b) for a, b in zip(got, want))
 
 
 def test_tiny_process_runs_with_both_packages_blocked():

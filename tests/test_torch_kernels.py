@@ -120,10 +120,12 @@ def test_main_path_rows_cover_the_sites_the_redesign_names():
                  ("fused_attention_packed", (2, 4096, 320), 77),
                  # a long prompt's cross-attention at 2 and 3 windows
                  ("fused_attention_packed", (2, 4096, 320), 154),
-                 ("fused_attention_packed", (2, 1024, 640), 231)):
+                 ("fused_attention_packed", (2, 1024, 640), 231),
+                 # a level-0 self-attention after token merging at ratio 0.5
+                 ("fused_attention_packed", (2, 2048, 320), 2048)):
         assert want in rows, want
-    # 12 of the 512x512 and 1024x1024 requests, 4 of the long prompts
-    assert len(ROWS) == 16
+    # 12 of the 512x512 and 1024x1024 requests, 4 of the long prompts, 1 of ToMe
+    assert len(ROWS) == 17
 
 
 @pytest.mark.parametrize("dtype,d,tq,s,aligned,want", [

@@ -104,11 +104,42 @@ def test_guess_mode_matches_jax(pipes, slice_inputs):
     assert np.abs(out[1].astype(int) - ref[1].astype(int)).max() <= 1
 
 
-@pytest.mark.parametrize("kwargs", [{"sampler": "dpmpp"}, {"tome_ratio": 0.5}])
+@pytest.mark.parametrize("kwargs", [
+    {"sampler": "dpmpp", "inpaint_mask": np.full((64, 64), 255, np.uint8)},
+    {"sampler": "plms", "eta": 0.5}])
 def test_features_outside_the_slice_raise(pipes, slice_inputs, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The JAX package's guards on the samplers, in its error type and words:
+    inpainting is a DDIM-path feature, and PLMS takes eta 0 only. process()
+    refuses both before any work: no engine is built."""
+    match = {"dpmpp": "inpainting is a DDIM-path feature",
+             "plms": "PLMS requires eta == 0"}[kwargs["sampler"]]
+    if "inpaint_mask" in kwargs:
+        kwargs = dict(kwargs, inpaint_image=slice_inputs["image"])
+    rt = pipes[1].runtime
+    engines = dict(rt._engines)
+    with pytest.raises(ValueError, match=match):
         pipes[1].process(slice_inputs["image"], "a bird", image_resolution=64,
                          ddim_steps=1, **kwargs)
+    assert rt._engines == engines
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    ({"hires_upscale": 2.0}, "img2img .* is a DDIM-path feature"),
+    ({"init_image": np.zeros((64, 64, 3), np.uint8)}, "img2img .* is a DDIM-path feature"),
+    ({"encoder_cache_interval": 2}, "encoder_cache_interval is a DDIM-path feature"),
+    ({"sampler": "lms"}, "unknown sampler 'lms'"),
+], ids=["hires", "img2img", "encoder_cache", "unknown"])
+def test_ddim_path_features_refuse_other_samplers(pipes, slice_inputs, kwargs, match):
+    """The JAX package's refusals of what only its DDIM path does, raised by
+    process() before any work (the JAX package raises the same words when it
+    reaches the engine)."""
+    kwargs = {"sampler": "euler", **kwargs}
+    rt = pipes[1].runtime
+    engines = dict(rt._engines)
+    with pytest.raises(ValueError, match=match):
+        pipes[1].process(slice_inputs["image"], "a bird", image_resolution=64,
+                         ddim_steps=2, **kwargs)
+    assert rt._engines == engines
 
 
 def test_reference_defaults_are_accepted_by_name(pipes, slice_inputs):
