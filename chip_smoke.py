@@ -77,7 +77,28 @@ source, all started together), then:
      14 cross-attention sites a step at S = 231), long_prompt="auto" on a
      prompt of two windows (S = 154) and prompt_emphasis=True;
   7. the reference's surface: hackathon(...).initialize(), then one request
-     with the 14 positional arguments and 2 samples: 2 images, no map.
+     with the 14 positional arguments and 2 samples: 2 images, no map;
+  8. SD-2.1 ("sd21 768"): Canny2ImagePipeline.process with
+     sd21_pipeline(dtype="bfloat16") (OpenCLIP ViT-H 24x1024 penultimate,
+     heads of 64 channels, v-prediction) at 768x768 as a main path above,
+     seeded weights: 560 packed attention launches a request (5 and 10
+     heads) and one split;
+  9. SDXL base txt2img at 1024x1024, 20 DDIM steps, scale 5, batch 1, bf16,
+     weights drawn on the card ("sdxl 1024", and "sdxl 1024, fused norms"):
+     sdxl_conditioning through both towers from the BPE tokenizer (their
+     device time printed apart), then one captured sample+decode Engine
+     (runtime/engine.py:sdxl_sample_decode_engine; capture seconds, graph
+     nodes, pool bytes, peak memory): a warm-up, two timed replays, one
+     eager request equal to the replay in bytes, one traced replay; 2,800
+     packed launches (10 and 20 heads) and one split a request;
+  10. the seeded SDXL's sgm-layout state dict (bf16, 2,515 keys with the two
+     OpenCLIP leftovers) written to a temporary directory (its free bytes
+     printed first) and read back by load_sdxl_pipeline onto the card: every
+     key consumed or named, none orphaned, the seeded image in bytes.
+The kernel phase also takes every attention shape of the SD-2.1 and SDXL
+requests (heads of 64 channels; the 768x768 decode's (1, 1, 9216, 512)) and
+the gated GroupNorm sites of an SDXL step; each attention row names the
+passes that give it.
 Launch counts must equal what the UNet, ControlNet, VAE and CLIP plans and
 the dispatch gates imply. Any failed check raises, so the script exits
 non-zero and prints no result. The last line is {"ok": true, "device":
@@ -92,6 +113,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -145,6 +167,9 @@ HIRES_T_ENC = max(1, min(STEPS, int(round(HIRES_DENOISE * STEPS))))
 IMG2IMG_STRENGTH = 0.75
 IMG2IMG_T_ENC = max(1, min(STEPS, int(round(IMG2IMG_STRENGTH * STEPS))))
 TOME_RATIO = 0.5
+# the other families: SD-2.1 (ControlNet, v) at 768x768; SDXL base txt2img at
+# 1024x1024 with the JAX bench's guidance scale
+SD21_RES, SDXL_RES, SDXL_SCALE = 768, 1024, 5.0
 PROMPT = "a house in the woods"
 # with the smoke's BPE vocabulary (pairs of characters) and WINDOW_TEXTS,
 # about 220 tokens (3 windows of 75) and about 100 (2 windows)
@@ -178,6 +203,9 @@ RUNS = {
     "euler-a": {"process": {"sampler": "euler-a"}},
     "heun": {"process": {"sampler": "heun"}},
     "tome 0.5": {"process": {"tome_ratio": TOME_RATIO}},
+    "sd21 768": {"family": "sd21", "res": SD21_RES},
+    "sdxl 1024": {"family": "sdxl", "res": SDXL_RES},
+    "sdxl 1024, fused norms": {"family": "sdxl", "res": SDXL_RES, "norms": True},
 }
 # the other sampler names, at 4 steps (sampler_variants)
 SAMPLER_VARIANTS = ("plms", "dpmpp", "unipc", "unipc-karras", "euler", "euler-uniform",
@@ -447,7 +475,7 @@ def kernel_phase(cfg):
         return randn((c,), dtype, 0.1, 1.0), randn((c,), dtype, 0.1)
 
     results = {name: [] for name in KERNELS}
-    for name, q_shape, s, heads in attention_rows(cfg):
+    for (name, q_shape, s, heads), paths in attention_rows(cfg, paths=True).items():
         if name == "fused_attention":
             kv_shape = q_shape[:2] + (s, q_shape[3])
             batch, tq, d = q_shape[0], q_shape[2], q_shape[3]
@@ -467,7 +495,7 @@ def kernel_phase(cfg):
                 *(t.view(batch, -1, heads, d).transpose(1, 2) for t in (q, k, v)))
         ops, _, exps = attention_work(batch, heads, tq, s, d)
         row = measure(
-            name, {"q": list(q_shape), "s": s, "heads": heads}, kern, plain,
+            name, {"q": list(q_shape), "s": s, "heads": heads, "paths": paths}, kern, plain,
             lambda dt: (randn(q_shape, dt), randn(kv_shape, dt), randn(kv_shape, dt)),
             ops=ops, peak=PEAK_BF16, library=library, variants=ka.variant_launches)
         # a second figure beside the bound: one exp per logit on the
@@ -500,9 +528,11 @@ def kernel_phase(cfg):
         results["quantized_matmul"].append(row)
         del w, w_q, w_scale, w_bf16
 
-    # the one-pass GroupNorm at every gated main-path site, channels-last
+    # the one-pass GroupNorm at every gated main-path site of a step, SD-1.5
+    # at 512x512 and SDXL at 1024x1024, channels-last
     gn_sites = sorted({(shape, swish, groups)
-                       for kind, shape, swish, groups in norm_sites(cfg, RES)["step"]
+                       for pcfg, res in ((cfg, RES), (family_configs()[1], SDXL_RES))
+                       for kind, shape, swish, groups in norm_sites(pcfg, res)["step"]
                        if kind == "gn" and gated((kind, shape, swish, groups),
                                                  torch.bfloat16)})
     for shape, swish, groups in gn_sites:
@@ -566,21 +596,33 @@ def kernel_phase(cfg):
 # ------------------------------------------------- launches the plans imply
 
 
+def has_control(cfg):
+    """Whether the family's evaluation runs a ControlNet (SD-1.5, SD-2.1;
+    not SDXL base)."""
+    return hasattr(cfg, "controlnet")
+
+
+def text_length(cfg):
+    """Tokens of one prompt window: 77."""
+    return (cfg.clip if hasattr(cfg, "clip") else cfg.clip_l).max_length
+
+
 def _transformer_sites(cfg, lat):
     """(channels, latent side) of every transformer block one DDIM step runs:
-    the UNet's input, middle and output blocks and the ControlNet's input
-    and middle blocks."""
+    the UNet's input, middle and output blocks and, with a ControlNet, its
+    input and middle blocks."""
     from stablediffusioneo_tpu_torch.models.unet import decoder_plan, encoder_plan
 
     ucfg = cfg.unet
+    nets = 2 if has_control(cfg) else 1
     levels = len(ucfg.channel_mult)
     mid = (ucfg.model_channels * ucfg.channel_mult[-1], lat // 2 ** (levels - 1))
     sites = []
-    for plan, copies in ((encoder_plan(ucfg), 2), (decoder_plan(ucfg), 1)):
+    for plan, copies in ((encoder_plan(ucfg), nets), (decoder_plan(ucfg), 1)):
         for d in plan:
             if d["attn"]:
                 sites += [(d["cout"], lat // d["ds"])] * (copies * d["depth"])
-    return sites + [mid] * (2 * ucfg.depth_for(levels - 1))
+    return sites + [mid] * (nets * ucfg.depth_for(levels - 1))
 
 
 def attention_sites(cfg, res, batch=2, ctx_len=None, tome_ratio=0.0):
@@ -592,7 +634,7 @@ def attention_sites(cfg, res, batch=2, ctx_len=None, tome_ratio=0.0):
     left after merging (ops/tome.py:merge_count)."""
     from stablediffusioneo_tpu_torch.ops.tome import merge_count
 
-    ucfg = cfg.controlnet.unet
+    ucfg = cfg.unet
     sites = []
     for c, side in _transformer_sites(cfg, res // cfg.vae.downsample_factor):
         n, heads = side * side, cfg.unet.heads_for(c)
@@ -600,7 +642,7 @@ def attention_sites(cfg, res, batch=2, ctx_len=None, tome_ratio=0.0):
         if tome_ratio and n >= ucfg.tome_min_tokens:
             kept = n - merge_count(side, side, tome_ratio, ucfg.tome_sx, ucfg.tome_sy)
         sites += [((batch, kept, c), kept, heads),
-                  ((batch, n, c), ctx_len or cfg.clip.max_length, heads)]
+                  ((batch, n, c), ctx_len or text_length(cfg), heads)]
     return sites
 
 
@@ -632,27 +674,48 @@ def expected_launches(cfg, res, dtype=torch.bfloat16, ctx_len=None, tome_ratio=0
     return step, int(lat * lat >= ATTN_MIN_TQ)
 
 
-def attention_rows(cfg):
+def family_configs():
+    """The SD-2.1 and SDXL-base configurations of the "sd21 768" and "sdxl
+    1024" runs, bf16."""
+    from stablediffusioneo_tpu_torch.config import sd21_pipeline
+    from stablediffusioneo_tpu_torch.models.sdxl import SDXLConfig
+
+    return sd21_pipeline(dtype="bfloat16"), SDXLConfig()
+
+
+def kernel_passes(cfg):
+    """(name, configuration, resolution, context length, ToMe ratio) of each
+    pass whose shapes the kernel phase takes: the SD-1.5 (cfg) 512x512
+    request, its 1024x1024 hires pass, its long-prompt windows (S = 154,
+    231) and token merging (S = 2048 at TOME_RATIO), then the SD-2.1 768x768
+    and SDXL 1024x1024 requests."""
+    sd21, sdxl = family_configs()
+    window = text_length(cfg)
+    return ([("sd15 512", cfg, RES, None, 0.0), ("sd15 hires 1024", cfg, HIRES_RES, None, 0.0)]
+            + [(f"sd15 512, {n} windows", cfg, RES, n * window, 0.0) for n in (2, 3)]
+            + [("sd15 512, tome 0.5", cfg, RES, None, TOME_RATIO),
+               ("sd21 768", sd21, SD21_RES, None, 0.0),
+               ("sdxl 1024", sdxl, SDXL_RES, None, 0.0)])
+
+
+def attention_rows(cfg, paths=False):
     """(entry, q shape, key length, heads) of every distinct kernel-gated
-    attention call of the 512x512 request, of the 1024x1024 hires pass, of
-    the 512x512 request's long-prompt cross-attention (S = 154, 231) and of
-    its self-attention after token merging (S = 2048 at TOME_RATIO)."""
-    rows = []
-    passes = [(RES, None, 0.0), (HIRES_RES, None, 0.0)]
-    passes += [(RES, n * cfg.clip.max_length, 0.0) for n in (2, 3)]
-    passes.append((RES, None, TOME_RATIO))
-    for res, ctx_len, tome_ratio in passes:
-        for q_shape, s, heads in attention_sites(cfg, res, ctx_len=ctx_len,
+    attention call of the kernel_passes (the VAE decode's mid-block of each
+    resolution among them); with paths=True also {row: names of the passes
+    that give it}."""
+    rows = {}
+    for name, pcfg, res, ctx_len, tome_ratio in kernel_passes(cfg):
+        for q_shape, s, heads in attention_sites(pcfg, res, ctx_len=ctx_len,
                                                  tome_ratio=tome_ratio):
             route = attention_route(q_shape, s, torch.bfloat16)
-            if route and (route, q_shape, s, heads) not in rows:
-                rows.append((route, q_shape, s, heads))
-        lat = res // cfg.vae.downsample_factor
-        row = ("fused_attention", (1, 1, lat * lat, cfg.vae.ch * cfg.vae.ch_mult[-1]),
+            if route:
+                rows.setdefault((route, q_shape, s, heads), []).append(name)
+        lat = res // pcfg.vae.downsample_factor
+        row = ("fused_attention", (1, 1, lat * lat, pcfg.vae.ch * pcfg.vae.ch_mult[-1]),
                lat * lat, 1)
-        if row not in rows:
-            rows.append(row)
-    return rows
+        rows.setdefault(row, []).append(name)
+    rows = {row: sorted(set(names), key=names.index) for row, names in rows.items()}
+    return rows if paths else list(rows)
 
 
 def quant_sites(cfg, res, batch=2):
@@ -750,28 +813,38 @@ def _vae_encoder_norms(vcfg, res, batch):
                     gn(bi, side), gn(bi, side)]
 
 
+def _tower_norms(clip, pooled=False):
+    """LayerNorm calls of one text-tower forward on the cond and uncond
+    prompts: two a block it runs (all for "last" or with the pooled output,
+    else all but the last) and the final LN where its output takes it."""
+    blocks = clip.num_layers if clip.layer == "last" or pooled else clip.num_layers - 1
+    finals = int(clip.layer != "penultimate_raw") + int(pooled)
+    return [("ln", (2, clip.max_length, clip.hidden_size), False, 0)] * (2 * blocks + finals)
+
+
 def norm_sites(cfg, res, samples=1):
     """Every GroupNorm and LayerNorm call of a request, from the plans, as
-    (kind, shape, swish, groups): "step" = one DDIM step (UNet and
-    ControlNet on the CFG batch), "decode" = the VAE decode, "prompt" = the
-    CLIP tower on the cond and uncond prompts."""
+    (kind, shape, swish, groups): "step" = one DDIM step (UNet and, where
+    the family has one, ControlNet on the CFG batch), "decode" = the VAE
+    decode, "prompt" = the text towers on the cond and uncond prompts (SDXL:
+    CLIP-L, then bigG with its pooled output)."""
     lat = res // cfg.vae.downsample_factor
-    clip = cfg.clip
-    return {
-        "step": (_unet_norms(cfg.unet, lat, 2 * samples, True)
-                 + _unet_norms(cfg.controlnet.unet, lat, 2 * samples, False)),
-        "decode": _vae_norms(cfg.vae, lat, samples),
-        "prompt": [("ln", (2, clip.max_length, clip.hidden_size), False, 0)]
-                  * (2 * clip.num_layers + 1),
-    }
+    step = _unet_norms(cfg.unet, lat, 2 * samples, True)
+    if has_control(cfg):
+        step += _unet_norms(cfg.controlnet.unet, lat, 2 * samples, False)
+    prompt = (_tower_norms(cfg.clip) if hasattr(cfg, "clip")
+              else _tower_norms(cfg.clip_l) + _tower_norms(cfg.clip_g, pooled=True))
+    return {"step": step, "decode": _vae_norms(cfg.vae, lat, samples), "prompt": prompt}
 
 
 def layer_norm_shapes(cfg):
     """The distinct kernel-gated LayerNorm shapes of a step of the 512x512
-    request, then those of the 1024x1024 hires pass."""
+    request, then those of the 1024x1024 hires pass and of the SDXL
+    1024x1024 request (the same widths: 640 and 1280 at 4096 and 1024
+    tokens)."""
     shapes = []
-    for res in (RES, HIRES_RES):
-        for site in norm_sites(cfg, res)["step"]:
+    for pcfg, res in ((cfg, RES), (cfg, HIRES_RES), (family_configs()[1], SDXL_RES)):
+        for site in norm_sites(pcfg, res)["step"]:
             if site[0] == "ln" and gated(site, torch.bfloat16) and site[1] not in shapes:
                 shapes.append(site[1])
     return shapes
@@ -802,8 +875,14 @@ def sampler_evals(sampler, steps):
     return {"plms": steps + 1, "heun": 2 * steps - 1}.get(_canon_sampler(sampler), steps)
 
 
+def run_res(config):
+    """The resolution a request of this run is made at (the hires run's
+    first pass)."""
+    return RUNS[config].get("res", RES)
+
+
 def run_evals(config):
-    """Evaluations of the nets a request of this run takes at 512x512."""
+    """Evaluations of the nets a request of this run takes."""
     spec = RUNS[config]
     return sampler_evals(spec.get("process", {}).get("sampler", "ddim"),
                          IMG2IMG_T_ENC if spec.get("init") else STEPS)
@@ -818,7 +897,7 @@ def expected_layer_norm_plans(cfg, config):
     if not RUNS[config].get("norms"):
         return want
     for part, times in (("step", run_evals(config)), ("decode", 1), ("prompt", 1)):
-        for site in norm_sites(cfg, RES)[part]:
+        for site in norm_sites(cfg, run_res(config))[part]:
             if site[0] == "ln" and gated(site, torch.bfloat16):
                 plan = layer_norm_plan(math.prod(site[1][:-1]), site[1][-1],
                                        torch.bfloat16, torch.bfloat16)
@@ -827,7 +906,7 @@ def expected_layer_norm_plans(cfg, config):
 
 
 def run_ctx_len(cfg, config):
-    return RUNS[config].get("windows", 1) * cfg.clip.max_length
+    return RUNS[config].get("windows", 1) * text_length(cfg)
 
 
 def expected_request_launches(cfg, config):
@@ -837,7 +916,8 @@ def expected_request_launches(cfg, config):
     ctx_len = run_ctx_len(cfg, config)
     tome_ratio = spec.get("process", {}).get("tome_ratio", 0.0)
     want = dict.fromkeys(KERNELS, 0)
-    passes = [(RES, steps)] + ([(HIRES_RES, HIRES_T_ENC)] if config == "hires" else [])
+    passes = [(run_res(config), steps)] + ([(HIRES_RES, HIRES_T_ENC)] if config == "hires"
+                                           else [])
     by_key = {}
     for res, n_steps in passes:  # the hires base pass is not decoded
         step, per_decode = expected_launches(cfg, res, ctx_len=ctx_len, tome_ratio=tome_ratio)
@@ -849,7 +929,7 @@ def expected_request_launches(cfg, config):
     encodes = int(bool(spec.get("init") or spec.get("inpaint")))
     want["fused_attention"] = per_decode * (1 + encodes)  # the encoder's mid-block too
     if spec.get("norms"):
-        sites = norm_sites(cfg, RES)
+        sites = norm_sites(cfg, run_res(config))
         step, decode, prompt = (norm_launches(sites[k], torch.bfloat16)
                                 for k in ("step", "decode", "prompt"))
         encode = norm_launches(_vae_encoder_norms(cfg.vae, RES, 1), torch.bfloat16)
@@ -976,8 +1056,8 @@ def smoke_mask():
 def run_kwargs(config):
     """process() keyword arguments of one main-path run, images included."""
     spec = RUNS[config]
-    kw = dict(num_samples=1, image_resolution=RES, ddim_steps=STEPS, scale=SCALE,
-              eta=0.0, strength=1.0, **spec.get("process", {}))
+    kw = dict(num_samples=1, image_resolution=run_res(config), ddim_steps=STEPS,
+              scale=SCALE, eta=0.0, strength=1.0, **spec.get("process", {}))
     if spec.get("init"):
         kw.update(init_image=smoke_source(), denoise_strength=IMG2IMG_STRENGTH)
     if spec.get("inpaint"):
@@ -1012,7 +1092,7 @@ def main_path(model, cfg, config, tokenizer=stand_in_tokenizer):
     img = smoke_image()
     kw = run_kwargs(config)
     prompt = spec.get("prompt", PROMPT)
-    res = HIRES_RES if config == "hires" else RES
+    res = HIRES_RES if config == "hires" else run_res(config)
     t0 = time.perf_counter()
     pipe.process(img, prompt, seed=0, **kw)
     engines = {e.name: e.get_engine_infor() for e in rt._engines.values()}
@@ -1123,6 +1203,219 @@ def main_path(model, cfg, config, tokenizer=stand_in_tokenizer):
     return {"launches": launches, "key_lengths": key_lengths, "latencies": latencies,
             "eager_latency": eager_latency, "image": images[0], "traced": traced,
             "engines": engines, "replay_ms": replays}
+
+
+def build_sdxl(seed):
+    """SDXL base at full width (2.57 B UNet parameters), its weights drawn on
+    the card from a seed (models/cldm.py:init_weights), in bf16."""
+    from stablediffusioneo_tpu_torch.models.cldm import init_weights
+    from stablediffusioneo_tpu_torch.models.sdxl import SDXL
+
+    with torch.device("meta"):
+        model = SDXL(family_configs()[1])
+    model.to_empty(device="cuda")
+    init_weights(model, torch.Generator(device="cuda").manual_seed(seed))
+    return model.to(torch.bfloat16).eval().requires_grad_(False)
+
+
+def sdxl_ids(tokenizer):
+    """Both towers' ids (sdxl_tokenize) of the prompt and the empty prompt,
+    on the card."""
+    from stablediffusioneo_tpu_torch.models.sdxl import sdxl_tokenize
+
+    return [torch.as_tensor(a, dtype=torch.long, device="cuda")
+            for a in sdxl_tokenize(tokenizer, [PROMPT, ""])]
+
+
+def sdxl_request(model, eng, ids, seed):
+    """One SDXL request: both towers' conditioning of the prompt and the
+    empty prompt (eagerly, outside the engine, as the JAX bench), then the
+    sample+decode engine on x_T drawn from the seed. Returns the image on the
+    host and the latents."""
+    from stablediffusioneo_tpu_torch.models.sdxl import sdxl_conditioning
+
+    with torch.no_grad():
+        ctx, y = sdxl_conditioning(model, ids[0], ids[1], (SDXL_RES, SDXL_RES))
+    lat = SDXL_RES // model.cfg.vae.downsample_factor
+    x = torch.randn((1, lat, lat, 4), generator=torch.Generator(device="cuda").manual_seed(seed),
+                    device="cuda").to(torch.bfloat16)
+    img, z = eng(x, ctx[:1], ctx[1:], y[:1], y[1:],
+                 torch.full((1,), SDXL_SCALE, device="cuda"))
+    return img[0].cpu().numpy(), z
+
+
+def sdxl_path(model, config, tokenizer):
+    """SDXL base txt2img at 1024x1024, 20 DDIM steps, scale 5, batch 1, as a
+    main path: the text towers timed apart; the sample+decode engine captured
+    (a warm-up request), two timed replayed requests, one eager request
+    (capture=False) with the first one's seed whose image must equal the
+    replayed one in bytes, one traced replayed request; launches held to the
+    plans (140 packed attention launches an evaluation, one split a
+    decode), every attention launch on a tensor-core variant."""
+    from stablediffusioneo_tpu_torch.models.sdxl import sdxl_conditioning
+    from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.ops.kernels.attention import (
+        key_length_launches,
+        variant_launches,
+    )
+    from stablediffusioneo_tpu_torch.ops.kernels.groupnorm import plan_launches as gn_plans
+    from stablediffusioneo_tpu_torch.ops.kernels.layernorm import plan_launches as ln_plans
+    from stablediffusioneo_tpu_torch.runtime.engine import sdxl_sample_decode_engine
+
+    cfg = model.cfg
+    fused = bool(RUNS[config].get("norms"))
+    dispatch.set_kernels(groupnorm=fused, layernorm=fused)
+    ids = sdxl_ids(tokenizer)
+    with torch.no_grad():
+        towers_ms = device_ms(lambda: sdxl_conditioning(model, ids[0], ids[1],
+                                                        (SDXL_RES, SDXL_RES)), calls=5)
+    print(f"sdxl ({config}) text towers (CLIP-L penultimate + bigG with its pooled "
+          f"output, cond and uncond as one batch of 2): device {towers_ms:.3f} ms",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = sdxl_sample_decode_engine(model, STEPS, 1, SDXL_RES, SDXL_RES)
+    sdxl_request(model, eng, ids, 0)
+    warm_s = time.perf_counter() - t0
+    info = eng.get_engine_infor()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"sdxl ({config}) warm-up request: {warm_s:.3f} s, of which the capture "
+          f"{info['compile_seconds']:.3f} s; graph nodes {info['device_ops']}, graph pool "
+          f"{info['memory']['pool_bytes']} bytes, peak memory allocated {peak} bytes",
+          flush=True)
+    if not eng.compiled:
+        raise AssertionError("the SDXL engine was not captured")
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    for counter in (variant_launches, gn_plans, ln_plans, key_length_launches):
+        counter.clear()
+    images, latencies = [], []
+    for seed in (1, 2):
+        t0 = time.perf_counter()
+        img, z = sdxl_request(model, eng, ids, seed)
+        latencies.append(time.perf_counter() - t0)
+        lat = SDXL_RES // cfg.vae.downsample_factor
+        if not (torch.isfinite(z).all() and z.shape == (1, lat, lat, 4)
+                and img.shape == (SDXL_RES, SDXL_RES, 3) and img.dtype == np.uint8):
+            raise AssertionError(f"sdxl latents {tuple(z.shape)} not finite or image "
+                                 f"{img.shape} {img.dtype}")
+        images.append(img)
+        print(f"sdxl ({config}) replayed request seed={seed}: {latencies[-1]:.4f} s; max |z| "
+              f"{z.abs().max().item():.3f}", flush=True)
+    launches = dict(dispatch.launches)
+    variants, gn, ln = dict(variant_launches), dict(gn_plans), dict(ln_plans)
+    key_lengths = {s: n for s, n in key_length_launches.items() if n}
+    eager_eng = sdxl_sample_decode_engine(model, STEPS, 1, SDXL_RES, SDXL_RES, capture=False)
+    t0 = time.perf_counter()
+    eager = sdxl_request(model, eager_eng, ids, 1)[0]
+    eager_latency = time.perf_counter() - t0
+    differ = int((eager != images[0]).sum())
+    print(f"sdxl ({config}) eager request seed=1: {eager_latency:.4f} s; bytes that differ "
+          f"from the replayed image: {differ} of {eager.size}", flush=True)
+    if differ:
+        raise AssertionError(f"the replayed SDXL image ({config}) differs from the eager "
+                             f"one in {differ} bytes")
+    want, want_keys = expected_request_launches(cfg, config)
+    want_keys = {s: n for s, n in want_keys.items() if n}
+    print(f"sdxl ({config}) kernel launches over the 2 replayed requests: {launches} "
+          f"(expected {want}); by key length {key_lengths} (expected {want_keys}); by "
+          f"variant {variants}; GroupNorm plans { {str(p): n for p, n in gn.items()} }; "
+          f"LayerNorm plans { {str(p): n for p, n in ln.items()} }", flush=True)
+    want_variants = {"wgmma": want["fused_attention_packed"],
+                     "wgmma_split": want["fused_attention"]}
+    if (launches != want or key_lengths != want_keys
+            or {k: v for k, v in variants.items() if v}
+            != {k: v for k, v in want_variants.items() if v}
+            or sum(gn.values()) != want["fused_group_norm"]
+            or ln != expected_layer_norm_plans(cfg, config)):
+        raise AssertionError(f"sdxl launches ({config}) {launches}, {key_lengths}, "
+                             f"{variants}, {gn}, {ln} != {want}, {want_keys}")
+    if np.array_equal(images[0], images[1]):
+        raise AssertionError("two seeds gave the same SDXL image")
+    print(f"sdxl image stats ({config}): mean {images[0].mean():.2f} std "
+          f"{images[0].std():.2f}", flush=True)
+    trace = traced_request(lambda: sdxl_request(model, eng, ids, 3))
+    traced = None
+    if trace is None:
+        print(f"sdxl ({config}) traced replayed request: not measured (the profiler gave "
+              "no device events)", flush=True)
+    else:
+        ms, parts, n_ops = trace
+        traced = {"device_ms": ms, "device_ops": n_ops,
+                  **{f"{family}_ms": part for family, part in parts.items()}}
+        print(f"sdxl ({config}) traced replayed request (text towers included): device "
+              f"time {ms:.1f} ms in {n_ops} device operations; this package's kernels, ms: "
+              + ", ".join(f"{family} {part:.1f}" for family, part in parts.items()),
+              flush=True)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    eng.replay()
+    end.record()
+    torch.cuda.synchronize()
+    replays = {eng.name: start.elapsed_time(end)}
+    print(f"sdxl ({config}) one replay of the engine by CUDA events: {replays} ms", flush=True)
+    dispatch.set_kernels(groupnorm=False, layernorm=False)
+    del eng, eager_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "key_lengths": key_lengths, "latencies": latencies,
+            "eager_latency": eager_latency, "image": images[0], "traced": traced,
+            "engines": {f"sdxl+decode_{STEPS}x1x{SDXL_RES}x{SDXL_RES}": info},
+            "replay_ms": replays, "text_towers_ms": towers_ms, "peak_bytes": peak,
+            "warm_s": warm_s}
+
+
+def sdxl_checkpoint_phase(model, tokenizer, want_image):
+    """The seeded SDXL's state dict in sgm's layout (bf16; with the two
+    OpenCLIP leftovers a real file carries, 2,515 keys) written with
+    torch.save to a temporary directory and read back by load_sdxl_pipeline
+    onto the card: free bytes there first, seconds and bytes, every key
+    consumed or named, none orphaned; a request on the loaded model gives
+    `want_image` (the seeded model's) in bytes. A full disk fails the run."""
+    from stablediffusioneo_tpu_torch.checkpoint import load_sdxl_pipeline
+    from stablediffusioneo_tpu_torch.runtime.engine import sdxl_sample_decode_engine
+
+    sd = dict(model.state_dict())
+    t = model.cfg.clip_g.max_length
+    sd["conditioner.embedders.1.model.attn_mask"] = torch.full(
+        (t, t), float("-inf"), device="cuda").triu(1)
+    sd["conditioner.embedders.1.model.logit_scale"] = torch.tensor(4.6052, device="cuda")
+    with tempfile.TemporaryDirectory() as directory:
+        free = shutil.disk_usage(directory).free
+        print(f"sdxl checkpoint: {free} bytes free where the file is written", flush=True)
+        path = os.path.join(directory, "sd_xl_base_seeded.pth")
+        t0 = time.perf_counter()
+        torch.save(sd, path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = load_sdxl_pipeline(path, model.cfg, device="cuda",
+                                    dtype=next(model.parameters()).dtype)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    report = loaded.load_report
+    devices = {t.device.type for t in loaded.state_dict().values()}
+    print(f"sdxl checkpoint: {len(sd)} keys, {size} bytes written in {save_s:.2f} s, loaded "
+          f"onto the card in {load_s:.2f} s; consumed {len(report.consumed)}, ignored "
+          f"{sorted(report.ignored)}, orphans {len(report.orphans)}", flush=True)
+    held = len(loaded.state_dict())  # 2,513 at full width: sdxl_base less its 2 leftovers
+    if not (len(sd) == held + 2 and len(report.consumed) == held and len(report.ignored) == 2
+            and report.complete and devices == {"cuda"}):
+        raise AssertionError(f"sdxl checkpoint load: {len(report.consumed)} consumed, "
+                             f"{report.problems()}, devices {devices}")
+    del sd
+    eng = sdxl_sample_decode_engine(loaded, STEPS, 1, SDXL_RES, SDXL_RES)
+    out = sdxl_request(loaded, eng, sdxl_ids(tokenizer), 1)[0]
+    differ = int((out != want_image).sum())
+    print(f"sdxl checkpoint: the loaded model's request seed=1 differs from the seeded "
+          f"model's image in {differ} bytes", flush=True)
+    if differ:
+        raise AssertionError(f"the loaded SDXL gives another image ({differ} bytes)")
+    del eng, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bytes": size, "save_s": save_s, "load_s": load_s, "free_bytes": free}
 
 
 def loop_variants(model, cfg, steps=4):
@@ -1405,6 +1698,24 @@ def main():
               flush=True)
     hack = hackathon_phase(loaded, cfg, tokenizer)
     print(f"hackathon phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    del loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    sd21_cfg, _ = family_configs()
+    model = build_model(sd21_cfg, seed=0)
+    runs["sd21 768"] = main_path(model, sd21_cfg, "sd21 768")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"main path (sd21 768) done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    model = build_sdxl(seed=0)
+    for config in ("sdxl 1024", "sdxl 1024, fused norms"):
+        runs[config] = sdxl_path(model, config, tokenizer)
+        print(f"main path ({config}) done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+    sdxl_checkpoint = sdxl_checkpoint_phase(model, tokenizer, runs["sdxl 1024"]["image"])
+    del model
+    print(f"sdxl checkpoint phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     latencies = {config: r["latencies"] for config, r in runs.items()}
     eager = {config: r["eager_latency"] for config, r in runs.items()}
     base = runs["default"]["image"].astype(np.int16)
@@ -1440,8 +1751,11 @@ def main():
             "library_ms": None if None in library else sum(library),
             "shapes": rows,
         })
+    sdxl = {config: {k: runs[config][k] for k in ("text_towers_ms", "peak_bytes", "warm_s")}
+            for config in ("sdxl 1024", "sdxl 1024, fused norms")}
     print(json.dumps({"kernels": out, "request_s": latencies, "eager_request_s": eager,
                       "checkpoint": checkpoint, "hackathon": hack,
+                      "sdxl": sdxl, "sdxl_checkpoint": sdxl_checkpoint,
                       "sampler_variants_request_s": variants_s,
                       "encode_image_replay_ms": encode_ms,
                       "key_lengths": {config: r["key_lengths"] for config, r in runs.items()},

@@ -1,43 +1,104 @@
 """Checkpoints: reading a file, accounting for its keys, loading the model.
 
-`load_controlnet_pipeline(path)` is the counterpart of the JAX package's
-checkpoint/convert.py:load_controlnet_pipeline: a `control_sd15_*.pth` (or
-.ckpt, .safetensors) becomes a `ControlLDM` holding the file's weights. The
-port keeps the checkpoint's key names, so nothing is converted; every key is
-accounted for (checkpoint/accounting.py).
+The loaders are the counterparts of the JAX package's checkpoint/convert.py
+loaders of the same names: a file (.pth / .ckpt / .safetensors) becomes the
+port's model holding its weights.
+  load_controlnet_pipeline  control_sd15_* (or an SD-2.1 ControlNet file with
+                            cfg=sd21_pipeline()) -> ControlLDM
+  load_sd_pipeline          v1-5-pruned / v2-1_768-ema-pruned -> LatentDiffusion
+  load_sdxl_pipeline        sd_xl_base_1.0 (sgm layout) -> SDXL
+The port keeps the checkpoints' key names, so nothing is converted; every
+key is accounted for (checkpoint/accounting.py): per tree, each tree's
+documented leftovers by pattern under its prefix (the JAX jobs' ignore
+lists), and a key outside every tree that SD_KNOWN_UNUSED does not name is
+an orphan (the JAX `_load_concat_family`'s global-scope rule).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from stablediffusioneo_tpu_torch.checkpoint.accounting import account_checkpoint
+from stablediffusioneo_tpu_torch.checkpoint.accounting import (
+    HF_CLIP_IGNORES,
+    OPENCLIP_IGNORES,
+    account_checkpoint,
+    copy_checkpoint_,
+    tree_ignores,
+)
 from stablediffusioneo_tpu_torch.checkpoint.torch_reader import load_torch_state_dict
 from stablediffusioneo_tpu_torch.config import PipelineConfig, sd15_pipeline
 
 
+def _sd_trees(cfg: PipelineConfig, control: bool) -> Tuple[Tuple[str, Tuple[str, ...]], ...]:
+    """(prefix, documented leftovers) of each tree of an SD-1.x / 2.x file:
+    the text tower is OpenCLIP's under cond_stage_model.model. where
+    cfg.clip.layer is "penultimate" (SD-2.x), else HF CLIP's."""
+    from stablediffusioneo_tpu_torch.models.cldm import openclip_text
+
+    clip = (("cond_stage_model.model.", OPENCLIP_IGNORES) if openclip_text(cfg)
+            else ("cond_stage_model.transformer.", HF_CLIP_IGNORES))
+    return (("model.diffusion_model.", ()),) \
+        + ((("control_model.", ()),) if control else ()) \
+        + (("first_stage_model.", ()), clip)
+
+
+def _load(path: str, build: Callable[[], torch.nn.Module],
+          trees: Sequence[Tuple[str, Sequence[str]]], device, strict: bool,
+          dtype: Optional[torch.dtype], tag: str):
+    """Build on the meta device, account for every key of the file, then
+    materialise on `device` only and copy the weights in (in `dtype`, default
+    fp32), so the full width never passes through host memory twice.
+    strict=True raises ConversionAccountingError on any key the model does
+    not consume and that no tree's leftovers or SD_KNOWN_UNUSED name;
+    missing keys and wrong shapes raise either way. The accounting is kept
+    as `model.load_report`."""
+    sd = load_torch_state_dict(path)
+    with torch.device("meta"):
+        model = build()
+        if dtype is not None:
+            model.to(dtype)
+    report = account_checkpoint(model, sd, tree_ignores(trees)).assert_complete(
+        tag, orphans=strict)
+    model.to_empty(device=device)
+    copy_checkpoint_(model, sd)
+    model.load_report = report
+    return model.eval().requires_grad_(False)
+
+
 def load_controlnet_pipeline(path: str, cfg: Optional[PipelineConfig] = None,
-                             device="cuda", strict: bool = True):
+                             device="cuda", strict: bool = True,
+                             dtype: Optional[torch.dtype] = None):
     """The ControlLDM of `cfg` (default SD-1.5) holding the weights of the
-    checkpoint at `path`, in fp32 on `device`. The model is built on the
-    meta device and materialised on `device` only, so the full width never
-    passes through host memory twice. strict=True raises
-    ConversionAccountingError on any key the model does not consume and that
-    SD_KNOWN_UNUSED does not document; missing keys and wrong shapes raise
-    either way. The accounting is kept as `model.load_report`."""
+    checkpoint at `path` on `device`."""
     from stablediffusioneo_tpu_torch.models.cldm import ControlLDM
 
     cfg = cfg or sd15_pipeline()
-    sd = load_torch_state_dict(path)
-    with torch.device("meta"):
-        model = ControlLDM(cfg)
-    report = account_checkpoint(model, sd).assert_complete(
-        "controlnet_pipeline", orphans=strict)
-    model.to_empty(device=device)
-    with torch.no_grad():
-        for name, t in model.state_dict().items():
-            t.copy_(sd[name])
-    model.load_report = report
-    return model.eval().requires_grad_(False)
+    return _load(path, lambda: ControlLDM(cfg), _sd_trees(cfg, True), device, strict,
+                 dtype, "controlnet_pipeline")
+
+
+def load_sd_pipeline(path: str, cfg: Optional[PipelineConfig] = None,
+                     device="cuda", strict: bool = True,
+                     dtype: Optional[torch.dtype] = None):
+    """The LatentDiffusion (UNet, VAE, text tower; no control_model scope)
+    of a plain SD-1.x / 2.x checkpoint; sample it with
+    pipeline/concat_cond.py:sd_txt2img."""
+    from stablediffusioneo_tpu_torch.models.cldm import LatentDiffusion
+
+    cfg = cfg or sd15_pipeline()
+    return _load(path, lambda: LatentDiffusion(cfg), _sd_trees(cfg, False), device,
+                 strict, dtype, "sd_pipeline")
+
+
+def load_sdxl_pipeline(path: str, cfg=None, device="cuda", strict: bool = True,
+                       dtype: Optional[torch.dtype] = None):
+    """The SDXL (models/sdxl.py; default SDXLConfig()) of an SDXL-base
+    checkpoint in sgm's layout, its Linear-stored proj_in / proj_out
+    included."""
+    from stablediffusioneo_tpu_torch.models.sdxl import SDXL, SDXL_TREES, SDXLConfig
+
+    cfg = cfg or SDXLConfig()
+    return _load(path, lambda: SDXL(cfg), SDXL_TREES, device, strict, dtype,
+                 "sdxl_pipeline")

@@ -9,13 +9,23 @@ package's list) and orphans; and the model's own keys into those present
 with the right shape, missing, or of another shape. A strict load raises
 `ConversionAccountingError` naming the first orphans, missing keys and
 mismatches, as the JAX package's `ConversionReport.assert_complete` does.
+
+Two rules beyond names and shapes, both the JAX converters':
+  * a SpatialTransformer's proj_in / proj_out, held as a 1x1 conv (C, C, 1,
+    1), also takes the Linear weight (C, C) that SD-2.x and SDXL files store
+    (`_proj_conv`, convert.py); nothing else changes shape on load;
+  * a loader of several trees names each tree's documented leftovers by
+    pattern under its prefix (`tree_ignores`: `.*position_ids` for an HF
+    CLIP tower, `.*attn_mask` and `.*logit_scale` for an OpenCLIP one).
 """
 
 from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, Iterable, List, Mapping, Sequence, Tuple
+
+import torch
 
 import torch.nn as nn
 
@@ -54,12 +64,37 @@ SD_KNOWN_UNUSED: Tuple[str, ...] = (
 _UNUSED = [re.compile(p) for p in SD_KNOWN_UNUSED]
 
 
+# a SpatialTransformer's projections: block .1 of an input, middle or output
+# block (the VAE's attn_1.proj_out is not one)
+_PROJ = re.compile(r"(.*\.)?(input_blocks\.\d+|middle_block|output_blocks\.\d+)"
+                   r"\.1\.proj_(in|out)\.weight")
+
+# per-tree leftovers of the JAX loaders' jobs (convert.py:405-410, 609-615)
+HF_CLIP_IGNORES: Tuple[str, ...] = (r".*position_ids",)
+OPENCLIP_IGNORES: Tuple[str, ...] = (r".*attn_mask", r".*logit_scale")
+
+
 class ConversionAccountingError(RuntimeError):
     pass
 
 
 def known_unused(key: str) -> bool:
     return any(p.fullmatch(key) for p in _UNUSED)
+
+
+def tree_ignores(trees: Iterable[Tuple[str, Sequence[str]]]) -> Tuple[str, ...]:
+    """(prefix, patterns) per tree -> patterns over the full keys."""
+    return tuple(re.escape(prefix) + pat for prefix, pats in trees for pat in pats)
+
+
+def proj_weight_fits(key: str, file_shape, model_shape) -> bool:
+    """Whether a file tensor of file_shape loads into the model's key: the
+    same shape, or a Linear-stored (C, C) projection into its 1x1 conv."""
+    file_shape, model_shape = tuple(file_shape), tuple(model_shape)
+    if file_shape == model_shape:
+        return True
+    return (len(file_shape) == 2 and model_shape == file_shape + (1, 1)
+            and _PROJ.fullmatch(key) is not None)
 
 
 def _head(keys, n: int) -> str:
@@ -113,16 +148,30 @@ class CheckpointReport:
         return self
 
 
-def account_checkpoint(model: nn.Module, sd: Mapping) -> CheckpointReport:
+def account_checkpoint(model: nn.Module, sd: Mapping,
+                       ignore: Sequence[str] = ()) -> CheckpointReport:
     """Account every key of `sd` (name -> tensor) against model.state_dict()
-    (shapes only: a model on the meta device will do)."""
+    (shapes only: a model on the meta device will do). A key the model does
+    not hold is ignored if SD_KNOWN_UNUSED or one of the `ignore` patterns
+    (fullmatch against the whole key) names it, else it is an orphan."""
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     have = set(sd)
     unread = have - set(want)
-    ignored = {k for k in unread if known_unused(k)}
+    extra = [re.compile(p) for p in ignore]
+    ignored = {k for k in unread
+               if known_unused(k) or any(p.fullmatch(k) for p in extra)}
     present = have & set(want)
     mismatched = {k: (tuple(sd[k].shape), want[k]) for k in present
-                  if tuple(sd[k].shape) != want[k]}
+                  if not proj_weight_fits(k, sd[k].shape, want[k])}
     return CheckpointReport(consumed=present - set(mismatched), ignored=ignored,
                             orphans=unread - ignored, missing=set(want) - have,
                             mismatched=mismatched)
+
+
+@torch.no_grad()
+def copy_checkpoint_(model: nn.Module, sd: Mapping) -> None:
+    """Copy every parameter and buffer of the model from `sd` (accounted for
+    first), in the model's dtype, a Linear-stored projection as its 1x1
+    conv."""
+    for name, t in model.state_dict().items():
+        t.copy_(sd[name].reshape(t.shape))

@@ -1,14 +1,19 @@
 """JAX parameter trees -> one torch state dict under the checkpoint's names.
 
 The inverse of stablediffusioneo_tpu/checkpoint/convert.py (`convert_unet`,
-`convert_controlnet`, `convert_vae`, `convert_clip`): HWIO convs go back to
-OIHW, (in, out) linears to (out, in), g/b norms to weight/bias, under the
-prefixes model.diffusion_model. / control_model. / first_stage_model. /
-cond_stage_model.transformer. The parameters arrive as arrays (numpy, or
-anything numpy can read), so this module needs no JAX. Every parameter of
-the port's `ControlLDM` gets one, and no other key is made, so
-`ControlLDM.load_checkpoint` loads the result with nothing left over, by the
-same names a real `.pth` uses.
+`convert_controlnet`, `convert_vae`, `convert_clip`, `convert_openclip_text`):
+HWIO convs go back to OIHW, (in, out) linears to (out, in), g/b norms to
+weight/bias, an OpenCLIP tower's q/k/v into its packed in_proj (3d, d), its
+text_projection kept as stored (d, proj), under the prefixes
+model.diffusion_model. / control_model. / first_stage_model. /
+cond_stage_model.transformer. (HF CLIP) or cond_stage_model.model. (OpenCLIP,
+SD-2.x), or SDXL's sgm layout (model.diffusion_model. /
+conditioner.embedders.0.transformer. / conditioner.embedders.1.model. /
+first_stage_model.). The parameters arrive as arrays (numpy, or anything
+numpy can read), so this module needs no JAX. Every parameter of the port's
+model (`ControlLDM`, `LatentDiffusion` or `SDXL`) gets one, and no other key
+is made, so its `load_checkpoint` loads the result with nothing left over, by
+the same names a real checkpoint uses.
 """
 
 from __future__ import annotations
@@ -18,7 +23,6 @@ from typing import Dict
 import numpy as np
 import torch
 
-from stablediffusioneo_tpu_torch.config import PipelineConfig
 from stablediffusioneo_tpu_torch.models.unet import decoder_plan, encoder_plan
 
 StateDict = Dict[str, torch.Tensor]
@@ -77,6 +81,9 @@ def _spatial_transformer(sd, base, p):
 def _encoder_part(sd, prefix, cfg, p):
     _linear(sd, f"{prefix}time_embed.0", p["time_embed"]["l1"])
     _linear(sd, f"{prefix}time_embed.2", p["time_embed"]["l2"])
+    if "label_emb" in p:  # ADM conditioning (SDXL), sgm's names
+        _linear(sd, f"{prefix}label_emb.0.0", p["label_emb"]["l1"])
+        _linear(sd, f"{prefix}label_emb.0.2", p["label_emb"]["l2"])
     for i, (desc, blk) in enumerate(zip(encoder_plan(cfg), p["input_blocks"])):
         base = f"{prefix}input_blocks.{i}"
         if desc["kind"] == "conv":
@@ -174,11 +181,44 @@ def clip_state_dict(sd, p, prefix="cond_stage_model.transformer."):
     _norm(sd, f"{tm}final_layer_norm", p["final_ln"])
 
 
-def state_dict_from_jax(params: dict, cfg: PipelineConfig) -> StateDict:
-    """{"unet", "controlnet", "vae", "clip"} JAX trees -> one fp32 state dict."""
+def openclip_state_dict(sd, p, prefix="cond_stage_model.model."):
+    """The CLIP tree under OpenCLIP's names: q, k, v packed in that order
+    into in_proj (3d, d), text_projection (d, proj) as OpenCLIP stores it."""
+    _put(sd, f"{prefix}token_embedding.weight", p["token_embedding"])
+    _put(sd, f"{prefix}positional_embedding", p["position_embedding"])
+    for i, layer in enumerate(p["layers"]):
+        base = f"{prefix}transformer.resblocks.{i}"
+        _norm(sd, f"{base}.ln_1", layer["ln1"])
+        _norm(sd, f"{base}.ln_2", layer["ln2"])
+        _put(sd, f"{base}.attn.in_proj_weight", np.concatenate(
+            [np.transpose(np.asarray(layer[n]["w"])) for n in ("q", "k", "v")]))
+        _put(sd, f"{base}.attn.in_proj_bias", np.concatenate(
+            [np.asarray(layer[n]["b"]) for n in ("q", "k", "v")]))
+        _linear(sd, f"{base}.attn.out_proj", layer["out"])
+        _linear(sd, f"{base}.mlp.c_fc", layer["fc1"])
+        _linear(sd, f"{base}.mlp.c_proj", layer["fc2"])
+    _norm(sd, f"{prefix}ln_final", p["final_ln"])
+    if "text_projection" in p:
+        _put(sd, f"{prefix}text_projection", p["text_projection"]["w"])
+
+
+def state_dict_from_jax(params: dict, cfg) -> StateDict:
+    """JAX trees -> one fp32 state dict. cfg a PipelineConfig: {"unet",
+    "controlnet" (absent for a ControlNet-free model), "vae", "clip"}, the
+    text tower under OpenCLIP's names where cfg.clip.layer is "penultimate"
+    (SD-2.x). cfg an SDXL configuration (models/sdxl.py:SDXLConfig):
+    {"unet", "clip_l", "clip_g", "vae"} in sgm's layout."""
     sd: StateDict = {}
     unet_state_dict(sd, cfg.unet, params["unet"])
-    controlnet_state_dict(sd, cfg.controlnet, params["controlnet"])
     vae_state_dict(sd, params["vae"])
-    clip_state_dict(sd, params["clip"])
+    if hasattr(cfg, "clip_g"):
+        clip_state_dict(sd, params["clip_l"], "conditioner.embedders.0.transformer.")
+        openclip_state_dict(sd, params["clip_g"], "conditioner.embedders.1.model.")
+        return sd
+    if "controlnet" in params:
+        controlnet_state_dict(sd, cfg.controlnet, params["controlnet"])
+    if cfg.clip.layer == "penultimate":
+        openclip_state_dict(sd, params["clip"])
+    else:
+        clip_state_dict(sd, params["clip"])
     return sd

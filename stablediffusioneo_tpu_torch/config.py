@@ -7,8 +7,10 @@ configurations from the same numbers and compare them field by field
 (`tests/test_torch_imports.py`). `sd15_*` encode the SD-1.5 / ControlNet-1.0
 architecture constants (320 base ch, mult (1,2,4,4), 2 res blocks/level,
 attention at ds 1/2/4, context dim 768, 8 heads; VAE f=8 with 4-ch latent;
-CLIP ViT-L/14 text tower). Only the SD-1.5 family and the tiny test
-configuration are here; the other families come with their models.
+CLIP ViT-L/14 text tower). `sd21_*` / `openclip_vit_h_text` are the SD-2.x
+family (64-channel heads, OpenCLIP ViT-H context, v-prediction); the SDXL
+configurations live beside their model, in models/sdxl.py, as in the JAX
+package.
 
 Configs are frozen, so they are hashable and can key caches.
 """
@@ -175,6 +177,36 @@ def clip_vit_l14() -> CLIPTextConfig:
 
 def sd15_pipeline(dtype: str = "bfloat16", use_pallas: bool = True) -> PipelineConfig:
     return PipelineConfig(dtype=dtype, use_pallas=use_pallas)
+
+
+def sd21_unet() -> UNetConfig:
+    """SD-2.1 UNet: per-head 64 channels, OpenCLIP ViT-H context (1024)."""
+    return UNetConfig(num_head_channels=64, context_dim=1024)
+
+
+def openclip_vit_h_text() -> CLIPTextConfig:
+    """OpenCLIP ViT-H/14 text tower (FrozenOpenCLIPEmbedder, SD-2.x:
+    penultimate layer, plain gelu)."""
+    return CLIPTextConfig(
+        hidden_size=1024, intermediate_size=4096, num_layers=24,
+        num_heads=16, layer="penultimate", act="gelu",
+    )
+
+
+def sd21_pipeline(
+    dtype: str = "bfloat16", v_prediction: bool = True, use_pallas: bool = True
+) -> PipelineConfig:
+    unet = sd21_unet()
+    return PipelineConfig(
+        unet=unet,
+        controlnet=ControlNetConfig(unet=unet),
+        clip=openclip_vit_h_text(),
+        diffusion=DiffusionConfig(
+            parameterization="v" if v_prediction else "eps"
+        ),
+        dtype=dtype,
+        use_pallas=use_pallas,
+    )
 
 
 def tiny_pipeline() -> PipelineConfig:

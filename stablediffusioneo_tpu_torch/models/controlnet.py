@@ -3,7 +3,9 @@
 The ControlNet is the UNet encoder's copy branch (cldm/cldm.py:48-305) with
 the 8-conv hint block (three stride-2 convs: image -> latent resolution)
 and one 1x1 zero-conv tap per input block plus one for the middle block:
-13 taps for SD-1.5. Names follow `control_model.*` of the checkpoint.
+13 taps for SD-1.5. Names follow `control_model.*` of the checkpoint. An
+ADM-conditioned UNet configuration (SDXL) gives the copy branch its own
+`label_emb`, and `y` rides beside the context through both branches.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from stablediffusioneo_tpu_torch.models.unet import (
     embed_timesteps,
     encoder_plan,
     input_block_modules,
+    label_emb_modules,
     middle_block_modules,
     time_embed_modules,
     unet_forward,
@@ -41,6 +44,7 @@ class ControlNet(nn.Module):
         _check_supported(ucfg)
         self.cfg = cfg
         self.time_embed = time_embed_modules(ucfg)
+        self.label_emb = label_emb_modules(ucfg)
         layers, cin = [], cfg.hint_channels
         for cout, stride in HINT_CHAIN:
             layers += [nn.Conv2d(cin, cout, 3, stride=stride, padding=1),
@@ -70,12 +74,14 @@ def precompute_controlnet_context_kv(control: ControlNet, context):
 
 
 def controlnet_forward(control: ControlNet, x, hint, timesteps, context,
-                       guided_hint=None, ctx_kv=None, tome=None) -> List[torch.Tensor]:
+                       guided_hint=None, ctx_kv=None, tome=None,
+                       y=None) -> List[torch.Tensor]:
     """ControlNet.forward on NCHW: 13 NCHW taps. guided_hint: optional
     precomputed hint-block output (samplers hoist it out of the loop); tome:
-    token merging at its self-attention sites (ops/tome.py)."""
-    emb = embed_timesteps(control.time_embed, control.cfg.unet.model_channels,
-                          timesteps, x.dtype)
+    token merging at its self-attention sites (ops/tome.py); y: the ADM
+    vector of an ADM-conditioned copy branch."""
+    emb = embed_timesteps(control, control.cfg.unet.model_channels, timesteps,
+                          x.dtype, y)
     if guided_hint is None:
         guided_hint = hint_block_apply(control.input_hint_block,
                                        hint.to(x.dtype))
@@ -92,12 +98,12 @@ def controlnet_forward(control: ControlNet, x, hint, timesteps, context,
 
 
 def controlnet_apply(control: ControlNet, x, hint, timesteps, context,
-                     guided_hint=None, ctx_kv=None) -> List[torch.Tensor]:
+                     guided_hint=None, ctx_kv=None, y=None) -> List[torch.Tensor]:
     """NHWC x (N, h, w, 4) and hint (N, H, W, 3) in [0, 1] -> 13 NHWC taps."""
     gh = None if guided_hint is None else nchw(guided_hint)
     hint = None if hint is None else nchw(hint)
     return [nhwc(t) for t in controlnet_forward(
-        control, nchw(x), hint, timesteps, context, gh, ctx_kv)]
+        control, nchw(x), hint, timesteps, context, gh, ctx_kv, y=y)]
 
 
 def scale_control(control: List[torch.Tensor], control_scales):
@@ -113,32 +119,34 @@ def scale_control(control: List[torch.Tensor], control_scales):
 def controlled_unet_forward(unet: UNetModel, control: ControlNet, x, hint,
                             timesteps, context, control_scales=None,
                             only_mid_control: bool = False, guided_hint=None,
-                            unet_ctx_kv=None, ctrl_ctx_kv=None, tome=None):
+                            unet_ctx_kv=None, ctrl_ctx_kv=None, tome=None, y=None):
     """ControlLDM.apply_model (cldm/cldm.py:328-341) on NCHW tensors.
     hint=None and guided_hint=None run the UNet without control (the uncond
-    branch of guess mode). tome: token merging in both nets (ops/tome.py)."""
+    branch of guess mode). tome: token merging in both nets (ops/tome.py);
+    y: the ADM vector of ADM-conditioned nets, to both."""
     if hint is None and guided_hint is None:
         return unet_forward(unet, x, timesteps, context, ctx_kv=unet_ctx_kv,
-                            tome=tome)
+                            tome=tome, y=y)
     taps = controlnet_forward(control, x, hint, timesteps, context,
-                              guided_hint=guided_hint, ctx_kv=ctrl_ctx_kv, tome=tome)
+                              guided_hint=guided_hint, ctx_kv=ctrl_ctx_kv, tome=tome,
+                              y=y)
     if control_scales is not None:
         taps = scale_control(taps, control_scales)
     return unet_forward(unet, x, timesteps, context, taps, only_mid_control,
-                        ctx_kv=unet_ctx_kv, tome=tome)
+                        ctx_kv=unet_ctx_kv, tome=tome, y=y)
 
 
 def controlled_unet_apply(unet: UNetModel, control: ControlNet, x, hint,
                           timesteps, context,
                           control_scales: Optional[Sequence[float]] = None,
                           only_mid_control: bool = False, guided_hint=None,
-                          unet_ctx_kv=None, ctrl_ctx_kv=None, tome=None):
+                          unet_ctx_kv=None, ctrl_ctx_kv=None, tome=None, y=None):
     """NHWC x, hint and guided_hint -> NHWC eps prediction."""
     return nhwc(controlled_unet_forward(
         unet, control, nchw(x), None if hint is None else nchw(hint),
         timesteps, context, control_scales, only_mid_control,
         None if guided_hint is None else nchw(guided_hint),
-        unet_ctx_kv, ctrl_ctx_kv, tome))
+        unet_ctx_kv, ctrl_ctx_kv, tome, y))
 
 
 def guess_mode_scales(strength: float, n: int = 13) -> List[float]:

@@ -1,8 +1,13 @@
-"""SD-1.5 UNet (counterpart of stablediffusioneo_tpu/models/unet.py).
+"""The SD UNet (counterpart of stablediffusioneo_tpu/models/unet.py): SD-1.x,
+SD-2.x (64-channel heads) and SDXL base (per-level transformer depth, a level
+of depth 0 holding no SpatialTransformer, and ADM conditioning: `label_emb`
+under sgm's names `label_emb.0.0` / `label_emb.0.2`, fed `y`).
 
 nn.Modules with the original checkpoint's state-dict names
 (openaimodel.py / ldm/modules/attention.py), so a `model.diffusion_model.*`
-state dict loads as it is. Blocks work on NCHW inside; the model-level
+state dict loads as it is. proj_in / proj_out are held as 1x1 convs (C, C, 1,
+1); SD-2.x and SDXL files store them as Linear weights (C, C), which the
+loaders accept (checkpoint/accounting.py:proj_weight_fits). Blocks work on NCHW inside; the model-level
 entry point (models/controlnet.py:controlled_unet_apply) takes and returns
 the JAX package's NHWC.
 
@@ -271,16 +276,26 @@ class TimestepEmbedSequential(nn.Sequential):
 
 
 def _check_supported(cfg: UNetConfig) -> None:
-    if cfg.use_scale_shift_norm or cfg.adm_in_channels:
+    if cfg.use_scale_shift_norm:
         raise NotImplementedError(
-            "scale-shift norm and ADM conditioning (SDXL) are not in the port "
-            "yet (ROADMAP queue 1: The other model families)")
+            "scale-shift norm is not in the port yet (no family the port "
+            "runs uses it)")
 
 
 def time_embed_modules(cfg: UNetConfig) -> nn.Sequential:
     d = cfg.time_embed_dim
     return nn.Sequential(nn.Linear(cfg.model_channels, d), nn.SiLU(),
                          nn.Linear(d, d))
+
+
+def label_emb_modules(cfg: UNetConfig) -> Optional[nn.Sequential]:
+    """sgm's ADM MLP, a Sequential in a Sequential (`label_emb.0.0`,
+    `label_emb.0.2`), or None without ADM conditioning."""
+    if not cfg.adm_in_channels:
+        return None
+    d = cfg.time_embed_dim
+    return nn.Sequential(nn.Sequential(nn.Linear(cfg.adm_in_channels, d), nn.SiLU(),
+                                       nn.Linear(d, d)))
 
 
 def input_block_modules(cfg: UNetConfig) -> nn.ModuleList:
@@ -321,6 +336,7 @@ class UNetModel(nn.Module):
         _check_supported(cfg)
         self.cfg = cfg
         self.time_embed = time_embed_modules(cfg)
+        self.label_emb = label_emb_modules(cfg)
         self.input_blocks = input_block_modules(cfg)
         self.middle_block = middle_block_modules(cfg)
         self.output_blocks = nn.ModuleList()
@@ -343,11 +359,19 @@ class UNetModel(nn.Module):
 # ---------------------------------------------------------------- apply
 
 
-def embed_timesteps(time_embed: nn.Sequential, model_channels: int,
-                    timesteps, dtype):
-    """Sinusoidal embedding and the time MLP, in fp32; cast to dtype."""
+def embed_timesteps(net, model_channels: int, timesteps, dtype, y=None):
+    """A UNet's or ControlNet's sinusoidal embedding through its time MLP,
+    plus with ADM conditioning its label_emb(y) (y taken to fp32), all in
+    fp32; rounded once to dtype."""
+    time_embed = net.time_embed
     emb = dense(timestep_embedding(timesteps, model_channels), time_embed[0])
     emb = dense(silu(emb), time_embed[2])
+    if net.label_emb is not None:
+        if y is None:
+            raise ValueError("this UNet is ADM-conditioned (adm_in_channels set): "
+                             "pass y")
+        mlp = net.label_emb[0]
+        emb = emb + dense(silu(dense(y.float(), mlp[0])), mlp[2])
     return emb.to(dtype)
 
 
@@ -401,10 +425,10 @@ def unet_out(unet: UNetModel, h):
 
 
 def unet_forward(unet: UNetModel, x, timesteps, context, control=None,
-                 only_mid_control: bool = False, ctx_kv=None, tome=None):
-    """ControlledUnetModel.forward on NCHW x and NCHW control taps."""
-    emb = embed_timesteps(unet.time_embed, unet.cfg.model_channels,
-                          timesteps, x.dtype)
+                 only_mid_control: bool = False, ctx_kv=None, tome=None, y=None):
+    """ControlledUnetModel.forward on NCHW x and NCHW control taps; y: the
+    (N, adm_in_channels) ADM vector, required iff the UNet has label_emb."""
+    emb = embed_timesteps(unet, unet.cfg.model_channels, timesteps, x.dtype, y)
     h, hs = unet_encode(unet, x, emb, context, ctx_kv, tome)
     h = unet_middle(unet, h, emb, context, ctx_kv, tome)
     if control is not None:

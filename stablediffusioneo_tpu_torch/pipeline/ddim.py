@@ -101,24 +101,39 @@ class CfgInputs(NamedTuple):
     """The step-invariant inputs of a CFG evaluation, made once before a
     sampler's loop by `_hoist_context_kv`. Normal mode: the hint embedding
     and the control scales tiled to the batch-2B concat, ctx = (ctx2,), kv =
-    (UNet K/V, ControlNet K/V) of ctx2. Guess mode: the hint embedding and
-    scales as given, ctx = (ctx_cond, ctx_uncond), kv = (UNet K/V of cond,
-    ControlNet K/V of cond, UNet K/V of uncond)."""
+    (UNet K/V, ControlNet K/V) of ctx2, and the ADM vectors' concat y2 (or
+    None). Guess mode: the hint embedding and scales as given, ctx =
+    (ctx_cond, ctx_uncond), kv = (UNet K/V of cond, ControlNet K/V of cond,
+    UNet K/V of uncond). Without a ControlNet: no hint embedding, scales or
+    ControlNet K/V (None)."""
 
-    guided_hint: torch.Tensor
+    guided_hint: Optional[torch.Tensor]
     ctx: Tuple[torch.Tensor, ...]
     kv: tuple
     control_scales: object
+    y: Optional[torch.Tensor] = None
 
 
-def _hoist_context_kv(unet: UNetModel, control: ControlNet, hint: torch.Tensor,
-                      ctx_cond: torch.Tensor, ctx_uncond: torch.Tensor,
-                      control_scales, guess_mode: bool, dtype) -> CfgInputs:
+def _hoist_context_kv(unet: UNetModel, control: Optional[ControlNet],
+                      hint: Optional[torch.Tensor], ctx_cond: torch.Tensor,
+                      ctx_uncond: torch.Tensor, control_scales, guess_mode: bool,
+                      dtype, y_cond=None, y_uncond=None) -> CfgInputs:
     """Everything an evaluation needs that does not change from step to step
     (the JAX `_hoist_context_kv`, with the hint-block embedding the JAX scans
     hoist beside it): every cross-attention K/V projection of the contexts,
     the embedding of the NHWC hint, and in normal mode the batch-2 concats,
-    so that no step repeats them."""
+    so that no step repeats them. control=None: the UNet alone (the JAX
+    sd_txt2img_scan / sdxl_txt2img_scan, y_cond / y_uncond their ADM
+    vectors)."""
+    y2 = None if y_cond is None else torch.cat([y_cond, y_uncond], dim=0)
+    if control is None:
+        if guess_mode:
+            raise ValueError("guess mode needs a ControlNet")
+        ctx2 = torch.cat([ctx_cond, ctx_uncond], dim=0)
+        return CfgInputs(None, (ctx2,), (precompute_context_kv(unet, ctx2), None),
+                         None, y2)
+    if guess_mode and y2 is not None:
+        raise NotImplementedError("guess mode with ADM conditioning")
     guided_hint = hint_block_apply(control.input_hint_block, nchw(hint).to(dtype))
     if guess_mode:
         return CfgInputs(guided_hint, (ctx_cond, ctx_uncond),
@@ -130,15 +145,16 @@ def _hoist_context_kv(unet: UNetModel, control: ControlNet, hint: torch.Tensor,
     return CfgInputs(torch.cat([guided_hint, guided_hint], dim=0), (ctx2,),
                      (precompute_context_kv(unet, ctx2),
                       precompute_controlnet_context_kv(control, ctx2)),
-                     _tile_cfg(control_scales))
+                     _tile_cfg(control_scales), y2)
 
 
-def _cfg_eval(unet: UNetModel, control: ControlNet, xn: torch.Tensor, t: float,
-              hoisted: CfgInputs, guess_mode: bool, tome=None):
+def _cfg_eval(unet: UNetModel, control: Optional[ControlNet], xn: torch.Tensor,
+              t: float, hoisted: CfgInputs, guess_mode: bool, tome=None):
     """One CFG evaluation at timestep t (a float: Karras spacings evaluate
     between the trained steps) on NCHW x: (e_cond, e_uncond), NCHW. Normal
-    mode: cond and uncond as one batch-2 concat through ControlNet + UNet;
-    guess mode: cond with control, uncond without (cldm/cldm.py:334-335)."""
+    mode: cond and uncond as one batch-2 concat through ControlNet + UNet
+    (the UNet alone without a ControlNet); guess mode: cond with control,
+    uncond without (cldm/cldm.py:334-335)."""
     b = xn.shape[0]
     if guess_mode:
         tb = torch.full((b,), t, dtype=torch.float32, device=xn.device)
@@ -154,7 +170,7 @@ def _cfg_eval(unet: UNetModel, control: ControlNet, xn: torch.Tensor, t: float,
     eps2 = controlled_unet_forward(
         unet, control, torch.cat([xn, xn], dim=0), None, tb, hoisted.ctx[0],
         control_scales=hoisted.control_scales, guided_hint=hoisted.guided_hint,
-        unet_ctx_kv=hoisted.kv[0], ctrl_ctx_kv=hoisted.kv[1], tome=tome)
+        unet_ctx_kv=hoisted.kv[0], ctrl_ctx_kv=hoisted.kv[1], tome=tome, y=hoisted.y)
     return eps2[:b], eps2[b:]
 
 
@@ -216,7 +232,7 @@ def _ddim_loop_enc_cached(unet, control, schedule, x, hoisted: CfgInputs, scale,
     run_full[::interval] = True
     run_full[-2:] = True
     mc = unet.cfg.model_channels
-    gh2, (ctx2,), kv2, cscales2 = hoisted
+    gh2, (ctx2,), kv2, cscales2, _ = hoisted
     cache = None
     for i in range(n_steps):
         t2 = torch.full((2 * b,), float(schedule["timesteps"][i]),
@@ -224,14 +240,14 @@ def _ddim_loop_enc_cached(unet, control, schedule, x, hoisted: CfgInputs, scale,
         if run_full[i]:
             xn = nchw(x)
             x2 = torch.cat([xn, xn], dim=0)
-            emb = embed_timesteps(unet.time_embed, mc, t2, x2.dtype)
+            emb = embed_timesteps(unet, mc, t2, x2.dtype)
             ctrl = scale_control(
                 controlnet_forward(control, x2, None, t2, ctx2, guided_hint=gh2,
                                    ctx_kv=kv2[1], tome=tome), cscales2)
             h, hs = unet_encode(unet, x2, emb, ctx2, kv2[0], tome)
             h = unet_middle(unet, h, emb, ctx2, kv2[0], tome) + ctrl[-1].to(x2.dtype)
             cache = (h, [s + c.to(s.dtype) for s, c in zip(hs, ctrl[:-1])])
-        emb = embed_timesteps(unet.time_embed, mc, t2, cache[0].dtype)
+        emb = embed_timesteps(unet, mc, t2, cache[0].dtype)
         eps2 = unet_out(unet, unet_decode(unet, cache[0], cache[1], emb, ctx2,
                                           ctx_kv=kv2[0], tome=tome))
         e_t = _cfg_combine(eps2[:b], eps2[b:], scale, cfg_rescale)
@@ -242,10 +258,10 @@ def _ddim_loop_enc_cached(unet, control, schedule, x, hoisted: CfgInputs, scale,
 
 def ddim_sample(
     unet: UNetModel,
-    control: ControlNet,
+    control: Optional[ControlNet],
     schedule: Dict[str, np.ndarray],
     x_T: torch.Tensor,
-    hint: torch.Tensor,
+    hint: Optional[torch.Tensor],
     ctx_cond: torch.Tensor,
     ctx_uncond: torch.Tensor,
     scale,
@@ -262,6 +278,8 @@ def ddim_sample(
     inpaint_noise: Optional[Sequence[torch.Tensor]] = None,
     cfg_rescale: float = 0.0,
     tome=None,
+    y_cond: Optional[torch.Tensor] = None,
+    y_uncond: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Full DDIM loop; returns the x_0 latents, NHWC (B, h, w, 4), as fp32
     (with bf16 nets: the bf16 values the loop carries, widened).
@@ -281,18 +299,25 @@ def ddim_sample(
     back in. Not together with encoder caching. encoder_cache_interval > 1:
     see `_ddim_loop_enc_cached`; in guess mode it is ignored, as in the JAX
     package. tome: token merging in both nets (ops/tome.py:ToMe, or None).
+
+    control=None (hint and control_scales None): the UNet alone, the loop of
+    the ControlNet-free families (pipeline/concat_cond.py:sd_txt2img,
+    models/sdxl.py:sdxl_txt2img), with y_cond / y_uncond (B, adm) the ADM
+    vectors of an ADM-conditioned UNet; no encoder caching there.
     """
     dtype = dtype or ctx_cond.dtype
     b = x_T.shape[0]
     inpaint = inpaint_latent is not None
     if inpaint and inpaint_mask is None:
         raise ValueError("inpaint_latent requires inpaint_mask")
+    if control is None and encoder_cache_interval > 1:
+        raise ValueError("encoder caching needs a ControlNet loop")
     if inpaint and encoder_cache_interval > 1:
         raise ValueError("inpainting + encoder caching is unsupported "
                          "(the cached-step features would mix blended and "
                          "unblended latents)")
     hoisted = _hoist_context_kv(unet, control, hint, ctx_cond, ctx_uncond,
-                                control_scales, guess_mode, dtype)
+                                control_scales, guess_mode, dtype, y_cond, y_uncond)
 
     def drawn(given, i, like):
         return (given[i] if given is not None else

@@ -236,6 +236,45 @@ class Engine:
         }
 
 
+def sdxl_sample_decode_engine(model, num_steps: int, batch: int, h: int, w: int,
+                              capture: Optional[bool] = None) -> Engine:
+    """SDXL base txt2img as ONE captured program, as the JAX package captures
+    it (cli/bench.py `_bench_sdxl`): the DDIM loop (models/sdxl.py:
+    sdxl_txt2img, eta 0, the schedule baked in) and the VAE decode to uint8,
+    with the conditioning computed outside it. `model` is an SDXL
+    (models/sdxl.py) on its device in its compute dtype. The engine takes
+    (x_T (B, h/8, w/8, 4), ctx_cond, ctx_uncond (B, 77, 2048) in the compute
+    dtype, y_cond, y_uncond (B, 2816) fp32, scale (B,) fp32) and returns
+    (image uint8 (B, h, w, 3), x_0 latents fp32). capture: None captures on a
+    CUDA device and runs eagerly on the CPU."""
+    from stablediffusioneo_tpu_torch.models.sdxl import sdxl_txt2img
+
+    cfg = model.cfg
+    p = next(model.unet.parameters())
+    device, dtype = p.device, p.dtype
+    capture = device.type == "cuda" if capture is None else capture
+    d = cfg.diffusion
+    sched = DiffusionSchedule(d.timesteps, d.linear_start, d.linear_end,
+                              d.schedule).ddim(num_steps)
+
+    def run(x, ctx_cond, ctx_uncond, y_cond, y_uncond, scale):
+        z = sdxl_txt2img(model.unet, sched, x, ctx_cond, ctx_uncond, y_cond, y_uncond,
+                         scale, dtype=dtype, parameterization=d.parameterization)
+        img = vae_decode(model.vae, z.to(dtype), scaled=True)
+        return torch.clamp(img.float() * 127.5 + 127.5, 0, 255).to(torch.uint8), z
+
+    eng = Engine(run, name=f"sdxl+decode_{num_steps}x{batch}x{h}x{w}", capture=capture)
+    if capture:
+        f = cfg.vae.downsample_factor
+        ctx = (batch, cfg.clip_l.max_length, cfg.unet.context_dim)
+        eng.load(*(torch.zeros(shape, dtype=dt, device=device) for shape, dt in (
+            ((batch, h // f, w // f, 4), dtype), (ctx, dtype), (ctx, dtype),
+            ((batch, cfg.unet.adm_in_channels), torch.float32),
+            ((batch, cfg.unet.adm_in_channels), torch.float32),
+            ((batch,), torch.float32))))
+    return eng
+
+
 def _kept(out):
     """A copy of an engine's output that the next call does not overwrite."""
     if isinstance(out, tuple):

@@ -92,6 +92,35 @@ def test_packed_kernel_matches_plain(gen, dtype, b, tq, c, s, heads):
     _check(out, fused_attention_packed_plain(q, k, v, heads, scale), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,tq,c,s,heads", [
+    (2, 4096, 640, 4096, 10), (2, 4096, 640, 77, 10),      # SDXL 1024x1024, level 1
+    (2, 1024, 1280, 1024, 20), (2, 1024, 1280, 77, 20),    # SDXL level 2 and middle
+    (2, 9216, 320, 9216, 5), (2, 9216, 320, 77, 5),        # SD-2.1 768x768, level 0
+    (2, 2304, 640, 2304, 10), (2, 2304, 640, 77, 10),      # SD-2.1 level 1
+])
+def test_packed_kernel_head_dim_64(gen, dtype, b, tq, c, s, heads):
+    """The SD-2.x / SDXL sites: heads of 64 channels, 5, 10 and 20 of them."""
+    q = _randn((b, tq, c), gen, dtype)
+    k, v = _randn((b, s, c), gen, dtype), _randn((b, s, c), gen, dtype)
+    ka.variant_launches.clear()
+    out = fused_attention_packed(q, k, v, heads, 64 ** -0.5)
+    assert dict(ka.variant_launches) == {
+        "wgmma" if dtype == torch.bfloat16 else "cuda_core": 1}
+    _check(out, fused_attention_packed_plain(q, k, v, heads, 64 ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_split_kernel_at_the_sd21_decode(gen, dtype):
+    """The VAE mid-block of a 768x768 decode: 9216 tokens of 512 channels."""
+    q, k, v = (_randn((1, 1, 9216, 512), gen, dtype) for _ in range(3))
+    ka.variant_launches.clear()
+    out = fused_attention(q, k, v, 512 ** -0.5)
+    assert dict(ka.variant_launches) == {
+        "wgmma_split" if dtype == torch.bfloat16 else "cuda_core": 1}
+    _check(out, fused_attention_plain(q, k, v, 512 ** -0.5), dtype)
+
+
 @pytest.mark.parametrize("s", [77, 4096 + 13])
 @pytest.mark.parametrize("d", [40, 80, 160])
 def test_wgmma_variant_ragged_keys(gen, d, s):

@@ -61,9 +61,12 @@ def test_the_walk_covers_the_port():
                  "stablediffusioneo_tpu_torch/pipeline/dpm_solver.py",
                  "stablediffusioneo_tpu_torch/pipeline/unipc.py",
                  "stablediffusioneo_tpu_torch/pipeline/k_diffusion.py",
-                 "stablediffusioneo_tpu_torch/ops/tome.py"):
+                 "stablediffusioneo_tpu_torch/ops/tome.py",
+                 "stablediffusioneo_tpu_torch/models/sdxl.py",
+                 "stablediffusioneo_tpu_torch/pipeline/concat_cond.py",
+                 "stablediffusioneo_tpu_torch/checkpoint/__init__.py"):
         assert must in names
-    assert len(names) >= 35
+    assert len(names) >= 37
 
 
 # numpy-only functions of the JAX package the port keeps its own copy of,
@@ -117,6 +120,8 @@ def test_tiny_process_runs_with_both_packages_blocked():
         import stablediffusioneo_tpu_torch.models.tokenizer
         import stablediffusioneo_tpu_torch.checkpoint.torch_reader
         import stablediffusioneo_tpu_torch.pipeline.hackathon
+        import stablediffusioneo_tpu_torch.models.sdxl
+        import stablediffusioneo_tpu_torch.pipeline.concat_cond
         import numpy as np, torch
         from stablediffusioneo_tpu_torch.config import tiny_pipeline
         from stablediffusioneo_tpu_torch.models.cldm import ControlLDM, init_weights
@@ -149,7 +154,8 @@ def test_tiny_process_runs_with_both_packages_blocked():
 # ----------------------------------------------------------- configuration
 
 CONSTRUCTORS = ["sd15_pipeline", "tiny_pipeline", "sd15_unet", "sd15_controlnet",
-                "sd15_vae", "clip_vit_l14"]
+                "sd15_vae", "clip_vit_l14", "sd21_unet", "openclip_vit_h_text",
+                "sd21_pipeline"]
 CLASSES = ["UNetConfig", "ControlNetConfig", "VAEConfig", "CLIPTextConfig",
            "DiffusionConfig", "PipelineConfig"]
 
@@ -170,7 +176,7 @@ def test_config_class_has_the_same_fields_and_defaults(name):
     assert port.__dataclass_params__.frozen and hash(port()) == hash(port())
 
 
-@pytest.mark.parametrize("name", ["sd15_pipeline", "tiny_pipeline"])
+@pytest.mark.parametrize("name", ["sd15_pipeline", "tiny_pipeline", "sd21_pipeline"])
 def test_config_helper_methods_agree(name):
     port, ref = getattr(port_config, name)(), getattr(jax_config, name)()
     assert port.unet.time_embed_dim == ref.unet.time_embed_dim

@@ -122,10 +122,21 @@ def test_main_path_rows_cover_the_sites_the_redesign_names():
                  ("fused_attention_packed", (2, 4096, 320), 154),
                  ("fused_attention_packed", (2, 1024, 640), 231),
                  # a level-0 self-attention after token merging at ratio 0.5
-                 ("fused_attention_packed", (2, 2048, 320), 2048)):
+                 ("fused_attention_packed", (2, 2048, 320), 2048),
+                 # SD-2.1 768x768: 5 and 10 heads of 64 channels, its decode
+                 ("fused_attention_packed", (2, 9216, 320), 9216),
+                 ("fused_attention_packed", (2, 2304, 640), 77),
+                 ("fused_attention", (1, 1, 9216, 512), 9216),
+                 # SDXL 1024x1024: 10 and 20 heads of 64 channels
+                 ("fused_attention_packed", (2, 4096, 640), 4096),
+                 ("fused_attention_packed", (2, 1024, 1280), 77)):
         assert want in rows, want
-    # 12 of the 512x512 and 1024x1024 requests, 4 of the long prompts, 1 of ToMe
-    assert len(ROWS) == 17
+    assert ("fused_attention_packed", (2, 4096, 640), 4096, 10) in ROWS
+    assert ("fused_attention_packed", (2, 1024, 1280), 1024, 20) in ROWS
+    # 12 of the 512x512 and 1024x1024 requests, 4 of the long prompts, 1 of
+    # ToMe, 5 of SD-2.1 at 768x768 and 4 of SDXL at 1024x1024 (its decode's
+    # split row is the hires pass's)
+    assert len(ROWS) == 26
 
 
 @pytest.mark.parametrize("dtype,d,tq,s,aligned,want", [

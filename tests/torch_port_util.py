@@ -140,3 +140,25 @@ def run_sampler_pair(params, model, jitted, port_fn, sched, parameterization,
                   **port_kw).numpy()
     assert np.isfinite(out).all() and out.shape == ref.shape
     return out, ref
+
+
+def numpy_params(init_fn, cfg, seed):
+    """A JAX parameter tree of init_fn(key, cfg)'s structure, its leaves drawn
+    with numpy (the JAX initialisers, op by op or jitted, take most of a
+    minute at the SD-2.x and SDXL test widths): weights ("w") N(0, 1 /
+    fan_in) over all but their last axis, biases ("b") N(0, 0.01), norm
+    gains ("g") 1 + N(0, 0.01), anything else (embeddings, text
+    projections) N(0, 0.0004); no leaf is zero."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(lambda k: init_fn(k, cfg), jax.random.PRNGKey(0))
+
+    def draw(path, leaf):
+        name = getattr(path[-1], "key", None)
+        z = rng.standard_normal(leaf.shape).astype(np.float32)
+        if name == "w":
+            return z * float(np.prod(leaf.shape[:-1])) ** -0.5
+        if name == "g":
+            return 1.0 + 0.1 * z
+        return (0.1 if name == "b" else 0.02) * z
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
