@@ -204,7 +204,8 @@ def openclip_state_dict(sd, p, prefix="cond_stage_model.model."):
 
 def state_dict_from_jax(params: dict, cfg) -> StateDict:
     """JAX trees -> one fp32 state dict. cfg a PipelineConfig: {"unet",
-    "controlnet" (absent for a ControlNet-free model), "vae", "clip"}, the
+    "controlnet" (absent for a ControlNet-free model; a tuple of N trees for
+    a ControlLDM of N ControlNets, under control_model.<i>.), "vae", "clip"}, the
     text tower under OpenCLIP's names where cfg.clip.layer is "penultimate"
     (SD-2.x). cfg an SDXL configuration (models/sdxl.py:SDXLConfig):
     {"unet", "clip_l", "clip_g", "vae"} in sgm's layout."""
@@ -215,8 +216,12 @@ def state_dict_from_jax(params: dict, cfg) -> StateDict:
         clip_state_dict(sd, params["clip_l"], "conditioner.embedders.0.transformer.")
         openclip_state_dict(sd, params["clip_g"], "conditioner.embedders.1.model.")
         return sd
-    if "controlnet" in params:
-        controlnet_state_dict(sd, cfg.controlnet, params["controlnet"])
+    nets = params.get("controlnet")
+    if isinstance(nets, (tuple, list)):  # multi-ControlNet: control_model.<i>.*
+        for i, net in enumerate(nets):
+            controlnet_state_dict(sd, cfg.controlnet, net, f"control_model.{i}.")
+    elif nets is not None:
+        controlnet_state_dict(sd, cfg.controlnet, nets)
     if cfg.clip.layer == "penultimate":
         openclip_state_dict(sd, params["clip"])
     else:

@@ -3,7 +3,8 @@ initialiser for runs without real weights.
 
 A `control_sd15_*.pth` state dict loads into `ControlLDM` by name:
   model.diffusion_model.*          -> UNetModel
-  control_model.*                  -> ControlNet
+  control_model.*                  -> ControlNet (control_model.<i>.* for
+                                      net i of a multi-ControlNet model)
   first_stage_model.*              -> AutoencoderKL (encoder and decoder)
   cond_stage_model.transformer.*   -> CLIPTextModel (SD-1.x)
   cond_stage_model.model.*         -> OpenCLIPTextModel (SD-2.x: where
@@ -78,9 +79,26 @@ class LatentDiffusion(nn.Module):
 
 
 class ControlLDM(LatentDiffusion):
-    def __init__(self, cfg: PipelineConfig):
+    """n_controlnets > 1: multi-ControlNet (the JAX package's tuple of
+    ControlNet trees), the nets in an nn.ModuleList under
+    control_model.<i>.*, their scaled taps summed into the UNet
+    (models/controlnet.py:controlled_unet_forward). One net keeps the
+    checkpoint's control_model.* names."""
+
+    def __init__(self, cfg: PipelineConfig, n_controlnets: int = 1):
         super().__init__(cfg)
-        self.control_model = ControlNet(cfg.controlnet)
+        if n_controlnets < 1:
+            raise ValueError(f"n_controlnets must be >= 1, got {n_controlnets}")
+        self.control_model = (ControlNet(cfg.controlnet) if n_controlnets == 1 else
+                              nn.ModuleList([ControlNet(cfg.controlnet)
+                                             for _ in range(n_controlnets)]))
+
+    @property
+    def control(self):
+        """What the loops take as `control`: the ControlNet, or a tuple of
+        them (multi-ControlNet)."""
+        cm = self.control_model
+        return tuple(cm) if isinstance(cm, nn.ModuleList) else cm
 
 
 @torch.no_grad()

@@ -116,36 +116,58 @@ def scale_control(control: List[torch.Tensor], control_scales):
             for c, s in zip(control, control_scales)]
 
 
-def controlled_unet_forward(unet: UNetModel, control: ControlNet, x, hint,
+def per_net(v, i: int):
+    """Net i's value of a multi-ControlNet argument: per-net values are
+    tuples (a list of 13 numbers is one scale vector shared by the nets)."""
+    return v[i] if isinstance(v, tuple) else v
+
+
+def controlled_unet_forward(unet: UNetModel, control, x, hint,
                             timesteps, context, control_scales=None,
                             only_mid_control: bool = False, guided_hint=None,
                             unet_ctx_kv=None, ctrl_ctx_kv=None, tome=None, y=None):
     """ControlLDM.apply_model (cldm/cldm.py:328-341) on NCHW tensors.
     hint=None and guided_hint=None run the UNet without control (the uncond
     branch of guess mode). tome: token merging in both nets (ops/tome.py);
-    y: the ADM vector of ADM-conditioned nets, to both."""
+    y: the ADM vector of ADM-conditioned nets, to both.
+
+    Multi-ControlNet (the JAX controlled_unet_apply): `control` a tuple of N
+    nets, with hint / guided_hint / control_scales / ctrl_ctx_kv tuples of
+    N (or one value shared by the nets); the residual taps enter the UNet
+    linearly, so the nets' scaled taps are summed, in net order."""
     if hint is None and guided_hint is None:
         return unet_forward(unet, x, timesteps, context, ctx_kv=unet_ctx_kv,
                             tome=tome, y=y)
-    taps = controlnet_forward(control, x, hint, timesteps, context,
-                              guided_hint=guided_hint, ctx_kv=ctrl_ctx_kv, tome=tome,
-                              y=y)
-    if control_scales is not None:
-        taps = scale_control(taps, control_scales)
+    nets = control if isinstance(control, tuple) else (control,)
+    taps = None
+    for i, net in enumerate(nets):
+        net_taps = controlnet_forward(net, x, per_net(hint, i), timesteps, context,
+                                      guided_hint=per_net(guided_hint, i),
+                                      ctx_kv=per_net(ctrl_ctx_kv, i), tome=tome, y=y)
+        if control_scales is not None:
+            net_taps = scale_control(net_taps, per_net(control_scales, i))
+        taps = net_taps if taps is None else [a + b for a, b in zip(taps, net_taps)]
     return unet_forward(unet, x, timesteps, context, taps, only_mid_control,
                         ctx_kv=unet_ctx_kv, tome=tome, y=y)
 
 
-def controlled_unet_apply(unet: UNetModel, control: ControlNet, x, hint,
+def _map(fn, v):
+    """fn over a per-net tuple, or over the one value; None stays None."""
+    if v is None:
+        return None
+    return tuple(fn(a) for a in v) if isinstance(v, tuple) else fn(v)
+
+
+def controlled_unet_apply(unet: UNetModel, control, x, hint,
                           timesteps, context,
                           control_scales: Optional[Sequence[float]] = None,
                           only_mid_control: bool = False, guided_hint=None,
                           unet_ctx_kv=None, ctrl_ctx_kv=None, tome=None, y=None):
-    """NHWC x, hint and guided_hint -> NHWC eps prediction."""
+    """NHWC x, hint and guided_hint (or per-net tuples of them) -> NHWC eps
+    prediction."""
     return nhwc(controlled_unet_forward(
-        unet, control, nchw(x), None if hint is None else nchw(hint),
-        timesteps, context, control_scales, only_mid_control,
-        None if guided_hint is None else nchw(guided_hint),
+        unet, control, nchw(x), _map(nchw, hint), timesteps, context,
+        control_scales, only_mid_control, _map(nchw, guided_hint),
         unet_ctx_kv, ctrl_ctx_kv, tome, y))
 
 

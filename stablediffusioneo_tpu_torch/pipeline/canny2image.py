@@ -8,7 +8,9 @@ stablediffusioneo_tpu/pipeline/canny2image.py).
 plus `x_T=` (and `hires_noise=`, `img2img_noise=`, `inpaint_noise=`,
 `step_noise=`) for
 seeded cross-framework comparison. Path: resize to /64 -> Canny -> HWC3 hint
-(uploaded as uint8) -> one CLIP call for cond and uncond -> DDIM with CFG ->
+(a binary map uploaded bit-packed, (B, H, W/8) uint8, as the JAX package
+does; another annotator's map as uint8) -> one CLIP call for cond and
+uncond -> DDIM with CFG ->
 VAE decode -> uint8, the last three as ONE engine of the runtime
 (runtime/engine.py: a captured CUDA graph on the card, the eager loop on the
 CPU or with graphs=False). With hires_upscale > 1 (the hires fix): the base
@@ -27,14 +29,15 @@ select loop variants
 Euler, Euler-a, Heun; pipeline/{plms,dpm_solver,unipc,k_diffusion}.py) and
 tome_ratio token merging in both nets (ops/tome.py); granular_timings=True runs sample and decode as two
 engines with a device synchronisation between, for an honest phase split.
-The JAX package's other features are accepted by name and raise
-NotImplementedError naming the ROADMAP item that brings them.
+Multi-ControlNet: a ControlLDM of N ControlNets with `annotator=[...]` (one
+hint source a net, Canny where the list is short) takes one float hint a net
+and `strength` as a number or a tuple of one a net.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,25 +48,35 @@ from stablediffusioneo_tpu_torch.ops.layers import resize_latent_bilinear
 from stablediffusioneo_tpu_torch.runtime.engine import CNSDRuntime
 
 
-def _not_ported(feature: str, item: str):
-    return NotImplementedError(
-        f"{feature} is not in the PyTorch port yet (ROADMAP queue 1: {item})")
-
-
 class Canny2ImagePipeline:
     """tokenizer: any callable mapping a list of strings to an (N, T) int
-    array. annotator: a callable (image, low, high) -> hint map; default
-    Canny (cv2)."""
+    array. annotator: a callable (image, low, high) -> hint map (or (image)
+    -> map); default Canny (cv2). With a multi-ControlNet model (ControlLDM
+    of N nets) a list of annotators, one a net, padded with Canny
+    (`self.annotators`; None for one net)."""
 
     def __init__(self, model: ControlLDM, tokenizer: Callable,
                  cfg: Optional[PipelineConfig] = None, device="cuda",
                  annotator=None, quantize_linears: bool = False,
                  graphs: Optional[bool] = None):
-        if isinstance(annotator, (list, tuple)):
-            raise _not_ported("multi-ControlNet", "Adapters and knobs")
+        from stablediffusioneo_tpu_torch.annotators.canny import CannyDetector
+
         self.cfg = cfg or sd15_pipeline()
         self.tokenizer = tokenizer
-        self.annotator = annotator
+        control = model.control
+        if isinstance(control, tuple):
+            n = len(control)
+            anns = annotator if isinstance(annotator, (list, tuple)) else (
+                [annotator] if annotator else [])
+            anns = list(anns) + [CannyDetector()] * (n - len(anns))
+            self.annotators = anns[:n]
+            self.apply_canny = self.annotators[0]
+        else:
+            if isinstance(annotator, (list, tuple)):
+                raise ValueError("annotator=[...] takes a ControlLDM of one "
+                                 "ControlNet an annotator (n_controlnets)")
+            self.annotators = None
+            self.apply_canny = annotator or CannyDetector()
         self.runtime = CNSDRuntime(model, self.cfg, device=device,
                                    quantize_linears=quantize_linears,
                                    graphs=graphs)
@@ -81,18 +94,52 @@ class Canny2ImagePipeline:
         if self.runtime.device.type == "cuda":
             torch.cuda.synchronize(self.runtime.device)
 
-    def _annotate(self, img: np.ndarray, low: int, high: int) -> np.ndarray:
-        from stablediffusioneo_tpu_torch.annotators.canny import CannyDetector
+    def _annotate(self, img: np.ndarray, low: int, high: int,
+                  annotator=None) -> Tuple[np.ndarray, np.ndarray]:
+        """The annotator's map as (HWC3 uint8 map, raw output); the first
+        output of a detector that returns several."""
         from stablediffusioneo_tpu_torch.annotators.util import HWC3
 
-        ann = self.annotator or CannyDetector()
+        ann = annotator if annotator is not None else self.apply_canny
         try:
             out = ann(img, low, high)
         except TypeError:
             out = ann(img)
         if isinstance(out, tuple):
             out = out[0]
-        return HWC3(np.asarray(out))
+        out = np.asarray(out)
+        return HWC3(out), out
+
+    @staticmethod
+    def _pack_hint(detected_map: np.ndarray, raw: np.ndarray):
+        """Bit-pack a binary single-channel control map for upload (the JAX
+        package's `_pack_hint`, the same code). Canny maps are {0, 255} gray:
+        1 bit a pixel instead of 24 is lossless (786,432 -> 32,768 bytes at
+        512x512), and the engine's packed variant unpacks to the exact {0, 1}
+        values the uint8 variant's /255 gives. Returns the packed (H, W//8)
+        array, or None when the map is not binary gray (other annotators' maps
+        take the uint8 path)."""
+        if raw.ndim != 2 or raw.dtype != np.uint8:
+            return None
+        if detected_map.shape[1] % 8:
+            return None
+        if not ((raw == 0) | (raw == 255)).all():
+            return None
+        return np.packbits(raw > 0, axis=-1)  # big-endian bit order
+
+    def _hint(self, img: np.ndarray, low: int, high: int, num_samples: int):
+        """(detected maps, the loop's hint for num_samples rows): one net, the
+        map bit-packed where it is binary, else uint8 pixels; several nets, a
+        tuple of float hints in [0, 1], one a net (JAX canny2image.py:
+        183-210)."""
+        if self.annotators is not None:
+            maps = [self._annotate(img, low, high, a)[0] for a in self.annotators]
+            return maps, tuple(np.repeat((m.astype(np.float32) / 255.0)[None],
+                                         num_samples, axis=0) for m in maps)
+        detected_map, raw = self._annotate(img, low, high)
+        packed = self._pack_hint(detected_map, raw)
+        hint = detected_map if packed is None else packed
+        return [detected_map], np.repeat(hint[None], num_samples, axis=0)
 
     def process(
         self,
@@ -170,6 +217,8 @@ class Canny2ImagePipeline:
         tome_ratio > 0: token merging at the self-attention sites of at least
         cfg.controlnet.unet.tome_min_tokens tokens, in both nets."""
         hires = bool(hires_upscale and hires_upscale > 1.0) and not granular_timings
+        if hires and self.annotators is not None:
+            raise ValueError("hires_upscale + multi-ControlNet is unsupported")
         if hires and step_noise is not None:
             raise ValueError("step_noise takes a request without the hires fix")
         if hires and (init_image is not None or inpaint_image is not None):
@@ -198,11 +247,10 @@ class Canny2ImagePipeline:
         t_start = time.perf_counter()
         img = resize_image(HWC3(input_image), image_resolution)
         H, W = img.shape[:2]
-        detected_map = self._annotate(img, low_threshold, high_threshold)
-        self.last_detected_maps = [detected_map]
+        self.last_detected_maps, hint = self._hint(img, low_threshold, high_threshold,
+                                                   num_samples)
+        detected_map = self.last_detected_maps[0]
         rt = self.runtime
-        hint = torch.from_numpy(np.repeat(detected_map[None], num_samples,
-                                          axis=0)).to(rt.device)
         if seed == -1:
             seed = int(np.random.randint(0, 2**31 - 1))
         gen = torch.Generator(device=rt.device).manual_seed(seed)
@@ -283,9 +331,8 @@ class Canny2ImagePipeline:
                 z_up = resize_latent_bilinear(z, H2 // f, W2 // f)
                 img_hi = cv2.resize(HWC3(input_image), (W2, H2),
                                     interpolation=cv2.INTER_LANCZOS4)
-                detected_map = self._annotate(img_hi, low_threshold, high_threshold)
-                hint_hi = torch.from_numpy(np.repeat(
-                    detected_map[None], num_samples, axis=0)).to(rt.device)
+                (detected_map,), hint_hi = self._hint(img_hi, low_threshold,
+                                                      high_threshold, num_samples)
                 t_enc = max(1, min(ddim_steps, int(round(hires_denoise * ddim_steps))))
                 images_dev = rt.sample_decode(
                     ddim_steps, None, hint_hi, ctx_cond, ctx_uncond,

@@ -45,6 +45,7 @@ from stablediffusioneo_tpu_torch.models.controlnet import (
     controlnet_forward,
     guess_mode_scales,
     hint_block_apply,
+    per_net,
     precompute_controlnet_context_kv,
     scale_control,
 )
@@ -65,7 +66,10 @@ from stablediffusioneo_tpu_torch.ops.schedule import DiffusionSchedule
 
 def _tile_cfg(control_scales):
     """Per-sample (B, 13) scales tiled to the batch-2B concat; shared
-    scales broadcast as they are."""
+    scales broadcast as they are; a tuple (multi-ControlNet: one entry a
+    net) tiles net by net."""
+    if isinstance(control_scales, tuple):
+        return tuple(_tile_cfg(c) for c in control_scales)
     if isinstance(control_scales, torch.Tensor) and control_scales.dim() == 2:
         return torch.cat([control_scales, control_scales], dim=0)
     return control_scales
@@ -105,7 +109,8 @@ class CfgInputs(NamedTuple):
     None). Guess mode: the hint embedding and scales as given, ctx =
     (ctx_cond, ctx_uncond), kv = (UNet K/V of cond, ControlNet K/V of cond,
     UNet K/V of uncond). Without a ControlNet: no hint embedding, scales or
-    ControlNet K/V (None)."""
+    ControlNet K/V (None). Multi-ControlNet: the hint embeddings, the
+    ControlNet K/V and the scales are tuples, one entry a net."""
 
     guided_hint: Optional[torch.Tensor]
     ctx: Tuple[torch.Tensor, ...]
@@ -134,17 +139,26 @@ def _hoist_context_kv(unet: UNetModel, control: Optional[ControlNet],
                          None, y2)
     if guess_mode and y2 is not None:
         raise NotImplementedError("guess mode with ADM conditioning")
-    guided_hint = hint_block_apply(control.input_hint_block, nchw(hint).to(dtype))
+    nets = control if isinstance(control, tuple) else None
+
+    def each(fn, *args):  # per net for a tuple of nets (multi-ControlNet)
+        if nets is None:
+            return fn(control, *args)
+        return tuple(fn(net, *(per_net(a, i) for a in args))
+                     for i, net in enumerate(nets))
+
+    guided_hint = each(lambda net, h: hint_block_apply(net.input_hint_block,
+                                                       nchw(h).to(dtype)), hint)
     if guess_mode:
         return CfgInputs(guided_hint, (ctx_cond, ctx_uncond),
                          (precompute_context_kv(unet, ctx_cond),
-                          precompute_controlnet_context_kv(control, ctx_cond),
+                          each(precompute_controlnet_context_kv, ctx_cond),
                           precompute_context_kv(unet, ctx_uncond)),
                          control_scales)
     ctx2 = torch.cat([ctx_cond, ctx_uncond], dim=0)
-    return CfgInputs(torch.cat([guided_hint, guided_hint], dim=0), (ctx2,),
+    return CfgInputs(each(lambda net, g: torch.cat([g, g], dim=0), guided_hint), (ctx2,),
                      (precompute_context_kv(unet, ctx2),
-                      precompute_controlnet_context_kv(control, ctx2)),
+                      each(precompute_controlnet_context_kv, ctx2)),
                      _tile_cfg(control_scales), y2)
 
 
@@ -300,6 +314,10 @@ def ddim_sample(
     see `_ddim_loop_enc_cached`; in guess mode it is ignored, as in the JAX
     package. tome: token merging in both nets (ops/tome.py:ToMe, or None).
 
+    control a tuple of N ControlNets (multi-ControlNet): hint and
+    control_scales are tuples of N, one a net (a shared scale vector may
+    stand for all); not with encoder caching.
+
     control=None (hint and control_scales None): the UNet alone, the loop of
     the ControlNet-free families (pipeline/concat_cond.py:sd_txt2img,
     models/sdxl.py:sdxl_txt2img), with y_cond / y_uncond (B, adm) the ADM
@@ -312,6 +330,8 @@ def ddim_sample(
         raise ValueError("inpaint_latent requires inpaint_mask")
     if control is None and encoder_cache_interval > 1:
         raise ValueError("encoder caching needs a ControlNet loop")
+    if isinstance(control, tuple) and encoder_cache_interval > 1:
+        raise ValueError("multi-ControlNet + encoder caching is unsupported")
     if inpaint and encoder_cache_interval > 1:
         raise ValueError("inpainting + encoder caching is unsupported "
                          "(the cached-step features would mix blended and "

@@ -16,7 +16,11 @@ stablediffusioneo_tpu/runtime/engine.py).
                                        (sampler with its spacing, steps,
                                        eta, tail) are in the key
   in-graph random numbers              every random number is drawn outside
-                                       the graph and handed in
+                                       the graph and handed in (seeds= draws
+                                       each row from its own generator)
+  hint variants: float, uint8          the same, unpacked / normalised in the
+  (_with_u8_hint), bit-packed          graph; "multi": one float hint and
+  (_with_packed_hint), multi           one scale matrix a net
   cost_analysis / memory_analysis      graph nodes, bytes of the graph's pool
 
 `Engine` wraps one function; `CNSDRuntime` holds the four networks on one
@@ -29,11 +33,14 @@ one of the other samplers, with or without token merging), the VAE
 decode with the uint8 denormalisation, loop + decode fused, and the VAE
 encode (posterior mode, or a sample with the noise handed in) for img2img and
 inpainting. On the CPU, and with graphs=False, an engine runs its function
-eagerly: the same code, launched op by op from the host.
+eagerly: the same code, launched op by op from the host. A model with N
+ControlNets (models/cldm.py, multi-ControlNet) takes a tuple of N hints and
+strengths, one a net.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import gc
@@ -282,9 +289,22 @@ def _kept(out):
     return out.clone()
 
 
+def unpack_hint(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A bit-packed binary hint (B, H, W/8) uint8, np.packbits' big-endian
+    order, as the (B, H, W, 3) {0, 1} hint in `dtype` (the JAX
+    _with_packed_hint): the values and layout the uint8 variant's /255 gives
+    a {0, 255} map, so the two variants' images are equal in bytes."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=bits.device)
+    b, h, wp = bits.shape
+    hint = ((bits[..., None] >> shifts) & 1).reshape(b, h, wp * 8).to(dtype)
+    return hint[..., None].expand(b, h, wp * 8, 3).contiguous()
+
+
 class CNSDRuntime:
     """model: a ControlLDM holding the weights (any device, any dtype);
-    it is moved to `device` and cast to cfg.dtype in place.
+    it is moved to `device` and cast to cfg.dtype in place. A ControlLDM
+    of N > 1 ControlNets makes a multi-ControlNet runtime: its loops take a
+    tuple of N hints (hint variant "multi").
 
     quantize_linears: int8 weight-only UNet and ControlNet linears
     (ops/quant.py), converted after the cast, as the JAX package does, so
@@ -294,7 +314,12 @@ class CNSDRuntime:
     graphs: None captures engines on a CUDA device and runs eagerly on the
     CPU; False keeps the eager loop on a CUDA device too (the attribute may
     be changed between calls: engines are cached by it); True on the CPU is
-    refused."""
+    refused.
+
+    capture_guard: None, or a context manager factory entered around every
+    capture (a server makes captures wait for the device-to-host fetches of
+    other threads: a capture in torch's default global mode fails beside
+    them)."""
 
     def __init__(self, model: ControlLDM, cfg: PipelineConfig,
                  device="cuda", quantize_linears: bool = False,
@@ -309,6 +334,9 @@ class CNSDRuntime:
             model = copy.deepcopy(model)
         self.model = model.to(device=self.device, dtype=self.dtype).eval()
         self.model.requires_grad_(False)
+        control = self.model.control
+        self.multi = isinstance(control, tuple)  # multi-ControlNet
+        self.n_nets = len(control) if self.multi else 1
         if quantize_linears:
             for net in (self.model.unet, self.model.control_model):
                 quant.quantize_linear_modules(net)
@@ -318,6 +346,7 @@ class CNSDRuntime:
         self.n_taps = len(encoder_plan(cfg.unet)) + 1
         self._engines: Dict[Tuple, Engine] = {}
         self.last_latents: Optional[torch.Tensor] = None
+        self.capture_guard: Optional[Callable] = None
 
     def _require_model(self) -> ControlLDM:
         if self.model is None:
@@ -339,7 +368,8 @@ class CNSDRuntime:
         if eng is None:
             eng = Engine(make_fn(), name=name, capture=self.capturing)
             if self.capturing:
-                eng.load(*example())
+                with self.capture_guard() if self.capture_guard else contextlib.nullcontext():
+                    eng.load(*example())
             self._engines[key_t] = eng
         return eng
 
@@ -403,13 +433,24 @@ class CNSDRuntime:
             return sched
         return schedule_tail(sched, num_steps)
 
+    def _check_hint_variant(self, hint_u8) -> None:
+        if hint_u8 not in (False, True, "packed", "multi"):
+            raise ValueError(f"unknown hint variant {hint_u8!r} (False, True, "
+                             "'packed' or 'multi')")
+        if (hint_u8 == "multi") != self.multi:
+            raise ValueError("multi-ControlNet: hint must be a tuple of per-net "
+                             "float hints iff the runtime holds a tuple of "
+                             f"ControlNets (this one holds {self.n_nets})")
+
     def _sampler_fn(self, num_steps: int, guess_mode: bool,
-                    encoder_cache_interval: int, hint_u8: bool, gen_xT,
+                    encoder_cache_interval: int, hint_u8, gen_xT,
                     inpaint: bool, cfg_rescale: float, eta: float,
                     schedule_steps: Optional[int], sampler: str = "ddim",
                     tome_ratio: float = 0.0) -> Callable:
         """The sampler's loop as a function of tensors only:
         (x, hint, ctx_cond, ctx_uncond, scale (B,), control scales (B, taps)
+        (hint_u8 "multi": N hints, then ctx_cond, ctx_uncond, scale, then N
+        control scales, one a net)
         [, step noise (steps, B, h, w, 4) when a step adds noise: DDIM with
         eta > 0, Euler-a]
         [, re-noise (B, h, w, 4) when gen_xT == "img2img": x is then the init
@@ -422,13 +463,10 @@ class CNSDRuntime:
             raise NotImplementedError(
                 f"engine variant gen_xT={gen_xT!r}: the port draws x_T outside "
                 "the graph (x_T=, seeds= or generator=)")
-        if hint_u8 not in (False, True):
-            raise NotImplementedError(
-                f"hint variant {hint_u8!r} is not in the PyTorch port yet "
-                "(ROADMAP queue 1: Runtime surface)")
         if encoder_cache_interval < 1:
             raise ValueError("encoder_cache_interval must be >= 1")
         model, dtype = self._require_model(), self.dtype
+        n_hints = self.n_nets if hint_u8 == "multi" else 1
         sched = self._loop_schedule(num_steps, schedule_steps, eta, sampler)
         noisy = bool(_noisy_steps(sampler, sched).any())
         base = _canon_sampler(sampler)
@@ -436,15 +474,25 @@ class CNSDRuntime:
                       parameterization=self.cfg.diffusion.parameterization,
                       tome=tome_of(self.cfg.controlnet.unet, tome_ratio))
 
-        def run(x, hint, ctx_cond, ctx_uncond, scale, cscales, *rest):
+        def norm(hint):
+            if hint_u8 == "packed":
+                return unpack_hint(hint, dtype)
+            if hint.dtype == torch.uint8:  # /255 in fp32, then the compute dtype
+                hint = hint.float() / 255.0
+            return hint.to(dtype)
+
+        def run(x, *rest):
             rest = list(rest)
+            hints = [norm(rest.pop(0)) for _ in range(n_hints)]
+            ctx_cond, ctx_uncond, scale = rest.pop(0), rest.pop(0), rest.pop(0)
+            cscales = [rest.pop(0) for _ in range(n_hints)]
             noise = rest.pop(0) if noisy else None
             if gen_xT == "img2img":
                 x = stochastic_encode(x, float(sched["alphas"][0]), rest.pop(0))
-            if hint.dtype == torch.uint8:  # /255 in fp32, then the compute dtype
-                hint = hint.float() / 255.0
-            args = (model.unet, model.control_model, sched, x, hint.to(dtype),
-                    ctx_cond, ctx_uncond, scale, cscales)
+            one = hint_u8 != "multi"
+            args = (model.unet, model.control, sched, x,
+                    hints[0] if one else tuple(hints), ctx_cond, ctx_uncond, scale,
+                    cscales[0] if one else tuple(cscales))
             if base in KDIFF_SAMPLERS:
                 return kdiff_sample(*args, sampler=base, noise=noise, **common)
             if base != "ddim":
@@ -463,11 +511,16 @@ class CNSDRuntime:
         lat = (batch, h // f, w // f, 4)
         ctx = (batch, ctx_len, self.cfg.unet.context_dim)
         sched = self._loop_schedule(num_steps, schedule_steps, eta, sampler)
-        ex = [self._zeros(lat, self.dtype),
-              self._zeros((batch, h, w, 3), torch.uint8 if hint_u8 else self.dtype),
+        n_hints = self.n_nets if hint_u8 == "multi" else 1
+        if hint_u8 == "packed":
+            hint = self._zeros((batch, h, w // 8), torch.uint8)
+        else:
+            hint = self._zeros((batch, h, w, 3),
+                               torch.uint8 if hint_u8 is True else self.dtype)
+        ex = [self._zeros(lat, self.dtype), *[hint] * n_hints,
               self._zeros(ctx, self.dtype), self._zeros(ctx, self.dtype),
               self._zeros((batch,), torch.float32),
-              self._zeros((batch, self.n_taps), torch.float32)]
+              *[self._zeros((batch, self.n_taps), torch.float32)] * n_hints]
         if _noisy_steps(sampler, sched).any():
             ex.append(self._zeros((num_steps,) + lat, torch.float32))
         if gen_xT == "img2img":
@@ -498,9 +551,13 @@ class CNSDRuntime:
         img2img variant), which the JAX engine takes as inputs and this one
         bakes in, as it bakes in the sampler's spacing: the key holds the whole
         sampler string ("dpmpp-karras" is not "dpmpp") and the eta the loop
-        reads (0.0 for the solvers that ignore it). hint_u8: the hint is uint8
-        pixels, normalised in the graph. gen_xT="img2img": x is the init
-        latent, re-noised in the graph with the noise handed in."""
+        reads (0.0 for the solvers that ignore it). hint_u8: True, the hint is
+        uint8 pixels, normalised in the graph; "packed", a bit-packed binary
+        map (B, H, W/8) uint8, unpacked in the graph (`unpack_hint`); "multi",
+        one float hint a ControlNet (a multi-ControlNet runtime's only
+        variant); False, floats. gen_xT="img2img": x is the init latent,
+        re-noised in the graph with the noise handed in."""
+        self._check_hint_variant(hint_u8)
         eta = self.check_sampler(sampler, eta, encoder_cache_interval, inpaint,
                                  gen_xT == "img2img")
         ctx_len = ctx_len or self.cfg.clip.max_length
@@ -523,6 +580,7 @@ class CNSDRuntime:
         return self._engine(
             key_t, f"{_canon_sampler(sampler)}+decode_{num_steps}x{batch}x{h}x{w}"
             + ("_guess" if guess_mode else "")
+            + ("_bithint" if hint_u8 == "packed" else "")
             + (f"_genxT-{gen_xT}" if isinstance(gen_xT, str) else "")
             + ("_inpaint" if inpaint else ""), make,
             lambda: self._sampler_example(num_steps, batch, h, w, ctx_len, hint_u8,
@@ -540,6 +598,7 @@ class CNSDRuntime:
         """The captured sampler loop for (steps, batch, H x W), H and W in
         image space; returns the x_0 latents. Arguments as
         `sample_decode_engine`."""
+        self._check_hint_variant(hint_u8)
         eta = self.check_sampler(sampler, eta, encoder_cache_interval, inpaint,
                                  gen_xT == "img2img")
         ctx_len = ctx_len or self.cfg.clip.max_length
@@ -661,7 +720,12 @@ class CNSDRuntime:
         """guidance_scale and strength, each a number or one per sample, as a
         (B,) scale vector and a (B, n_taps) matrix of control strengths
         (strength per tap, or the guess-mode decay): one engine signature
-        serves uniform and mixed batches."""
+        serves uniform and mixed batches. A tuple of strengths
+        (multi-ControlNet) gives a tuple of matrices, one a net."""
+        if isinstance(strength, tuple):
+            pairs = [self._per_sample_scales(batch, guidance_scale, s, guess_mode)
+                     for s in strength]
+            return pairs[0][0], tuple(cs for _, cs in pairs)
         gs = np.asarray(guidance_scale, np.float32).reshape(-1)
         if gs.size == 1:
             gs = np.full((batch,), gs[0], np.float32)
@@ -688,6 +752,18 @@ class CNSDRuntime:
         step's noise (DDIM's eta noise, Euler-a's ancestral noise), every
         step's inpaint noise."""
         self._require_model()
+        multi = isinstance(hint, tuple)
+        self._check_hint_variant("multi" if multi else False)
+        if multi:
+            if len(hint) != self.n_nets:
+                raise ValueError(f"multi-ControlNet: {len(hint)} hints for "
+                                 f"{self.n_nets} ControlNets")
+            if isinstance(strength, list):  # JSON surfaces give lists
+                strength = tuple(strength)
+            if not isinstance(strength, tuple):
+                strength = (strength,) * self.n_nets  # shared by the nets
+            if encoder_cache_interval > 1:
+                raise ValueError("multi-ControlNet + encoder caching is unsupported")
         img2img = init_latent is not None
         if seeds is not None and x_T is not None:
             raise ValueError("seeds requires x_T=None (x_T is drawn from them)")
@@ -706,8 +782,12 @@ class CNSDRuntime:
                              "(the cached-step features would mix blended and "
                              "unblended latents)")
         dev = self.device
-        hint = torch.as_tensor(hint, device=dev)
-        b, h, w = hint.shape[:3]
+        hints = [torch.as_tensor(hh, device=dev) for hh in (hint if multi else (hint,))]
+        packed = not multi and hints[0].dim() == 3
+        if packed and hints[0].dtype != torch.uint8:
+            raise ValueError("rank-3 (packed) hint must be uint8")
+        b, h, w = hints[0].shape[:3]
+        w = w * 8 if packed else w
         f = self.cfg.vae.downsample_factor
         lat = (b, h // f, w // f, 4)
         steps = t_enc if img2img else num_steps
@@ -752,14 +832,20 @@ class CNSDRuntime:
                       torch.as_tensor(inpaint_mask, device=dev).to(self.dtype),
                       per_step(inpaint_noise, [True] * steps)]
         gs, cs = self._per_sample_scales(b, guidance_scale, strength, guess_mode)
-        args = [x.to(self.dtype),
-                hint if hint.dtype == torch.uint8 else hint.to(self.dtype),
+        if multi:  # uint8 maps normalised as the one-net variant does (JAX _norm_hint)
+            hints = [(hh.float() / 255.0 if hh.dtype == torch.uint8 else hh).to(self.dtype)
+                     for hh in hints]
+            hint_u8 = "multi"
+        else:
+            hint_u8 = "packed" if packed else hints[0].dtype == torch.uint8
+            if not hint_u8:
+                hints = [hints[0].to(self.dtype)]
+        args = [x.to(self.dtype), *hints,
                 ctx_cond.to(dev, self.dtype), ctx_uncond.to(dev, self.dtype),
-                gs, cs] + extra
+                gs, *(cs if multi else (cs,))] + extra
         spec = dict(num_steps=steps, batch=b, h=h, w=w, guess_mode=guess_mode,
                     encoder_cache_interval=encoder_cache_interval,
-                    ctx_len=ctx_cond.shape[1],
-                    hint_u8=hint.dtype == torch.uint8,
+                    ctx_len=ctx_cond.shape[1], hint_u8=hint_u8,
                     gen_xT="img2img" if img2img else False, inpaint=inpaint,
                     cfg_rescale=cfg_rescale, eta=eta, schedule_steps=num_steps,
                     sampler=sampler, tome_ratio=tome_ratio)
@@ -782,10 +868,14 @@ class CNSDRuntime:
                tome_ratio: float = 0.0) -> torch.Tensor:
         """The sampler's latents (fp32 NHWC) through the sampler engine. x_T: NHWC
         latents, or None to draw them (`seeds`: one per row, each row from its
-        own generator, so a row's bytes do not depend on the batch it ran in;
+        own generator, so a row's draws do not depend on the batch it runs in;
         else `generator`); hint: uint8 NHWC pixels (normalised in the engine:
-        /255 in fp32, then the compute dtype) or floats in [0, 1].
-        guidance_scale, strength: a number or one per sample. With eta > 0
+        /255 in fp32, then the compute dtype), a rank-3 uint8 (B, H, W/8)
+        bit-packed binary map (np.packbits order; unpacked in the engine), or
+        floats in [0, 1]; on a multi-ControlNet runtime a tuple of one hint a
+        net (uint8 maps normalised before the call, floats cast).
+        guidance_scale, strength: a number or one per sample; with several
+        ControlNets a tuple of one such a net, or one for all. With eta > 0
         (DDIM) or sampler "euler-a[-uniform]" the step noise is `noise` (one
         NHWC tensor per step) or drawn.
 
@@ -841,6 +931,18 @@ class CNSDRuntime:
     def decode_latent(self, z: torch.Tensor) -> np.ndarray:
         return self.decode_latent_device(z).cpu().numpy()
 
+    def engine_census(self) -> Dict[str, Dict[str, Any]]:
+        """{engine name: get_engine_infor()} of every engine built (a name
+        that recurs, as under other kernel flags, gets "#2", "#3", ...)."""
+        out: Dict[str, Dict[str, Any]] = {}
+        for eng in self._engines.values():
+            name, i = eng.name, 1
+            while name in out:
+                i += 1
+                name = f"{eng.name}#{i}"
+            out[name] = eng.get_engine_infor()
+        return out
+
     def report(self) -> str:
         """Engine census: one line an engine, with its capture time, graph
         nodes and the bytes of its graph's memory pool."""
@@ -859,8 +961,8 @@ class CNSDRuntime:
     def warmup(self, resolution: int = 256, num_steps: int = 1,
                batch: int = 1):
         """Start-up self-test: build and run every engine once at one shape
-        (CLIP, the loop, the decoder, loop + decode fused) on a uint8 hint,
-        and hold the fused engine's image to the granular path's (`sample`
+        (CLIP, the loop, the decoder, loop + decode fused) on a uint8 hint (a
+        multi-ControlNet runtime: one float hint a net), and hold the fused engine's image to the granular path's (`sample`
         then `decode_latent`) on the same x_T: they must be equal in bytes.
         On a capturing runtime an engine that is not a captured graph fails
         the warm-up. Returns the image shape."""
@@ -872,6 +974,8 @@ class CNSDRuntime:
         x_T = torch.randn((batch, resolution // f, resolution // f, 4),
                           generator=torch.Generator().manual_seed(0)).to(self.device)
         hint = self._zeros((batch, resolution, resolution, 3), torch.uint8)
+        if self.multi:
+            hint = (hint.to(self.dtype),) * self.n_nets
         img = self.decode_latent(self.sample(num_steps, x_T, hint, ctx, ctx))
         fused = self.sample_decode(num_steps, x_T, hint, ctx, ctx).cpu().numpy()
         if fused.shape != img.shape or not np.array_equal(fused, img):

@@ -133,7 +133,9 @@ def test_img2img_process_matches_jax(pipes, images, strength):
     assert np.abs(out[1].astype(int) - ref[1].astype(int)).max() <= 1
     t_enc = round(strength * 4)
     names = {e.name for e in port_pipe.runtime._engines.values()}
-    assert {"encoder_b1_64x64_det", f"ddim+decode_{t_enc}x1x64x64_genxT-img2img"} <= names
+    # the Canny hint rides bit-packed, as in the JAX package (its name too)
+    assert {"encoder_b1_64x64_det",
+            f"ddim+decode_{t_enc}x1x64x64_bithint_genxT-img2img"} <= names
     # without the noise the port draws its own from the seed: reproducible
     drawn = [port_pipe.process(images["image"], "a bird", **kw)[1] for _ in range(2)]
     assert np.array_equal(*drawn) and not np.array_equal(drawn[0], out[1])
@@ -162,7 +164,8 @@ def test_inpaint_process_matches_jax(pipes, images, with_x_T):
                            **dict(kw, x_T=x_T if with_x_T else None))
     out = port_pipe.process(images["image"], "a bird", x_T=x_T, inpaint_noise=noise, **kw)
     assert np.abs(out[1].astype(int) - ref[1].astype(int)).max() <= 1
-    assert "ddim+decode_4x1x64x64_inpaint" in {e.name for e in port_pipe.runtime._engines.values()}
+    assert "ddim+decode_4x1x64x64_bithint_inpaint" in \
+        {e.name for e in port_pipe.runtime._engines.values()}
 
 
 def test_inpaint_keeps_the_unmasked_region(pipes, images):

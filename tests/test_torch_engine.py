@@ -76,6 +76,7 @@ ENGINE_ARGS = [
     (3, 2, 64, 128, True),
     (2, 1, 64, 64, False, "ddim", 2),
     (2, 1, 64, 64, False, "ddim", 1, None, True),
+    (2, 2, 64, 64, False, "ddim", 1, None, "packed"),
     (1, 1, 64, 64, False, "ddim", 1, None, True, "img2img"),
     (2, 1, 64, 64, False, "ddim", 1, None, False, False, True),
     (2, 1, 64, 64, False, "ddim", 1, None, False, False, False, 0.7),
@@ -139,12 +140,19 @@ def test_other_engine_names_and_keys(runtimes, rt, monkeypatch):
     assert rt.sample_decode_engine(2, 1, 64, 64) is a
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    ({"hint_u8": "multi"}, "ROADMAP"), ({"hint_u8": "multi", "sampler": "dpmpp"}, "ROADMAP"),
-    ({"hint_u8": "packed"}, "ROADMAP"), ({"gen_xT": "seeds"}, "outside the graph"),
+@pytest.mark.parametrize("kwargs,error,match", [
+    ({"hint_u8": "multi"}, ValueError, "multi-ControlNet"),
+    ({"hint_u8": "multi", "sampler": "dpmpp"}, ValueError, "multi-ControlNet"),
+    ({"hint_u8": "bits"}, ValueError, "unknown hint variant"),
+    ({"gen_xT": "seeds"}, NotImplementedError, "outside the graph"),
+    ({"gen_xT": True}, NotImplementedError, "outside the graph"),
 ])
-def test_engine_variants_outside_the_port_raise(rt, kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_engine_variants_outside_the_port_raise(rt, kwargs, error, match):
+    """The in-graph x_T variants stay outside the port (it draws x_T outside
+    the graph, row by row with seeds=); the "multi" hint variant takes a
+    multi-ControlNet runtime (a one-net runtime refuses it, as the JAX
+    runtime refuses a tuple hint there)."""
+    with pytest.raises(error, match=match):
         rt.sample_decode_engine(2, 1, 64, 64, **kwargs)
 
 

@@ -64,9 +64,15 @@ def test_the_walk_covers_the_port():
                  "stablediffusioneo_tpu_torch/ops/tome.py",
                  "stablediffusioneo_tpu_torch/models/sdxl.py",
                  "stablediffusioneo_tpu_torch/pipeline/concat_cond.py",
-                 "stablediffusioneo_tpu_torch/checkpoint/__init__.py"):
+                 "stablediffusioneo_tpu_torch/checkpoint/__init__.py",
+                 "stablediffusioneo_tpu_torch/utils/native.py",
+                 "stablediffusioneo_tpu_torch/serving/__init__.py",
+                 "stablediffusioneo_tpu_torch/serving/scheduler.py",
+                 "stablediffusioneo_tpu_torch/serving/server.py",
+                 "stablediffusioneo_tpu_torch/serving/http_api.py",
+                 "stablediffusioneo_tpu_torch/cli/serve.py"):
         assert must in names
-    assert len(names) >= 37
+    assert len(names) >= 45
 
 
 # numpy-only functions of the JAX package the port keeps its own copy of,
@@ -107,6 +113,91 @@ def test_numpy_copies_are_their_originals(port_mod, jax_mod, name):
                 assert got == want
             else:
                 assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+# functions the port copies line for line from a module it cannot import:
+# (port module, JAX module, qualified name)
+SOURCE_COPIES = [
+    ("serving.scheduler", "serving.scheduler", name)
+    for name in ("_configure", "_dptr", "decide_cut", "pick_group", "next_deadline_ms")
+] + [
+    ("serving.server", "serving.server", "_resolve"),
+    ("pipeline.canny2image", "pipeline.canny2image", "Canny2ImagePipeline._pack_hint"),
+]
+
+
+@pytest.mark.parametrize("port_mod,jax_mod,name", SOURCE_COPIES,
+                         ids=[c[2] for c in SOURCE_COPIES])
+def test_source_copies_are_their_originals(port_mod, jax_mod, name):
+    """The batch-cut policy's mirror (and its ctypes signatures), the future
+    resolver and the hint packer are the JAX package's code, statement for
+    statement (docstrings aside); their results are held in
+    tests/test_torch_serving.py."""
+    import importlib
+    import inspect
+
+    def get(pkg, mod):
+        obj = importlib.import_module(f"{pkg}.{mod}")
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        return obj
+
+    def code(obj):  # the function's syntax tree without its docstring
+        tree = ast.parse(textwrap.dedent(inspect.getsource(obj)))
+        body = tree.body[0].body
+        if isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+            del body[0]
+        return ast.dump(tree)
+
+    port = get("stablediffusioneo_tpu_torch", port_mod)
+    ref = get("stablediffusioneo_tpu", jax_mod)
+    assert code(port) == code(ref)
+
+
+def test_serve_cli_runs_with_both_packages_blocked():
+    """With `stablediffusioneo_tpu` and `jax` blocked, the serving CLI builds
+    its --tiny --cpu pipeline, and a DiffusionServer behind the HTTP API
+    answers /healthz and one /generate."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "stablediffusioneo_tpu", "regex", "safetensors"):
+            sys.modules[name] = None
+        import base64, json, threading, urllib.request
+        import cv2, numpy as np, torch
+        torch.set_num_threads(1)
+        from stablediffusioneo_tpu_torch.cli import serve
+        from stablediffusioneo_tpu_torch.serving import DiffusionServer
+        from stablediffusioneo_tpu_torch.serving.http_api import make_http_server
+        args = serve.parse_args(["--tiny", "--cpu", "--port", "0"])
+        pipe = serve.build_pipeline(args)
+        assert pipe.runtime.device.type == "cpu"
+        server = DiffusionServer(pipe, max_wait_ms=10).start()
+        httpd = make_http_server(server, port=0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            assert json.loads(r.read()) == {"ok": True}
+        img = (np.random.default_rng(0).random((64, 64, 3)) * 255).astype(np.uint8)
+        png = base64.b64encode(cv2.imencode(".png", img)[1].tobytes()).decode()
+        body = json.dumps({"image_b64": png, "prompt": "a bird", "image_resolution": 64,
+                           "ddim_steps": 2, "seed": 1}).encode()
+        with urllib.request.urlopen(urllib.request.Request(base + "/generate", data=body),
+                                    timeout=120) as r:
+            out = json.loads(r.read())
+        assert set(out) == {"image_b64", "detected_b64", "ms"}
+        httpd.shutdown()
+        server.stop()
+        loaded = [m for m in sys.modules if sys.modules[m] is not None
+                  and m.split(".")[0] in ("jax", "stablediffusioneo_tpu", "regex",
+                                          "safetensors")]
+        assert not loaded, loaded
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(REPO), timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("OK")
 
 
 def test_tiny_process_runs_with_both_packages_blocked():
