@@ -108,11 +108,32 @@ source, all started together), then:
   10. the seeded SDXL's sgm-layout state dict (bf16, 2,515 keys with the two
      OpenCLIP leftovers) written to a temporary directory (its free bytes
      printed first) and read back by load_sdxl_pipeline onto the card: every
-     key consumed or named, none orphaned, the seeded image in bytes.
-The kernel phase also takes every attention shape of the SD-2.1 and SDXL
-requests (heads of 64 channels; the 768x768 decode's (1, 1, 9216, 512)) and
-the gated GroupNorm sites of an SDXL step; each attention row names the
-passes that give it.
+     key consumed or named, none orphaned, the seeded image in bytes;
+  11. adapters, on the loaded SD-1.5 model after the phases that expect its
+     own image: LoRA (lora_phase: a seeded rank-8 adapter for the UNet, the
+     ControlNet and CLIP each through an sdeo-lora-v1 file; scale 0 gives the
+     base image in bytes; merged at alpha / rank into the engines captured
+     before, which replay it with no new capture: another image, replay =
+     eager in bytes, 560 + 1 launches), then textual inversion
+     (textual_inversion_phase: a concept made of a two-token word's rows gives
+     the word's image in bytes, a random one another image; only the CLIP
+     engines are evicted and captured again);
+  12. the 9-channel inpainting model (sd15_inpaint_pipeline(), seeded) at
+     512x512, 20 steps, scale 9, as a main path over encoder_engine and
+     concat_sample_decode_engine (captured_path: 400 packed + 2 split a
+     request: no ControlNet), then its sd-v1-5-inpainting-layout file through
+     load_inpaint_pipeline (every key consumed or named, the same image);
+  13. the SDXL refiner (SDXLRefinerConfig(), seeded): one fp32 UNet
+     evaluation at 256x256, card vs CPU within REF_TOL (refiner_reference),
+     then in bf16 the base -> refiner handoff at 1024x1024 on the "sdxl 1024"
+     run's latents, t_enc 4 of 20, scale 5, as a main path over
+     sdxl_refine_decode_engine (320 packed + 1 split a request), then its
+     sgm-layout file through load_sdxl_refiner_pipeline (free bytes first;
+     every key consumed or named, the same image).
+The kernel phase also takes every attention shape of the SD-2.1, SDXL and
+SDXL-refiner requests (heads of 64 channels; the 768x768 decode's (1, 1,
+9216, 512)) and the gated GroupNorm sites of an SDXL step; each attention
+row names the passes that give it.
 Launch counts must equal what the UNet, ControlNet, VAE and CLIP plans and
 the dispatch gates imply. Any failed check raises, so the script exits
 non-zero and prints no result. The last line is {"ok": true, "device":
@@ -184,6 +205,12 @@ TOME_RATIO = 0.5
 # the other families: SD-2.1 (ControlNet, v) at 768x768; SDXL base txt2img at
 # 1024x1024 with the JAX bench's guidance scale
 SD21_RES, SDXL_RES, SDXL_SCALE = 768, 1024, 5.0
+# the SDXL base -> refiner handoff: the refiner takes the last 4 of the 20
+# steps (the 0.8 handoff), scale 5, aesthetic scores 6.0 (cond) / 2.5 (uncond)
+REFINER_T_ENC, REFINER_SCORES = 4, (6.0, 2.5)
+# the LoRA phase's adapters (rank 8, alpha 8: merged at alpha / rank = 1.0;
+# b drawn N(0, LORA_B_STD^2)), and the textual-inversion phase's concepts
+LORA_RANK, LORA_ALPHA, LORA_B_STD = 8, 8.0, 0.01
 PROMPT = "a house in the woods"
 # with the smoke's BPE vocabulary (pairs of characters) and WINDOW_TEXTS,
 # about 220 tokens (3 windows of 75) and about 100 (2 windows)
@@ -635,7 +662,8 @@ def has_control(cfg):
 
 def text_length(cfg):
     """Tokens of one prompt window: 77."""
-    return (cfg.clip if hasattr(cfg, "clip") else cfg.clip_l).max_length
+    return next(getattr(cfg, t) for t in ("clip", "clip_l", "clip_g")
+                if hasattr(cfg, t)).max_length
 
 
 def _transformer_sites(cfg, lat, n_controlnets=1):
@@ -717,19 +745,28 @@ def family_configs():
     return sd21_pipeline(dtype="bfloat16"), SDXLConfig()
 
 
+def refiner_config():
+    """The SDXL refiner's configuration of the "sdxl refiner 1024" run."""
+    from stablediffusioneo_tpu_torch.models.sdxl import SDXLRefinerConfig
+
+    return SDXLRefinerConfig()
+
+
 def kernel_passes(cfg):
     """(name, configuration, resolution, context length, ToMe ratio) of each
     pass whose shapes the kernel phase takes: the SD-1.5 (cfg) 512x512
     request, its 1024x1024 hires pass, its long-prompt windows (S = 154,
-    231) and token merging (S = 2048 at TOME_RATIO), then the SD-2.1 768x768
-    and SDXL 1024x1024 requests."""
+    231) and token merging (S = 2048 at TOME_RATIO), then the SD-2.1 768x768,
+    SDXL 1024x1024 and SDXL-refiner 1024x1024 requests (the 9-channel
+    inpainting request takes the 512x512 request's shapes)."""
     sd21, sdxl = family_configs()
     window = text_length(cfg)
     return ([("sd15 512", cfg, RES, None, 0.0), ("sd15 hires 1024", cfg, HIRES_RES, None, 0.0)]
             + [(f"sd15 512, {n} windows", cfg, RES, n * window, 0.0) for n in (2, 3)]
             + [("sd15 512, tome 0.5", cfg, RES, None, TOME_RATIO),
                ("sd21 768", sd21, SD21_RES, None, 0.0),
-               ("sdxl 1024", sdxl, SDXL_RES, None, 0.0)])
+               ("sdxl 1024", sdxl, SDXL_RES, None, 0.0),
+               ("sdxl refiner 1024", refiner_config(), SDXL_RES, None, 0.0)])
 
 
 def attention_rows(cfg, paths=False):
@@ -980,14 +1017,24 @@ def expected_request_launches(cfg, config):
 # ------------------------------------------------------ model-level phases
 
 
-def build_model(cfg, seed, n_controlnets=1):
-    from stablediffusioneo_tpu_torch.models.cldm import ControlLDM, init_weights
+def build_seeded(make, seed, dtype=torch.bfloat16):
+    """A model made on the meta device, its weights drawn on the card from a
+    seed (models/cldm.py:init_weights), in `dtype`."""
+    from stablediffusioneo_tpu_torch.models.cldm import init_weights
 
     with torch.device("meta"):
-        model = ControlLDM(cfg, n_controlnets)
+        model = make()
     model.to_empty(device="cuda")
     init_weights(model, torch.Generator(device="cuda").manual_seed(seed))
-    return model
+    return model.to(dtype).eval().requires_grad_(False)
+
+
+def build_model(cfg, seed, n_controlnets=1):
+    """A ControlLDM of `cfg` with seeded weights on the card, fp32 (the
+    runtime casts it to cfg.dtype in place)."""
+    from stablediffusioneo_tpu_torch.models.cldm import ControlLDM
+
+    return build_seeded(lambda: ControlLDM(cfg, n_controlnets), seed, torch.float32)
 
 
 def reference_phase(model, cfg):
@@ -1241,15 +1288,10 @@ def main_path(model, cfg, config, tokenizer=stand_in_tokenizer):
 
 def build_sdxl(seed):
     """SDXL base at full width (2.57 B UNet parameters), its weights drawn on
-    the card from a seed (models/cldm.py:init_weights), in bf16."""
-    from stablediffusioneo_tpu_torch.models.cldm import init_weights
+    the card from a seed, in bf16."""
     from stablediffusioneo_tpu_torch.models.sdxl import SDXL
 
-    with torch.device("meta"):
-        model = SDXL(family_configs()[1])
-    model.to_empty(device="cuda")
-    init_weights(model, torch.Generator(device="cuda").manual_seed(seed))
-    return model.to(torch.bfloat16).eval().requires_grad_(False)
+    return build_seeded(lambda: SDXL(family_configs()[1]), seed)
 
 
 def sdxl_ids(tokenizer):
@@ -1324,11 +1366,12 @@ def sdxl_path(model, config, tokenizer):
     dispatch.reset_launches()
     for counter in (variant_launches, gn_plans, ln_plans, key_length_launches):
         counter.clear()
-    images, latencies = [], []
+    images, latents, latencies = [], [], []
     for seed in (1, 2):
         t0 = time.perf_counter()
         img, z = sdxl_request(model, eng, ids, seed)
         latencies.append(time.perf_counter() - t0)
+        latents.append(z.clone())
         lat = SDXL_RES // cfg.vae.downsample_factor
         if not (torch.isfinite(z).all() and z.shape == (1, lat, lat, 4)
                 and img.shape == (SDXL_RES, SDXL_RES, 3) and img.dtype == np.uint8):
@@ -1397,7 +1440,7 @@ def sdxl_path(model, config, tokenizer):
             "eager_latency": eager_latency, "image": images[0], "traced": traced,
             "engines": {f"sdxl+decode_{STEPS}x1x{SDXL_RES}x{SDXL_RES}": info},
             "replay_ms": replays, "text_towers_ms": towers_ms, "peak_bytes": peak,
-            "warm_s": warm_s}
+            "warm_s": warm_s, "latents": latents[0]}
 
 
 def sdxl_checkpoint_phase(model, tokenizer, want_image):
@@ -1955,6 +1998,513 @@ def multi_controlnet_phase(cfg, card):
             "unet_packed": STEPS * one, "controlnet_packed_each": STEPS * per_net}
 
 
+# --------------------------------------- adapters and the last two families
+
+
+def path_launches(cfg, res, evals, encodes=0):
+    """Every kernel's launches over two requests of `evals` evaluations of a
+    UNet-only family (no ControlNet runs, whatever the configuration's
+    structural controlnet field; no fused norms, no int8) that decode once
+    and encode `encodes` times, and the attention launches by key length."""
+    want = dict.fromkeys(KERNELS, 0)
+    step, per_decode = expected_launches(cfg, res, n_controlnets=0)
+    for name, n in step.items():
+        want[name] += evals * n
+    by_key = {}
+    for q_shape, s, _ in attention_sites(cfg, res, n_controlnets=0):
+        if attention_route(q_shape, s, torch.bfloat16):
+            by_key[s] = by_key.get(s, 0) + 2 * evals
+    want["fused_attention"] = per_decode * (1 + encodes)
+    lat = res // cfg.vae.downsample_factor
+    by_key[lat * lat] = by_key.get(lat * lat, 0) + 2 * want["fused_attention"]
+    return {name: 2 * n for name, n in want.items()}, by_key
+
+
+def captured_path(config, build, cfg, res, evals, encodes=0):
+    """A main path over free-standing engines: build(capture) -> ({name:
+    Engine}, request(seed) -> (uint8 image on the host, x_0 latents)). One
+    warm-up request with engines built to capture (their capture seconds,
+    graph nodes and pools, the peak memory), two timed replayed requests whose
+    launches are held to `path_launches` (every bf16 attention launch on a
+    tensor-core variant), one eager request (engines built with
+    capture=False) with the first one's seed, equal in bytes, one traced
+    replayed request and one replay of each engine by CUDA events."""
+    from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.ops.kernels.attention import (
+        key_length_launches,
+        variant_launches,
+    )
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engines, request = build(True)
+    request(0)
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    infos = {name: eng.get_engine_infor() for name, eng in engines.items()}
+    print(f"{config} warm-up request: {warm_s:.3f} s, captures "
+          + "; ".join(f"{n} {i['compile_seconds']:.3f} s, {i['device_ops']} graph nodes, "
+                      f"pool {i['memory']['pool_bytes']} bytes" for n, i in infos.items())
+          + f"; peak memory allocated {peak} bytes", flush=True)
+    if not all(eng.compiled for eng in engines.values()):
+        raise AssertionError(f"{config}: an engine was not captured")
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    for counter in (variant_launches, key_length_launches):
+        counter.clear()
+    images, latents, latencies = [], [], []
+    lat = res // cfg.vae.downsample_factor
+    for seed in (1, 2):
+        t0 = time.perf_counter()
+        img, z = request(seed)
+        latencies.append(time.perf_counter() - t0)
+        if not (torch.isfinite(z).all() and z.shape == (1, lat, lat, 4)
+                and img.shape == (res, res, 3) and img.dtype == np.uint8):
+            raise AssertionError(f"{config}: latents {tuple(z.shape)} not finite or image "
+                                 f"{img.shape} {img.dtype}")
+        images.append(img)
+        latents.append(z.clone())
+        print(f"{config} replayed request seed={seed}: {latencies[-1]:.4f} s; max |z| "
+              f"{z.abs().max().item():.3f}", flush=True)
+    launches, variants = dict(dispatch.launches), dict(variant_launches)
+    key_lengths = {s: n for s, n in key_length_launches.items() if n}
+    _, eager_request = build(False)
+    t0 = time.perf_counter()
+    eager = eager_request(1)[0]
+    eager_latency = time.perf_counter() - t0
+    differ = int((eager != images[0]).sum())
+    print(f"{config} eager request seed=1: {eager_latency:.4f} s; bytes that differ from "
+          f"the replayed image: {differ} of {eager.size}", flush=True)
+    if differ:
+        raise AssertionError(f"the replayed image ({config}) differs from the eager one "
+                             f"in {differ} bytes")
+    want, want_keys = path_launches(cfg, res, evals, encodes)
+    want_keys = {s: n for s, n in want_keys.items() if n}
+    want_variants = {k: n for k, n in (("wgmma", want["fused_attention_packed"]),
+                                       ("wgmma_split", want["fused_attention"])) if n}
+    print(f"{config} kernel launches over the 2 replayed requests: {launches} (expected "
+          f"{want}); by key length {key_lengths} (expected {want_keys}); by variant "
+          f"{variants}", flush=True)
+    if (launches != want or key_lengths != want_keys
+            or {k: v for k, v in variants.items() if v} != want_variants):
+        raise AssertionError(f"{config} launches {launches}, {key_lengths}, {variants} != "
+                             f"{want}, {want_keys}")
+    if np.array_equal(images[0], images[1]):
+        raise AssertionError(f"{config}: two seeds gave the same image")
+    print(f"{config} image stats: mean {images[0].mean():.2f} std {images[0].std():.2f}",
+          flush=True)
+    trace = traced_request(lambda: request(3))
+    traced = None
+    if trace is None:
+        print(f"{config} traced replayed request: not measured (the profiler gave no "
+              "device events)", flush=True)
+    else:
+        ms, parts, n_ops = trace
+        traced = {"device_ms": ms, "device_ops": n_ops,
+                  **{f"{family}_ms": part for family, part in parts.items()}}
+        print(f"{config} traced replayed request: device time {ms:.1f} ms in {n_ops} device "
+              "operations; this package's kernels, ms: "
+              + ", ".join(f"{family} {part:.1f}" for family, part in parts.items()),
+              flush=True)
+    replays = {}
+    for name, eng in engines.items():
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        eng.replay()
+        end.record()
+        torch.cuda.synchronize()
+        replays[name] = start.elapsed_time(end)
+    print(f"{config} one replay of each engine by CUDA events, ms: "
+          + ", ".join(f"{n} {ms:.1f}" for n, ms in replays.items()), flush=True)
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "key_lengths": key_lengths, "latencies": latencies,
+            "eager_latency": eager_latency, "image": images[0], "latents": latents[0],
+            "traced": traced, "engines": infos, "replay_ms": replays, "peak_bytes": peak,
+            "warm_s": warm_s}
+
+
+def seeded_adapter(net, seed, directory, on):
+    """A rank-LORA_RANK adapter on DEFAULT_TARGETS of the port's network
+    `net`, b drawn non-zero, through save_lora and load_lora (the
+    sdeo-lora-v1 file); returns (adapter, metadata)."""
+    from stablediffusioneo_tpu_torch.training.lora import init_lora, load_lora, save_lora
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tree = init_lora(g, net, rank=LORA_RANK)
+
+    def fill(node):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                fill(v)
+            elif k == "b":
+                node[k] = torch.randn(v.shape, generator=g, device="cuda") * LORA_B_STD
+
+    fill(tree)
+    path = os.path.join(directory, f"{on}_lora.npz")
+    save_lora(path, tree, alpha=LORA_ALPHA, rank=LORA_RANK, on=on)
+    return load_lora(path)
+
+
+def graphs_of(rt):
+    """{engine key: its CUDA graph object} of a runtime's captured engines."""
+    return {k: e._graph for k, e in rt._engines.items() if e.compiled}
+
+
+def lora_phase(model, cfg, tokenizer):
+    """LoRA on the SD-1.5 ControlNet model at 512x512, 20 steps, merged into
+    the engines captured before the merge: a seeded adapter for the UNet,
+    the ControlNet and CLIP each, through an sdeo-lora-v1 file; scale 0 gives
+    the base image in bytes; then each merged at alpha / rank (site counts,
+    seconds a merge): the same engines (no new capture) replay the merged
+    weights, another image, replay = eager in bytes, 560 packed + 1 split
+    launches a request."""
+    from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
+
+    pipe = Canny2ImagePipeline(model, tokenizer, cfg, device="cuda")
+    rt = pipe.runtime
+    img, kw = smoke_image(), run_kwargs("default")
+    base = pipe.process(img, PROMPT, seed=1, **kw)[1]
+    graphs = graphs_of(rt)
+    nets = {"unet": rt.model.unet, "controlnet": rt.model.control, "clip": rt.model.clip}
+    with tempfile.TemporaryDirectory() as directory:
+        adapters = {on: seeded_adapter(net, 10 + i, directory, on)
+                    for i, (on, net) in enumerate(nets.items())}
+    for on, (tree, _) in adapters.items():
+        rt.apply_lora(tree, scale=0.0, on=on)
+    zero = pipe.process(img, PROMPT, seed=1, **kw)[1]
+    if not np.array_equal(zero, base):
+        raise AssertionError(f"apply_lora(scale=0) changed {(zero != base).sum()} bytes")
+    sites, merge_s = {}, {}
+    for on, (tree, meta) in adapters.items():
+        t0 = time.perf_counter()
+        sites[on] = rt.apply_lora(tree, scale=meta["alpha"] / meta["rank"], on=on)
+        merge_s[on] = time.perf_counter() - t0
+    print(f"lora: rank {LORA_RANK}, alpha {LORA_ALPHA}; sites merged {sites}; seconds a "
+          f"merge {merge_s}", flush=True)
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    merged = pipe.process(img, PROMPT, seed=1, **kw)[1]
+    latency = time.perf_counter() - t0
+    launches = dict(dispatch.launches)
+    same = graphs_of(rt)
+    rt.graphs = False
+    eager = pipe.process(img, PROMPT, seed=1, **kw)[1]
+    rt.graphs = None
+    want = {k: n // 2 for k, n in expected_request_launches(cfg, "default")[0].items() if n}
+    print(f"lora: merged request {latency:.4f} s replayed; {len(same)} captured engines "
+          f"before and after the merge ({len(graphs)} before), the same graphs: "
+          f"{same == graphs}; the image differs from the base in "
+          f"{int((merged != base).sum())} bytes, from the eager request in "
+          f"{int((merged != eager).sum())}; launches {launches}", flush=True)
+    if (same != graphs or np.array_equal(merged, base) or not np.array_equal(merged, eager)
+            or {k: v for k, v in launches.items() if v} != want):
+        raise AssertionError(f"lora phase failed: same engines {same == graphs}, launches "
+                             f"{launches} (expected {want})")
+    return pipe, {"sites": sites, "merge_s": merge_s, "request_s": latency}
+
+
+def two_token_word(tokenizer):
+    """A word the BPE tokenizer takes as exactly two tokens."""
+    for word in ("house", "woods", "light", "river", "garden", "stone", "door", "hill",
+                 "red", "old", "mist", "rose"):
+        if len(tokenizer.encode(word)) == 2:
+            return word
+    raise AssertionError("no two-token word among the candidates")
+
+
+def textual_inversion_phase(pipe, tokenizer):
+    """Textual inversion on a live runtime (the LoRA phase's pipeline): a
+    2-vector concept made of the embedding rows of a two-token word gives
+    that word's image in bytes, a concept of random vectors another image;
+    only the CLIP engines are evicted (and captured again), the sample+decode
+    engine is not captured again."""
+    from stablediffusioneo_tpu_torch.checkpoint.textual_inversion import (
+        apply_textual_inversion,
+        token_embedding,
+    )
+
+    rt = pipe.runtime
+    img, kw = smoke_image(), run_kwargs("default")
+    word = two_token_word(tokenizer)
+    prompt = f"a {word} in the woods"
+    want = pipe.process(img, prompt, seed=1, **kw)[1]
+    before = graphs_of(rt)
+    rows = token_embedding(rt.model.clip).weight[tokenizer.encode(word)].float().cpu()
+    g = torch.Generator().manual_seed(3)
+    n = apply_textual_inversion(rt, tokenizer, {"<clone>": rows.numpy()})
+    n += apply_textual_inversion(rt, tokenizer, {"<rand>": (torch.randn(
+        (2, rows.shape[1]), generator=g) * 0.02).numpy()})
+    evicted = {k for k in before if k[0] == "clip"} - set(rt._engines)
+    clone = pipe.process(img, "a <clone> in the woods", seed=1, **kw)[1]
+    rand = pipe.process(img, "a <rand> in the woods", seed=1, **kw)[1]
+    after = graphs_of(rt)
+    recaptured = {k for k in after if k[0] == "clip"}
+    kept = {k: g for k, g in before.items() if k[0] != "clip"}
+    print(f"textual inversion: {n} rows added; the word {word!r} is "
+          f"{tokenizer.encode(word)}; CLIP engines evicted {len(evicted)}, captured again "
+          f"{len(recaptured)}; the other {len(kept)} engines kept: "
+          f"{all(after.get(k) is g for k, g in kept.items())}; the <clone> image differs "
+          f"from the word's in {int((clone != want).sum())} bytes, the <rand> image in "
+          f"{int((rand != want).sum())}", flush=True)
+    if not (n == 4 and evicted and len(recaptured) == len(evicted)
+            and all(after.get(k) is g for k, g in kept.items()) and len(after) == len(before)
+            and np.array_equal(clone, want) and not np.array_equal(rand, want)):
+        raise AssertionError("textual-inversion phase failed")
+    pipe.runtime.release()
+    return {"rows": n, "clip_engines_evicted": len(evicted),
+            "clip_engines_recaptured": len(recaptured)}
+
+
+def inpaint_build(model, ids):
+    """captured_path's build of the 9-channel inpainting request at 512x512:
+    the text tower eagerly (no kernel at 77 tokens), the masked-image encode
+    in encoder_engine (posterior mode), inpaint_to_concat, then
+    concat_sample_decode_engine (20 DDIM steps, scale 9) on x_T drawn from
+    the seed."""
+    from stablediffusioneo_tpu_torch.models.clip import clip_text_apply
+    from stablediffusioneo_tpu_torch.pipeline.concat_cond import inpaint_to_concat
+    from stablediffusioneo_tpu_torch.runtime.engine import (
+        concat_sample_decode_engine,
+        encoder_engine,
+    )
+
+    dtype = next(model.parameters()).dtype
+    img = torch.from_numpy(smoke_source()[None].astype(np.float32) / 127.5 - 1.0).to(
+        "cuda", dtype)
+    mask = torch.from_numpy(smoke_mask()[None].astype(np.float32) / 255.0).to("cuda")
+    lat = RES // model.cfg.vae.downsample_factor
+
+    def build(capture):
+        enc = encoder_engine(model, 1, RES, RES, deterministic=True, capture=capture)
+        eng = concat_sample_decode_engine(model, STEPS, 1, RES, RES, capture=capture)
+
+        def request(seed):
+            with torch.no_grad():
+                ctx = clip_text_apply(model.clip, ids).to(dtype)
+                c_concat = inpaint_to_concat(model.first_stage_model, img, mask,
+                                             encode=enc).to(dtype)
+            x = torch.randn((1, lat, lat, 4), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(seed))
+            out, z = eng(x.to(dtype), c_concat, ctx[:1], ctx[1:],
+                         torch.full((1,), SCALE, device="cuda"))
+            return out[0].cpu().numpy(), z
+
+        return {enc.name: enc, eng.name: eng}, request
+
+    return build
+
+
+def inpaint_phase(tokenizer):
+    """The 9-channel inpainting model (sd15_inpaint_pipeline(), full width,
+    seeded) at 512x512, 20 DDIM steps, scale 9, batch 1, a rectangular mask,
+    as a main path (captured_path; 400 packed + 2 split launches a request:
+    20 an evaluation of the UNet alone, the masked-image encode and the
+    decode); then its state dict in the
+    sd-v1-5-inpainting layout through a torch.save'd file and
+    load_inpaint_pipeline: every key consumed or named, none orphaned, the
+    same image in bytes."""
+    from stablediffusioneo_tpu_torch.checkpoint import load_inpaint_pipeline
+    from stablediffusioneo_tpu_torch.config import sd15_inpaint_pipeline
+    from stablediffusioneo_tpu_torch.models.cldm import LatentDiffusion
+
+    cfg = sd15_inpaint_pipeline()
+    model = build_seeded(lambda: LatentDiffusion(cfg), 0)
+    ids = torch.as_tensor(np.asarray(tokenizer([PROMPT, ""])), dtype=torch.long,
+                          device="cuda")
+    run = captured_path("inpaint 9ch", inpaint_build(model, ids), cfg, RES, STEPS,
+                        encodes=1)
+    sd = dict(model.state_dict())
+    extra = {"betas": torch.linspace(1e-4, 2e-2, 1000),
+             "cond_stage_model.transformer.text_model.embeddings.position_ids":
+                 torch.arange(77)[None]}
+    with tempfile.TemporaryDirectory() as directory:
+        path = os.path.join(directory, "sd-v1-5-inpainting_seeded.ckpt")
+        t0 = time.perf_counter()
+        torch.save({"state_dict": {**sd, **extra}}, path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = load_inpaint_pipeline(path, cfg, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    report = loaded.load_report
+    print(f"inpaint checkpoint: {len(sd) + len(extra)} keys, {size} bytes written in "
+          f"{save_s:.2f} s, loaded onto the card in {load_s:.2f} s; consumed "
+          f"{len(report.consumed)}, ignored {sorted(report.ignored)}, orphans "
+          f"{len(report.orphans)}", flush=True)
+    if not (report.complete and len(report.consumed) == len(sd)
+            and report.ignored == set(extra)):
+        raise AssertionError(f"inpaint checkpoint load: {report.problems()}")
+    del sd, model
+    engines, request = inpaint_build(loaded, ids)(True)
+    out = request(1)[0]
+    differ = int((out != run["image"]).sum())
+    print(f"inpaint checkpoint: the loaded model's request seed=1 differs from the seeded "
+          f"model's image in {differ} bytes", flush=True)
+    if differ:
+        raise AssertionError(f"the loaded inpainting model gives another image ({differ})")
+    del engines, request, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    run["checkpoint"] = {"keys": len(report.consumed) + len(report.ignored), "bytes": size,
+                         "save_s": save_s, "load_s": load_s}
+    return run
+
+
+def refiner_reference(model):
+    """One full-width refiner-UNet evaluation at 256x256 in fp32, the card
+    (through the kernel entries, none gated at this size) against the same
+    weights on the CPU (plain versions), TF32 off: within REF_TOL x max
+    |ref|. The refiner's level 3 has no attention and its middle block a
+    depth-4 transformer."""
+    from stablediffusioneo_tpu_torch.models.unet import UNetModel, unet_forward
+    from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.ops.layers import nchw
+
+    ucfg = model.cfg.unet
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 32, 32, 4), generator=g)
+    ctx = torch.randn((2, 77, ucfg.context_dim), generator=g)
+    y = torch.randn((2, ucfg.adm_in_channels), generator=g)
+    t = torch.tensor([801.0, 801.0])
+    with torch.device("meta"):
+        cpu_unet = UNetModel(ucfg)
+    cpu_unet.to_empty(device="cpu")
+    cpu_unet.load_state_dict(model.unet.state_dict())
+    outs = {}
+    for dev, unet in (("cuda", model.unet), ("cpu", cpu_unet)):
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = unet_forward(unet, nchw(x.to(dev)), t.to(dev), ctx.to(dev), y=y.to(dev))
+        outs[dev] = out.cpu()
+        if dev == "cuda":
+            launches = {k: v for k, v in dispatch.launches.items() if v}
+        print(f"refiner reference: {dev} evaluation {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    del cpu_unet
+    err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    ref_scale = outs["cpu"].abs().max().item()
+    want = {k: v for k, v in expected_launches(model.cfg, 256, torch.float32)[0].items() if v}
+    print(f"reference (sdxl refiner): full-width refiner UNet 256x256 fp32, card vs CPU "
+          f"max|d| {err:.3e} (max|ref| {ref_scale:.3e}), kernel launches {launches} "
+          f"(expected {want})", flush=True)
+    if not (torch.isfinite(outs["cuda"]).all() and err <= REF_TOL * ref_scale
+            and launches == want):
+        raise AssertionError(f"refiner reference failed: {err}, {launches}")
+    return {"max_abs_err": err, "max_abs_ref": ref_scale}
+
+
+def refiner_build(model, ids_g, z_base):
+    """captured_path's build of the refiner's request: bigG conditioning of
+    the prompt and the empty prompt (aesthetic scores 6.0 and 2.5, one call
+    a branch, eagerly, outside the engine), the base latents forward-diffused
+    to the entry of the last REFINER_T_ENC of STEPS steps with noise drawn
+    from the seed outside the graph, then sdxl_refine_decode_engine."""
+    from stablediffusioneo_tpu_torch.models.sdxl import sdxl_refiner_conditioning
+    from stablediffusioneo_tpu_torch.ops.schedule import DiffusionSchedule
+    from stablediffusioneo_tpu_torch.pipeline.ddim import stochastic_tail_entry
+    from stablediffusioneo_tpu_torch.runtime.engine import sdxl_refine_decode_engine
+
+    d = model.cfg.diffusion
+    sched = DiffusionSchedule(d.timesteps, d.linear_start, d.linear_end,
+                              d.schedule).ddim(STEPS)
+    dtype = next(model.parameters()).dtype
+    size = (SDXL_RES, SDXL_RES)
+
+    def build(capture):
+        eng = sdxl_refine_decode_engine(model, STEPS, REFINER_T_ENC, 1, SDXL_RES, SDXL_RES,
+                                        capture=capture)
+
+        def request(seed):
+            with torch.no_grad():
+                (ctx_c, y_c), (ctx_u, y_u) = (
+                    sdxl_refiner_conditioning(model, ids, size, aesthetic_score=score)
+                    for ids, score in ((ids_g[:1], REFINER_SCORES[0]),
+                                       (ids_g[1:], REFINER_SCORES[1])))
+            noise = torch.randn(z_base.shape, device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(seed))
+            _, x = stochastic_tail_entry(sched, REFINER_T_ENC, z_base.to(dtype), noise)
+            img, z = eng(x, ctx_c, ctx_u, y_c, y_u,
+                         torch.full((1,), SDXL_SCALE, device="cuda"))
+            return img[0].cpu().numpy(), z
+
+        return {eng.name: eng}, request
+
+    return build
+
+
+def refiner_phase(tokenizer, z_base):
+    """SDXL base -> refiner at 1024x1024: the refiner (SDXLRefinerConfig(),
+    weights drawn on the card) first in fp32 for refiner_reference, then in
+    bf16 as a main path on the base's latents (captured_path: t_enc 4 of 20,
+    scale 5; 320 packed + 1 split launches a request); then its sgm-layout
+    state dict (with OpenCLIP's two leftovers) written to a temporary
+    directory (its free bytes printed first) and read back by
+    load_sdxl_refiner_pipeline: every key consumed or named, none orphaned,
+    the same image in bytes."""
+    from stablediffusioneo_tpu_torch.checkpoint import load_sdxl_refiner_pipeline
+    from stablediffusioneo_tpu_torch.models.sdxl import SDXLRefiner, sdxl_tokenize
+
+    cfg = refiner_config()
+    model = build_seeded(lambda: SDXLRefiner(cfg), 0, torch.float32)
+    reference = refiner_reference(model)
+    model = model.to(torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ids_g = torch.as_tensor(sdxl_tokenize(tokenizer, [PROMPT, ""])[1], dtype=torch.long,
+                            device="cuda")
+    run = captured_path("sdxl refiner 1024", refiner_build(model, ids_g, z_base), cfg,
+                        SDXL_RES, REFINER_T_ENC)
+    sd = dict(model.state_dict())
+    t = cfg.clip_g.max_length
+    extra = {"conditioner.embedders.0.model.attn_mask": torch.full(
+                 (t, t), float("-inf"), device="cuda").triu(1),
+             "conditioner.embedders.0.model.logit_scale": torch.tensor(4.6052, device="cuda")}
+    with tempfile.TemporaryDirectory() as directory:
+        free = shutil.disk_usage(directory).free
+        print(f"refiner checkpoint: {free} bytes free where the file is written", flush=True)
+        path = os.path.join(directory, "sd_xl_refiner_seeded.pth")
+        t0 = time.perf_counter()
+        torch.save({**sd, **extra}, path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = load_sdxl_refiner_pipeline(path, cfg, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    report = loaded.load_report
+    print(f"refiner checkpoint: {len(sd) + len(extra)} keys, {size} bytes written in "
+          f"{save_s:.2f} s, loaded onto the card in {load_s:.2f} s; consumed "
+          f"{len(report.consumed)}, ignored {sorted(report.ignored)}, orphans "
+          f"{len(report.orphans)}", flush=True)
+    if not (report.complete and len(report.consumed) == len(sd)
+            and report.ignored == set(extra)):
+        raise AssertionError(f"refiner checkpoint load: {report.problems()}")
+    del sd, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    engines, request = refiner_build(loaded, ids_g, z_base)(True)
+    out = request(1)[0]
+    differ = int((out != run["image"]).sum())
+    print(f"refiner checkpoint: the loaded refiner's request seed=1 differs from the "
+          f"seeded refiner's image in {differ} bytes", flush=True)
+    if differ:
+        raise AssertionError(f"the loaded refiner gives another image ({differ} bytes)")
+    del engines, request, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    run["checkpoint"] = {"keys": len(report.consumed) + len(report.ignored), "bytes": size,
+                         "save_s": save_s, "load_s": load_s, "free_bytes": free}
+    run["reference"] = reference
+    return run
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card only")
@@ -2049,9 +2599,17 @@ def main():
               flush=True)
     hack = hackathon_phase(loaded, cfg, tokenizer)
     print(f"hackathon phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
-    del loaded
+    lora_pipe, lora = lora_phase(loaded, cfg, tokenizer)
+    print(f"lora phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    inversion = textual_inversion_phase(lora_pipe, tokenizer)
+    del loaded, lora_pipe
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"textual-inversion phase done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    runs["inpaint 9ch"] = inpaint_phase(tokenizer)
+    print(f"main path (inpaint 9ch) and its checkpoint done at "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     sd21_cfg, _ = family_configs()
     model = build_model(sd21_cfg, seed=0)
     runs["sd21 768"] = main_path(model, sd21_cfg, "sd21 768")
@@ -2066,7 +2624,12 @@ def main():
               flush=True)
     sdxl_checkpoint = sdxl_checkpoint_phase(model, tokenizer, runs["sdxl 1024"]["image"])
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
     print(f"sdxl checkpoint phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    runs["sdxl refiner 1024"] = refiner_phase(tokenizer, runs["sdxl 1024"]["latents"])
+    print(f"main path (sdxl refiner 1024), its reference and checkpoint done at "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     latencies = {config: r["latencies"] for config, r in runs.items()}
     eager = {config: r["eager_latency"] for config, r in runs.items()}
     base = runs["default"]["image"].astype(np.int16)
@@ -2106,9 +2669,13 @@ def main():
         })
     sdxl = {config: {k: runs[config][k] for k in ("text_towers_ms", "peak_bytes", "warm_s")}
             for config in ("sdxl 1024", "sdxl 1024, fused norms")}
+    families = {config: {k: runs[config][k] for k in ("peak_bytes", "warm_s", "checkpoint")}
+                for config in ("inpaint 9ch", "sdxl refiner 1024")}
     print(json.dumps({"kernels": out, "request_s": latencies, "eager_request_s": eager,
                       "checkpoint": checkpoint, "hackathon": hack,
                       "sdxl": sdxl, "sdxl_checkpoint": sdxl_checkpoint,
+                      "lora": lora, "textual_inversion": inversion, "families": families,
+                      "refiner_reference": runs["sdxl refiner 1024"]["reference"],
                       "sampler_variants_request_s": variants_s,
                       "serving": serving, "multi_controlnet": multi,
                       "encode_image_replay_ms": encode_ms,

@@ -7,6 +7,12 @@ port's model holding its weights.
                             cfg=sd21_pipeline()) -> ControlLDM
   load_sd_pipeline          v1-5-pruned / v2-1_768-ema-pruned -> LatentDiffusion
   load_sdxl_pipeline        sd_xl_base_1.0 (sgm layout) -> SDXL
+  load_sdxl_refiner_pipeline  sd_xl_refiner_1.0 (sgm layout) -> SDXLRefiner
+  load_inpaint_pipeline     sd-v1-5-inpainting / 512-inpainting-ema (a
+                            9-channel UNet) -> LatentDiffusion
+Textual-inversion concepts load with `load_concept` and go into a tower
+with `add_concepts` / into a live runtime with `apply_textual_inversion`
+(checkpoint/textual_inversion.py).
 The port keeps the checkpoints' key names, so nothing is converted; every
 key is accounted for (checkpoint/accounting.py): per tree, each tree's
 documented leftovers by pattern under its prefix (the JAX jobs' ignore
@@ -27,8 +33,29 @@ from stablediffusioneo_tpu_torch.checkpoint.accounting import (
     copy_checkpoint_,
     tree_ignores,
 )
+from stablediffusioneo_tpu_torch.checkpoint.textual_inversion import (
+    add_concepts,
+    apply_textual_inversion,
+    load_concept,
+)
 from stablediffusioneo_tpu_torch.checkpoint.torch_reader import load_torch_state_dict
-from stablediffusioneo_tpu_torch.config import PipelineConfig, sd15_pipeline
+from stablediffusioneo_tpu_torch.config import (
+    PipelineConfig,
+    sd15_inpaint_pipeline,
+    sd15_pipeline,
+)
+
+__all__ = [
+    "load_torch_state_dict",
+    "load_controlnet_pipeline",
+    "load_sdxl_pipeline",
+    "load_sdxl_refiner_pipeline",
+    "load_inpaint_pipeline",
+    "load_sd_pipeline",
+    "load_concept",
+    "add_concepts",
+    "apply_textual_inversion",
+]
 
 
 def _sd_trees(cfg: PipelineConfig, control: bool) -> Tuple[Tuple[str, Tuple[str, ...]], ...]:
@@ -102,3 +129,35 @@ def load_sdxl_pipeline(path: str, cfg=None, device="cuda", strict: bool = True,
     cfg = cfg or SDXLConfig()
     return _load(path, lambda: SDXL(cfg), SDXL_TREES, device, strict, dtype,
                  "sdxl_pipeline")
+
+
+def load_inpaint_pipeline(path: str, cfg: Optional[PipelineConfig] = None,
+                          device="cuda", strict: bool = True,
+                          dtype: Optional[torch.dtype] = None):
+    """The LatentDiffusion (9-channel UNet, VAE, text tower) of a dedicated
+    inpainting checkpoint (default sd15_inpaint_pipeline(); SD-2.0's
+    512-inpainting-ema with cfg=sd2_inpaint_pipeline(): the text tower's
+    layout follows cfg.clip.layer, as for load_sd_pipeline); sample it with
+    pipeline/concat_cond.py (inpaint_to_concat + sd_concat_sample)."""
+    from stablediffusioneo_tpu_torch.models.cldm import LatentDiffusion
+
+    cfg = cfg or sd15_inpaint_pipeline()
+    return _load(path, lambda: LatentDiffusion(cfg), _sd_trees(cfg, False), device,
+                 strict, dtype, "inpaint")
+
+
+def load_sdxl_refiner_pipeline(path: str, cfg=None, device="cuda", strict: bool = True,
+                               dtype: Optional[torch.dtype] = None):
+    """The SDXLRefiner (models/sdxl.py; default SDXLRefinerConfig()) of an
+    SDXL-refiner checkpoint in sgm's layout: the UNet, bigG at
+    conditioner.embedders.0.model. and the VAE; sample it with
+    models/sdxl.py:sdxl_refine_latents on the base model's latents."""
+    from stablediffusioneo_tpu_torch.models.sdxl import (
+        SDXL_REFINER_TREES,
+        SDXLRefiner,
+        SDXLRefinerConfig,
+    )
+
+    cfg = cfg or SDXLRefinerConfig()
+    return _load(path, lambda: SDXLRefiner(cfg), SDXL_REFINER_TREES, device, strict,
+                 dtype, "sdxl_refiner")

@@ -1,229 +1,316 @@
-"""JAX parameter trees -> one torch state dict under the checkpoint's names.
+"""JAX parameter trees -> the port's parameter names (one map, two users).
 
 The inverse of stablediffusioneo_tpu/checkpoint/convert.py (`convert_unet`,
-`convert_controlnet`, `convert_vae`, `convert_clip`, `convert_openclip_text`):
-HWIO convs go back to OIHW, (in, out) linears to (out, in), g/b norms to
-weight/bias, an OpenCLIP tower's q/k/v into its packed in_proj (3d, d), its
-text_projection kept as stored (d, proj), under the prefixes
-model.diffusion_model. / control_model. / first_stage_model. /
-cond_stage_model.transformer. (HF CLIP) or cond_stage_model.model. (OpenCLIP,
-SD-2.x), or SDXL's sgm layout (model.diffusion_model. /
-conditioner.embedders.0.transformer. / conditioner.embedders.1.model. /
-first_stage_model.). The parameters arrive as arrays (numpy, or anything
-numpy can read), so this module needs no JAX. Every parameter of the port's
-model (`ControlLDM`, `LatentDiffusion` or `SDXL`) gets one, and no other key
-is made, so its `load_checkpoint` loads the result with nothing left over, by
-the same names a real checkpoint uses.
+`convert_controlnet`, `convert_vae`, `convert_clip`, `convert_openclip_text`).
+`leaf_target(kind, ucfg, path)` names, for the path of one leaf of a JAX tree
+of a given kind ("unet", "controlnet", "vae", "clip", "openclip"), the
+port's tensor it becomes, relative to the network's module, and how it is
+laid out there: HWIO convs go back to OIHW, (in, out) linears to (out, in),
+g/b norms to weight/bias, an OpenCLIP tower's q/k/v into one third each of
+its packed in_proj (3d, d), its text_projection kept as stored (d, proj).
+
+Two users, so that no second table of names exists:
+  * `state_dict_from_jax` makes one state dict of a model's JAX trees, under
+    the checkpoint's prefixes (`jax_trees`): model.diffusion_model. /
+    control_model. / first_stage_model. / cond_stage_model.transformer. (HF
+    CLIP) or cond_stage_model.model. (OpenCLIP, SD-2.x); SDXL base's sgm
+    layout (conditioner.embedders.0.transformer. / .1.model.); the SDXL
+    refiner's (bigG alone, at conditioner.embedders.0.model.);
+  * training/lora.py merges an adapter, whose sites are named by their JAX
+    paths, into the port's modules in place.
+The parameters arrive as arrays (numpy, or anything numpy can read), so this
+module needs no JAX. Every parameter of the port's model gets one, and no
+other key is made, so its `load_checkpoint` loads the result with nothing
+left over, by the same names a real checkpoint uses.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from stablediffusioneo_tpu_torch.models.unet import decoder_plan, encoder_plan
+from stablediffusioneo_tpu_torch.models.unet import decoder_plan
 
 StateDict = Dict[str, torch.Tensor]
 
 
-def _put(sd: StateDict, name: str, a) -> None:
-    sd[name] = torch.from_numpy(np.array(a, np.float32))  # a writable copy
+class Target(NamedTuple):
+    """Where a JAX leaf lives in the port: `name`, a tensor name relative to
+    the network's module; `layout`, "linear" ((in, out) stored (out, in)),
+    "conv" (HWIO stored OIHW) or "raw" (as stored); `rows`, for OpenCLIP's
+    q/k/v, which third (0, 1, 2) of the packed in_proj it is, else None."""
+
+    name: str
+    layout: str
+    rows: Optional[int] = None
 
 
-def _conv(sd, name, p):
-    _put(sd, f"{name}.weight", np.transpose(np.asarray(p["w"]), (3, 2, 0, 1)))
-    if "b" in p:
-        _put(sd, f"{name}.bias", p["b"])
+# the transformer block's linears (ldm/modules/attention.py names)
+_ATTN = {"wq": "to_q", "wk": "to_k", "wv": "to_v", "wo": "to_out.0"}
+_FF = {"ff1": "ff.net.0.proj", "ff2": "ff.net.2"}
+# a ResBlock's layers (openaimodel.py names)
+_RES = {"norm1": "in_layers.0", "conv1": "in_layers.2", "emb": "emb_layers.1",
+        "norm2": "out_layers.0", "conv2": "out_layers.3", "skip": "skip_connection"}
+# a CLIP text layer: HF CLIPTextModel's and OpenCLIP's names
+_CLIP_LAYER = {"ln1": "layer_norm1", "ln2": "layer_norm2", "q": "self_attn.q_proj",
+               "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+               "out": "self_attn.out_proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+_OPENCLIP_LAYER = {"ln1": "ln_1", "ln2": "ln_2", "out": "attn.out_proj",
+                   "fc1": "mlp.c_fc", "fc2": "mlp.c_proj"}
+_QKV = ("q", "k", "v")  # OpenCLIP's in_proj order
 
 
-def _linear(sd, name, p):
-    _put(sd, f"{name}.weight", np.transpose(np.asarray(p["w"])))
-    if "b" in p:
-        _put(sd, f"{name}.bias", p["b"])
+def _transformer(rest) -> str:
+    """A SpatialTransformer's node (norm / proj_in / proj_out / blocks/j/...)."""
+    if rest[0] != "blocks":
+        return _one(rest, rest[0])
+    j, part = rest[1], rest[2]
+    if part in ("attn1", "attn2"):
+        return _one(rest[3:], f"transformer_blocks.{j}.{part}.{_ATTN[rest[3]]}")
+    return _one(rest[3:], f"transformer_blocks.{j}." + (_FF[part] if part in _FF else part))
 
 
-def _norm(sd, name, p):
-    _put(sd, f"{name}.weight", p["g"])
-    _put(sd, f"{name}.bias", p["b"])
+def _one(rest, name: str) -> str:
+    """`name` if the path ends here (its node reached), else a KeyError."""
+    if len(rest) > 1:
+        raise KeyError("/".join(map(str, rest)))
+    return name
 
 
-# ------------------------------------------------------------------- UNet
+def _unet_node(ucfg, path) -> str:
+    """The port module of a UNet / ControlNet node (a dict of w / b / g)."""
+    head = path[0]
+    if head in ("time_embed", "label_emb"):
+        pre = "time_embed." if head == "time_embed" else "label_emb.0."
+        return _one(path[1:], pre + {"l1": "0", "l2": "2"}[path[1]])
+    if head == "out":
+        return _one(path[1:], {"norm": "out.0", "conv": "out.2"}[path[1]])
+    if head == "input_hint_block":
+        return _one(path[1:], f"input_hint_block.{2 * int(path[1])}")
+    if head == "zero_convs":
+        return _one(path[1:], f"zero_convs.{int(path[1])}.0")
+    if head == "middle_block_out":
+        return _one(path, "middle_block_out.0")
+    if head == "middle_block":
+        part = path[1]
+        if part == "attn":
+            return "middle_block.1." + _transformer(path[2:])
+        return f"middle_block.{ {'res1': 0, 'res2': 2}[part] }." + _one(
+            path[2:], _RES[path[2]])
+    if head not in ("input_blocks", "output_blocks"):
+        raise KeyError(head)
+    i, part = int(path[1]), path[2]
+    base = f"{head}.{i}."
+    if part == "res":
+        return base + "0." + _one(path[3:], _RES[path[3]])
+    if part == "attn":
+        return base + "1." + _transformer(path[3:])
+    if head == "input_blocks" and part in ("conv", "down"):
+        return _one(path[2:], base + ("0" if part == "conv" else "0.op"))
+    if head == "output_blocks" and part == "up":
+        return _one(path[2:], base + f"{2 if decoder_plan(ucfg)[i]['attn'] else 1}.conv")
+    raise KeyError(part)
 
 
-def _resblock(sd, base, p):
-    _norm(sd, f"{base}.in_layers.0", p["norm1"])
-    _conv(sd, f"{base}.in_layers.2", p["conv1"])
-    _linear(sd, f"{base}.emb_layers.1", p["emb"])
-    _norm(sd, f"{base}.out_layers.0", p["norm2"])
-    _conv(sd, f"{base}.out_layers.3", p["conv2"])
-    if "skip" in p:
-        _conv(sd, f"{base}.skip_connection", p["skip"])
+def _vae_node(path) -> str:
+    """VAE names are the JAX keys joined, a resampler's conv one level down."""
+    name = ".".join(map(str, path))
+    return name + ".conv" if path[-1] in ("downsample", "upsample") else name
 
 
-def _spatial_transformer(sd, base, p):
-    _norm(sd, f"{base}.norm", p["norm"])
-    _conv(sd, f"{base}.proj_in", p["proj_in"])
-    _conv(sd, f"{base}.proj_out", p["proj_out"])
-    for j, blk in enumerate(p["blocks"]):
-        tb = f"{base}.transformer_blocks.{j}"
-        for i in (1, 2, 3):
-            _norm(sd, f"{tb}.norm{i}", blk[f"norm{i}"])
-        for a in ("attn1", "attn2"):
-            for src, dst in (("wq", "to_q"), ("wk", "to_k"), ("wv", "to_v"),
-                             ("wo", "to_out.0")):
-                _linear(sd, f"{tb}.{a}.{dst}", blk[a][src])
-        _linear(sd, f"{tb}.ff.net.0.proj", blk["ff1"])
-        _linear(sd, f"{tb}.ff.net.2", blk["ff2"])
+def leaf_target(kind: str, ucfg, path: Tuple) -> Target:
+    """The port's tensor of the JAX leaf at `path` (a tuple of keys and list
+    indices, ending at "w", "b", "g" or a bare array) in a tree of `kind`.
+    ucfg: the UNet configuration of a "unet" / "controlnet" tree (it places
+    an output block's upsampler). A path the trees do not hold raises
+    KeyError."""
+    if kind in ("clip", "openclip"):
+        return _clip_target(kind == "openclip", path)
+    node, leaf = path[:-1], path[-1]
+    if not node or leaf not in ("w", "b", "g"):
+        raise KeyError("/".join(map(str, path)))
+    name = _unet_node(ucfg, node) if kind in ("unet", "controlnet") else _vae_node(node)
+    if leaf == "w":
+        conv = not (kind in ("unet", "controlnet") and node[-1] in (
+            "wq", "wk", "wv", "wo", "ff1", "ff2", "emb", "l1", "l2"))
+        return Target(name + ".weight", "conv" if conv else "linear")
+    return Target(name + (".bias" if leaf == "b" else ".weight"), "raw")
 
 
-def _encoder_part(sd, prefix, cfg, p):
-    _linear(sd, f"{prefix}time_embed.0", p["time_embed"]["l1"])
-    _linear(sd, f"{prefix}time_embed.2", p["time_embed"]["l2"])
-    if "label_emb" in p:  # ADM conditioning (SDXL), sgm's names
-        _linear(sd, f"{prefix}label_emb.0.0", p["label_emb"]["l1"])
-        _linear(sd, f"{prefix}label_emb.0.2", p["label_emb"]["l2"])
-    for i, (desc, blk) in enumerate(zip(encoder_plan(cfg), p["input_blocks"])):
-        base = f"{prefix}input_blocks.{i}"
-        if desc["kind"] == "conv":
-            _conv(sd, f"{base}.0", blk["conv"])
-        elif desc["kind"] == "down":
-            _conv(sd, f"{base}.0.op", blk["down"])
-        else:
-            _resblock(sd, f"{base}.0", blk["res"])
-            if "attn" in blk:
-                _spatial_transformer(sd, f"{base}.1", blk["attn"])
-    mid = p["middle_block"]
-    _resblock(sd, f"{prefix}middle_block.0", mid["res1"])
-    _spatial_transformer(sd, f"{prefix}middle_block.1", mid["attn"])
-    _resblock(sd, f"{prefix}middle_block.2", mid["res2"])
+def _clip_target(openclip: bool, path) -> Target:
+    head = path[0]
+    if len(path) == 1 and head in ("token_embedding", "position_embedding"):
+        if openclip:
+            return Target("token_embedding.weight" if head == "token_embedding"
+                          else "positional_embedding", "raw")
+        return Target(f"text_model.embeddings.{head}.weight", "raw")
+    if head == "text_projection" and openclip and path[1:] == ("w",):
+        return Target("text_projection", "raw")  # stored (d, proj), applied x @ W
+    leaf = path[-1]
+    if leaf not in ("w", "b", "g"):
+        raise KeyError("/".join(map(str, path)))
+    if head == "final_ln" and len(path) == 2:
+        return Target(("ln_final" if openclip else "text_model.final_layer_norm")
+                      + (".bias" if leaf == "b" else ".weight"), "raw")
+    if head != "layers" or len(path) != 4:
+        raise KeyError("/".join(map(str, path)))
+    i, part = int(path[1]), path[2]
+    if openclip and part in _QKV:
+        return Target(f"transformer.resblocks.{i}.attn.in_proj_"
+                      + ("weight" if leaf == "w" else "bias"),
+                      "linear" if leaf == "w" else "raw", _QKV.index(part))
+    sub = (_OPENCLIP_LAYER if openclip else _CLIP_LAYER)[part]
+    base = f"transformer.resblocks.{i}." if openclip else f"text_model.encoder.layers.{i}."
+    if leaf == "w":
+        return Target(base + sub + ".weight", "linear")
+    return Target(base + sub + (".bias" if leaf == "b" else ".weight"), "raw")
 
 
-def unet_state_dict(sd, cfg, p, prefix="model.diffusion_model."):
-    _encoder_part(sd, prefix, cfg, p)
-    for i, (desc, blk) in enumerate(zip(decoder_plan(cfg), p["output_blocks"])):
-        base = f"{prefix}output_blocks.{i}"
-        _resblock(sd, f"{base}.0", blk["res"])
-        if "attn" in blk:
-            _spatial_transformer(sd, f"{base}.1", blk["attn"])
-        if "up" in blk:
-            _conv(sd, f"{base}.{2 if 'attn' in blk else 1}.conv", blk["up"])
-    _norm(sd, f"{prefix}out.0", p["out"]["norm"])
-    _conv(sd, f"{prefix}out.2", p["out"]["conv"])
+def linear_nodes(kind: str, net) -> Iterator[Tuple]:
+    """The JAX path of every linear node (a "w" of (in, out), in the JAX
+    tree's order) of the port's network `net` of `kind`: its candidates are
+    enumerated over the network's blocks from the names above, and a
+    candidate is kept where `leaf_target` finds its tensor in `net`."""
+    names = dict(net.named_parameters())
+
+    def block_nodes(st):  # the linears of a SpatialTransformer
+        for j in range(len(st.transformer_blocks)):
+            for part in ("attn1", "attn2"):
+                yield from (("blocks", j, part, w) for w in sorted(_ATTN))
+            yield from (("blocks", j, f) for f in sorted(_FF))
+
+    def unet_candidates():  # a ControlNet has no output blocks
+        for head in ("input_blocks", "output_blocks"):
+            for i, blk in enumerate(getattr(net, head, ())):
+                st = blk.transformer()
+                if st is not None:
+                    yield from ((head, i, "attn") + n for n in block_nodes(st))
+                yield (head, i, "res", "emb")
+        yield from (("middle_block", "attn") + n
+                    for n in block_nodes(net.middle_block.transformer()))
+        yield from (("middle_block", r, "emb") for r in ("res1", "res2"))
+        yield from ((head, l) for head in ("label_emb", "time_embed") for l in ("l1", "l2"))
+
+    def clip_candidates():
+        for i in range(len(net.blocks)):
+            yield from (("layers", i, part) for part in sorted(_CLIP_LAYER)
+                        if part not in ("ln1", "ln2"))
+        if kind == "openclip":
+            yield ("text_projection",)
+
+    if kind in ("unet", "controlnet"):
+        candidates, ucfg = unet_candidates(), getattr(net.cfg, "unet", net.cfg)
+    elif kind in ("clip", "openclip"):
+        candidates, ucfg = clip_candidates(), None
+    else:
+        return  # the VAE holds no linear
+    for node in candidates:
+        t = leaf_target(kind, ucfg, node + ("w",))
+        if t.name in names and names[t.name].dim() == 2:
+            yield node
 
 
-def controlnet_state_dict(sd, cfg, p, prefix="control_model."):
-    _encoder_part(sd, prefix, cfg.unet, p)
-    for i, conv in enumerate(p["input_hint_block"]):
-        _conv(sd, f"{prefix}input_hint_block.{2 * i}", conv)
-    for i, conv in enumerate(p["zero_convs"]):
-        _conv(sd, f"{prefix}zero_convs.{i}.0", conv)
-    _conv(sd, f"{prefix}middle_block_out.0", p["middle_block_out"])
+def jax_leaves(tree, path: Tuple = ()) -> Iterator[Tuple[Tuple, object]]:
+    """(path, leaf) of every array of a JAX tree: dict keys in sorted order
+    (int keys for list positions, as an adapter file gives them), list and
+    tuple items by index."""
+    if isinstance(tree, dict):
+        for k in sorted(tree, key=str):
+            yield from jax_leaves(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from jax_leaves(v, path + (i,))
+    else:
+        yield path, tree
 
 
-# --------------------------------------------------------------------- VAE
+def port_layout(a: np.ndarray, layout: str) -> np.ndarray:
+    """A JAX array in the port's layout."""
+    if layout == "linear":
+        return np.transpose(a)
+    if layout == "conv":
+        return np.transpose(a, (3, 2, 0, 1))
+    return a
 
 
-def _vae_resnet(sd, base, p):
-    for n in ("norm1", "norm2"):
-        _norm(sd, f"{base}.{n}", p[n])
-    for n in ("conv1", "conv2", "nin_shortcut"):
-        if n in p:
-            _conv(sd, f"{base}.{n}", p[n])
+def tree_state_dict(sd: StateDict, kind: str, ucfg, tree, prefix: str = "") -> None:
+    """Every leaf of one JAX tree of `kind` into `sd`, fp32, under `prefix`
+    (prefix "": the names within the network's own module)."""
+    for path, leaf in jax_leaves(tree):
+        t = leaf_target(kind, ucfg, path)
+        a = port_layout(np.asarray(leaf, np.float32), t.layout)
+        name = prefix + t.name
+        if t.rows is None:
+            sd[name] = torch.from_numpy(np.array(a))  # a writable copy
+        else:  # a third of OpenCLIP's packed in_proj
+            d = a.shape[0]
+            packed = sd.setdefault(name, torch.zeros((3 * d,) + a.shape[1:]))
+            packed[t.rows * d:(t.rows + 1) * d] = torch.from_numpy(np.array(a))
 
 
-def _vae_mid(sd, base, p):
-    _vae_resnet(sd, f"{base}.block_1", p["block_1"])
-    _vae_resnet(sd, f"{base}.block_2", p["block_2"])
-    a = p["attn_1"]
-    _norm(sd, f"{base}.attn_1.norm", a["norm"])
-    for n in ("q", "k", "v", "proj_out"):
-        _conv(sd, f"{base}.attn_1.{n}", a[n])
+def jax_trees(cfg, params: Optional[dict] = None) -> Tuple[Tuple[str, str, str], ...]:
+    """(params key, kind, prefix) of each JAX tree of a model of `cfg`: a
+    PipelineConfig ({"unet", "controlnet" (absent for a ControlNet-free model;
+    a tuple of N trees for a ControlLDM of N ControlNets, under
+    control_model.<i>.), "vae", "clip"}, the text tower OpenCLIP's under
+    cond_stage_model.model. where cfg.clip.layer is "penultimate" (SD-2.x)),
+    an SDXL base configuration ({"unet", "clip_l", "clip_g", "vae"}) or an
+    SDXL refiner one ({"unet", "clip_g", "vae"}), by their own layouts.
+    `params` tells whether a PipelineConfig's model has a ControlNet."""
+    from stablediffusioneo_tpu_torch.models.sdxl import SDXLConfig, SDXLRefinerConfig
 
-
-def vae_state_dict(sd, p, prefix="first_stage_model."):
-    """Both towers with quant_conv and post_quant_conv, under the names of
-    the port's AutoencoderKL (and of convert_vae's input)."""
-    for tower, levels, sample in (("encoder", "down", "downsample"),
-                                  ("decoder", "up", "upsample")):
-        t = p[tower]
-        base = f"{prefix}{tower}"
-        _conv(sd, f"{base}.conv_in", t["conv_in"])
-        _vae_mid(sd, f"{base}.mid", t["mid"])
-        for i, level in enumerate(t[levels]):
-            for j, blk in enumerate(level["block"]):
-                _vae_resnet(sd, f"{base}.{levels}.{i}.block.{j}", blk)
-            if sample in level:
-                _conv(sd, f"{base}.{levels}.{i}.{sample}.conv", level[sample])
-        _norm(sd, f"{base}.norm_out", t["norm_out"])
-        _conv(sd, f"{base}.conv_out", t["conv_out"])
-    _conv(sd, f"{prefix}quant_conv", p["quant_conv"])
-    _conv(sd, f"{prefix}post_quant_conv", p["post_quant_conv"])
-
-
-# -------------------------------------------------------------------- CLIP
-
-
-def clip_state_dict(sd, p, prefix="cond_stage_model.transformer."):
-    tm = f"{prefix}text_model."
-    _put(sd, f"{tm}embeddings.token_embedding.weight", p["token_embedding"])
-    _put(sd, f"{tm}embeddings.position_embedding.weight", p["position_embedding"])
-    for i, layer in enumerate(p["layers"]):
-        base = f"{tm}encoder.layers.{i}"
-        _norm(sd, f"{base}.layer_norm1", layer["ln1"])
-        _norm(sd, f"{base}.layer_norm2", layer["ln2"])
-        for src, dst in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
-                         ("out", "out_proj")):
-            _linear(sd, f"{base}.self_attn.{dst}", layer[src])
-        _linear(sd, f"{base}.mlp.fc1", layer["fc1"])
-        _linear(sd, f"{base}.mlp.fc2", layer["fc2"])
-    _norm(sd, f"{tm}final_layer_norm", p["final_ln"])
-
-
-def openclip_state_dict(sd, p, prefix="cond_stage_model.model."):
-    """The CLIP tree under OpenCLIP's names: q, k, v packed in that order
-    into in_proj (3d, d), text_projection (d, proj) as OpenCLIP stores it."""
-    _put(sd, f"{prefix}token_embedding.weight", p["token_embedding"])
-    _put(sd, f"{prefix}positional_embedding", p["position_embedding"])
-    for i, layer in enumerate(p["layers"]):
-        base = f"{prefix}transformer.resblocks.{i}"
-        _norm(sd, f"{base}.ln_1", layer["ln1"])
-        _norm(sd, f"{base}.ln_2", layer["ln2"])
-        _put(sd, f"{base}.attn.in_proj_weight", np.concatenate(
-            [np.transpose(np.asarray(layer[n]["w"])) for n in ("q", "k", "v")]))
-        _put(sd, f"{base}.attn.in_proj_bias", np.concatenate(
-            [np.asarray(layer[n]["b"]) for n in ("q", "k", "v")]))
-        _linear(sd, f"{base}.attn.out_proj", layer["out"])
-        _linear(sd, f"{base}.mlp.c_fc", layer["fc1"])
-        _linear(sd, f"{base}.mlp.c_proj", layer["fc2"])
-    _norm(sd, f"{prefix}ln_final", p["final_ln"])
-    if "text_projection" in p:
-        _put(sd, f"{prefix}text_projection", p["text_projection"]["w"])
+    trees = [("unet", "unet", "model.diffusion_model."),
+             ("vae", "vae", "first_stage_model.")]
+    if isinstance(cfg, SDXLRefinerConfig):
+        return tuple(trees) + (("clip_g", "openclip", "conditioner.embedders.0.model."),)
+    if isinstance(cfg, SDXLConfig):
+        return tuple(trees) + (
+            ("clip_l", "clip", "conditioner.embedders.0.transformer."),
+            ("clip_g", "openclip", "conditioner.embedders.1.model."))
+    if params is None or params.get("controlnet") is not None:
+        trees.append(("controlnet", "controlnet", "control_model."))
+    if cfg.clip.layer == "penultimate":
+        trees.append(("clip", "openclip", "cond_stage_model.model."))
+    else:
+        trees.append(("clip", "clip", "cond_stage_model.transformer."))
+    return tuple(trees)
 
 
 def state_dict_from_jax(params: dict, cfg) -> StateDict:
-    """JAX trees -> one fp32 state dict. cfg a PipelineConfig: {"unet",
-    "controlnet" (absent for a ControlNet-free model; a tuple of N trees for
-    a ControlLDM of N ControlNets, under control_model.<i>.), "vae", "clip"}, the
-    text tower under OpenCLIP's names where cfg.clip.layer is "penultimate"
-    (SD-2.x). cfg an SDXL configuration (models/sdxl.py:SDXLConfig):
-    {"unet", "clip_l", "clip_g", "vae"} in sgm's layout."""
+    """JAX trees -> one fp32 state dict under the checkpoint's names (see
+    `jax_trees` for the trees each configuration takes)."""
     sd: StateDict = {}
-    unet_state_dict(sd, cfg.unet, params["unet"])
-    vae_state_dict(sd, params["vae"])
-    if hasattr(cfg, "clip_g"):
-        clip_state_dict(sd, params["clip_l"], "conditioner.embedders.0.transformer.")
-        openclip_state_dict(sd, params["clip_g"], "conditioner.embedders.1.model.")
-        return sd
-    nets = params.get("controlnet")
-    if isinstance(nets, (tuple, list)):  # multi-ControlNet: control_model.<i>.*
-        for i, net in enumerate(nets):
-            controlnet_state_dict(sd, cfg.controlnet, net, f"control_model.{i}.")
-    elif nets is not None:
-        controlnet_state_dict(sd, cfg.controlnet, nets)
-    if cfg.clip.layer == "penultimate":
-        openclip_state_dict(sd, params["clip"])
-    else:
-        clip_state_dict(sd, params["clip"])
+    for key, kind, prefix in jax_trees(cfg, params):
+        tree = params[key]
+        ucfg = cfg.controlnet.unet if kind == "controlnet" else getattr(cfg, "unet", None)
+        if kind == "controlnet" and isinstance(tree, (tuple, list)):  # multi-ControlNet
+            for i, net in enumerate(tree):
+                tree_state_dict(sd, kind, ucfg, net, f"{prefix}{i}.")
+        else:
+            tree_state_dict(sd, kind, ucfg, tree, prefix)
     return sd
+
+
+# one tree at a time, under a prefix (the whole network's module: prefix="")
+
+
+def unet_state_dict(sd: StateDict, ucfg, p, prefix="model.diffusion_model.") -> None:
+    tree_state_dict(sd, "unet", ucfg, p, prefix)
+
+
+def controlnet_state_dict(sd: StateDict, cfg, p, prefix="control_model.") -> None:
+    tree_state_dict(sd, "controlnet", cfg.unet, p, prefix)
+
+
+def vae_state_dict(sd: StateDict, p, prefix="first_stage_model.") -> None:
+    tree_state_dict(sd, "vae", None, p, prefix)
+
+
+def clip_state_dict(sd: StateDict, p, prefix="cond_stage_model.transformer.") -> None:
+    tree_state_dict(sd, "clip", None, p, prefix)
+
+
+def openclip_state_dict(sd: StateDict, p, prefix="cond_stage_model.model.") -> None:
+    tree_state_dict(sd, "openclip", None, p, prefix)

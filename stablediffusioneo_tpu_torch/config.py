@@ -8,7 +8,8 @@ configurations from the same numbers and compare them field by field
 architecture constants (320 base ch, mult (1,2,4,4), 2 res blocks/level,
 attention at ds 1/2/4, context dim 768, 8 heads; VAE f=8 with 4-ch latent;
 CLIP ViT-L/14 text tower). `sd21_*` / `openclip_vit_h_text` are the SD-2.x
-family (64-channel heads, OpenCLIP ViT-H context, v-prediction); the SDXL
+family (64-channel heads, OpenCLIP ViT-H context, v-prediction);
+`sd15_inpaint_*` / `sd2_inpaint_*` the 9-channel inpainting UNets; the SDXL
 configurations live beside their model, in models/sdxl.py, as in the JAX
 package.
 
@@ -204,6 +205,36 @@ def sd21_pipeline(
         diffusion=DiffusionConfig(
             parameterization="v" if v_prediction else "eps"
         ),
+        dtype=dtype,
+        use_pallas=use_pallas,
+    )
+
+
+def sd15_inpaint_pipeline(
+    dtype: str = "bfloat16", use_pallas: bool = True
+) -> PipelineConfig:
+    """sd-v1-5-inpainting: 9-channel hybrid-conditioned UNet (latent +
+    mask + masked-image latent), otherwise SD-1.5. Sampled via
+    pipeline/concat_cond.py; controlnet field structural only."""
+    unet = UNetConfig(in_channels=9)
+    return PipelineConfig(
+        unet=unet,
+        controlnet=ControlNetConfig(unet=unet),
+        dtype=dtype,
+        use_pallas=use_pallas,
+    )
+
+
+def sd2_inpaint_pipeline(
+    dtype: str = "bfloat16", use_pallas: bool = True
+) -> PipelineConfig:
+    """SD-2.0 inpainting (512-inpainting-ema): the 9-channel UNet at SD-2.x
+    dimensions (per-head 64 channels, OpenCLIP ViT-H context, eps)."""
+    unet = UNetConfig(in_channels=9, num_head_channels=64, context_dim=1024)
+    return PipelineConfig(
+        unet=unet,
+        controlnet=ControlNetConfig(unet=unet),
+        clip=openclip_vit_h_text(),
         dtype=dtype,
         use_pallas=use_pallas,
     )

@@ -1,5 +1,5 @@
-"""SDXL base (counterpart of stablediffusioneo_tpu/models/sdxl.py): configs,
-dual-tower conditioning, the checkpoint's module tree and the txt2img loop.
+"""SDXL base and refiner (counterpart of stablediffusioneo_tpu/models/sdxl.py):
+configs, conditioning, the checkpoints' module trees and the loops.
 
 The SDXL base architecture (Podell et al., arXiv:2307.01952) is built from
 the port's blocks: the openaimodel UNet with a per-level transformer-depth
@@ -10,6 +10,9 @@ bigG text towers (models/clip.py), the AutoencoderKL VAE, and the DDIM loop
   conditioner.embedders.0.transformer.*    -> CLIPTextModel (CLIP-L)
   conditioner.embedders.1.model.*          -> OpenCLIPTextModel (bigG)
   first_stage_model.*                      -> AutoencoderKL
+`SDXLRefiner` holds the refiner's three: the UNet, bigG alone at
+`conditioner.embedders.0.model.*` (the aesthetic / size embedders 1 and 2 are
+parameter-free fourier encoders) and the VAE.
 
 Conditioning contract (sgm GeneralConditioner):
   context = concat(CLIP-L penultimate (B,77,768),
@@ -17,6 +20,11 @@ Conditioning contract (sgm GeneralConditioner):
   y       = concat(bigG pooled (B,1280),
                    fourier(add_time_ids: orig_hw + crop_tl + target_hw,
                            256 each) (B,1536)) -> (B,2816)
+Refiner (one CFG branch a call: aesthetic score 6.0 for cond, 2.5 uncond):
+  context = OpenCLIP-bigG penultimate (B,77,1280)
+  y       = concat(bigG pooled (B,1280),
+                   fourier(orig_hw + crop_tl + aesthetic score) (B,1280))
+            -> (B,2560)
 """
 
 from __future__ import annotations
@@ -291,3 +299,150 @@ def sdxl_img2img_latents(
     return sdxl_txt2img(unet, tail, x_T, ctx_cond, ctx_uncond, y_cond, y_uncond, scale,
                         generator=generator, noise=noise, dtype=dtype,
                         parameterization=parameterization, cfg_rescale=cfg_rescale)
+
+
+# ------------------------------------------------------------------ refiner
+
+
+def sdxl_refiner_unet() -> UNetConfig:
+    """SDXL-refiner UNet (sgm configs/inference/sd_xl_refiner.yaml): 384 base
+    channels over 4 levels, transformer depth 4 at the ds-2/4 attention sites
+    and in the middle block, bigG-only context (1280), ADM 2560 (pooled 1280
+    + 5 x 256 aesthetic/size fourier ids). The ladder (0, 4, 4, 4) leaves
+    level 3 (ds 8) without attention while the middle block takes
+    depth_for(last level) = 4 (models/unet.py:encoder_plan)."""
+    return UNetConfig(
+        model_channels=384,
+        channel_mult=(1, 2, 4, 4),
+        num_res_blocks=2,
+        attention_resolutions=(2, 4),
+        transformer_depth=(0, 4, 4, 4),
+        context_dim=1280,
+        num_head_channels=64,
+        adm_in_channels=2560,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class SDXLRefinerConfig:
+    """The refiner conditions on the bigG tower ONLY (no CLIP-L) and swaps
+    the size/crop micro-conditioning tail for (orig_hw, crop_tl,
+    aesthetic_score)."""
+
+    unet: UNetConfig = dataclasses.field(default_factory=sdxl_refiner_unet)
+    clip_g: CLIPTextConfig = dataclasses.field(default_factory=clip_bigg_sdxl)
+    vae: VAEConfig = dataclasses.field(default_factory=sdxl_vae)
+    diffusion: DiffusionConfig = dataclasses.field(
+        default_factory=DiffusionConfig)
+    dtype: str = "bfloat16"
+
+
+def tiny_sdxl_refiner() -> SDXLRefinerConfig:
+    """Miniature refiner topology: 4 levels, no-attn top level feeding a
+    transformer middle block, bigG-only conditioning."""
+    unet = UNetConfig(
+        model_channels=32, channel_mult=(1, 1, 2, 2), num_res_blocks=1,
+        attention_resolutions=(2, 4), transformer_depth=(0, 1, 1, 1),
+        context_dim=16, num_head_channels=16, adm_in_channels=16 + 5 * 8,
+        groups=8,
+    )
+    return SDXLRefinerConfig(
+        unet=unet,
+        clip_g=CLIPTextConfig(
+            vocab_size=1000, hidden_size=16, intermediate_size=32,
+            num_layers=2, num_heads=2, max_length=16,
+            layer="penultimate_raw", act="gelu", projection_dim=16),
+        vae=VAEConfig(ch=16, ch_mult=(1, 1, 1, 1), num_res_blocks=1,
+                      groups=8, scale_factor=0.13025),
+        dtype="float32",
+    )
+
+
+# (prefix, documented leftovers) of each tree of an sgm SDXL-refiner file,
+# the JAX load_sdxl_refiner_pipeline's jobs
+SDXL_REFINER_TREES: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
+    ("model.diffusion_model.", ()),
+    ("conditioner.embedders.0.model.", OPENCLIP_IGNORES),
+    ("first_stage_model.", ()),
+)
+
+
+class SDXLRefiner(nn.Module):
+    """The three networks of an SDXL-refiner checkpoint under sgm's names."""
+
+    def __init__(self, cfg: SDXLRefinerConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.model = nn.Module()
+        self.model.diffusion_model = UNetModel(cfg.unet)
+        self.conditioner = nn.Module()
+        self.conditioner.embedders = nn.ModuleList([nn.Module()])
+        self.conditioner.embedders[0].model = OpenCLIPTextModel(cfg.clip_g)
+        self.first_stage_model = AutoencoderKL(cfg.vae)
+
+    @property
+    def unet(self) -> UNetModel:
+        return self.model.diffusion_model
+
+    @property
+    def clip_g(self) -> OpenCLIPTextModel:
+        return self.conditioner.embedders[0].model
+
+    @property
+    def vae(self) -> AutoencoderKL:
+        return self.first_stage_model
+
+    def load_checkpoint(self, state_dict: Dict[str, torch.Tensor]) -> None:
+        """Strict load of an sgm-layout refiner state dict (see ControlLDM's)."""
+        account_checkpoint(self, state_dict, tree_ignores(SDXL_REFINER_TREES)
+                           ).assert_complete("SDXLRefiner")
+        copy_checkpoint_(self, state_dict)
+
+
+def refiner_add_time_ids(
+    original_size: Tuple[int, int],
+    crop_coords: Tuple[int, int],
+    aesthetic_score: float,
+    batch: int,
+    fourier_dim: int = 256,
+    *,
+    device,
+) -> torch.Tensor:
+    """Refiner micro-conditioning: fourier features of (orig_h, orig_w,
+    crop_top, crop_left, aesthetic_score), 5 ids (sgm's refiner conditioner:
+    the target-size pair is replaced by the aesthetic score). Returns
+    (B, 5 * fourier_dim) fp32 on `device`."""
+    ids = torch.tensor(list(original_size) + list(crop_coords) + [aesthetic_score],
+                       dtype=torch.float32, device=device)
+    return timestep_embedding(ids, fourier_dim).reshape(1, -1).repeat(batch, 1)
+
+
+def sdxl_refiner_conditioning(
+    model: SDXLRefiner,
+    ids_g: torch.Tensor,
+    size_hw: Tuple[int, int],
+    aesthetic_score: float = 6.0,
+    original_size: Optional[Tuple[int, int]] = None,
+    crop_coords: Tuple[int, int] = (0, 0),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(context (B, 77, 1280) in the tower's dtype, y (B, 2560) fp32) for ONE
+    CFG branch: the branches differ in aesthetic score too (sgm's defaults,
+    6.0 for cond, 2.5 for uncond), so call once a branch. ids_g uses bigG's
+    padding convention (sdxl_tokenize's second output); the time ids are made
+    on the tower's device."""
+    cfg = model.cfg
+    hg, pooled = clip_text_apply_with_pooled(model.clip_g, ids_g)
+    proj = cfg.clip_g.projection_dim or cfg.clip_g.hidden_size
+    tids = refiner_add_time_ids(original_size or size_hw, crop_coords, aesthetic_score,
+                                ids_g.shape[0],
+                                fourier_dim=(cfg.unet.adm_in_channels - proj) // 5,
+                                device=pooled.device)
+    return hg, torch.cat([pooled.float(), tids], dim=-1)
+
+
+# The refine is SDXL img2img with the refiner's UNet and conditioning (the
+# JAX sdxl_refine_latents and sdxl_img2img_latents are one loop): the base
+# model's latents z0 forward-diffused to the entry step of the last t_enc
+# entries of the schedule, the tail denoised, in latent space (both stages
+# share the VAE, so there is no decode and re-encode between them).
+sdxl_refine_latents = sdxl_img2img_latents

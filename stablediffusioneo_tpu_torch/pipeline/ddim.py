@@ -109,34 +109,51 @@ class CfgInputs(NamedTuple):
     None). Guess mode: the hint embedding and scales as given, ctx =
     (ctx_cond, ctx_uncond), kv = (UNet K/V of cond, ControlNet K/V of cond,
     UNet K/V of uncond). Without a ControlNet: no hint embedding, scales or
-    ControlNet K/V (None). Multi-ControlNet: the hint embeddings, the
-    ControlNet K/V and the scales are tuples, one entry a net."""
+    ControlNet K/V (None); c_concat, the concat-conditioned families'
+    extra channels (NCHW) tiled to the batch-2B concat, or None.
+    Multi-ControlNet: the hint embeddings, the ControlNet K/V and the scales
+    are tuples, one entry a net."""
 
     guided_hint: Optional[torch.Tensor]
     ctx: Tuple[torch.Tensor, ...]
     kv: tuple
     control_scales: object
     y: Optional[torch.Tensor] = None
+    c_concat: Optional[torch.Tensor] = None
 
 
 def _hoist_context_kv(unet: UNetModel, control: Optional[ControlNet],
                       hint: Optional[torch.Tensor], ctx_cond: torch.Tensor,
                       ctx_uncond: torch.Tensor, control_scales, guess_mode: bool,
-                      dtype, y_cond=None, y_uncond=None) -> CfgInputs:
+                      dtype, y_cond=None, y_uncond=None, c_concat=None) -> CfgInputs:
     """Everything an evaluation needs that does not change from step to step
     (the JAX `_hoist_context_kv`, with the hint-block embedding the JAX scans
     hoist beside it): every cross-attention K/V projection of the contexts,
     the embedding of the NHWC hint, and in normal mode the batch-2 concats,
     so that no step repeats them. control=None: the UNet alone (the JAX
     sd_txt2img_scan / sdxl_txt2img_scan, y_cond / y_uncond their ADM
-    vectors)."""
+    vectors; c_concat (B, h, w, in_channels - 4) NHWC, the JAX
+    sd_concat_sample_scan's conditioning channels, which both branches take,
+    as the JAX scan: concatenated once here, joined to x at every
+    evaluation)."""
     y2 = None if y_cond is None else torch.cat([y_cond, y_uncond], dim=0)
     if control is None:
         if guess_mode:
             raise ValueError("guess mode needs a ControlNet")
+        cc2 = None
+        if c_concat is not None:
+            want = unet.cfg.in_channels - 4
+            if c_concat.shape[-1] != want:
+                raise ValueError(
+                    f"c_concat has {c_concat.shape[-1]} channels; this UNet "
+                    f"(in_channels={unet.cfg.in_channels}) expects {want}")
+            cc = nchw(c_concat).to(dtype)
+            cc2 = torch.cat([cc, cc], dim=0)
         ctx2 = torch.cat([ctx_cond, ctx_uncond], dim=0)
         return CfgInputs(None, (ctx2,), (precompute_context_kv(unet, ctx2), None),
-                         None, y2)
+                         None, y2, cc2)
+    if c_concat is not None:
+        raise ValueError("c_concat is the ControlNet-free loop's (control=None)")
     if guess_mode and y2 is not None:
         raise NotImplementedError("guess mode with ADM conditioning")
     nets = control if isinstance(control, tuple) else None
@@ -167,8 +184,9 @@ def _cfg_eval(unet: UNetModel, control: Optional[ControlNet], xn: torch.Tensor,
     """One CFG evaluation at timestep t (a float: Karras spacings evaluate
     between the trained steps) on NCHW x: (e_cond, e_uncond), NCHW. Normal
     mode: cond and uncond as one batch-2 concat through ControlNet + UNet
-    (the UNet alone without a ControlNet); guess mode: cond with control,
-    uncond without (cldm/cldm.py:334-335)."""
+    (the UNet alone without a ControlNet, with the hoisted c_concat joined to
+    the batch on the channel axis); guess mode: cond with control, uncond
+    without (cldm/cldm.py:334-335)."""
     b = xn.shape[0]
     if guess_mode:
         tb = torch.full((b,), t, dtype=torch.float32, device=xn.device)
@@ -181,8 +199,11 @@ def _cfg_eval(unet: UNetModel, control: Optional[ControlNet], xn: torch.Tensor,
             unet, control, xn, None, tb, hoisted.ctx[1], unet_ctx_kv=kv_u, tome=tome)
         return e_cond, e_uncond
     tb = torch.full((2 * b,), t, dtype=torch.float32, device=xn.device)
+    x2 = torch.cat([xn, xn], dim=0)
+    if hoisted.c_concat is not None:
+        x2 = torch.cat([x2, hoisted.c_concat], dim=1)
     eps2 = controlled_unet_forward(
-        unet, control, torch.cat([xn, xn], dim=0), None, tb, hoisted.ctx[0],
+        unet, control, x2, None, tb, hoisted.ctx[0],
         control_scales=hoisted.control_scales, guided_hint=hoisted.guided_hint,
         unet_ctx_kv=hoisted.kv[0], ctrl_ctx_kv=hoisted.kv[1], tome=tome, y=hoisted.y)
     return eps2[:b], eps2[b:]
@@ -246,7 +267,7 @@ def _ddim_loop_enc_cached(unet, control, schedule, x, hoisted: CfgInputs, scale,
     run_full[::interval] = True
     run_full[-2:] = True
     mc = unet.cfg.model_channels
-    gh2, (ctx2,), kv2, cscales2, _ = hoisted
+    gh2, (ctx2,), kv2, cscales2 = hoisted[:4]
     cache = None
     for i in range(n_steps):
         t2 = torch.full((2 * b,), float(schedule["timesteps"][i]),
@@ -294,6 +315,7 @@ def ddim_sample(
     tome=None,
     y_cond: Optional[torch.Tensor] = None,
     y_uncond: Optional[torch.Tensor] = None,
+    c_concat: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Full DDIM loop; returns the x_0 latents, NHWC (B, h, w, 4), as fp32
     (with bf16 nets: the bf16 values the loop carries, widened).
@@ -321,7 +343,9 @@ def ddim_sample(
     control=None (hint and control_scales None): the UNet alone, the loop of
     the ControlNet-free families (pipeline/concat_cond.py:sd_txt2img,
     models/sdxl.py:sdxl_txt2img), with y_cond / y_uncond (B, adm) the ADM
-    vectors of an ADM-conditioned UNet; no encoder caching there.
+    vectors of an ADM-conditioned UNet, c_concat (B, h, w, in_channels - 4)
+    the extra input channels of a concat-conditioned UNet (the 9-channel
+    inpainting family: pipeline/concat_cond.py); no encoder caching there.
     """
     dtype = dtype or ctx_cond.dtype
     b = x_T.shape[0]
@@ -337,7 +361,8 @@ def ddim_sample(
                          "(the cached-step features would mix blended and "
                          "unblended latents)")
     hoisted = _hoist_context_kv(unet, control, hint, ctx_cond, ctx_uncond,
-                                control_scales, guess_mode, dtype, y_cond, y_uncond)
+                                control_scales, guess_mode, dtype, y_cond, y_uncond,
+                                c_concat)
 
     def drawn(given, i, like):
         return (given[i] if given is not None else

@@ -35,7 +35,15 @@ encode (posterior mode, or a sample with the noise handed in) for img2img and
 inpainting. On the CPU, and with graphs=False, an engine runs its function
 eagerly: the same code, launched op by op from the host. A model with N
 ControlNets (models/cldm.py, multi-ControlNet) takes a tuple of N hints and
-strengths, one a net.
+strengths, one a net. `apply_lora` merges an adapter into the resident
+weights in place, so the captured engines replay it without a new capture.
+
+The ControlNet-free families have free-standing engines over their models
+(no runtime; a capture is the port's counterpart of the jax.jit the JAX
+package runs these loops under):
+`sdxl_sample_decode_engine` (SDXL base), `sdxl_refine_decode_engine` (the
+refiner's tail), `concat_sample_decode_engine` (the 9-channel inpainting
+model) and `encoder_engine` (its masked-image encode).
 """
 
 from __future__ import annotations
@@ -243,43 +251,164 @@ class Engine:
         }
 
 
+def decode_u8(vae, z: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Scaled latents -> uint8 NHWC pixels: the VAE decode in `dtype`, then
+    the denormalisation in fp32."""
+    img = vae_decode(vae, z.to(dtype), scaled=True)
+    return torch.clamp(img.float() * 127.5 + 127.5, 0, 255).to(torch.uint8)
+
+
+def _encode_fn(vae, deterministic: bool) -> Callable:
+    """The VAE encode to scaled latents (the scale factor rounded to the
+    image's dtype, as in vae_decode): posterior mode, or a sample with the
+    noise eps handed in."""
+    def scaled(img, z):
+        return z * dispatch.const_tensor(float(vae.cfg.scale_factor), img.dtype,
+                                         img.device)
+
+    if deterministic:
+        return lambda img: scaled(img, vae_encode(vae, img).mode())
+    return lambda img, eps: scaled(img, vae_encode(vae, img).sample(eps))
+
+
+def _model_engine(model, name: str, fn: Callable, example, capture: Optional[bool]
+                  ) -> Engine:
+    """An Engine of fn over a model's networks, captured on example inputs
+    ((shape, dtype) pairs) where the model lies on a CUDA device (capture
+    None) or where capture is True, else eager."""
+    p = next(model.parameters())
+    capture = p.device.type == "cuda" if capture is None else capture
+    eng = Engine(fn, name=name, capture=capture)
+    if capture:
+        eng.load(*(torch.zeros(shape, dtype=dt, device=p.device) for shape, dt in example))
+    return eng
+
+
+def encoder_engine(model, batch: int, h: int, w: int, deterministic: bool = False,
+                   capture: Optional[bool] = None) -> Engine:
+    """The VAE encode of a model without a runtime (a LatentDiffusion: the
+    inpainting family's masked-image encode) as one Engine, the function and
+    name of CNSDRuntime.encoder_engine: NHWC pixels (B, H, W, 3) in [-1, 1]
+    in the compute dtype [, eps] -> scaled latents (B, H/8, W/8, 4)."""
+    vae = model.first_stage_model
+    f = vae.cfg.downsample_factor
+    dtype = next(model.parameters()).dtype
+    lat = (batch, h // f, w // f, vae.cfg.embed_dim)
+    return _model_engine(
+        model, f"encoder_b{batch}_{h}x{w}" + ("_det" if deterministic else ""),
+        _encode_fn(vae, deterministic),
+        [((batch, h, w, 3), dtype)] + ([] if deterministic else [(lat, dtype)]), capture)
+
+
+def _sdxl_engine(model, sched, name: str, batch: int, h: int, w: int,
+                 capture: Optional[bool]) -> Engine:
+    """The SDXL DDIM loop (base or refiner: models/sdxl.py:sdxl_txt2img over
+    `sched`, eta 0) and the VAE decode to uint8 as one Engine taking (x
+    (B, h/8, w/8, 4), ctx_cond, ctx_uncond (B, 77, context) in the compute
+    dtype, y_cond, y_uncond (B, adm) fp32, scale (B,) fp32) and returning
+    (image uint8 (B, h, w, 3), x_0 latents fp32)."""
+    from stablediffusioneo_tpu_torch.models.sdxl import sdxl_txt2img
+
+    cfg = model.cfg
+    dtype = next(model.unet.parameters()).dtype
+
+    def run(x, ctx_cond, ctx_uncond, y_cond, y_uncond, scale):
+        z = sdxl_txt2img(model.unet, sched, x, ctx_cond, ctx_uncond, y_cond, y_uncond,
+                         scale, dtype=dtype, parameterization=cfg.diffusion.parameterization)
+        return decode_u8(model.vae, z, dtype), z
+
+    f = cfg.vae.downsample_factor
+    ctx = (batch, cfg.clip_g.max_length, cfg.unet.context_dim)
+    adm = (batch, cfg.unet.adm_in_channels)
+    return _model_engine(model, name, run, (
+        ((batch, h // f, w // f, 4), dtype), (ctx, dtype), (ctx, dtype),
+        (adm, torch.float32), (adm, torch.float32), ((batch,), torch.float32)), capture)
+
+
+def _ddim_schedule(cfg, num_steps: int):
+    d = cfg.diffusion
+    return DiffusionSchedule(d.timesteps, d.linear_start, d.linear_end,
+                             d.schedule).ddim(num_steps)
+
+
 def sdxl_sample_decode_engine(model, num_steps: int, batch: int, h: int, w: int,
                               capture: Optional[bool] = None) -> Engine:
     """SDXL base txt2img as ONE captured program, as the JAX package captures
     it (cli/bench.py `_bench_sdxl`): the DDIM loop (models/sdxl.py:
     sdxl_txt2img, eta 0, the schedule baked in) and the VAE decode to uint8,
     with the conditioning computed outside it. `model` is an SDXL
-    (models/sdxl.py) on its device in its compute dtype. The engine takes
-    (x_T (B, h/8, w/8, 4), ctx_cond, ctx_uncond (B, 77, 2048) in the compute
-    dtype, y_cond, y_uncond (B, 2816) fp32, scale (B,) fp32) and returns
-    (image uint8 (B, h, w, 3), x_0 latents fp32). capture: None captures on a
-    CUDA device and runs eagerly on the CPU."""
-    from stablediffusioneo_tpu_torch.models.sdxl import sdxl_txt2img
+    (models/sdxl.py) on its device in its compute dtype. Inputs and outputs:
+    `_sdxl_engine` (contexts (B, 77, 2048), y (B, 2816)). capture: None
+    captures on a CUDA device and runs eagerly on the CPU."""
+    return _sdxl_engine(model, _ddim_schedule(model.cfg, num_steps),
+                        f"sdxl+decode_{num_steps}x{batch}x{h}x{w}", batch, h, w, capture)
+
+
+def sdxl_refine_decode_engine(model, num_steps: int, t_enc: int, batch: int, h: int,
+                              w: int, capture: Optional[bool] = None) -> Engine:
+    """The SDXL refiner's half of the base -> refiner handoff as ONE captured
+    program: the DDIM loop over the last t_enc of num_steps steps (eta 0,
+    the tail baked in) and the VAE decode to uint8. `model` is an SDXLRefiner
+    (models/sdxl.py) on its device in its compute dtype. Its x is the entry
+    latent: the base model's latents forward-diffused to the tail's entry
+    step outside the graph (pipeline/ddim.py:stochastic_tail_entry, noise
+    drawn outside); contexts (B, 77, 1280) from bigG, y (B, 2560)
+    (sdxl_refiner_conditioning, one call a branch); the rest as
+    `_sdxl_engine`."""
+    sched = schedule_tail(_ddim_schedule(model.cfg, num_steps), t_enc)
+    return _sdxl_engine(model, sched,
+                        f"sdxl_refine+decode_{t_enc}x{batch}x{h}x{w}_of{num_steps}",
+                        batch, h, w, capture)
+
+
+def concat_sample_decode_engine(model, num_steps: int, batch: int, h: int, w: int,
+                                t_enc: Optional[int] = None,
+                                capture: Optional[bool] = None) -> Engine:
+    """A concat-conditioned model's DDIM loop (pipeline/concat_cond.py:
+    sd_concat_sample, eta 0, the schedule baked in; with t_enc,
+    sd_concat_img2img over the last t_enc of num_steps steps) and the VAE
+    decode to uint8 as ONE captured program. `model` is a LatentDiffusion of
+    a concat-conditioned configuration (config.sd15_inpaint_pipeline) on its
+    device in its compute dtype. Inputs: x_T (B, h/8, w/8, 4) in the compute
+    dtype (with t_enc: the init latent z0, then the entry noise, fp32), the
+    conditioning channels c_concat (B, h/8, w/8, in_channels - 4) (the
+    masked-image encode runs before, in `encoder_engine`), ctx_cond,
+    ctx_uncond (B, 77, context) in the compute dtype, scale (B,) fp32.
+    Returns (image uint8 (B, h, w, 3), x_0 latents fp32)."""
+    from stablediffusioneo_tpu_torch.pipeline.concat_cond import (
+        sd_concat_img2img,
+        sd_concat_sample,
+    )
 
     cfg = model.cfg
-    p = next(model.unet.parameters())
-    device, dtype = p.device, p.dtype
-    capture = device.type == "cuda" if capture is None else capture
-    d = cfg.diffusion
-    sched = DiffusionSchedule(d.timesteps, d.linear_start, d.linear_end,
-                              d.schedule).ddim(num_steps)
+    dtype = next(model.unet.parameters()).dtype
+    sched = _ddim_schedule(cfg, num_steps)
+    common = dict(dtype=dtype, parameterization=cfg.diffusion.parameterization)
 
-    def run(x, ctx_cond, ctx_uncond, y_cond, y_uncond, scale):
-        z = sdxl_txt2img(model.unet, sched, x, ctx_cond, ctx_uncond, y_cond, y_uncond,
-                         scale, dtype=dtype, parameterization=d.parameterization)
-        img = vae_decode(model.vae, z.to(dtype), scaled=True)
-        return torch.clamp(img.float() * 127.5 + 127.5, 0, 255).to(torch.uint8), z
+    if t_enc is None:
+        def loop(x, c_concat, ctx_cond, ctx_uncond, scale):
+            return sd_concat_sample(model.unet, sched, x, c_concat, ctx_cond, ctx_uncond,
+                                    scale, **common)
+    else:
+        schedule_tail(sched, t_enc)  # refused here, as at the first call
 
-    eng = Engine(run, name=f"sdxl+decode_{num_steps}x{batch}x{h}x{w}", capture=capture)
-    if capture:
-        f = cfg.vae.downsample_factor
-        ctx = (batch, cfg.clip_l.max_length, cfg.unet.context_dim)
-        eng.load(*(torch.zeros(shape, dtype=dt, device=device) for shape, dt in (
-            ((batch, h // f, w // f, 4), dtype), (ctx, dtype), (ctx, dtype),
-            ((batch, cfg.unet.adm_in_channels), torch.float32),
-            ((batch, cfg.unet.adm_in_channels), torch.float32),
-            ((batch,), torch.float32))))
-    return eng
+        def loop(z0, renoise, c_concat, ctx_cond, ctx_uncond, scale):
+            return sd_concat_img2img(model.unet, sched, z0, t_enc, c_concat, ctx_cond,
+                                     ctx_uncond, scale, renoise=renoise, **common)
+
+    def run(*args):
+        z = loop(*args)
+        return decode_u8(model.first_stage_model, z, dtype), z
+
+    f = cfg.vae.downsample_factor
+    lat = (batch, h // f, w // f, 4)
+    ctx = (batch, cfg.clip.max_length, cfg.unet.context_dim)
+    entry = [(lat, dtype)] + ([] if t_enc is None else [(lat, torch.float32)])
+    return _model_engine(
+        model, f"concat+decode_{t_enc or num_steps}x{batch}x{h}x{w}"
+        + ("" if t_enc is None else f"_genxT-img2img_of{num_steps}"), run,
+        entry + [(lat[:3] + (cfg.unet.in_channels - 4,), dtype), (ctx, dtype),
+                 (ctx, dtype), ((batch,), torch.float32)], capture)
 
 
 def _kept(out):
@@ -340,6 +469,7 @@ class CNSDRuntime:
         if quantize_linears:
             for net in (self.model.unet, self.model.control_model):
                 quant.quantize_linear_modules(net)
+        self.quantized = quantize_linears
         d = cfg.diffusion
         self.schedule = DiffusionSchedule(d.timesteps, d.linear_start,
                                           d.linear_end, d.schedule)
@@ -356,6 +486,36 @@ class CNSDRuntime:
     @property
     def capturing(self) -> bool:
         return self.device.type == "cuda" and self.graphs is not False
+
+    def apply_lora(self, lora: Dict, scale: float = 1.0, on: str = "unet") -> int:
+        """Merge a LoRA adapter tree (training/lora.py) into the resident `on`
+        network ("unet", "controlnet": with several ControlNets a tuple of
+        trees or a dict keyed by position, "clip" or "vae"). The merge writes
+        the weights in place, in their dtype and shapes, so every captured
+        engine stays valid and its next replay reads the merged weights; no
+        engine is recaptured. One-way: re-load the checkpoint to remove an
+        adapter. The device is synchronized before the merge (no replay in
+        flight reads a weight half merged) and after it; a running
+        DiffusionServer must be drained first, since its dispatcher replays on
+        a stream of its own. Returns the number of merged sites."""
+        from stablediffusioneo_tpu_torch.training.lora import merge_lora
+
+        if self.quantized:
+            raise ValueError(
+                "apply_lora on an int8-quantized runtime: merge before "
+                "quantization (construct with quantize_linears=False, "
+                "apply, then quantize)")
+        model = self._require_model()
+        nets = {"unet": model.unet, "controlnet": model.control, "clip": model.clip,
+                "vae": model.first_stage_model}
+        if on not in nets:
+            raise KeyError(f"apply_lora: no {on!r} tree in runtime params")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        n = merge_lora(nets[on], lora, scale)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return n
 
     # ------------------------------------------------------------- engines
 
@@ -532,9 +692,7 @@ class CNSDRuntime:
         return ex
 
     def _decode_u8(self, z: torch.Tensor) -> torch.Tensor:
-        img = vae_decode(self._require_model().first_stage_model,
-                         z.to(self.dtype), scaled=True)
-        return torch.clamp(img.float() * 127.5 + 127.5, 0, 255).to(torch.uint8)
+        return decode_u8(self._require_model().first_stage_model, z, self.dtype)
 
     def sample_decode_engine(
         self, num_steps: int, batch: int, h: int, w: int,
@@ -643,20 +801,10 @@ class CNSDRuntime:
         vae = self._require_model().first_stage_model
         f = self.cfg.vae.downsample_factor
         lat = (batch, h // f, w // f, self.cfg.vae.embed_dim)
-
-        def scaled(img, z):
-            return z * dispatch.const_tensor(float(self.cfg.vae.scale_factor),
-                                             img.dtype, img.device)
-
-        if deterministic:
-            def make():
-                return lambda img: scaled(img, vae_encode(vae, img).mode())
-        else:
-            def make():
-                return lambda img, eps: scaled(img, vae_encode(vae, img).sample(eps))
         return self._engine(
             ("encoder", batch, h, w, deterministic),
-            f"encoder_b{batch}_{h}x{w}" + ("_det" if deterministic else ""), make,
+            f"encoder_b{batch}_{h}x{w}" + ("_det" if deterministic else ""),
+            lambda: _encode_fn(vae, deterministic),
             lambda: [self._zeros((batch, h, w, 3), self.dtype)]
             + ([] if deterministic else [self._zeros(lat, self.dtype)]))
 

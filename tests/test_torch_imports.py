@@ -70,9 +70,13 @@ def test_the_walk_covers_the_port():
                  "stablediffusioneo_tpu_torch/serving/scheduler.py",
                  "stablediffusioneo_tpu_torch/serving/server.py",
                  "stablediffusioneo_tpu_torch/serving/http_api.py",
-                 "stablediffusioneo_tpu_torch/cli/serve.py"):
+                 "stablediffusioneo_tpu_torch/cli/serve.py",
+                 "stablediffusioneo_tpu_torch/training/lora.py",
+                 "stablediffusioneo_tpu_torch/checkpoint/textual_inversion.py",
+                 "stablediffusioneo_tpu_torch/checkpoint/convert.py",
+                 "stablediffusioneo_tpu_torch/runtime/engine.py"):
         assert must in names
-    assert len(names) >= 45
+    assert len(names) >= 48
 
 
 # numpy-only functions of the JAX package the port keeps its own copy of,
@@ -213,6 +217,8 @@ def test_tiny_process_runs_with_both_packages_blocked():
         import stablediffusioneo_tpu_torch.pipeline.hackathon
         import stablediffusioneo_tpu_torch.models.sdxl
         import stablediffusioneo_tpu_torch.pipeline.concat_cond
+        import stablediffusioneo_tpu_torch.training.lora
+        import stablediffusioneo_tpu_torch.checkpoint.textual_inversion
         import numpy as np, torch
         from stablediffusioneo_tpu_torch.config import tiny_pipeline
         from stablediffusioneo_tpu_torch.models.cldm import ControlLDM, init_weights
@@ -246,7 +252,7 @@ def test_tiny_process_runs_with_both_packages_blocked():
 
 CONSTRUCTORS = ["sd15_pipeline", "tiny_pipeline", "sd15_unet", "sd15_controlnet",
                 "sd15_vae", "clip_vit_l14", "sd21_unet", "openclip_vit_h_text",
-                "sd21_pipeline"]
+                "sd21_pipeline", "sd15_inpaint_pipeline", "sd2_inpaint_pipeline"]
 CLASSES = ["UNetConfig", "ControlNetConfig", "VAEConfig", "CLIPTextConfig",
            "DiffusionConfig", "PipelineConfig"]
 
@@ -286,6 +292,36 @@ def test_config_helpers_with_per_head_channels_and_per_level_depth():
         [ref.heads_for(c) for c in (320, 640, 1280)] == [5, 10, 20]
     assert [port.depth_for(i) for i in range(3)] == \
         [ref.depth_for(i) for i in range(3)] == [1, 2, 10]
+
+
+@pytest.mark.parametrize("name", ["sd15_inpaint_pipeline", "sd2_inpaint_pipeline"])
+def test_inpaint_configs_take_their_arguments(name):
+    for kw in ({"dtype": "float32"}, {"use_pallas": False}):
+        port, ref = getattr(port_config, name)(**kw), getattr(jax_config, name)(**kw)
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+
+
+@pytest.mark.parametrize("name", ["sdxl_refiner_unet", "SDXLRefinerConfig",
+                                  "tiny_sdxl_refiner"])
+def test_refiner_configs_equal_the_jax_packages(name):
+    """The refiner's configurations live beside their model (models/sdxl.py)
+    in both packages: the same fields, types and values."""
+    from stablediffusioneo_tpu.models import sdxl as jax_sdxl
+    from stablediffusioneo_tpu_torch.models import sdxl as port_sdxl
+
+    port, ref = getattr(port_sdxl, name)(), getattr(jax_sdxl, name)()
+    assert [(f.name, f.type) for f in dataclasses.fields(port)] == \
+        [(f.name, f.type) for f in dataclasses.fields(ref)]
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    if name == "SDXLRefinerConfig":
+        assert port_sdxl.SDXLRefinerConfig.__dataclass_params__.frozen
+
+
+def test_lora_default_targets_are_the_jax_packages():
+    from stablediffusioneo_tpu.training import lora as jax_lora
+    from stablediffusioneo_tpu_torch.training import lora as port_lora
+
+    assert port_lora.DEFAULT_TARGETS == jax_lora.DEFAULT_TARGETS
 
 
 def test_sd15_pipeline_takes_the_dtype():

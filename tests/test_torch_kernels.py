@@ -129,14 +129,22 @@ def test_main_path_rows_cover_the_sites_the_redesign_names():
                  ("fused_attention", (1, 1, 9216, 512), 9216),
                  # SDXL 1024x1024: 10 and 20 heads of 64 channels
                  ("fused_attention_packed", (2, 4096, 640), 4096),
-                 ("fused_attention_packed", (2, 1024, 1280), 77)):
+                 ("fused_attention_packed", (2, 1024, 1280), 77),
+                 # the SDXL refiner at 1024x1024: 12 and 24 heads of 64 channels
+                 ("fused_attention_packed", (2, 4096, 768), 4096),
+                 ("fused_attention_packed", (2, 4096, 768), 77),
+                 ("fused_attention_packed", (2, 1024, 1536), 1024),
+                 ("fused_attention_packed", (2, 1024, 1536), 77)):
         assert want in rows, want
     assert ("fused_attention_packed", (2, 4096, 640), 4096, 10) in ROWS
     assert ("fused_attention_packed", (2, 1024, 1280), 1024, 20) in ROWS
+    assert ("fused_attention_packed", (2, 4096, 768), 4096, 12) in ROWS
+    assert ("fused_attention_packed", (2, 1024, 1536), 1024, 24) in ROWS
     # 12 of the 512x512 and 1024x1024 requests, 4 of the long prompts, 1 of
-    # ToMe, 5 of SD-2.1 at 768x768 and 4 of SDXL at 1024x1024 (its decode's
-    # split row is the hires pass's)
-    assert len(ROWS) == 26
+    # ToMe, 5 of SD-2.1 at 768x768, 4 of SDXL and 4 of the SDXL refiner at
+    # 1024x1024 (their decode's split row is the hires pass's; the 9-channel
+    # inpainting request's rows are the 512x512 request's)
+    assert len(ROWS) == 30
 
 
 @pytest.mark.parametrize("dtype,d,tq,s,aligned,want", [
