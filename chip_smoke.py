@@ -130,9 +130,27 @@ source, all started together), then:
      sdxl_refine_decode_engine (320 packed + 1 split a request), then its
      sgm-layout file through load_sdxl_refiner_pipeline (free bytes first;
      every key consumed or named, the same image).
-The kernel phase also takes every attention shape of the SD-2.1, SDXL and
-SDXL-refiner requests (heads of 64 channels; the 768x768 decode's (1, 1,
-9216, 512)) and the gated GroupNorm sites of an SDXL step; each attention
+  14. the annotator nets at full width in fp32 (annotator_reference, after
+     the reference phase): DPT-L at 512x512 (24 split launches), the
+     DPT-hybrid at 384x384, HED at 512x512, the OpenPose body net at
+     368x368, card vs CPU within REF_TOL; then, on the loaded SD-1.5 model
+     after hackathon, the JAX bench's annotators row (annotators_phase: Canny,
+     HED, MiDaS DPT-L and OpenPose with seeded weights, a warm and two timed
+     process() each at 512x512, 20 steps: p50, preprocess_ms, the worst p50,
+     the detector's weights and peak; 560 + 1 launches a request, MiDaS 24
+     split more; Canny's map on the bit-packed hint engine, the others' on
+     the uint8 one);
+  15. SD-2.0 depth2img (depth2img_phase, after the 9-channel model): the
+     seeded sd2_depth_pipeline() model's 512-depth-ema-layout file through
+     load_depth2img_pipeline, then on the loaded model the 512x512 request
+     (the MiDaS tower at 384x384, depth_to_concat, concat_sample_decode_engine:
+     400 + 1 launches) as a main path over captured_path, the tower's time
+     apart, the seeded model's image equal in bytes.
+The kernel phase also takes every attention shape of the SD-2.1, SDXL,
+SDXL-refiner and depth2img requests (heads of 64 channels; the 768x768
+decode's (1, 1, 9216, 512)), the MiDaS ViTs' split sites at 512x512 ((1,
+16, 1025, 64) and (1, 12, 1025, 64), q / k / v as views of one qkv
+projection) and the gated GroupNorm sites of an SDXL step; each attention
 row names the passes that give it.
 Launch counts must equal what the UNet, ControlNet, VAE and CLIP plans and
 the dispatch gates imply. Any failed check raises, so the script exits
@@ -265,6 +283,20 @@ SERVE_PROMPTS = ("a bird", "a dog on grass", "an oil painting of a ship", "a red
 # equal in bytes to the runtime's own batch-4 call of the same requests, and
 # each served row nearer its own request's process() image than any other's.
 SERVE_PIXEL_SHARE = 0.02
+# the annotators phase: the JAX bench's annotators row (cli/bench.py:
+# _bench_annotators): one full process() a family on the loaded SD-1.5 +
+# ControlNet model at 512x512, 20 steps, scale 9, seed 1, "a bird", the image
+# from default_rng(2946901); seeded detector weights
+ANNOTATOR_FAMILIES = ("canny", "hed", "midas", "openpose")
+ANNOTATOR_PROMPT, ANNOTATOR_IMAGE_SEED = "a bird", 2946901
+# the MiDaS ViTs: DPT-L (16 heads) and the DPT-hybrid (12 heads) of 64
+# channels, hooked 16-pixel patches plus the class token
+VIT_HEADS = {"dpt_large": 16, "dpt_hybrid": 12}
+VIT_BLOCKS = {"dpt_large": 24, "dpt_hybrid": 12}
+# the card-vs-CPU fp32 check of the annotator nets at full width: (net,
+# input side)
+ANNOTATOR_REFERENCE = (("dpt_large", 512), ("dpt_hybrid", 384), ("hed", 512),
+                       ("openpose_body", 368))
 # the other sampler names, at 4 steps (sampler_variants)
 SAMPLER_VARIANTS = ("plms", "dpmpp", "unipc", "unipc-karras", "euler", "euler-uniform",
                     "euler-a-uniform", "heun-uniform")
@@ -533,8 +565,20 @@ def kernel_phase(cfg):
         return randn((c,), dtype, 0.1, 1.0), randn((c,), dtype, 0.1)
 
     results = {name: [] for name in KERNELS}
-    for (name, q_shape, s, heads), paths in attention_rows(cfg, paths=True).items():
-        if name == "fused_attention":
+    rows = {**attention_rows(cfg, paths=True), **family_attention_rows(cfg)}
+    for (name, q_shape, s, heads), paths in rows.items():
+        make = lambda dt: (randn(q_shape, dt), randn(kv_shape, dt), randn(kv_shape, dt))
+        if name == "fused_attention" and heads > 1:
+            # a MiDaS ViT block's q, k, v: (B, H, T, d) views of the one qkv
+            # projection (B, T, 3, H, d), token stride 3C, as models run them
+            batch, tq, d = q_shape[0], q_shape[2], q_shape[3]
+            scale = d ** -0.5
+            kern = lambda q, k, v: ka.fused_attention(q, k, v, scale)
+            plain = lambda q, k, v: ka.fused_attention_plain(q, k, v, scale)
+            library = F.scaled_dot_product_attention
+            make = (lambda dt, b=batch, t=tq, h=heads, dd=d: tuple(
+                randn((b, t, 3, h, dd), dt).permute(2, 0, 3, 1, 4).unbind(0)))
+        elif name == "fused_attention":
             kv_shape = q_shape[:2] + (s, q_shape[3])
             batch, tq, d = q_shape[0], q_shape[2], q_shape[3]
             scale = d ** -0.5
@@ -554,8 +598,7 @@ def kernel_phase(cfg):
         ops, _, exps = attention_work(batch, heads, tq, s, d)
         row = measure(
             name, {"q": list(q_shape), "s": s, "heads": heads, "paths": paths}, kern, plain,
-            lambda dt: (randn(q_shape, dt), randn(kv_shape, dt), randn(kv_shape, dt)),
-            ops=ops, peak=PEAK_BF16, library=library, variants=ka.variant_launches)
+            make, ops=ops, peak=PEAK_BF16, library=library, variants=ka.variant_launches)
         # a second figure beside the bound: one exp per logit on the
         # special-function units
         row["exp_ms"] = exps / PEAK_EXP * 1e3
@@ -787,6 +830,37 @@ def attention_rows(cfg, paths=False):
         rows.setdefault(row, []).append(name)
     rows = {row: sorted(set(names), key=names.index) for row, names in rows.items()}
     return rows if paths else list(rows)
+
+
+def vit_tokens(res):
+    """Tokens of a MiDaS ViT at a res x res input: 16-pixel patches and the
+    class token (1,025 at 512x512, 577 at 384x384)."""
+    return (res // 16) ** 2 + 1
+
+
+def family_attention_rows(cfg):
+    """{(entry, q shape, key length, heads): pass names} of the kernel-gated
+    attention calls of the depth2img request (sd2_depth_pipeline at 512x512:
+    the UNet alone, heads of 64 channels) and of the MiDaS ViTs at 512x512
+    (split entry, head dim 64: DPT-L in the annotators row, the DPT-hybrid
+    as MidasDetector(model_type="dpt_hybrid") runs it; at depth2img's 384x384
+    its 577 tokens stay under the gate), where attention_rows(cfg) does not
+    hold them already."""
+    from stablediffusioneo_tpu_torch.config import sd2_depth_pipeline
+    from stablediffusioneo_tpu_torch.ops.dispatch import ATTN_MIN_TQ
+
+    have, rows = set(attention_rows(cfg)), {}
+    depth = sd2_depth_pipeline()
+    for q_shape, s, heads in attention_sites(depth, RES, n_controlnets=0):
+        route = attention_route(q_shape, s, torch.bfloat16)
+        if route and (route, q_shape, s, heads) not in have:
+            rows.setdefault((route, q_shape, s, heads), ["depth2img 512"])
+    for kind, path in (("dpt_large", "annotators:midas"),
+                       ("dpt_hybrid", "midas dpt_hybrid 512")):
+        t, h = vit_tokens(RES), VIT_HEADS[kind]
+        if t >= ATTN_MIN_TQ:
+            rows[("fused_attention", (1, h, t, 64), t, h)] = [path]
+    return rows
 
 
 def quant_sites(cfg, res, batch=2):
@@ -2356,6 +2430,296 @@ def inpaint_phase(tokenizer):
     return run
 
 
+# ---------------------------------------------------------------- annotators
+
+
+def annotator_net(kind, generator):
+    """A seeded full-width annotator net of `kind` on the generator's device,
+    fp32, and its forward on an NCHW input."""
+    from stablediffusioneo_tpu_torch.annotators.hed import init_hed
+    from stablediffusioneo_tpu_torch.annotators.midas import init_dpt
+    from stablediffusioneo_tpu_torch.annotators.midas_hybrid import init_dpt_hybrid
+    from stablediffusioneo_tpu_torch.annotators.openpose import init_body
+
+    net = {"dpt_large": init_dpt, "dpt_hybrid": init_dpt_hybrid, "hed": init_hed,
+           "openpose_body": init_body}[kind](generator)
+    return net.eval().requires_grad_(False)
+
+
+def annotator_reference():
+    """The annotator nets at full width in fp32, card (through the kernels:
+    DPT-L's 24 ViT blocks at 1,025 tokens launch the split entry) against the
+    same weights on the CPU (plain versions), TF32 off: DPT-L at 512x512, the
+    DPT-hybrid at 384x384 (577 tokens: plain attention), HED at 512x512, the
+    body net at 368x368; within REF_TOL x max |ref| for every output."""
+    from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.ops.dispatch import ATTN_MIN_TQ
+
+    out = {}
+    for kind, side in ANNOTATOR_REFERENCE:
+        net = annotator_net(kind, torch.Generator(device="cuda").manual_seed(5))
+        cpu = copy.deepcopy(net).cpu()
+        x = torch.randn((1, 3, side, side), generator=torch.Generator().manual_seed(6))
+        if kind in ("hed",):
+            x = (x * 60 + 120).clamp(0, 255)  # raw pixel values
+        dispatch.reset_launches()
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            card = net(x.cuda())
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            launches = {k: v for k, v in dispatch.launches.items() if v}
+            t0 = time.perf_counter()
+            ref = cpu(x)
+            cpu_s = time.perf_counter() - t0
+        outs = [(c.cpu(), r) for c, r in zip(card if isinstance(card, (list, tuple)) else [card],
+                                             ref if isinstance(ref, (list, tuple)) else [ref])]
+        errs = [((c - r).abs().max().item(), r.abs().max().item()) for c, r in outs]
+        want = ({"fused_attention": VIT_BLOCKS[kind]}
+                if kind in VIT_BLOCKS and vit_tokens(side) >= ATTN_MIN_TQ else {})
+        print(f"annotator reference ({kind} {side}x{side}, fp32): card vs CPU max|d| / "
+              f"max|ref| {[f'{e:.3e} / {m:.3e}' for e, m in errs]}; card {card_s:.2f} s "
+              f"(first call), CPU {cpu_s:.2f} s; launches {launches} (expected {want})",
+              flush=True)
+        if not (all(torch.isfinite(c).all() for c, _ in outs)
+                and all(e <= REF_TOL * m for e, m in errs) and launches == want):
+            raise AssertionError(f"annotator reference ({kind}) failed: {errs}, {launches}")
+        out[kind] = {"side": side, "max_rel_err": max(e / m for e, m in errs),
+                     "launches": launches}
+        del net, cpu, card, ref, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def annotator_image():
+    """The JAX bench's annotators-row input image."""
+    rng = np.random.default_rng(ANNOTATOR_IMAGE_SEED)
+    return (rng.random((RES, RES, 3)) * 255).astype(np.uint8)
+
+
+def make_detector(family):
+    """The family's detector on the card, seeded weights, as the JAX bench
+    builds it (MiDaS: dpt_large)."""
+    from stablediffusioneo_tpu_torch.annotators import (
+        CannyDetector,
+        HEDdetector,
+        MidasDetector,
+        OpenposeDetector,
+    )
+
+    return {"canny": CannyDetector, "hed": HEDdetector,
+            "midas": lambda: MidasDetector(model_type="dpt_large"),
+            "openpose": OpenposeDetector}[family]()
+
+
+def annotators_phase(model, cfg, tokenizer):
+    """The JAX bench's annotators row (tracked config 4) on the loaded SD-1.5
+    model: for Canny, HED, MiDaS dpt_large and OpenPose (seeded weights), one
+    warm process() and two timed ones at 512x512, 20 steps, scale 9, seed 1;
+    each family's p50 and preprocess_ms, the worst p50, the detector's weight
+    bytes and the peak memory of one detector call above what was allocated
+    before it. Held: every request's launches are the default request's (560
+    packed + 1 split), plus MiDaS's 24 split launches at 1,025 tokens; Canny's
+    map takes the bit-packed hint engine and the others' maps (not binary)
+    the uint8 one."""
+    from stablediffusioneo_tpu_torch.annotators.util import HWC3
+    from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.ops.dispatch import ATTN_MIN_TQ
+    from stablediffusioneo_tpu_torch.ops.kernels.attention import (
+        key_length_launches,
+        variant_launches,
+    )
+    from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
+
+    pipe = Canny2ImagePipeline(model, tokenizer, cfg, device="cuda")
+    rt = pipe.runtime
+    img = annotator_image()
+    kw = dict(num_samples=1, image_resolution=RES, ddim_steps=STEPS)
+    base, base_keys = expected_request_launches(cfg, "default")
+    out = {}
+    for family in ANNOTATOR_FAMILIES:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        det = make_detector(family)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        weights = torch.cuda.memory_allocated() - before
+        # the detector alone: its map, the hint variant it takes, its peak
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        raw = pipe._annotate(img, 100, 200, det)[1]
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - start
+        variant = "bithint" if pipe._pack_hint(HWC3(raw), raw) is not None else "uint8"
+        pipe.apply_canny = det
+        t0 = time.perf_counter()
+        pipe.process(img, ANNOTATOR_PROMPT, seed=1, **kw)
+        warm_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        for counter in (variant_launches, key_length_launches):
+            counter.clear()
+        times, pre = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            res = pipe.process(img, ANNOTATOR_PROMPT, seed=1, **kw)
+            times.append(time.perf_counter() - t0)
+            pre.append(pipe.last_timings["preprocess_ms"])
+        launches = dict(dispatch.launches)
+        variants = {k: v for k, v in variant_launches.items() if v}
+        key_lengths = {k: v for k, v in key_length_launches.items() if v}
+        vit = (2 * VIT_BLOCKS["dpt_large"]
+               if family == "midas" and vit_tokens(RES) >= ATTN_MIN_TQ else 0)
+        want = {**base, "fused_attention": base["fused_attention"] + vit}
+        want_keys = dict(base_keys)
+        if vit:
+            want_keys[vit_tokens(RES)] = want_keys.get(vit_tokens(RES), 0) + vit
+        want_variants = {k: n for k, n in (("wgmma", want["fused_attention_packed"] + vit),
+                                           ("wgmma_split", base["fused_attention"])) if n}
+        names = sorted(e.name for e in rt._engines.values()
+                       if e.name.startswith("ddim+decode"))
+        p50 = statistics.median(times)
+        print(f"annotators ({family}): p50 {p50 * 1e3:.1f} ms over {times} s (warm-up "
+              f"{warm_s:.2f} s), preprocess_ms {pre}; detector built in {build_s:.2f} s, "
+              f"weights {weights} bytes, one call's peak {peak} bytes; map "
+              f"{raw.shape} {raw.dtype} -> the {variant} hint; sample engines {names}; "
+              f"launches {launches} by variant {variants} by key length {key_lengths}",
+              flush=True)
+        wanted = f"ddim+decode_{STEPS}x1x{RES}x{RES}" + ("_bithint" if variant == "bithint"
+                                                        else "")
+        if ((variant == "bithint") != (family == "canny") or wanted not in names
+                or not (res[1].shape == (RES, RES, 3) and res[1].dtype == np.uint8)):
+            raise AssertionError(f"annotators ({family}): {variant} hint, engines {names}")
+        if launches != want or key_lengths != want_keys or variants != want_variants:
+            raise AssertionError(f"annotators ({family}) launches {launches}, {key_lengths}, "
+                                 f"{variants} != {want}, {want_keys}, {want_variants}")
+        out[family] = {"p50_s": p50, "request_s": times, "warm_s": warm_s,
+                       "preprocess_ms": pre, "detector_weight_bytes": weights,
+                       "detector_peak_bytes": peak, "hint": variant, "launches": launches}
+        pipe.apply_canny = make_detector("canny")
+        del det
+        gc.collect()
+        torch.cuda.empty_cache()
+    worst = max(r["p50_s"] for r in out.values())
+    print(f"annotators: canny2image_{RES}x{RES}_{STEPS}step_multi_annotator_worst_p50 "
+          f"{worst:.4f} s ({ {f: round(r['p50_s'], 4) for f, r in out.items()} })",
+          flush=True)
+    pipe.runtime.release()
+    return {"worst_p50_s": worst, "families": out}
+
+
+# ----------------------------------------------------------------- depth2img
+
+
+def depth2img_build(model, ids):
+    """captured_path's build of the depth2img request at 512x512: the text
+    tower eagerly, the MiDaS DPT-hybrid tower at 384x384 on the init image and
+    depth_to_concat (pipeline/concat_cond.py:image_to_depth_concat), then
+    concat_sample_decode_engine (20 DDIM steps, scale 9; its 1 conditioning
+    channel) on x_T drawn from the seed."""
+    from stablediffusioneo_tpu_torch.models.clip import clip_text_apply
+    from stablediffusioneo_tpu_torch.pipeline.concat_cond import image_to_depth_concat
+    from stablediffusioneo_tpu_torch.runtime.engine import concat_sample_decode_engine
+
+    dtype = next(model.parameters()).dtype
+    img = torch.from_numpy(smoke_source()[None].astype(np.float32) / 127.5 - 1.0).to("cuda")
+    lat = RES // model.cfg.vae.downsample_factor
+
+    def build(capture):
+        eng = concat_sample_decode_engine(model, STEPS, 1, RES, RES, capture=capture)
+
+        def request(seed):
+            with torch.no_grad():
+                ctx = clip_text_apply(model.clip, ids).to(dtype)
+                c_concat = image_to_depth_concat(model.depth, img, (lat, lat)).to(dtype)
+            x = torch.randn((1, lat, lat, 4), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(seed))
+            out, z = eng(x.to(dtype), c_concat, ctx[:1], ctx[1:],
+                         torch.full((1,), SCALE, device="cuda"))
+            return out[0].cpu().numpy(), z
+
+        return {eng.name: eng}, request
+
+    return build
+
+
+def depth_tower_ms(model, calls=5):
+    """The MiDaS tower of a depth2img request alone (384x384 input to the
+    depth channel), ms a call by CUDA events, eager."""
+    from stablediffusioneo_tpu_torch.pipeline.concat_cond import image_to_depth_concat
+
+    img = torch.from_numpy(smoke_source()[None].astype(np.float32) / 127.5 - 1.0).to("cuda")
+    lat = RES // model.cfg.vae.downsample_factor
+    with torch.no_grad():
+        return time_ms(lambda: image_to_depth_concat(model.depth, img, (lat, lat)),
+                       warmup=2, reps=calls)
+
+
+def depth2img_phase(tokenizer):
+    """SD-2.0 depth2img (sd2_depth_pipeline(), full width, seeded, bf16): its
+    state dict in the 512-depth-ema layout (model.diffusion_model.*,
+    first_stage_model.*, cond_stage_model.model.*, depth_model.model.* with
+    the OpenCLIP leftovers and a schedule buffer) through a torch.save'd file
+    and load_depth2img_pipeline (every key consumed or named, none orphaned;
+    its keys and bytes printed), then on the loaded model the 512x512
+    request, 20 DDIM steps, scale 9, as a main path over
+    concat_sample_decode_engine (captured_path: the tower at 384x384 under
+    the attention gate, 400 packed + 1 split launches a request), the tower's
+    time apart; the seeded model's request equal to the loaded one's in
+    bytes."""
+    from stablediffusioneo_tpu_torch.checkpoint import load_depth2img_pipeline
+    from stablediffusioneo_tpu_torch.config import sd2_depth_pipeline
+    from stablediffusioneo_tpu_torch.models.cldm import Depth2ImgModel
+
+    cfg = sd2_depth_pipeline()
+    model = build_seeded(lambda: Depth2ImgModel(cfg), 0)
+    ids = torch.as_tensor(np.asarray(tokenizer([PROMPT, ""])), dtype=torch.long,
+                          device="cuda")
+    sd = dict(model.state_dict())
+    extra = {"betas": torch.linspace(1e-4, 2e-2, 1000),
+             "cond_stage_model.model.attn_mask": torch.zeros(77, 77),
+             "cond_stage_model.model.logit_scale": torch.tensor(4.6)}
+    with tempfile.TemporaryDirectory() as directory:
+        path = os.path.join(directory, "512-depth-ema_seeded.ckpt")
+        t0 = time.perf_counter()
+        torch.save({"state_dict": {**sd, **extra}}, path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = load_depth2img_pipeline(path, cfg, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    report = loaded.load_report
+    tower = sum(k.startswith("depth_model.model.") for k in report.consumed)
+    print(f"depth2img checkpoint: {len(sd) + len(extra)} keys ({tower} of the tower), "
+          f"{size} bytes written in {save_s:.2f} s, loaded onto the card in {load_s:.2f} s; "
+          f"consumed {len(report.consumed)}, ignored {sorted(report.ignored)}, orphans "
+          f"{len(report.orphans)}", flush=True)
+    if not (report.complete and len(report.consumed) == len(sd)
+            and report.ignored == set(extra)):
+        raise AssertionError(f"depth2img checkpoint load: {report.problems()}")
+    run = captured_path("depth2img", depth2img_build(loaded, ids), cfg, RES, STEPS)
+    run["tower_ms"] = depth_tower_ms(loaded)
+    print(f"depth2img: the depth tower (384x384) and depth_to_concat "
+          f"{run['tower_ms']:.2f} ms a call", flush=True)
+    del loaded
+    engines, request = depth2img_build(model, ids)(True)
+    out = request(1)[0]
+    differ = int((out != run["image"]).sum())
+    print(f"depth2img: the seeded model's request seed=1 differs from the loaded model's "
+          f"image in {differ} bytes", flush=True)
+    if differ:
+        raise AssertionError(f"the seeded depth2img model gives another image ({differ})")
+    del engines, request, model, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    run["checkpoint"] = {"keys": len(report.consumed) + len(report.ignored), "bytes": size,
+                         "save_s": save_s, "load_s": load_s}
+    return run
+
+
 def refiner_reference(model):
     """One full-width refiner-UNet evaluation at 256x256 in fp32, the card
     (through the kernel entries, none gated at this size) against the same
@@ -2560,6 +2924,8 @@ def main():
     model = build_model(cfg, seed=0)
     reference_phase(model, cfg)
     print(f"reference phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    annotator_ref = annotator_reference()
+    print(f"annotator reference done at {time.perf_counter() - t_start:.1f} s", flush=True)
     runs = {}
     for config in ("default", "fused norms", "int8", "hires", "dpmpp-karras", "euler-a",
                    "heun", "tome 0.5"):
@@ -2599,6 +2965,8 @@ def main():
               flush=True)
     hack = hackathon_phase(loaded, cfg, tokenizer)
     print(f"hackathon phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    annotators = annotators_phase(loaded, cfg, tokenizer)
+    print(f"annotators phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     lora_pipe, lora = lora_phase(loaded, cfg, tokenizer)
     print(f"lora phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     inversion = textual_inversion_phase(lora_pipe, tokenizer)
@@ -2609,6 +2977,9 @@ def main():
           flush=True)
     runs["inpaint 9ch"] = inpaint_phase(tokenizer)
     print(f"main path (inpaint 9ch) and its checkpoint done at "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    runs["depth2img"] = depth2img_phase(tokenizer)
+    print(f"depth2img checkpoint and main path done at "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     sd21_cfg, _ = family_configs()
     model = build_model(sd21_cfg, seed=0)
@@ -2655,7 +3026,9 @@ def main():
             # every main-path run's launches of it, two requests each
             "launches_by_path": {**{config: r["launches"][name] for config, r in runs.items()},
                                  "serving": serving["launches"].get(name, 0),
-                                 "multi-ControlNet": multi["launches"].get(name, 0)},
+                                 "multi-ControlNet": multi["launches"].get(name, 0),
+                                 **{f"annotators:{f}": r["launches"][name]
+                                    for f, r in annotators["families"].items()}},
             "max_abs_err": max(r["bf16_max_abs_err"] for r in rows),
             # device time of one call at each main-path (or listed) shape,
             # bf16, summed over the shapes; the bound and the library call's
@@ -2670,12 +3043,14 @@ def main():
     sdxl = {config: {k: runs[config][k] for k in ("text_towers_ms", "peak_bytes", "warm_s")}
             for config in ("sdxl 1024", "sdxl 1024, fused norms")}
     families = {config: {k: runs[config][k] for k in ("peak_bytes", "warm_s", "checkpoint")}
-                for config in ("inpaint 9ch", "sdxl refiner 1024")}
+                for config in ("inpaint 9ch", "depth2img", "sdxl refiner 1024")}
+    families["depth2img"]["tower_ms"] = runs["depth2img"]["tower_ms"]
     print(json.dumps({"kernels": out, "request_s": latencies, "eager_request_s": eager,
                       "checkpoint": checkpoint, "hackathon": hack,
                       "sdxl": sdxl, "sdxl_checkpoint": sdxl_checkpoint,
                       "lora": lora, "textual_inversion": inversion, "families": families,
                       "refiner_reference": runs["sdxl refiner 1024"]["reference"],
+                      "annotators": annotators, "annotator_reference": annotator_ref,
                       "sampler_variants_request_s": variants_s,
                       "serving": serving, "multi_controlnet": multi,
                       "encode_image_replay_ms": encode_ms,

@@ -10,6 +10,8 @@ port's model holding its weights.
   load_sdxl_refiner_pipeline  sd_xl_refiner_1.0 (sgm layout) -> SDXLRefiner
   load_inpaint_pipeline     sd-v1-5-inpainting / 512-inpainting-ema (a
                             9-channel UNet) -> LatentDiffusion
+  load_depth2img_pipeline   512-depth-ema (a 5-channel UNet and its MiDaS
+                            DPT-hybrid tower) -> Depth2ImgModel
 Textual-inversion concepts load with `load_concept` and go into a tower
 with `add_concepts` / into a live runtime with `apply_textual_inversion`
 (checkpoint/textual_inversion.py).
@@ -22,7 +24,7 @@ an orphan (the JAX `_load_concat_family`'s global-scope rule).
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,6 +43,7 @@ from stablediffusioneo_tpu_torch.checkpoint.textual_inversion import (
 from stablediffusioneo_tpu_torch.checkpoint.torch_reader import load_torch_state_dict
 from stablediffusioneo_tpu_torch.config import (
     PipelineConfig,
+    sd2_depth_pipeline,
     sd15_inpaint_pipeline,
     sd15_pipeline,
 )
@@ -51,6 +54,8 @@ __all__ = [
     "load_sdxl_pipeline",
     "load_sdxl_refiner_pipeline",
     "load_inpaint_pipeline",
+    "load_depth2img_pipeline",
+    "convert_depth_tower",
     "load_sd_pipeline",
     "load_concept",
     "add_concepts",
@@ -71,10 +76,11 @@ def _sd_trees(cfg: PipelineConfig, control: bool) -> Tuple[Tuple[str, Tuple[str,
         + (("first_stage_model.", ()), clip)
 
 
-def _load(path: str, build: Callable[[], torch.nn.Module],
+def _load(path: str, build: Callable[[Mapping], torch.nn.Module],
           trees: Sequence[Tuple[str, Sequence[str]]], device, strict: bool,
           dtype: Optional[torch.dtype], tag: str):
-    """Build on the meta device, account for every key of the file, then
+    """Build on the meta device (build(sd): the model; the file's shapes
+    may decide a tower's widths), account for every key of the file, then
     materialise on `device` only and copy the weights in (in `dtype`, default
     fp32), so the full width never passes through host memory twice.
     strict=True raises ConversionAccountingError on any key the model does
@@ -83,7 +89,7 @@ def _load(path: str, build: Callable[[], torch.nn.Module],
     as `model.load_report`."""
     sd = load_torch_state_dict(path)
     with torch.device("meta"):
-        model = build()
+        model = build(sd)
         if dtype is not None:
             model.to(dtype)
     report = account_checkpoint(model, sd, tree_ignores(trees)).assert_complete(
@@ -102,7 +108,7 @@ def load_controlnet_pipeline(path: str, cfg: Optional[PipelineConfig] = None,
     from stablediffusioneo_tpu_torch.models.cldm import ControlLDM
 
     cfg = cfg or sd15_pipeline()
-    return _load(path, lambda: ControlLDM(cfg), _sd_trees(cfg, True), device, strict,
+    return _load(path, lambda sd: ControlLDM(cfg), _sd_trees(cfg, True), device, strict,
                  dtype, "controlnet_pipeline")
 
 
@@ -115,7 +121,7 @@ def load_sd_pipeline(path: str, cfg: Optional[PipelineConfig] = None,
     from stablediffusioneo_tpu_torch.models.cldm import LatentDiffusion
 
     cfg = cfg or sd15_pipeline()
-    return _load(path, lambda: LatentDiffusion(cfg), _sd_trees(cfg, False), device,
+    return _load(path, lambda sd: LatentDiffusion(cfg), _sd_trees(cfg, False), device,
                  strict, dtype, "sd_pipeline")
 
 
@@ -127,7 +133,7 @@ def load_sdxl_pipeline(path: str, cfg=None, device="cuda", strict: bool = True,
     from stablediffusioneo_tpu_torch.models.sdxl import SDXL, SDXL_TREES, SDXLConfig
 
     cfg = cfg or SDXLConfig()
-    return _load(path, lambda: SDXL(cfg), SDXL_TREES, device, strict, dtype,
+    return _load(path, lambda sd: SDXL(cfg), SDXL_TREES, device, strict, dtype,
                  "sdxl_pipeline")
 
 
@@ -142,7 +148,7 @@ def load_inpaint_pipeline(path: str, cfg: Optional[PipelineConfig] = None,
     from stablediffusioneo_tpu_torch.models.cldm import LatentDiffusion
 
     cfg = cfg or sd15_inpaint_pipeline()
-    return _load(path, lambda: LatentDiffusion(cfg), _sd_trees(cfg, False), device,
+    return _load(path, lambda sd: LatentDiffusion(cfg), _sd_trees(cfg, False), device,
                  strict, dtype, "inpaint")
 
 
@@ -159,5 +165,41 @@ def load_sdxl_refiner_pipeline(path: str, cfg=None, device="cuda", strict: bool 
     )
 
     cfg = cfg or SDXLRefinerConfig()
-    return _load(path, lambda: SDXLRefiner(cfg), SDXL_REFINER_TREES, device, strict,
+    return _load(path, lambda sd: SDXLRefiner(cfg), SDXL_REFINER_TREES, device, strict,
                  dtype, "sdxl_refiner")
+
+
+DEPTH_PREFIX = "depth_model.model."
+
+
+def convert_depth_tower(sd: Mapping, prefix: str = DEPTH_PREFIX) -> Dict[str, torch.Tensor]:
+    """The MiDaS DPT-hybrid tower embedded in an SD-2.0 depth checkpoint
+    (LatentDepth2ImageDiffusion's `depth_model`; the reference vendors the
+    same net under ldm/modules/midas/) as the tower's own state dict: the
+    keys under `prefix`, stripped of it, e.g. for
+    MidasDetector(params=..., model_type="dpt_hybrid")."""
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def load_depth2img_pipeline(path: str, cfg: Optional[PipelineConfig] = None,
+                            device="cuda", strict: bool = True,
+                            dtype: Optional[torch.dtype] = None):
+    """The Depth2ImgModel (models/cldm.py) of an SD-2.0 depth2img checkpoint
+    in the 512-depth-ema layout (default cfg sd2_depth_pipeline()):
+      model.diffusion_model.*   -> the 5-channel UNet
+      first_stage_model.*       -> the VAE
+      cond_stage_model.model.*  -> the OpenCLIP ViT-H text tower
+      depth_model.model.*       -> the MiDaS DPT-hybrid tower (its position
+                                   grid and widths read off the file)
+    with the JAX _load_concat_family's accounting: each tree's own (OpenCLIP's
+    two leftovers by pattern), and a key outside every tree that
+    SD_KNOWN_UNUSED does not name is an orphan. Sample it with
+    pipeline/concat_cond.py: the tower's depth of the init image through
+    depth_to_concat, then sd_concat_sample (or concat_sample_decode_engine)."""
+    from stablediffusioneo_tpu_torch.annotators.midas_hybrid import hybrid_shape
+    from stablediffusioneo_tpu_torch.models.cldm import Depth2ImgModel
+
+    cfg = cfg or sd2_depth_pipeline()
+    trees = _sd_trees(cfg, False) + ((DEPTH_PREFIX, ()),)
+    return _load(path, lambda sd: Depth2ImgModel(cfg, **hybrid_shape(sd, DEPTH_PREFIX)),
+                 trees, device, strict, dtype, "depth2img")

@@ -175,3 +175,15 @@ def copy_checkpoint_(model: nn.Module, sd: Mapping) -> None:
     conv."""
     for name, t in model.state_dict().items():
         t.copy_(sd[name].reshape(t.shape))
+
+
+def load_strict(module: nn.Module, sd: Mapping, tag: str,
+                ignore: Sequence[str] = ()) -> CheckpointReport:
+    """An annotator's state dict (its own names, no prefix) into `module`:
+    every key accounted for first (`ignore`: the patterns of documented
+    leftovers; any other extra key, a missing key or a wrong shape raises
+    ConversionAccountingError), then load_state_dict(strict=True) of the
+    consumed keys."""
+    report = account_checkpoint(module, sd, ignore).assert_complete(tag)
+    module.load_state_dict({k: sd[k] for k in report.consumed}, strict=True)
+    return report

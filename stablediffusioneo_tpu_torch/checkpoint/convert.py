@@ -18,6 +18,10 @@ Two users, so that no second table of names exists:
     refiner's (bigG alone, at conditioner.embedders.0.model.);
   * training/lora.py merges an adapter, whose sites are named by their JAX
     paths, into the port's modules in place.
+The annotators' trees (HED, DPT-L, DPT-hybrid, the OpenPose body and hand
+nets) are built by name in the JAX converters rather than by a path map, so
+`annotator_state_dict_from_jax` inverts each converter directly; the
+depth2img model's MiDaS tower goes through it too.
 The parameters arrive as arrays (numpy, or anything numpy can read), so this
 module needs no JAX. Every parameter of the port's model gets one, and no
 other key is made, so its `load_checkpoint` loads the result with nothing
@@ -258,7 +262,11 @@ def jax_trees(cfg, params: Optional[dict] = None) -> Tuple[Tuple[str, str, str],
     cond_stage_model.model. where cfg.clip.layer is "penultimate" (SD-2.x)),
     an SDXL base configuration ({"unet", "clip_l", "clip_g", "vae"}) or an
     SDXL refiner one ({"unet", "clip_g", "vae"}), by their own layouts.
-    `params` tells whether a PipelineConfig's model has a ControlNet."""
+    `params` tells whether a PipelineConfig's model has a ControlNet. The
+    depth2img configuration (models/cldm.py:depth_conditioned) also takes its
+    MiDaS tower ({"depth"}, a JAX convert_dpt_hybrid tree) under
+    depth_model.model."""
+    from stablediffusioneo_tpu_torch.models.cldm import depth_conditioned
     from stablediffusioneo_tpu_torch.models.sdxl import SDXLConfig, SDXLRefinerConfig
 
     trees = [("unet", "unet", "model.diffusion_model."),
@@ -275,6 +283,8 @@ def jax_trees(cfg, params: Optional[dict] = None) -> Tuple[Tuple[str, str, str],
         trees.append(("clip", "openclip", "cond_stage_model.model."))
     else:
         trees.append(("clip", "clip", "cond_stage_model.transformer."))
+    if depth_conditioned(cfg):
+        trees.append(("depth", "dpt_hybrid", "depth_model.model."))
     return tuple(trees)
 
 
@@ -285,7 +295,9 @@ def state_dict_from_jax(params: dict, cfg) -> StateDict:
     for key, kind, prefix in jax_trees(cfg, params):
         tree = params[key]
         ucfg = cfg.controlnet.unet if kind == "controlnet" else getattr(cfg, "unet", None)
-        if kind == "controlnet" and isinstance(tree, (tuple, list)):  # multi-ControlNet
+        if kind in ANNOTATOR_KINDS:
+            sd.update((prefix + k, v) for k, v in annotator_state_dict_from_jax(kind, tree).items())
+        elif kind == "controlnet" and isinstance(tree, (tuple, list)):  # multi-ControlNet
             for i, net in enumerate(tree):
                 tree_state_dict(sd, kind, ucfg, net, f"{prefix}{i}.")
         else:
@@ -314,3 +326,98 @@ def clip_state_dict(sd: StateDict, p, prefix="cond_stage_model.transformer.") ->
 
 def openclip_state_dict(sd: StateDict, p, prefix="cond_stage_model.model.") -> None:
     tree_state_dict(sd, "openclip", None, p, prefix)
+
+
+# ------------------------------------------------------------- annotators
+
+ANNOTATOR_KINDS = ("hed", "dpt_large", "dpt_hybrid", "openpose_body", "openpose_hand")
+
+
+def annotator_state_dict_from_jax(kind: str, params) -> StateDict:
+    """A JAX annotator tree -> the port module's state dict under the
+    upstream names (no prefix), fp32: the inverse of the JAX package's
+    convert_hed, convert_dpt, convert_dpt_hybrid, convert_body and
+    convert_hand (annotators/*.py) for `kind` in ANNOTATOR_KINDS. HWIO convs
+    go back to OIHW, (in, out) linears to (out, in), g/b norms to
+    weight/bias, HED's NHWC `norm` to (1, 3, 1, 1).
+
+    DPT-L's stage-1/2 upsamplers: the JAX package runs lax.conv_transpose
+    without transpose_kernel on a kernel convert_dpt only permuted, which is
+    the upstream ConvTranspose2d with its kernel mirrored in both spatial
+    axes. The port's module is upstream's ConvTranspose2d, so the weight
+    given here is the JAX kernel flipped back: the same tree computes the
+    same function in both packages (while a checkpoint file loads into the
+    port as upstream runs it)."""
+    if kind not in ANNOTATOR_KINDS:
+        raise KeyError(f"annotator kind {kind!r}; have {ANNOTATOR_KINDS}")
+    sd: StateDict = {}
+
+    def put(name, a, layout="raw"):
+        sd[name] = torch.from_numpy(np.array(port_layout(np.asarray(a, np.float32), layout)))
+
+    def node(name, p, layout):  # a {"w", "b"} or {"g", "b"} node
+        for leaf, v in p.items():
+            put(f"{name}.{ {'w': 'weight', 'g': 'weight', 'b': 'bias'}[leaf] }", v,
+                layout if leaf == "w" else "raw")
+
+    if kind in ("openpose_body", "openpose_hand"):
+        for name, p in params.items():
+            node(name, p, "conv")
+        return sd
+    if kind == "hed":
+        put("norm", np.transpose(np.asarray(params["norm"]), (0, 3, 1, 2)))
+        for bi in range(5):
+            block = params[f"block{bi + 1}"]
+            for j, p in enumerate(block["convs"]):
+                node(f"block{bi + 1}.convs.{j}", p, "conv")
+            node(f"block{bi + 1}.projection", block["projection"], "conv")
+        return sd
+
+    vm = "pretrained.model."
+    vit = params["vit"] if kind == "dpt_large" else params
+    put(f"{vm}cls_token", vit["cls_token"])
+    put(f"{vm}pos_embed", vit["pos_embed"])
+    for i, blk in enumerate(vit["blocks"]):
+        for part, sub in (("norm1", "norm1"), ("qkv", "attn.qkv"), ("proj", "attn.proj"),
+                          ("norm2", "norm2"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            node(f"{vm}blocks.{i}.{sub}", blk[part],
+                 "raw" if part.startswith("norm") else "linear")
+    if kind == "dpt_large":
+        node(f"{vm}patch_embed.proj", vit["patch_embed"], "conv")
+        posts, stages = params["reassemble"], (1, 2, 3, 4)
+    else:
+        bb = f"{vm}patch_embed.backbone."
+        backbone = params["backbone"]
+        node(f"{bb}stem.conv", backbone["stem"]["conv"], "conv")
+        node(f"{bb}stem.norm", backbone["stem"]["norm"], "raw")
+        for si, blocks in enumerate(backbone["stages"]):
+            for bi, blk in enumerate(blocks):
+                for part, p in blk.items():
+                    name = f"{bb}stages.{si}.blocks.{bi}.{part}"
+                    node(name + (".conv" if part == "downsample" else ""), p,
+                         "raw" if part.startswith("norm") else "conv")
+        node(f"{vm}patch_embed.proj", params["patch_proj"], "conv")
+        posts, stages = params, (3, 4)
+    for i in stages:
+        post, base = posts[f"post{i}"], f"pretrained.act_postprocess{i}"
+        node(f"{base}.0.project.0", post["project"], "linear")
+        node(f"{base}.3", post["channel"], "conv")
+        if "resample" in post:
+            res = post["resample"]
+            if kind == "dpt_large" and i in (1, 2):  # (kh, kw, in, out) mirrored
+                w = np.transpose(np.asarray(res["w"], np.float32), (2, 3, 0, 1))
+                put(f"{base}.4.weight", w[:, :, ::-1, ::-1])
+                put(f"{base}.4.bias", res["b"])
+            else:
+                node(f"{base}.4", res, "conv")
+    for i in range(1, 5):
+        node(f"scratch.layer{i}_rn", posts[f"layer{i}_rn"], "conv")
+        f = params["fusion"][f"refine{i}"]
+        base = f"scratch.refinenet{i}"
+        for u in (1, 2):
+            for c in ("conv1", "conv2"):
+                node(f"{base}.resConfUnit{u}.{c}", f[f"rcu{u}"][c], "conv")
+        node(f"{base}.out_conv", f["out_conv"], "conv")
+    for j, c in (("0", "conv1"), ("2", "conv2"), ("4", "conv3")):
+        node(f"scratch.output_conv.{j}", params["head"][c], "conv")
+    return sd

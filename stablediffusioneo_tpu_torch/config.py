@@ -210,6 +210,23 @@ def sd21_pipeline(
     )
 
 
+def sd2_depth_pipeline(
+    dtype: str = "bfloat16", use_pallas: bool = True
+) -> PipelineConfig:
+    """SD-2.0 depth2img (512-depth-ema): 5-channel hybrid-conditioned UNet
+    (latent + MiDaS depth at latent resolution), OpenCLIP ViT-H context,
+    eps parameterization. Sampled via pipeline/concat_cond.py; the
+    controlnet field is structural only (this family has no ControlNet)."""
+    unet = UNetConfig(in_channels=5, num_head_channels=64, context_dim=1024)
+    return PipelineConfig(
+        unet=unet,
+        controlnet=ControlNetConfig(unet=unet),
+        clip=openclip_vit_h_text(),
+        dtype=dtype,
+        use_pallas=use_pallas,
+    )
+
+
 def sd15_inpaint_pipeline(
     dtype: str = "bfloat16", use_pallas: bool = True
 ) -> PipelineConfig:

@@ -11,7 +11,9 @@ A `control_sd15_*.pth` state dict loads into `ControlLDM` by name:
                                       cfg.clip.layer is "penultimate", the
                                       JAX loaders' rule)
 `LatentDiffusion` is the same without the ControlNet: a plain SD-1.x / 2.x
-checkpoint (v1-5-pruned, v2-1_768-ema-pruned). Every other key must be one
+checkpoint (v1-5-pruned, v2-1_768-ema-pruned). `Depth2ImgModel` adds the
+depth2img family's MiDaS tower (512-depth-ema):
+  depth_model.model.*              -> DPTHybrid (annotators/midas_hybrid.py) Every other key must be one
 that checkpoint/accounting.py:SD_KNOWN_UNUSED documents (schedule buffers,
 logvar, model_ema.*, CLIP's position_ids, OpenCLIP's mask and logit scale).
 """
@@ -78,6 +80,31 @@ class LatentDiffusion(nn.Module):
         copy_checkpoint_(self, state_dict)
 
 
+def depth_conditioned(cfg) -> bool:
+    """Whether a PipelineConfig is the depth2img family's: the UNet takes the
+    4 latent channels and one depth channel (config.sd2_depth_pipeline)."""
+    return isinstance(cfg, PipelineConfig) and cfg.unet.in_channels == 5
+
+
+class Depth2ImgModel(LatentDiffusion):
+    """SD-2.0 depth2img (LatentDepth2ImageDiffusion): LatentDiffusion of a
+    depth-conditioned configuration plus its MiDaS DPT-hybrid tower at
+    `depth_model.model`. depth_shape: DPTHybrid's arguments (default the
+    real tower's: a 24x24 position grid, fusion width 256); a file's own are
+    read by annotators/midas_hybrid.py:hybrid_shape."""
+
+    def __init__(self, cfg: PipelineConfig, **depth_shape):
+        from stablediffusioneo_tpu_torch.annotators.midas_hybrid import DPTHybrid
+
+        super().__init__(cfg)
+        self.depth_model = nn.Module()
+        self.depth_model.model = DPTHybrid(**depth_shape)
+
+    @property
+    def depth(self) -> nn.Module:
+        return self.depth_model.model
+
+
 class ControlLDM(LatentDiffusion):
     """n_controlnets > 1: multi-ControlNet (the JAX package's tuple of
     ControlNet trees), the nets in an nn.ModuleList under
@@ -114,6 +141,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     shows in the output. Norms start at weight 1, bias 0; the text towers'
     token and position embeddings at N(0, 0.02) and N(0, 0.01), an OpenCLIP
     text_projection (d, proj) at N(0, 1 / d), as the JAX init_clip_text.
+    Transposed convs (the DPT reassemble's upsamplers) draw as convs; a module
+    with bare parameters (an annotator's ViT tokens, HED's `norm`) fills them
+    in its `init_bare_(generator)`, which returns them.
     """
     done = set()
 
@@ -122,7 +152,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         done.add(id(p))
 
     for name, m in model.named_modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             for p in (m.weight, m.bias):
                 if p is not None:
@@ -146,6 +176,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 m.text_projection.normal_(0.0, m.cfg.hidden_size ** -0.5,
                                           generator=generator)
                 done.add(id(m.text_projection))
+        if hasattr(m, "init_bare_"):  # an annotator's bare parameters
+            done.update(id(p) for p in m.init_bare_(generator))
     left = [n for n, p in model.named_parameters() if id(p) not in done]
     if left:
         raise RuntimeError(f"init_weights left parameters unset: {left[:8]}")

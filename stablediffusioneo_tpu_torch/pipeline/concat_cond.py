@@ -18,6 +18,11 @@ batch (both branches take the same ones, as the JAX scan), and joins them to
 x at every evaluation. The UNet itself is unchanged (its conv_in reads
 cfg.in_channels).
 
+The depth2img family (SD-2.0's 512-depth-ema; config.sd2_depth_pipeline)
+takes one channel: the MiDaS DPT-hybrid depth of the init image
+(annotators/midas_hybrid.py, the model's `depth_model`), made by
+`depth_to_concat`.
+
 Distinct from pipeline/ddim.py's blended-latent inpainting, which works with
 any 4-channel checkpoint by re-imposing the kept region each step.
 """
@@ -147,3 +152,42 @@ def inpaint_to_concat(
         z = z * float(np.float32(vae.cfg.scale_factor))
     m_lat = nhwc(F.interpolate(nchw(m), size=tuple(z.shape[1:3]), mode="nearest-exact"))
     return torch.cat([m_lat, z], dim=-1)
+
+
+def depth_to_concat(depth: torch.Tensor, latent_hw) -> torch.Tensor:
+    """MiDaS depth -> the depth2img conditioning channel (the JAX
+    depth_to_concat).
+
+    depth: (B, H, W) or (B, H, W, 1) raw (unnormalised) MiDaS output.
+    Bicubic-resized to latent resolution in fp32, antialiased as
+    jax.image.resize is when it shrinks (F.interpolate's antialias=True; the
+    same values when it grows), then normalised per sample to [-1, 1] by its
+    min and max (the LatentDepth2ImageDiffusion convention: depth is
+    relative). Returns (B, h, w, 1) fp32."""
+    d = depth.float()
+    if d.dim() == 4:
+        d = d[..., 0]
+    h, w = latent_hw
+    d = F.interpolate(d[:, None], size=(h, w), mode="bicubic", align_corners=False,
+                      antialias=True)
+    lo = d.amin(dim=(1, 2, 3), keepdim=True)
+    hi = d.amax(dim=(1, 2, 3), keepdim=True)
+    return nhwc(2.0 * (d - lo) / torch.clamp(hi - lo, min=1e-6) - 1.0)
+
+
+DEPTH_SIZE = 384  # the MiDaS DPT-hybrid's input side in depth2img
+
+
+def image_to_depth_concat(tower: torch.nn.Module, image: torch.Tensor, latent_hw,
+                          size: int = DEPTH_SIZE) -> torch.Tensor:
+    """The depth2img conditioning channel of an init image: image (B, H, W,
+    3) in [-1, 1] (the tower's input as LatentDepth2ImageDiffusion hands it
+    over: AddMiDaS maps the image to [0, 1] and normalises it by mean and
+    std 0.5, which is the image itself) bicubically resized to size x size
+    (384), through the MiDaS tower (models/cldm.py:Depth2ImgModel.depth) in
+    its dtype, then `depth_to_concat`. The JAX package has the last step
+    only; the tower's input follows the reference."""
+    dtype = next(tower.parameters()).dtype
+    x = F.interpolate(nchw(image.float()), size=(size, size), mode="bicubic",
+                      align_corners=False)
+    return depth_to_concat(tower(x.to(dtype)), latent_hw)

@@ -950,3 +950,41 @@ def test_packed_kernel_long_prompt_keys(gen, dtype, b, tq, c, s):
         "wgmma" if dtype == torch.bfloat16 else "cuda_core": 1}
     assert dict(ka.key_length_launches) == {s: 1}
     _check(out, fused_attention_packed_plain(q, k, v, 8, scale), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads", [16, 12])
+def test_split_kernel_reads_vit_qkv_views(gen, dtype, heads):
+    """A MiDaS ViT block at a 512x512 input (DPT-L 16 heads, the DPT-hybrid
+    12, head dim 64): q, k, v as (B, H, T, d) views of one (B, T, 3, H, d)
+    projection, token stride 3C, and 1,025 tokens (a one-row tail in both
+    the query and the key tiles)."""
+    qkv = _randn((1, 1025, 3, heads, 64), gen, dtype)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    ka.variant_launches.clear()
+    out = fused_attention(q, k, v, 64 ** -0.5)
+    assert dict(ka.variant_launches) == {
+        "wgmma" if dtype == torch.bfloat16 else "cuda_core": 1}
+    _check(out, fused_attention_plain(q, k, v, 64 ** -0.5), dtype)
+
+
+def test_detectors_default_to_the_card(gen):
+    """HED and MiDaS DPT-L with seeded weights, built with no device named:
+    on the card in bf16; DPT-L at a 512x512 image launches the split kernel
+    once a ViT block on the tensor-core variant."""
+    import numpy as np
+
+    from stablediffusioneo_tpu_torch.annotators import HEDdetector, MidasDetector
+
+    img = (np.random.default_rng(0).random((512, 512, 3)) * 255).astype(np.uint8)
+    hed = HEDdetector()
+    assert hed.net.norm.device.type == "cuda" and hed.net.norm.dtype == torch.bfloat16
+    edge = hed(img)
+    assert edge.shape == (512, 512) and edge.dtype == np.uint8
+    midas = MidasDetector(model_type="dpt_large")
+    dispatch.reset_launches()
+    ka.variant_launches.clear()
+    depth, normal = midas(img)
+    assert dispatch.launches["fused_attention"] == 24
+    assert dict(ka.variant_launches) == {"wgmma": 24}
+    assert depth.shape == (512, 512) and normal.shape == (512, 512, 3)

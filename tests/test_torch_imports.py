@@ -74,9 +74,14 @@ def test_the_walk_covers_the_port():
                  "stablediffusioneo_tpu_torch/training/lora.py",
                  "stablediffusioneo_tpu_torch/checkpoint/textual_inversion.py",
                  "stablediffusioneo_tpu_torch/checkpoint/convert.py",
-                 "stablediffusioneo_tpu_torch/runtime/engine.py"):
+                 "stablediffusioneo_tpu_torch/runtime/engine.py",
+                 "stablediffusioneo_tpu_torch/annotators/_dtype.py",
+                 "stablediffusioneo_tpu_torch/annotators/hed.py",
+                 "stablediffusioneo_tpu_torch/annotators/midas.py",
+                 "stablediffusioneo_tpu_torch/annotators/midas_hybrid.py",
+                 "stablediffusioneo_tpu_torch/annotators/openpose.py"):
         assert must in names
-    assert len(names) >= 48
+    assert len(names) >= 53
 
 
 # numpy-only functions of the JAX package the port keeps its own copy of,
@@ -127,6 +132,13 @@ SOURCE_COPIES = [
 ] + [
     ("serving.server", "serving.server", "_resolve"),
     ("pipeline.canny2image", "pipeline.canny2image", "Canny2ImagePipeline._pack_hint"),
+] + [
+    ("annotators.openpose", "annotators.openpose", name)
+    for name in ("_stage1_spec", "_stageN_spec", "_hand_stage1", "_hand_stageN",
+                 "_cv2_cubic_weights", "_upsample_matrices", "_gaussian_matrix", "_VirtualMap",
+                 "peaks_from_mask", "_gaussian_sigma3", "find_peaks", "score_limbs",
+                 "assemble_people", "hand_detect", "decode_hand_peaks", "draw_bodypose",
+                 "draw_handpose")
 ]
 
 
@@ -134,9 +146,10 @@ SOURCE_COPIES = [
                          ids=[c[2] for c in SOURCE_COPIES])
 def test_source_copies_are_their_originals(port_mod, jax_mod, name):
     """The batch-cut policy's mirror (and its ctypes signatures), the future
-    resolver and the hint packer are the JAX package's code, statement for
-    statement (docstrings aside); their results are held in
-    tests/test_torch_serving.py."""
+    resolver, the hint packer and OpenPose's spec tables and numpy decode
+    are the JAX package's code, statement for statement (docstrings aside);
+    their results are held in tests/test_torch_serving.py and
+    tests/test_torch_annotators.py."""
     import importlib
     import inspect
 
@@ -248,11 +261,21 @@ def test_tiny_process_runs_with_both_packages_blocked():
     assert res.stdout.strip().endswith("OK")
 
 
+@pytest.mark.parametrize("name", ["_BODY_TRUNK", "_HAND_TRUNK", "LIMB_PAIRS", "PAF_CHANNELS",
+                                  "HAND_EDGES", "_BODY_COLORS"])
+def test_openpose_tables_are_the_jax_packages(name):
+    from stablediffusioneo_tpu.annotators import openpose as jax_openpose
+    from stablediffusioneo_tpu_torch.annotators import openpose as port_openpose
+
+    assert getattr(port_openpose, name) == getattr(jax_openpose, name)
+
+
 # ----------------------------------------------------------- configuration
 
 CONSTRUCTORS = ["sd15_pipeline", "tiny_pipeline", "sd15_unet", "sd15_controlnet",
                 "sd15_vae", "clip_vit_l14", "sd21_unet", "openclip_vit_h_text",
-                "sd21_pipeline", "sd15_inpaint_pipeline", "sd2_inpaint_pipeline"]
+                "sd21_pipeline", "sd15_inpaint_pipeline", "sd2_inpaint_pipeline",
+                "sd2_depth_pipeline"]
 CLASSES = ["UNetConfig", "ControlNetConfig", "VAEConfig", "CLIPTextConfig",
            "DiffusionConfig", "PipelineConfig"]
 

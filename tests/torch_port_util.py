@@ -162,3 +162,31 @@ def numpy_params(init_fn, cfg, seed):
         return (0.1 if name == "b" else 0.02) * z
 
     return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+# ------------------------------------------------ annotator weights by name
+
+# the universe of each annotator's upstream file (DPT-L has none)
+UNIVERSES = {"hed": "hed", "dpt_hybrid": "dpt_hybrid", "openpose_body": "openpose_body",
+             "openpose_hand": "openpose_hand"}
+
+
+def draw_upstream(rng, name, shape):
+    """A seeded weight of an upstream-named tensor: conv / linear weights
+    N(0, 1 / fan_in), norm gains 1 + N(0, 0.01), the rest 0.1 N(0, 1)."""
+    z = rng.standard_normal(shape).astype(np.float32)
+    if name.endswith(".weight") and len(shape) >= 2:
+        return z * np.float32(np.prod(shape[1:]) ** -0.5)
+    if name.endswith(".weight") and "norm" in name:
+        return np.float32(1.0) + np.float32(0.1) * z
+    return np.float32(0.1) * z
+
+
+def universe_sd(kind, seed=0):
+    """{name: float32 array} with exactly the names and shapes of the
+    universe file of `kind` (stablediffusioneo_tpu/checkpoint/universes/)."""
+    from stablediffusioneo_tpu.checkpoint.manifest import load_universe
+
+    rng = np.random.default_rng(seed)
+    return {k: draw_upstream(rng, k, tuple(int(d) for d in s.split("x")))
+            for k, s in sorted(load_universe(UNIVERSES[kind]).items())}
