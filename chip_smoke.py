@@ -146,12 +146,33 @@ source, all started together), then:
      (the MiDaS tower at 384x384, depth_to_concat, concat_sample_decode_engine:
      400 + 1 launches) as a main path over captured_path, the tower's time
      apart, the seeded model's image equal in bytes.
+  16. training (training_phase, last: the runtime of its user path casts the
+     model to bf16): ControlNet fine-tuning on a fresh seeded SD-1.5 +
+     ControlNet. One fp32 step at 256x256 b1, card vs CPU, every ControlNet
+     gradient within TRAIN_REF_TOL and the level-0 attention projections'
+     non-zero (train_reference); the JAX bench's train row (AdamW lr 1e-5,
+     bf16, its seeded batch; a first step apart, then 6 steps each closed by
+     float(loss): p50, steps/s, samples/s, peak memory, one traced step with
+     the attention kernels', the attention backward's and AdamW's device
+     time) at 256x256 b8, 512x512 b2 and 512x512 b2 with remat, packed
+     launches a step as train_attention_launches says (14, 28, 48); one
+     step's gradients with and without remat (and twice without: the
+     spread); LoRA rank 8 on the ControlNet, 2 steps (base weights equal in
+     bytes, every factor moved); a resume (save after step 1, restore, step
+     2) against two uninterrupted runs; then the user's path:
+     controlnet_batches over a stand-in loader (no dataset is in the
+     repository; the script prints whether PIL and libpng's headers are
+     there) with the runtime's captured CLIP and encoder engines, 2 steps of
+     train() with EMA and a metrics file.
 The kernel phase also takes every attention shape of the SD-2.1, SDXL,
 SDXL-refiner and depth2img requests (heads of 64 channels; the 768x768
 decode's (1, 1, 9216, 512)), the MiDaS ViTs' split sites at 512x512 ((1,
 16, 1025, 64) and (1, 12, 1025, 64), q / k / v as views of one qkv
 projection) and the gated GroupNorm sites of an SDXL step; each attention
-row names the passes that give it.
+row names the passes that give it. After it, attention_grad_phase holds each
+attention entry's autograd Function (kernel forward, the port's copy of the
+JAX backward) against autograd through its plain version at the training
+shapes (GRAD_ROWS, GRAD_TOL), bf16 and fp32, both timed.
 Launch counts must equal what the UNet, ControlNet, VAE and CLIP plans and
 the dispatch gates imply. Any failed check raises, so the script exits
 non-zero and prints no result. The last line is {"ok": true, "device":
@@ -160,6 +181,7 @@ before that lists the kernels.
 """
 
 import copy
+import dataclasses
 import gc
 import itertools
 import json
@@ -297,6 +319,32 @@ VIT_BLOCKS = {"dpt_large": 24, "dpt_hybrid": 12}
 # input side)
 ANNOTATOR_REFERENCE = (("dpt_large", 512), ("dpt_hybrid", 384), ("hed", 512),
                        ("openpose_body", 368))
+# the training phase: the JAX bench's train row (cli/bench.py:_bench_train):
+# AdamW lr 1e-5, bf16, x0 / hint / ctx from default_rng(2946901), one step
+# timed apart, then TRAIN_STEPS timed steps each closed by float(loss); at
+# (resolution, batch) 256x256 b8 (the row's default) and 512x512 b2 (its
+# latency configuration), the last also with remat on
+TRAIN_SEED, TRAIN_LR, TRAIN_STEPS = 2946901, 1e-5, 6
+TRAIN_RUNS = {"train 256 b8": (256, 8, False), "train 512 b2": (512, 2, False),
+              "train 512 b2, remat": (512, 2, True)}
+# the attention entries' gradients on the card: (entry, q shape, key length,
+# heads) at the training sites: the 256x256 level-0 sites at batch 8, the
+# 512x512 level-0 self-attention (chunked backward) and level-1 one at batch
+# 2 (d = 40 and 80), the streaming entry and the VAE encoder's mid-block
+GRAD_ROWS = (("fused_attention_packed", (8, 1024, 320), 1024, 8),
+             ("fused_attention_packed", (8, 1024, 320), 77, 8),
+             ("fused_attention_packed", (2, 4096, 320), 4096, 8),
+             ("fused_attention_packed", (2, 1024, 640), 1024, 8),
+             ("fused_attention_packed_stream", (2, 4096, 320), 4096, 8),
+             ("fused_attention", (1, 1, 4096, 512), 4096, 1))
+# kernel Function against autograd through the plain version, per gradient
+# tensor, max |d| over max |plain gradient|: fp32 differ in summation order
+# (and the chunked recurrence); bf16 by the kernel's and the plain version's
+# roundings of the forward (BF16_TOL's 2e-2 on standard-normal outputs)
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# full-width fp32 train-step gradients, card vs CPU, per ControlNet tensor,
+# max |d| over max |CPU gradient| of the tensor
+TRAIN_REF_TOL = 1e-3
 # the other sampler names, at 4 steps (sampler_variants)
 SAMPLER_VARIANTS = ("plms", "dpmpp", "unipc", "unipc-karras", "euler", "euler-uniform",
                     "euler-a-uniform", "heun-uniform")
@@ -692,6 +740,63 @@ def kernel_phase(cfg):
                                  f"slower than F.layer_norm {row['library_ms']:.4f} ms")
         results["fused_layer_norm"].append(row)
     return results
+
+
+def attention_grad_phase():
+    """Each attention entry under autograd at the GRAD_ROWS shapes, bf16 and
+    fp32: its torch.autograd.Function (the kernel forward, the port's copy
+    of the JAX backward) against autograd through its plain version on the
+    same inputs and cotangent; q, k, v gradients within GRAD_TOL, the
+    forward launching the kernel once a call; both forward+backward timed
+    by CUDA events (host launch cost included)."""
+    from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.ops.kernels import attention as ka
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for name, q_shape, s, heads in GRAD_ROWS:
+        kv_shape = q_shape[:-2] + (s, q_shape[-1]) if name == "fused_attention" \
+            else (q_shape[0], s, q_shape[2])
+        d = q_shape[-1] if name == "fused_attention" else q_shape[2] // heads
+        scale = d ** -0.5
+        if name == "fused_attention":
+            kern = lambda q, k, v: ka.fused_attention(q, k, v, scale)
+            plain = lambda q, k, v: ka.fused_attention_plain(q, k, v, scale)
+        else:
+            kern = lambda q, k, v, e=getattr(ka, name): e(q, k, v, heads, scale)
+            plain = lambda q, k, v, e=getattr(ka, name + "_plain"): e(q, k, v, heads, scale)
+        row = {"entry": name, "q": list(q_shape), "s": s, "heads": heads,
+               "chunked": ka._chunked(s)}
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            inputs = [torch.randn(shape, generator=g, device="cuda").to(dtype)
+                      for shape in (q_shape, kv_shape, kv_shape)]
+            cot = torch.randn(q_shape, generator=g, device="cuda").to(dtype)
+
+            def grads(fn):
+                xs = [t.detach().requires_grad_() for t in inputs]
+                return torch.autograd.grad(fn(*xs), xs, cot)
+
+            dispatch.reset_launches()
+            got = grads(kern)
+            launched = dispatch.launches[name]
+            want = grads(plain)
+            errs = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                    for a, b in zip(got, want)]
+            row[f"{tag}_max_rel_err"] = max(errs)
+            row[f"{tag}_ms"] = time_ms(lambda: grads(kern), warmup=2, reps=5)
+            row[f"{tag}_plain_ms"] = time_ms(lambda: grads(plain), warmup=2, reps=5)
+            print(f"attention grads {name} {q_shape} x {s} {tag}: dq/dk/dv max |d| / max "
+                  f"|plain| {', '.join(f'{e:.2e}' for e in errs)}; forward+backward: kernel "
+                  f"Function {row[f'{tag}_ms']:.3f} ms, plain autograd "
+                  f"{row[f'{tag}_plain_ms']:.3f} ms; launches {launched}", flush=True)
+            if launched != 1 or max(errs) > GRAD_TOL[dtype] or not all(
+                    torch.isfinite(t).all() for t in got):
+                raise AssertionError(f"attention grads {name} {q_shape} x {s} {tag}: {errs}, "
+                                     f"{launched} launches")
+            del inputs, cot, got, want
+            torch.cuda.empty_cache()
+        rows.append(row)
+    return rows
 
 
 # ------------------------------------------------- launches the plans imply
@@ -2869,6 +2974,431 @@ def refiner_phase(tokenizer, z_base):
     return run
 
 
+# ------------------------------------------------------------ training phase
+
+
+def train_attention_launches(cfg, res, remat=False):
+    """fused_attention_packed launches of one train step at `res`: every
+    kernel-gated attention site of one evaluation of the ControlNet and the
+    UNet (the forward), and with remat the sites of the blocks a gradient
+    passes through again (torch.utils.checkpoint runs a block's forward
+    again only where it kept a graph: the ControlNet's blocks and the UNet's
+    decoder; the frozen UNet's encoder and middle block see no input that
+    requires grad)."""
+    from stablediffusioneo_tpu_torch.models.unet import decoder_plan, encoder_plan
+
+    ucfg = cfg.unet
+    lat = res // cfg.vae.downsample_factor
+    levels = len(ucfg.channel_mult)
+    mid = {"attn": True, "cout": ucfg.model_channels * ucfg.channel_mult[-1],
+           "ds": 2 ** (levels - 1), "depth": ucfg.depth_for(levels - 1)}
+
+    def sites(blocks):
+        n = 0
+        for d in blocks:
+            if d["attn"]:
+                tq = (lat // d["ds"]) ** 2
+                for s in (tq, text_length(cfg)):
+                    if attention_route((1, tq, d["cout"]), s, torch.bfloat16) == \
+                            "fused_attention_packed":
+                        n += d["depth"]
+        return n
+
+    enc, dec = encoder_plan(ucfg) + [mid], decoder_plan(ucfg)
+    forward = 2 * sites(enc) + sites(dec)
+    return forward + (sites(enc) + sites(dec) if remat else 0)
+
+
+def train_batch(cfg, res, batch):
+    """The JAX bench's train-row batch: x0 N(0,1), hint U[0,1), ctx N(0,1)
+    from default_rng(2946901), on the card."""
+    rng = np.random.default_rng(TRAIN_SEED)
+    f = cfg.vae.downsample_factor
+    out = {"x0": rng.standard_normal((batch, res // f, res // f, 4), np.float32),
+           "hint": rng.random((batch, res, res, 3)).astype(np.float32),
+           "ctx": rng.standard_normal((batch, 77, cfg.unet.context_dim), np.float32)}
+    return {k: torch.from_numpy(v).cuda() for k, v in out.items()}
+
+
+def traced_train_step(fn):
+    """(device ms, the attention kernels' ms, the attention backward's ms,
+    the AdamW step's ms, device operations) of one call of fn, from one
+    torch.profiler trace: the kernels' and copies' durations (the ranges
+    that annotations mark on the device are not counted: they span
+    kernels, and would count them twice). The backward (plain PyTorch,
+    ops/kernels/attention.py:packed_bwd) is read off a record_function range
+    put around it for this trace only, the optimizer off the range
+    torch.optim puts around its step: the device time of the kernels
+    launched inside. None where the profiler gives no device events."""
+    from torch.profiler import ProfilerActivity, profile
+    from stablediffusioneo_tpu_torch.ops.kernels import attention as ka
+
+    real = ka.packed_bwd
+
+    def annotated(*args):
+        with torch.profiler.record_function("sdeo_attention_backward"):
+            return real(*args)
+
+    ka.packed_bwd = annotated
+    try:
+        for attempt in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            events = prof.events()
+            dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+            total = sum(e.device_time for e in dev)
+            if total > 0:
+                break
+            time.sleep(0.5 * (attempt + 1))
+        else:
+            return None
+    finally:
+        ka.packed_bwd = real
+    fwd = sum(e.device_time for e in dev if FAMILIES["attention"] in e.name)
+
+    def inside(name):
+        return sum(getattr(e, "device_time_total", 0) for e in events
+                   if e.name.startswith(name) and e.device_type == torch.autograd.DeviceType.CPU)
+
+    return (total / 1e3, fwd / 1e3, inside("sdeo_attention_backward") / 1e3,
+            inside("Optimizer.step") / 1e3, len(dev))
+
+
+def train_run(model, unet, cfg, name):
+    """One row of the JAX bench's train recipe (TRAIN_RUNS): a first step
+    timed apart, TRAIN_STEPS timed steps each closed by float(loss) (their
+    launches counted from 0 and held to train_attention_launches), the peak
+    memory of the steps, one traced step."""
+    from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.training.trainer import (
+        create_train_state, make_schedule_buffers, train_step)
+
+    res, b, remat = TRAIN_RUNS[name]
+    batch = train_batch(cfg, res, b)
+    sa, s1 = make_schedule_buffers(cfg, "cuda")
+    state, tx = create_train_state(model.control_model, TRAIN_LR)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    dispatch.set_kernels(remat=remat)
+
+    def step():
+        nonlocal state
+        state, loss = train_step(state, tx, unet, cfg, sa, s1, batch, key=0)
+        return float(loss)
+
+    try:
+        t0 = time.perf_counter()
+        first = step()
+        first_s = time.perf_counter() - t0
+        dispatch.reset_launches()
+        times, losses = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step())
+            times.append(time.perf_counter() - t0)
+        launches = dict(dispatch.launches)
+        peak = torch.cuda.max_memory_allocated()
+        trace = traced_train_step(step)
+    finally:
+        dispatch.set_kernels(remat=False)
+    per_step = train_attention_launches(cfg, res, remat)
+    want = dict.fromkeys(KERNELS, 0)
+    want["fused_attention_packed"] = per_step * TRAIN_STEPS
+    p50 = statistics.median(times)
+    row = {"resolution": res, "batch": b, "remat": remat, "first_step_s": first_s,
+           "step_s": times, "p50_s": p50, "steps_per_s": 1 / p50, "samples_per_s": b / p50,
+           "peak_bytes": peak, "resident_bytes": resident, "losses": [first] + losses,
+           "launches": launches, "attention_launches_per_step": per_step}
+    if trace is not None:
+        row.update(device_ms=trace[0], attention_kernel_ms=trace[1],
+                   attention_backward_ms=trace[2], adamw_ms=trace[3], device_ops=trace[4])
+    print(f"{name}: first step {first_s:.3f} s (loss {first:.4f}); {TRAIN_STEPS} steps p50 "
+          f"{p50 * 1e3:.1f} ms ({', '.join(f'{t * 1e3:.1f}' for t in times)}) -> "
+          f"{1 / p50:.3f} steps/s, {b / p50:.2f} samples/s; peak {peak / 1e9:.2f} GB "
+          f"({resident / 1e9:.2f} GB resident before); losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; launches {launches} (expected "
+          f"{per_step} packed a step)", flush=True)
+    if trace is None:
+        print(f"{name}: traced step not measured (the profiler gave no device events)",
+              flush=True)
+    else:
+        print(f"{name}: traced step: device time {trace[0]:.1f} ms in {trace[4]} device "
+              f"operations (idle share of the p50 step {1 - trace[0] / 1e3 / p50:.3f}); "
+              f"attention kernels (forward) {trace[1]:.2f} ms, attention backward (plain "
+              f"PyTorch) {trace[2]:.2f} ms, AdamW {trace[3]:.2f} ms", flush=True)
+    if launches != want or not all(math.isfinite(x) for x in row["losses"]):
+        raise AssertionError(f"{name}: launches {launches} != {want}, or a loss is not finite")
+    del state, tx
+    return row
+
+
+def step_grads(control, unet, cfg, params, batch, t, noise):
+    """The diffusion loss's gradients of `params` (not stepped) and the loss."""
+    from stablediffusioneo_tpu_torch.training.trainer import diffusion_loss, make_schedule_buffers
+
+    sa, s1 = make_schedule_buffers(cfg, batch["x0"].device)
+    loss = diffusion_loss(control, unet, cfg, sa, s1, batch["x0"], batch["hint"], batch["ctx"],
+                          t, noise, controlnet_params=params)
+    names = list(params)
+    return dict(zip(names, torch.autograd.grad(loss, [params[n] for n in names]))), loss.item()
+
+
+def max_rel(a, b):
+    """max over tensors of max |a - b| / max |b|, and the tensor's name."""
+    return max((((a[n].float() - b[n].float()).abs().max() / b[n].float().abs().max()).item(), n)
+               for n in b)
+
+
+def train_remat_check(model, unet, cfg):
+    """One step's gradients at 512x512 b2, bf16, from the same masters and
+    draws: twice without remat (the run-to-run spread) and once with."""
+    from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.training.trainer import step_draws
+
+    batch = train_batch(cfg, 512, 2)
+    t, noise = step_draws(0, 0, batch["x0"], cfg.diffusion.timesteps)
+    params = {n: p.detach().float().clone().requires_grad_() for n, p in
+              model.control_model.named_parameters()}
+    a = step_grads(model.control_model, unet, cfg, params, batch, t, noise)[0]
+    b = step_grads(model.control_model, unet, cfg, params, batch, t, noise)[0]
+    dispatch.set_kernels(remat=True)
+    try:
+        c = step_grads(model.control_model, unet, cfg, params, batch, t, noise)[0]
+    finally:
+        dispatch.set_kernels(remat=False)
+    spread, remat = max_rel(b, a), max_rel(c, a)
+    print(f"remat determinism, 512x512 b2 bf16, one step's ControlNet gradients: two runs "
+          f"without remat differ by {spread[0]:.3e} x max |g| at most ({spread[1]}); remat "
+          f"against no remat {remat[0]:.3e} ({remat[1]})", flush=True)
+    if remat[0] > GRAD_TOL[torch.bfloat16]:
+        raise AssertionError(f"remat gradients differ: {remat}")
+    return {"spread": spread[0], "remat": remat[0]}
+
+
+def train_reference(model, cfg):
+    """One train step's loss and ControlNet gradients at full width, 256x256
+    batch 1, fp32, the same t and noise: the card (through the kernels: the
+    packed attention Function at the 1024-token sites) against the CPU
+    (plain versions), per tensor within TRAIN_REF_TOL; the level-0
+    attention projections' gradients are non-zero on the card."""
+    from stablediffusioneo_tpu_torch.ops import dispatch
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    g = torch.Generator().manual_seed(4)
+    batch = {"x0": torch.randn((1, 32, 32, 4), generator=g),
+             "hint": (torch.rand((1, 256, 256, 3), generator=g) > 0.8).float(),
+             "ctx": torch.randn((1, 77, cfg.unet.context_dim), generator=g)}
+    t, noise = torch.tensor([500]), torch.randn((1, 32, 32, 4), generator=g)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        control, unet = ((model.control_model, model.unet) if dev == "cuda" else
+                         (copy.deepcopy(model.control_model).cpu(), copy.deepcopy(model.unet).cpu()))
+        params = {n: p.detach().float().clone().requires_grad_() for n, p in
+                  control.named_parameters()}
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        grads, loss = step_grads(control, unet, cfg32, params,
+                                 {k: v.to(dev) for k, v in batch.items()}, t.to(dev),
+                                 noise.to(dev))
+        out[dev] = ({n: v.cpu() for n, v in grads.items()}, loss, dict(dispatch.launches),
+                    time.perf_counter() - t0)
+        del control, unet, params, grads
+    err, worst = max_rel(out["cuda"][0], out["cpu"][0])
+    level0 = [n for n in out["cuda"][0] if n.startswith("input_blocks.1.1.transformer_blocks.0.")
+              and n.split(".")[-2] in ("to_q", "to_k", "to_v")]
+    zero = [n for n in level0 if out["cuda"][0][n].abs().max().item() == 0]
+    want = dict.fromkeys(KERNELS, 0)
+    want["fused_attention_packed"] = train_attention_launches(cfg, 256)
+    print(f"train reference: full-width ControlNet step 256x256 b1 fp32, card vs CPU: loss "
+          f"{out['cuda'][1]:.6f} / {out['cpu'][1]:.6f}; gradients of {len(out['cpu'][0])} tensors, "
+          f"max |d| / max |CPU| {err:.3e} ({worst}); level-0 attention projections "
+          f"{len(level0)}, all non-zero on the card: {not zero}; card launches "
+          f"{out['cuda'][2]}; {out['cuda'][3]:.2f} s on the card, {out['cpu'][3]:.1f} s on the CPU",
+          flush=True)
+    if err > TRAIN_REF_TOL or zero or len(level0) != 6 or out["cuda"][2] != want or \
+            abs(out["cuda"][1] - out["cpu"][1]) > TRAIN_REF_TOL * abs(out["cpu"][1]):
+        raise AssertionError(f"train reference failed: {err} ({worst}), zero {zero}, "
+                             f"launches {out['cuda'][2]} (expected {want})")
+    return {"max_rel_err": err, "worst": worst, "loss": [out["cuda"][1], out["cpu"][1]],
+            "cpu_s": out["cpu"][3]}
+
+
+def train_lora(model, unet, cfg):
+    """LoRA rank 8 on the ControlNet, 2 steps at 256x256 b8 (the train
+    row's batch): the base weights equal in bytes after, every factor
+    moved."""
+    from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.training.lora import (
+        _get, _site_paths, init_lora, lora_train_step)
+    from stablediffusioneo_tpu_torch.training.trainer import (
+        create_train_state, make_schedule_buffers)
+
+    base = model.control_model
+    before = {n: p.detach().clone() for n, p in base.named_parameters()}
+    lora = init_lora(torch.Generator(device="cuda").manual_seed(1), base, rank=LORA_RANK)
+    first = {p: {k: v.clone() for k, v in _get(lora, p).items()} for p in _site_paths(lora)}
+    state, tx = create_train_state(base, TRAIN_LR, params=lora)
+    batch = train_batch(cfg, 256, 8)
+    sa, s1 = make_schedule_buffers(cfg, "cuda")
+    dispatch.reset_launches()
+    losses, times = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, loss = lora_train_step(state, tx, {"unet": unet, "controlnet": base}, cfg, sa, s1,
+                                      batch, key=0)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    launches = dict(dispatch.launches)
+    same = all(torch.equal(p, before[n]) for n, p in base.named_parameters())
+    moved = {f: sum(not torch.equal(_get(state.params, p)[f], first[p][f]) for p in first)
+             for f in ("a", "b")}
+    print(f"LoRA training: rank {LORA_RANK} on the ControlNet, {len(first)} sites, 2 steps "
+          f"256x256 b8: {', '.join(f'{t:.3f}' for t in times)} s, losses {losses}; base "
+          f"weights equal in bytes: {same}; sites whose a / b moved: {moved['a']} / "
+          f"{moved['b']}; launches {launches}", flush=True)
+    want = 2 * train_attention_launches(cfg, 256)
+    if not same or moved != {"a": len(first), "b": len(first)} or \
+            launches["fused_attention_packed"] != want:
+        raise AssertionError(f"LoRA training failed: {same}, {moved}, {launches}")
+    return {"sites": len(first), "step_s": times, "losses": losses, "launches": launches}
+
+
+def train_resume(model, unet, cfg):
+    """Save after step 1, restore into a fresh state, take step 2, at
+    256x256 b8: against two uninterrupted runs of both steps (their
+    difference is the spread the comparison is held to)."""
+    from stablediffusioneo_tpu_torch.training.loop import restore_checkpoint, save_checkpoint
+    from stablediffusioneo_tpu_torch.training.trainer import (
+        create_train_state, make_schedule_buffers, train_step)
+
+    batch = train_batch(cfg, 256, 8)
+    sa, s1 = make_schedule_buffers(cfg, "cuda")
+
+    def run(directory=None):
+        state, tx = create_train_state(model.control_model, TRAIN_LR)
+        for i in range(2):
+            if i == 1 and directory:
+                path = os.path.join(directory, "state.pt")
+                t0 = time.perf_counter()
+                save_checkpoint(path, state)
+                state, tx = create_train_state(model.control_model, TRAIN_LR)
+                state = restore_checkpoint(path, state)
+                times.append(time.perf_counter() - t0)
+            state, loss = train_step(state, tx, unet, cfg, sa, s1, batch, key=0)
+            float(loss)
+        return {n: p.detach() for n, p in state.params.items()}
+
+    times = []
+    a, b = run(), run()
+    with tempfile.TemporaryDirectory() as directory:
+        c = run(directory)
+        size = os.path.getsize(os.path.join(directory, "state.pt"))
+    spread, err = max_rel(b, a)[0], max_rel(c, a)[0]
+    print(f"resume: save after step 1 ({size / 1e9:.2f} GB, save + restore {times[0]:.2f} s), "
+          f"step 2 against two uninterrupted runs: max |d| / max |p| {err:.3e}; the two "
+          f"uninterrupted runs differ by {spread:.3e}", flush=True)
+    if err > 2 * spread:
+        raise AssertionError(f"the resumed step differs by {err}, beyond the spread {spread}")
+    return {"max_rel_err": err, "spread": spread, "file_bytes": size, "save_restore_s": times[0]}
+
+
+class StandInLoader:
+    """Stands in for training/data.py:ImagePairLoader (no dataset is in the
+    repository): seeded uint8 (source, target) pairs and their indices."""
+
+    def __init__(self, batch, res, n, seed):
+        self.batch, self.res, self.n = batch, res, n
+        self.rng = np.random.default_rng(seed)
+
+    def next(self):
+        shape = (self.batch, self.res, self.res, 3)
+        return {"source": (self.rng.random(shape) > 0.8).astype(np.uint8) * 255,
+                "target": self.rng.integers(0, 256, shape, dtype=np.uint8),
+                "indices": self.rng.integers(0, self.n, self.batch).astype(np.int32)}
+
+
+def train_user_path(model, cfg):
+    """The user's path: controlnet_batches over a stand-in loader (256x256
+    b2), the runtime's captured CLIP engine (encode_prompt) and VAE encoder
+    (encode_image, a seeded posterior sample a step), then 2 steps of
+    train() with EMA and a metrics file. The runtime casts the model to
+    bf16 in place, so this runs last."""
+    from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.runtime.engine import CNSDRuntime
+    from stablediffusioneo_tpu_torch.training.data import controlnet_batches
+    from stablediffusioneo_tpu_torch.training.loop import train
+
+    found = {"PIL": subprocess.run([sys.executable, "-c", "import PIL"],
+                                   capture_output=True).returncode == 0,
+             "png.h": os.path.exists("/usr/include/png.h"),
+             "jpeglib.h": os.path.exists("/usr/include/jpeglib.h")}
+    print(f"user path: this machine has {found} (the native loader needs the headers; the "
+          "stand-in loader needs neither)", flush=True)
+    rt = CNSDRuntime(model, cfg, device="cuda")
+    prompts = [f"{PROMPT}, number {i}" for i in range(8)]
+
+    def encode_image(u8, step):
+        img = torch.from_numpy(u8).cuda().float() / 127.5 - 1.0
+        return rt.encode_image(img, torch.Generator(device="cuda").manual_seed(step))
+
+    warm = StandInLoader(2, 256, len(prompts), 5).next()  # captures both engines
+    rt.encode_prompt(stand_in_tokenizer(prompts[:2]))
+    encode_image(warm["target"], 0)
+    data = controlnet_batches(StandInLoader(2, 256, len(prompts), 6), prompts,
+                              stand_in_tokenizer, rt.encode_prompt, encode_image)
+    before = {n: p.detach().clone() for n, p in model.control_model.named_parameters()}
+    with tempfile.TemporaryDirectory() as directory:
+        metrics = os.path.join(directory, "metrics.jsonl")
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        state = train(cfg, model.unet, model.control_model, data, num_steps=2,
+                      learning_rate=TRAIN_LR, metrics_path=metrics, device="cuda")
+        seconds = time.perf_counter() - t0
+        launches = dict(dispatch.launches)
+        records = [json.loads(x) for x in open(metrics).read().splitlines()]
+    moved = sum(not torch.equal(p, before[n].float()) for n, p in state.params.items())
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(fused_attention_packed=2 * train_attention_launches(cfg, 256), fused_attention=2)
+    print(f"user path: 2 train() steps at 256x256 b2 from the stand-in loader in {seconds:.2f} s, "
+          f"metrics {records}; tensors moved {moved} of {len(before)}; EMA kept: "
+          f"{state.ema is not None}; launches {launches} (expected {want})", flush=True)
+    if launches != want or len(records) != 2 or not all(math.isfinite(r["loss"]) for r in records) \
+            or not moved or state.ema is None:
+        raise AssertionError(f"user path failed: {launches}, {records}, {moved}")
+    rt.release()
+    return {"seconds": seconds, "losses": [r["loss"] for r in records], "launches": launches,
+            "found": found}
+
+
+def training_phase(cfg):
+    """ControlNet fine-tuning at the full SD-1.5 widths, seeded weights."""
+    from stablediffusioneo_tpu_torch.training.trainer import frozen
+
+    model = build_model(cfg, seed=0)
+    out = {"reference": train_reference(model, cfg)}
+    unet = frozen(model.unet, cfg.dtype)
+    out["runs"] = {name: train_run(model, unet, cfg, name) for name in TRAIN_RUNS}
+    off, on = out["runs"]["train 512 b2"], out["runs"]["train 512 b2, remat"]
+    print(f"remat at 512x512 b2: peak {on['peak_bytes'] / 1e9:.2f} GB against "
+          f"{off['peak_bytes'] / 1e9:.2f}, step p50 {on['p50_s'] * 1e3:.1f} ms against "
+          f"{off['p50_s'] * 1e3:.1f}", flush=True)
+    out["remat_check"] = train_remat_check(model, unet, cfg)
+    out["lora"] = train_lora(model, unet, cfg)
+    out["resume"] = train_resume(model, unet, cfg)
+    del unet
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["user_path"] = train_user_path(model, cfg)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card only")
@@ -2920,6 +3450,7 @@ def main():
 
     cfg = sd15_pipeline(dtype="bfloat16")
     kernels = kernel_phase(cfg)
+    attention_grads = attention_grad_phase()
     print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     model = build_model(cfg, seed=0)
     reference_phase(model, cfg)
@@ -3001,6 +3532,8 @@ def main():
     runs["sdxl refiner 1024"] = refiner_phase(tokenizer, runs["sdxl 1024"]["latents"])
     print(f"main path (sdxl refiner 1024), its reference and checkpoint done at "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    training = training_phase(cfg)
+    print(f"training phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     latencies = {config: r["latencies"] for config, r in runs.items()}
     eager = {config: r["eager_latency"] for config, r in runs.items()}
     base = runs["default"]["image"].astype(np.int16)
@@ -3028,7 +3561,13 @@ def main():
                                  "serving": serving["launches"].get(name, 0),
                                  "multi-ControlNet": multi["launches"].get(name, 0),
                                  **{f"annotators:{f}": r["launches"][name]
-                                    for f, r in annotators["families"].items()}},
+                                    for f, r in annotators["families"].items()},
+                                 # the training runs: TRAIN_STEPS steps each,
+                                 # LoRA and the user path 2 steps
+                                 **{run: r["launches"][name]
+                                    for run, r in training["runs"].items()},
+                                 "train lora": training["lora"]["launches"][name],
+                                 "train user path": training["user_path"]["launches"][name]},
             "max_abs_err": max(r["bf16_max_abs_err"] for r in rows),
             # device time of one call at each main-path (or listed) shape,
             # bf16, summed over the shapes; the bound and the library call's
@@ -3053,6 +3592,7 @@ def main():
                       "annotators": annotators, "annotator_reference": annotator_ref,
                       "sampler_variants_request_s": variants_s,
                       "serving": serving, "multi_controlnet": multi,
+                      "attention_grads": attention_grads, "training": training,
                       "encode_image_replay_ms": encode_ms,
                       "key_lengths": {config: r["key_lengths"] for config, r in runs.items()},
                       "traced": {config: r["traced"] for config, r in runs.items()},

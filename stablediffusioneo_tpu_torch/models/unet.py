@@ -19,7 +19,10 @@ step-invariant context out of the loop (`precompute_context_kv`).
 of at least `min_tokens` tokens; it is an argument of each evaluation, not a
 module attribute, so engines built with and without it share the modules.
 Eps: ResBlock GroupNorm cfg.norm_eps (1e-5); SpatialTransformer GroupNorm
-1e-6; transformer LayerNorms 1e-5.
+1e-6; transformer LayerNorms 1e-5. With the remat flag on
+(`dispatch.set_kernels(remat=True)`, the JAX package's SDEO_REMAT) and grad
+enabled, each ResBlock and SpatialTransformer runs through
+torch.utils.checkpoint (`remat`), the JAX `_maybe_remat`.
 """
 
 from __future__ import annotations
@@ -28,8 +31,10 @@ from typing import List, Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from stablediffusioneo_tpu_torch.config import UNetConfig
+from stablediffusioneo_tpu_torch.ops import dispatch
 from stablediffusioneo_tpu_torch.ops.attention import (
     context_kv,
     multi_head_attention,
@@ -97,6 +102,35 @@ def decoder_plan(cfg: UNetConfig) -> List[dict]:
 
 
 # ---------------------------------------------------------------- layers
+
+
+class _Bound(nn.Module):
+    """`fn`, a method of `module`, as the forward of a module holding it, so
+    that torch.func.functional_call can hand the method tensors by name."""
+
+    def __init__(self, module: nn.Module, fn):
+        super().__init__()
+        self.inner = module
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def remat(module: nn.Module, fn, *args):
+    """fn(*args), the forward of one block, as the JAX package's
+    `_maybe_remat`: with the remat flag on and grad enabled, through
+    torch.utils.checkpoint (non-reentrant), which keeps none of the block's
+    activations and runs it again in the backward. The recomputation comes
+    after the caller's call has returned, so it is handed the tensors the
+    block holds now (a trainer's torch.func.functional_call puts its
+    dtype-cast or merged weights in the parameters' places)."""
+    if not (dispatch.kernels_enabled("remat") and torch.is_grad_enabled()):
+        return fn(*args)
+    tensors = {f"inner.{n}": t for n, t in module.named_parameters()}
+    bound = _Bound(module, fn)
+    return checkpoint(lambda *a: torch.func.functional_call(bound, tensors, a), *args,
+                      use_reentrant=False)
 
 
 class GroupNorm32(nn.GroupNorm):
@@ -205,6 +239,9 @@ class SpatialTransformer(nn.Module):
 
     def forward(self, x, context, ctx_kv=None, tome=None):
         """x: NCHW; ctx_kv: optional per-block list of hoisted (k, v)."""
+        return remat(self, self._forward, x, context, ctx_kv, tome)
+
+    def _forward(self, x, context, ctx_kv, tome):
         n, c, h, w = x.shape
         t = nhwc(self.norm(x)).reshape(n, h * w, c)
         t = conv1x1_as_linear(t, self.proj_in)
@@ -233,6 +270,9 @@ class ResBlock(nn.Module):
                                 else nn.Identity())
 
     def forward(self, x, emb):
+        return remat(self, self._forward, x, emb)
+
+    def _forward(self, x, emb):
         h = self.in_layers[2](self.in_layers[0](x, swish=True))
         emb_out = dense(silu(emb), self.emb_layers[1])
         h = h + emb_out[:, :, None, None].to(h.dtype)

@@ -8,11 +8,20 @@ default as there: `set_kernels(groupnorm=True, layernorm=True)` is the
 fused-norm configuration (the JAX package's SDEO_FORCE_GN_PALLAS=1
 SDEO_FORCE_LN_PALLAS=1), `set_kernels(int8_linear=True)` sends the linears
 that `quantize_linears=True` converted to the kernel (SDEO_INT8_PALLAS=1).
-The flags are process-wide; the port reads no environment variable.
+`set_kernels(remat=True)` is the JAX package's SDEO_REMAT: under grad, the
+UNet's and ControlNet's ResBlocks and SpatialTransformers keep no
+activations and run their forward again in the backward
+(models/unet.py:remat). The flags are process-wide; the port reads no
+environment variable.
 
 The device rule: a kernel-gated site given CUDA tensors launches the
 hand-written kernel (or raises when the kernel does not take the input);
-given CPU tensors it runs the kernel's plain PyTorch version.
+given CPU tensors it runs the kernel's plain PyTorch version. Under
+autograd (`needs_grad`) the attention and LayerNorm entries run through
+their torch.autograd.Function, the same on both devices; the GroupNorm and
+int8 matmul entries, which have no VJP in the JAX package, raise
+(`refuse_grad`): no entry returns a tensor cut off from an input that
+requires grad.
 
 `launches` holds one plain integer per kernel entry. A wrapper adds one
 exactly where it launches its kernel, so a run can show that its main path
@@ -42,7 +51,7 @@ KERNELS = ("fused_attention_packed", "fused_attention_packed_stream",
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _FLAGS: Dict[str, bool] = {"groupnorm": False, "layernorm": False,
-                           "int8_linear": False}
+                           "int8_linear": False, "remat": False}
 
 # every launch counter of the package: `launches` and the wrappers' counters
 # by variant or plan
@@ -107,6 +116,33 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     if devices == {"cpu"}:
         return False
     raise ValueError(f"kernel inputs on mixed or unsupported devices: {devices}")
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records an op on these inputs: grad mode is on and
+    one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def vjp(fn, inputs, g):
+    """The gradients of fn(*inputs) against the cotangent g, by autograd
+    through fn: the JAX `jax.vjp(fn, *inputs)[1](g)`, which the kernels'
+    backward passes take of their plain versions."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in inputs]
+        return torch.autograd.grad(fn(*xs), xs, g)
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would need a gradient through kernel entry
+    `name`, which has none: the JAX package defines no VJP for its Pallas
+    kernel (jax.grad fails to linearise the pallas_call), so the port gives
+    it none either, on either device, rather than a detached output."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name} has no gradient (as in the JAX package, whose kernel has no "
+            "VJP); turn its kernel flag off (ops/dispatch.py:set_kernels) to "
+            "differentiate through this site")
 
 
 @functools.lru_cache(maxsize=256)

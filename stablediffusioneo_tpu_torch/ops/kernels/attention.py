@@ -11,12 +11,24 @@ own counter. The source holds three variants of that schedule;
 alignment, and the C entry launches exactly that one or returns an error.
 On CPU tensors each entry runs its plain version, which mirrors the JAX
 package's `_packed_math` / `_split_math`.
+
+Under autograd (grad enabled and an input that requires grad) each entry
+runs through a torch.autograd.Function, the JAX `_packed_vjp` /
+`_split_vjp`: its forward is the entry as above (the kernel on the card, the
+plain version on the CPU; the counters count these forward launches only),
+it keeps the JAX residuals (q, k, v, out), and its backward is the port's
+copy of the JAX backward, which is plain XLA there and plain PyTorch here,
+the same code on both devices: key lengths above `_BWD_CHUNK_THRESHOLD`
+that split into `_BWD_CHUNK` chunks take the flash-style recurrence of
+`attn_bwd_chunked`, the rest the VJP of the plain version. Without grad the
+entries call no Function.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -158,10 +170,11 @@ def fused_attention_packed(q, k, v, heads: int, scale: float):
     """Head-packed layout: q (B, Tq, H*D), k/v (B, S, H*D) -> (B, Tq, H*D).
     Heads are sliced inside the kernel by the head stride, so no
     (B,T,H,D)<->(B,H,T,D) relayout happens. q, k and v may be column views
-    of a fused QKV projection: only the head dim must be contiguous."""
-    if not dispatch.use_kernel(q, k, v):
-        return fused_attention_packed_plain(q, k, v, heads, scale)
-    return _packed_launch(q, k, v, heads, scale, "fused_attention_packed")
+    of a fused QKV projection: only the head dim must be contiguous; under
+    autograd their gradients have the views' shapes."""
+    if dispatch.needs_grad(q, k, v):
+        return _PackedAttention.apply(q, k, v, heads, float(scale), False)
+    return _packed_forward(q, k, v, heads, scale, False)
 
 
 # ------------------------------------------------- packed streaming entry
@@ -186,10 +199,22 @@ def fused_attention_packed_stream(q, k, v, heads: int, scale: float):
     """The packed entry at the sites where the JAX package streams K/V
     (`_packed_stream_call`: bf16 self-attention too long for its full-K/V
     kernel, ops/attention.py:stream_attention). Same layout and kernel as
-    `fused_attention_packed`, its own launch counter."""
+    `fused_attention_packed`, its own launch counter; the same backward
+    (the JAX package routes its VJP through `_packed_vjp` too)."""
+    if dispatch.needs_grad(q, k, v):
+        return _PackedAttention.apply(q, k, v, heads, float(scale), True)
+    return _packed_forward(q, k, v, heads, scale, True)
+
+
+def _packed_forward(q, k, v, heads: int, scale: float, stream: bool):
+    """A packed entry's output: the kernel on CUDA tensors, else the plain
+    version (chunked over query rows for the streaming entry)."""
     if not dispatch.use_kernel(q, k, v):
-        return fused_attention_packed_stream_plain(q, k, v, heads, scale)
-    return _packed_launch(q, k, v, heads, scale, "fused_attention_packed_stream")
+        plain = fused_attention_packed_stream_plain if stream else fused_attention_packed_plain
+        return plain(q, k, v, heads, scale)
+    return _packed_launch(q, k, v, heads, scale,
+                          "fused_attention_packed_stream" if stream
+                          else "fused_attention_packed")
 
 
 # -------------------------------------------------------------- split entry
@@ -218,6 +243,119 @@ def _split_launch(q, k, v, scale: float, variant: Optional[str] = None):
 
 def fused_attention(q, k, v, scale: float):
     """Split layout: q (B, H, Tq, D), k/v (B, H, S, D) -> (B, H, Tq, D)."""
+    if dispatch.needs_grad(q, k, v):
+        return _SplitAttention.apply(q, k, v, float(scale))
+    return _split_forward(q, k, v, scale)
+
+
+def _split_forward(q, k, v, scale: float):
     if not dispatch.use_kernel(q, k, v):
         return fused_attention_plain(q, k, v, scale)
     return _split_launch(q, k, v, scale)
+
+
+# ------------------------------------------------------------------ backward
+
+# The JAX package's backward constants (ops/pallas/attention.py): key lengths
+# up to the threshold take the VJP of the plain math; longer ones that split
+# into chunks take the chunked recurrence, which holds (Tq, chunk) logits at
+# a time instead of (Tq, S).
+_BWD_CHUNK_THRESHOLD = 1024
+_BWD_CHUNK = 512
+
+
+def attn_bwd_chunked(q, k, v, out, g, scale: float):
+    """The JAX `_attn_bwd_chunked` on (B, H, T, D) tensors: the row max and
+    sum of exponentials over key chunks first, then per chunk the
+    probabilities again, dV and dK of the chunk and dQ summed over chunks;
+    no (Tq, S) buffer. Where JAX multiplies operands of the inputs' dtype
+    into fp32 (`preferred_element_type=float32`), the operands here are
+    widened to fp32 first, which holds every product of two bf16 values
+    exactly; the probabilities and dS are rounded to the inputs' dtype
+    before their products, as there."""
+    dt = q.dtype
+    qs = _scaled_q(q, scale).float()        # S = qs @ k^T, as in the forward
+    kc = k.float().split(_BWD_CHUNK, dim=2)
+    vc = v.float().split(_BWD_CHUNK, dim=2)
+    m = torch.full(q.shape[:3], -math.inf, dtype=torch.float32, device=q.device)
+    l = torch.zeros(q.shape[:3], dtype=torch.float32, device=q.device)
+    for kj in kc:  # pass 1: running (row max, sum of exponentials)
+        sj = qs @ kj.transpose(-1, -2)
+        m_new = torch.maximum(m, sj.amax(-1))
+        l = l * torch.exp(m - m_new) + torch.exp(sj - m_new[..., None]).sum(-1)
+        m = m_new
+    gf = g.float()
+    d_row = (gf * out.float()).sum(-1)      # D_i = sum_d dO * O
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for kj, vj in zip(kc, vc):  # pass 2: dQ summed, dK and dV per chunk
+        pj = torch.exp(qs @ kj.transpose(-1, -2) - m[..., None]) / l[..., None]
+        dvs.append(pj.to(dt).float().transpose(-1, -2) @ gf)
+        dp = gf @ vj.transpose(-1, -2)
+        ds = (pj * (dp - d_row[..., None])).to(dt).float()
+        dq += ds @ kj
+        dks.append(ds.transpose(-1, -2) @ qs)
+    return ((dq * scale).to(dt),             # d/dq of qs = q * scale
+            torch.cat(dks, dim=2).to(k.dtype), torch.cat(dvs, dim=2).to(v.dtype))
+
+
+def _chunked(s: int) -> bool:
+    return s > _BWD_CHUNK_THRESHOLD and s % _BWD_CHUNK == 0
+
+
+def _split_heads(x, heads: int):
+    b, t, c = x.shape
+    return x.reshape(b, t, heads, c // heads).transpose(1, 2)
+
+
+def _merge_heads(x):
+    b, h, t, d = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * d)
+
+
+def packed_bwd(q, k, v, out, g, heads: int, scale: float):
+    """(dq, dk, dv) of a packed entry: the JAX `_packed_bwd`."""
+    if _chunked(k.shape[1]):
+        grads = attn_bwd_chunked(*(_split_heads(t, heads) for t in (q, k, v, out, g)), scale)
+        return tuple(_merge_heads(t) for t in grads)
+    return dispatch.vjp(lambda a, b, c: fused_attention_packed_plain(a, b, c, heads, scale),
+                        (q, k, v), g)
+
+
+def split_bwd(q, k, v, out, g, scale: float):
+    """(dq, dk, dv) of the split entry: the JAX `_split_bwd`."""
+    if _chunked(k.shape[2]):
+        return attn_bwd_chunked(q, k, v, out, g, scale)
+    return dispatch.vjp(lambda a, b, c: fused_attention_plain(a, b, c, scale), (q, k, v), g)
+
+
+class _PackedAttention(torch.autograd.Function):
+    """The packed entries under autograd (the JAX `_packed_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, scale, stream):
+        out = _packed_forward(q, k, v, heads, scale, stream)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.heads, ctx.scale = heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out = ctx.saved_tensors
+        return (*packed_bwd(q, k, v, out, g, ctx.heads, ctx.scale), None, None, None)
+
+
+class _SplitAttention(torch.autograd.Function):
+    """The split entry under autograd (the JAX `_split_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out = _split_forward(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out = ctx.saved_tensors
+        return (*split_bwd(q, k, v, out, g, ctx.scale), None)

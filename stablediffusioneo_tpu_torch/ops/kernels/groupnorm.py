@@ -14,7 +14,9 @@ Input is NCHW, in plain or channels-last memory (the port's networks hold
 channels-last, the JAX package's NHWC bytes). The math is the Pallas
 kernels', not F.group_norm's two-pass form: fp32 Σx and Σx² per (sample,
 group), var = E[x²] - mean², affine and SiLU in fp32, rounded once. The
-plain versions compute the same on CPU tensors.
+plain versions compute the same on CPU tensors. The JAX package defines no
+VJP for these kernels, so under autograd every entry raises, on either
+device (ops/dispatch.py:refuse_grad).
 """
 
 from __future__ import annotations
@@ -436,6 +438,7 @@ def group_norm_stats(x, groups: int, rows: int,
     plan: a StatsPlan to run instead of `stats_plan`'s choice (tests,
     measurements); the C entry refuses a plan that does not fit, and the
     refusal raises."""
+    dispatch.refuse_grad("group_norm_stats", x)
     if not dispatch.use_kernel(x):
         return group_norm_stats_plain(x, groups, rows)
     cl = _check_input(x, groups)
@@ -461,6 +464,7 @@ def group_norm_apply(x, partials, weight, bias, rows: int, eps: float,
     """Normalize, affine and SiLU from the stats kernel's partials. plan: an
     ApplyPlan to run instead of `apply_plan`'s choice (tests, measurements);
     the C entry refuses a plan that does not fit, and the refusal raises."""
+    dispatch.refuse_grad("group_norm_apply", x, partials, weight, bias)
     if not dispatch.use_kernel(x, partials, weight, bias):
         return group_norm_apply_plain(x, partials, weight, bias, eps, swish)
     n, c, h, w = x.shape
@@ -493,6 +497,7 @@ def fused_group_norm(x, weight, bias, groups: int, eps: float,
     stats+apply pair otherwise. plan: a NormPlan for the one-pass kernel to
     run instead of `group_norm_plan`'s choice (tests, measurements); the C
     entry refuses a plan that does not fit, and the refusal raises here."""
+    dispatch.refuse_grad("fused_group_norm", x, weight, bias)
     n, c, h, w = x.shape
     if _spatial_chunk(h * w, c) != h * w:
         rows = chunk_rows(x, groups)

@@ -7,6 +7,10 @@ It takes bfloat16 and float32; the dispatch gate, as the JAX package's,
 admits bfloat16 only. How a call is laid out on the card (access width,
 threads a row, rows a block) is `layer_norm_plan`'s choice, a pure function
 of the shape; the C entry launches exactly that plan or returns an error.
+Under autograd the entry runs through a torch.autograd.Function (the JAX
+`_ln_vjp`): its forward is the kernel (the plain version on the CPU), its
+residuals (x, weight, bias), its backward the VJP of the plain version (the
+JAX `_ln_bwd`, plain XLA there), the same code on both devices.
 """
 
 from __future__ import annotations
@@ -155,6 +159,29 @@ def fused_layer_norm(x, weight, bias, eps: float,
     LayerNormPlan to run instead of `layer_norm_plan`'s choice (tests,
     measurements); the C entry refuses a plan that does not fit, and the
     refusal raises here."""
+    if dispatch.needs_grad(x, weight, bias):
+        return _LayerNorm.apply(x, weight, bias, float(eps), plan)
+    return _layer_norm_forward(x, weight, bias, eps, plan)
+
+
+class _LayerNorm(torch.autograd.Function):
+    """fused_layer_norm under autograd (the JAX `_ln_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, plan):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.eps = eps
+        return _layer_norm_forward(x, weight, bias, eps, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        eps = ctx.eps
+        grads = dispatch.vjp(lambda a, w, b: fused_layer_norm_plain(a, w, b, eps),
+                     ctx.saved_tensors, g)
+        return (*grads, None, None)
+
+
+def _layer_norm_forward(x, weight, bias, eps: float, plan: Optional[LayerNormPlan]):
     if not dispatch.use_kernel(x, weight, bias):
         return fused_layer_norm_plain(x, weight, bias, eps)
     if x.dtype not in _DTYPE_CODE:

@@ -8,7 +8,8 @@ accumulation, output in x's dtype. The weights keep torch's (out, in)
 layout: w_q is (N, K), scale (N,). The source holds three variants;
 `matmul_plan` chooses one, with its tile and K split, from the shape, the
 dtype and the alignment, and the C entry launches exactly that plan or
-returns an error.
+returns an error. The JAX package defines no VJP for the kernel, so under
+autograd the entry raises, on either device (ops/dispatch.py:refuse_grad).
 """
 
 from __future__ import annotations
@@ -138,6 +139,7 @@ def quantized_matmul(x, w_q, scale):
     """x (M, K) float32/bfloat16, w_q (N, K) int8, scale (N,) float32 ->
     (M, N) in x's dtype. Takes the shapes the gate sends: M a multiple of 8,
     N a multiple of 128."""
+    dispatch.refuse_grad("quantized_matmul", x, scale)
     if not dispatch.use_kernel(x, w_q, scale):
         return quantized_matmul_plain(x, w_q, scale)
     return _launch(x, w_q, scale)

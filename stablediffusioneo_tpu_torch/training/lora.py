@@ -17,8 +17,14 @@ CUDA graph captured before the merge replays the merged weights: the JAX
 guarantee that every compiled engine stays valid
 (runtime/engine.py:CNSDRuntime.apply_lora). The delta accumulates in fp32 and
 is rounded once to the weight's dtype, the JAX order
-`(w.f32 + delta).astype(w.dtype)`. `lora_train_step` waits for the training
-slice.
+`(w.f32 + delta).astype(w.dtype)`.
+
+`lora_train_step` trains the factors on a frozen network: each step merges
+them into copies of the site weights inside the differentiated function
+(`merged_weights`, the same sites and the same fp32 order), hands those to
+training/trainer.py's `diffusion_loss` through torch.func.functional_call,
+and so the gradients reach the rank-r factors only; the network's own
+tensors are never written.
 """
 
 from __future__ import annotations
@@ -143,6 +149,16 @@ def merge_lora(net, lora: Dict, scale: float = 1.0) -> int:
     nets = _nets(net)
     if () not in nets and isinstance(lora, (tuple, list)):
         lora = dict(enumerate(lora))
+    plan = _merge_plan(nets, lora)
+    for _, w, layout, a, b in plan:
+        w.copy_(_merged(w, layout, a, b, scale))
+    return len(plan)
+
+
+def _merge_plan(nets: Dict, lora: Dict):
+    """[(path, weight tensor, layout, a, b)] of every adapter site, checked
+    before anything is merged: every site must land on a linear of the
+    right shape."""
     plan, orphans = [], []
     for path in _site_paths(lora):
         prefix = () if () in nets else path[:1]
@@ -159,25 +175,87 @@ def merge_lora(net, lora: Dict, scale: float = 1.0) -> int:
             raise ValueError(
                 f"merge_lora: adapter site {'/'.join(map(str, path))} "
                 "does not match a linear of the right shape in the target tree")
-        plan.append((w, layout, a, b))
+        plan.append((path, w, layout, a, b))
     if orphans:
         raise ValueError(
             f"merge_lora: {len(orphans)} adapter site(s) have no matching "
             f"path in the target tree (wrong 'on' tree?): {orphans[:5]}")
-    for w, layout, a, b in plan:
-        delta = (torch.as_tensor(a, device=w.device).float()
-                 @ torch.as_tensor(b, device=w.device).float()) * scale
-        w.copy_((w.float() + (delta.T if layout == "linear" else delta)).to(w.dtype))
-    return len(plan)
+    return plan
+
+
+def _merged(w, layout: str, a, b, scale: float):
+    """w + scale * a @ b (transposed for an (out, in) linear), the product
+    and the sum in fp32, rounded once to w's dtype."""
+    delta = (torch.as_tensor(a, device=w.device).float()
+             @ torch.as_tensor(b, device=w.device).float()) * scale
+    return (w.float() + (delta.T if layout == "linear" else delta)).to(w.dtype)
+
+
+def merged_weights(net: nn.Module, lora: Dict, scale: float = 1.0) -> Dict[str, torch.Tensor]:
+    """{parameter name of `net`: merged weight} at every adapter site, new
+    tensors that autograd follows back to the factors (the network is not
+    written): the JAX `merge_lora` inside a differentiated function. One
+    network (not a multi-ControlNet); its sites are whole linears."""
+    kind = net_kind(net)
+    out = {}
+    for path, w, layout, a, b in _merge_plan({(): net}, lora):
+        t = leaf_target(kind, _ucfg(net), tuple(path) + ("w",))
+        if t.rows is not None:
+            raise ValueError(f"merged_weights: site {'/'.join(map(str, path))} is a "
+                             "third of a packed projection")
+        out[t.name] = _merged(w, layout, a, b, scale)
+    return out
 
 
 def count_params(tree) -> int:
-    return sum(int(np.prod(tuple(x.shape))) for x in _leaves(tree))
+    return sum(int(np.prod(tuple(x.shape))) for x in leaves(tree))
 
 
 def n_sites(lora: Dict) -> int:
     """Number of adapter sites in a LoRA tree."""
     return sum(1 for _ in _site_paths(lora))
+
+
+# ------------------------------------------------------------- train step
+
+
+def lora_train_step(
+    state,
+    tx,
+    frozen: Dict[str, nn.Module],
+    cfg,
+    sqrt_abar: torch.Tensor,
+    sqrt_one_minus_abar: torch.Tensor,
+    batch: Dict,
+    key: int,
+    on: str = "controlnet",
+    scale: float = 1.0,
+    t: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+):
+    """One AdamW step on a LoRA tree riding the frozen pipeline (the JAX
+    `lora_train_step`). `state.params` is the adapter tree
+    (training/trainer.py:create_train_state(net, params=tree)); `frozen`
+    holds the networks {"unet", "controlnet"}; `on` picks the one the
+    adapters merge into. The merge happens inside the differentiated
+    function, so the gradients flow to the rank-r factors only. key, t,
+    noise: as in trainer.train_step."""
+    from stablediffusioneo_tpu_torch.training.trainer import (
+        apply_gradients, diffusion_loss, prepare_batch, step_draws,
+    )
+
+    if on not in ("unet", "controlnet"):
+        raise ValueError(f"lora_train_step trains adapters on 'unet' or 'controlnet', "
+                         f"got {on!r}")
+    del tx
+    batch = prepare_batch(batch)
+    if t is None or noise is None:
+        t, noise = step_draws(key, state.step, batch["x0"], cfg.diffusion.timesteps)
+    merged = {f"{on}_params": merged_weights(frozen[on], state.params, scale)}
+    loss = diffusion_loss(
+        frozen["controlnet"], frozen["unet"], cfg, sqrt_abar, sqrt_one_minus_abar,
+        batch["x0"], batch["hint"], batch["ctx"], t, noise, **merged)
+    return apply_gradients(state, loss)
 
 
 # ------------------------------------------------------------- save / load
@@ -238,15 +316,23 @@ def _numpy(v) -> np.ndarray:
     return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
-def _leaves(tree):
+def leaves(tree):
+    """The tensors of a tree of dicts, tuples and lists, in its order."""
     if isinstance(tree, dict):
         for v in tree.values():
-            yield from _leaves(v)
+            yield from leaves(v)
     elif isinstance(tree, (tuple, list)):
         for v in tree:
-            yield from _leaves(v)
+            yield from leaves(v)
     else:
         yield tree
+
+
+def tree_map(fn, *trees):
+    """fn over the leaves of dict trees of one structure, as a new tree."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
 
 
 def _site_paths(tree: Dict, path=()) -> Iterable[Tuple]:

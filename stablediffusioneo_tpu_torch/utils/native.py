@@ -3,8 +3,9 @@
 
 One thread-safe loader a library: `load_native_lib(name, configure)` compiles
 `native/<source>` with g++ at first use into
-`stablediffusioneo_tpu_torch/csrc/build/`, named by a hash of the source and
-the flags (an edited source rebuilds, an unchanged one loads the library
+`stablediffusioneo_tpu_torch/csrc/build/`, with the library's own link flags
+(`LINK_FLAGS`: the loader links libpng and libjpeg), named by a hash of the
+source and the flags (an edited source rebuilds, an unchanged one loads the library
 already built), loads it with ctypes, runs the caller's one-time signature
 configuration and caches the handle. The JAX package's loader reads
 `native/build/` (made by `make -C native`) and returns None when the library
@@ -26,10 +27,12 @@ from typing import Callable, Dict, Optional
 NATIVE = Path(__file__).resolve().parents[2] / "native"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "csrc" / "build"
 # library name -> its source under native/
-SOURCES = {"sdeo_sched": "scheduler.cpp"}
+SOURCES = {"sdeo_sched": "scheduler.cpp", "sdeo_loader": "loader.cpp"}
 # native/Makefile's flags without -march=native: a library built on one
 # machine may be loaded on another from the same directory
 CXX_FLAGS = ("-O3", "-fno-math-errno", "-std=c++17", "-fPIC", "-Wall", "-shared")
+# each library's link flags (native/Makefile's), after its source
+LINK_FLAGS = {"sdeo_loader": ("-lpng", "-ljpeg", "-lpthread")}
 
 _lock = threading.Lock()
 _cache: Dict[str, ctypes.CDLL] = {}
@@ -37,7 +40,7 @@ _cache: Dict[str, ctypes.CDLL] = {}
 
 def library_path(name: str) -> Path:
     source = NATIVE / SOURCES[name]
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h = hashlib.sha256(" ".join(CXX_FLAGS + LINK_FLAGS.get(name, ())).encode())
     h.update(source.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -48,8 +51,8 @@ def _build(name: str, out: Path) -> None:
         raise RuntimeError(f"no C++ compiler (g++ or $CXX) to build lib{name}.so")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(NATIVE / SOURCES[name])],
-                          capture_output=True, text=True)
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(NATIVE / SOURCES[name]),
+                           *LINK_FLAGS.get(name, ())], capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"building lib{name}.so failed:\n{proc.stderr}")

@@ -988,3 +988,84 @@ def test_detectors_default_to_the_card(gen):
     assert dispatch.launches["fused_attention"] == 24
     assert dict(ka.variant_launches) == {"wgmma": 24}
     assert depth.shape == (512, 512) and normal.shape == (512, 512, 3)
+
+
+# ------------------------------------------------------------------ training
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("entry,q_shape,s,heads", chip_smoke.GRAD_ROWS,
+                         ids=[f"{r[0]}-{'x'.join(map(str, r[1]))}-{r[2]}"
+                              for r in chip_smoke.GRAD_ROWS])
+def test_attention_gradients_match_the_plain_version(gen, dtype, entry, q_shape, s, heads):
+    """Each attention entry under autograd at a training shape: its Function
+    (the kernel forward, one launch; the port's copy of the JAX backward)
+    against autograd through the plain version, per gradient within
+    chip_smoke.GRAD_TOL x max |plain gradient|."""
+    split = entry == "fused_attention"
+    kv_shape = q_shape[:-2] + (s, q_shape[-1]) if split else (q_shape[0], s, q_shape[2])
+    d = q_shape[-1] if split else q_shape[2] // heads
+    fn, plain = getattr(ka, entry), getattr(ka, entry + "_plain")
+    args = () if split else (heads,)
+    inputs = [_randn(shape, gen, dtype) for shape in (q_shape, kv_shape, kv_shape)]
+    cot = _randn(q_shape, gen, dtype)
+
+    def grads(f):
+        xs = [t.detach().requires_grad_() for t in inputs]
+        return torch.autograd.grad(f(*xs, *args, d ** -0.5), xs, cot)
+
+    dispatch.reset_launches()
+    got = grads(fn)
+    assert dispatch.launches[entry] == 1
+    for a, b in zip(got, grads(plain)):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        err = (a.float() - b.float()).abs().max() / b.float().abs().max()
+        assert err.item() <= chip_smoke.GRAD_TOL[dtype]
+
+
+def test_norm_and_int8_kernels_refuse_gradients_on_the_card(gen):
+    x = _randn((2, 320, 32, 32), gen, torch.bfloat16).requires_grad_()
+    w, b = _affine(320, gen, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="has no gradient"):
+        kg.fused_group_norm(x, w, b, 32, 1e-5, True)
+    w_q, scale = quantize_weights(torch.randn(1280, 320, device="cuda"))
+    with pytest.raises(RuntimeError, match="has no gradient"):
+        kq.quantized_matmul(_randn((64, 320), gen, torch.bfloat16).requires_grad_(), w_q, scale)
+    with torch.no_grad():
+        assert torch.isfinite(kg.fused_group_norm(x, w, b, 32, 1e-5, True)).all()
+
+
+def test_full_width_train_step_reaches_the_level0_projections(gen, monkeypatch):
+    """A full-width SD-1.5 ControlNet train_step at 256x256 b1 in fp32
+    through the kernels (14 launches): the level-0 attn1.to_q gradient it
+    took is non-zero and matches the same step with the packed entry's
+    forward replaced by its plain version (chip_smoke.TRAIN_REF_TOL x max
+    |plain gradient|)."""
+    import dataclasses
+
+    from stablediffusioneo_tpu_torch.training.trainer import (
+        create_train_state, make_schedule_buffers, step_draws, train_step)
+
+    cfg = dataclasses.replace(sd15_pipeline(), dtype="float32")
+    model = chip_smoke.build_model(cfg, seed=0)
+    batch = {"x0": torch.randn((1, 32, 32, 4), generator=gen, device="cuda"),
+             "hint": torch.rand((1, 256, 256, 3), generator=gen, device="cuda"),
+             "ctx": torch.randn((1, 77, 768), generator=gen, device="cuda")}
+    t, noise = step_draws(0, 0, batch["x0"], 1000)
+    sa, s1 = make_schedule_buffers(cfg, "cuda")
+    name = "input_blocks.1.1.transformer_blocks.0.attn1.to_q.weight"
+
+    def step():
+        state, tx = create_train_state(model.control_model, 1e-5)
+        state, _ = train_step(state, tx, model.unet, cfg, sa, s1, batch, key=0, t=t,
+                              noise=noise)
+        return state.params[name].grad
+
+    dispatch.reset_launches()
+    got = step()
+    assert dispatch.launches["fused_attention_packed"] == 14
+    monkeypatch.setattr(ka, "_packed_forward", lambda q, k, v, h, sc, stream:
+                        fused_attention_packed_plain(q, k, v, h, sc))
+    want = step()
+    assert got.abs().max() > 0
+    assert ((got - want).abs().max() / want.abs().max()).item() <= chip_smoke.TRAIN_REF_TOL

@@ -79,9 +79,15 @@ def test_the_walk_covers_the_port():
                  "stablediffusioneo_tpu_torch/annotators/hed.py",
                  "stablediffusioneo_tpu_torch/annotators/midas.py",
                  "stablediffusioneo_tpu_torch/annotators/midas_hybrid.py",
-                 "stablediffusioneo_tpu_torch/annotators/openpose.py"):
+                 "stablediffusioneo_tpu_torch/annotators/openpose.py",
+                 "stablediffusioneo_tpu_torch/training/trainer.py",
+                 "stablediffusioneo_tpu_torch/training/ema.py",
+                 "stablediffusioneo_tpu_torch/training/data.py",
+                 "stablediffusioneo_tpu_torch/training/logger.py",
+                 "stablediffusioneo_tpu_torch/training/loop.py",
+                 "stablediffusioneo_tpu_torch/training/__init__.py"):
         assert must in names
-    assert len(names) >= 53
+    assert len(names) >= 58
 
 
 # numpy-only functions of the JAX package the port keeps its own copy of,
@@ -133,6 +139,16 @@ SOURCE_COPIES = [
     ("serving.server", "serving.server", "_resolve"),
     ("pipeline.canny2image", "pipeline.canny2image", "Canny2ImagePipeline._pack_hint"),
 ] + [
+    ("training.data", "training.data", name)
+    for name in ("_configure", "read_prompt_json", "_epoch_perm", "ImagePairLoader.next",
+                 "ImagePairLoader._next_python", "ImagePairLoader._decode_py",
+                 "ImagePairLoader.error_count", "ImagePairLoader.close",
+                 "ImagePairLoader.__enter__", "ImagePairLoader.__exit__", "fill50k_loader")
+] + [
+    ("training.logger", "training.logger", name)
+    for name in ("make_grid", "ImageLogger.__init__", "ImageLogger.on_step",
+                 "MetricsLogger.__init__", "MetricsLogger.log")
+] + [
     ("annotators.openpose", "annotators.openpose", name)
     for name in ("_stage1_spec", "_stageN_spec", "_hand_stage1", "_hand_stageN",
                  "_cv2_cubic_weights", "_upsample_matrices", "_gaussian_matrix", "_VirtualMap",
@@ -146,10 +162,11 @@ SOURCE_COPIES = [
                          ids=[c[2] for c in SOURCE_COPIES])
 def test_source_copies_are_their_originals(port_mod, jax_mod, name):
     """The batch-cut policy's mirror (and its ctypes signatures), the future
-    resolver, the hint packer and OpenPose's spec tables and numpy decode
-    are the JAX package's code, statement for statement (docstrings aside);
-    their results are held in tests/test_torch_serving.py and
-    tests/test_torch_annotators.py."""
+    resolver, the hint packer, the training data loader's and loggers'
+    functions, and OpenPose's spec tables and numpy decode are the JAX
+    package's code, statement for statement (docstrings aside); their
+    results are held in tests/test_torch_serving.py,
+    tests/test_torch_train_data.py and tests/test_torch_annotators.py."""
     import importlib
     import inspect
 
@@ -338,6 +355,23 @@ def test_refiner_configs_equal_the_jax_packages(name):
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     if name == "SDXLRefinerConfig":
         assert port_sdxl.SDXLRefinerConfig.__dataclass_params__.frozen
+
+
+def test_native_sources_name_the_loader():
+    """The port builds the JAX package's two native libraries from the same
+    sources: the batch-cut policy and the training data loader."""
+    from stablediffusioneo_tpu_torch.utils import native
+
+    assert native.SOURCES == {"sdeo_sched": "scheduler.cpp", "sdeo_loader": "loader.cpp"}
+    assert all((native.NATIVE / src).exists() for src in native.SOURCES.values())
+
+
+def test_training_exports_are_the_jax_packages():
+    from stablediffusioneo_tpu import training as jax_training
+    from stablediffusioneo_tpu_torch import training as port_training
+
+    assert port_training.__all__ == jax_training.__all__
+    assert all(hasattr(port_training, name) for name in port_training.__all__)
 
 
 def test_lora_default_targets_are_the_jax_packages():

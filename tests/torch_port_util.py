@@ -190,3 +190,53 @@ def universe_sd(kind, seed=0):
     rng = np.random.default_rng(seed)
     return {k: draw_upstream(rng, k, tuple(int(d) for d in s.split("x")))
             for k, s in sorted(load_universe(UNIVERSES[kind]).items())}
+
+
+# ------------------------------------------------ training: the two nets
+
+
+def tiny_control_nets(seed=0):
+    """The tiny UNet and ControlNet as JAX trees drawn by numpy_params (no
+    leaf zero, so the ControlNet's taps carry a gradient) and as the port's
+    networks loaded with the same weights, fp32, frozen:
+    {"unet": (tree, net), "controlnet": (tree, net)}."""
+    from stablediffusioneo_tpu_torch.checkpoint import accounting
+    from stablediffusioneo_tpu_torch.checkpoint.convert import tree_state_dict
+    from stablediffusioneo_tpu_torch.models.controlnet import ControlNet
+    from stablediffusioneo_tpu_torch.models.unet import UNetModel
+
+    out = {}
+    for i, (kind, init_fn, jcfg, make) in enumerate((
+            ("unet", init_unet, CFG.unet, lambda: UNetModel(PORT_CFG.unet)),
+            ("controlnet", init_controlnet, CFG.controlnet,
+             lambda: ControlNet(PORT_CFG.controlnet)))):
+        tree = numpy_params(init_fn, jcfg, seed + i)
+        sd = {}
+        tree_state_dict(sd, kind, PORT_CFG.unet, tree)
+        net = make()
+        accounting.account_checkpoint(net, sd).assert_complete(kind)
+        accounting.copy_checkpoint_(net, sd)
+        out[kind] = (tree, net.eval().requires_grad_(False))
+    return out
+
+
+def port_names(kind, jax_tree):
+    """{port parameter name: fp32 tensor} of a JAX tree of `kind` (weights,
+    or gradients: the map is linear), by checkpoint/convert.py's map."""
+    from stablediffusioneo_tpu_torch.checkpoint.convert import tree_state_dict
+
+    sd = {}
+    tree_state_dict(sd, kind, PORT_CFG.unet, jax_tree)
+    return sd
+
+
+def assert_trees_close(got, want, tol):
+    """Every tensor of `want` ({name: tensor}) against `got`'s tensor of
+    that name: max |d| <= tol x max |want| of that tensor."""
+    assert set(got) == set(want)
+    for name, ref in want.items():
+        ref = np.asarray(ref, np.float64)
+        out = np.asarray(got[name].detach().float().cpu(), np.float64)
+        scale = max(np.abs(ref).max(), 1e-30)
+        err = np.abs(out - ref).max()
+        assert err <= tol * scale, f"{name}: max |d| {err:.3g} > {tol} x {scale:.3g}"
