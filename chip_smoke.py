@@ -133,13 +133,27 @@ source, all started together), then:
   14. the annotator nets at full width in fp32 (annotator_reference, after
      the reference phase): DPT-L at 512x512 (24 split launches), the
      DPT-hybrid at 384x384, HED at 512x512, the OpenPose body net at
-     368x368, card vs CPU within REF_TOL; then, on the loaded SD-1.5 model
-     after hackathon, the JAX bench's annotators row (annotators_phase: Canny,
-     HED, MiDaS DPT-L and OpenPose with seeded weights, a warm and two timed
-     process() each at 512x512, 20 steps: p50, preprocess_ms, the worst p50,
-     the detector's weights and peak; 560 + 1 launches a request, MiDaS 24
-     split more; Canny's map on the bit-packed hint engine, the others' on
-     the uint8 one);
+     368x368, MLSD and UniFormer + UperNet at 512x512 (8 split launches at
+     (1, 5, 1024, 64)), card vs CPU within REF_TOL; then, on the loaded SD-1.5
+     model after hackathon, the JAX bench's annotators row (annotators_phase:
+     Canny, HED, MiDaS DPT-L and OpenPose with seeded weights, a warm and two
+     timed process() each at 512x512, 20 steps: p50, preprocess_ms, the worst
+     p50, the detector's weights and peak; 560 + 1 launches a request, MiDaS
+     24 split more; Canny's map on the bit-packed hint engine, the others' on
+     the uint8 one); then MLSD and UniFormer the same way (detector_file_phase:
+     seeded weights through files under the upstream names, all 344 / 398
+     keys; MLSD's binary map on the bit-packed engine, UniFormer's on the
+     uint8 one with 8 split launches a detection), the scoring harness
+     (scoring_phase: the FID Inception tower from a seeded pt_inception file,
+     470 keys, fp32, card vs CPU; ScoreHarness over the replayed process() at
+     256x256 against self-consistency goldens: every PD 0, and above 0 at
+     another seed), the JAX bench's yolo row (yolo_phase: YOLOv5s from a
+     seeded file, fp32 card vs CPU at 320x320, then bf16 as load_yolov5 gives
+     it on the card: a 720x1280 image letterboxed to 1120x1120, top 300 on
+     the device, PostProcessor(0.99, 0.45), p50 and img/s of 8 requests, the
+     predictions held to the fp32 net on the CPU) and the native preprocessing library
+     (native_phase: built from native/preproc.cpp, Canny and the resize held
+     to cv2);
   15. SD-2.0 depth2img (depth2img_phase, after the 9-channel model): the
      seeded sd2_depth_pipeline() model's 512-depth-ema-layout file through
      load_depth2img_pipeline, then on the loaded model the 512x512 request
@@ -168,7 +182,8 @@ The kernel phase also takes every attention shape of the SD-2.1, SDXL,
 SDXL-refiner and depth2img requests (heads of 64 channels; the 768x768
 decode's (1, 1, 9216, 512)), the MiDaS ViTs' split sites at 512x512 ((1,
 16, 1025, 64) and (1, 12, 1025, 64), q / k / v as views of one qkv
-projection) and the gated GroupNorm sites of an SDXL step; each attention
+projection), UniFormer's stage-3 site at a 512x512 detection ((1, 5, 1024,
+64), the same views) and the gated GroupNorm sites of an SDXL step; each attention
 row names the passes that give it. After it, attention_grad_phase holds each
 attention entry's autograd Function (kernel forward, the port's copy of the
 JAX backward) against autograd through its plain version at the training
@@ -315,10 +330,37 @@ ANNOTATOR_PROMPT, ANNOTATOR_IMAGE_SEED = "a bird", 2946901
 # channels, hooked 16-pixel patches plus the class token
 VIT_HEADS = {"dpt_large": 16, "dpt_hybrid": 12}
 VIT_BLOCKS = {"dpt_large": 24, "dpt_hybrid": 12}
+# UniFormer-S's stage 3 (width 320, heads of 64, 8 blocks) at 1/16 of the
+# detection's side: 1,024 tokens at 512x512, at the split kernel's gate
+UNIFORMER_HEADS, UNIFORMER_SA_BLOCKS = 5, 8
 # the card-vs-CPU fp32 check of the annotator nets at full width: (net,
 # input side)
 ANNOTATOR_REFERENCE = (("dpt_large", 512), ("dpt_hybrid", 384), ("hed", 512),
-                       ("openpose_body", 368))
+                       ("openpose_body", 368), ("mlsd_large", 512), ("uniformer", 512))
+# MLSD and UniFormer on the loaded SD-1.5 model (detector_file_phase): seeded
+# weights written under the upstream file names and read back by ckpt_path;
+# MLSD at the reference's default value threshold, 0.1, and the least
+# distance threshold its slider takes, 0.01 (gradio_hough2image.py): the
+# seeded net's displacements stay under 0.1 pixel, so at the default
+# distance threshold it finds no segment. Its map is binary, so process()
+# bit-packs it
+FILE_DETECTORS = {"mlsd": ("mlsd_large", "mlsd_large_512_fp32.pth"),
+                  "uniformer": ("uniformer", "upernet_global_small.pth")}
+MLSD_THRESHOLDS = (0.1, 0.01)
+# the JAX bench's yolo row (cli/bench.py:_bench_yolo): a 720x1280 image from
+# default_rng(0) letterboxed to 1120x1120, the top 300 rows by objectness on
+# the device, PostProcessor(0.99, 0.45), 1 warm-up and 8 timed requests; the
+# fp32 card-vs-CPU check at 320x320
+YOLO_SIDE, YOLO_TOPK, YOLO_CONF, YOLO_IOU = 1120, 300, 0.99, 0.45
+YOLO_IMAGE, YOLO_TIMED, YOLO_REF_SIDE = (720, 1280), 8, 320
+# the timed request's bf16 net (load_yolov5's default on the card) against
+# the fp32 net on the CPU, boxes and scores each relative to its own
+# max |ref|: bf16 rounds each of the ~60 convs' outputs to 8 bits (about
+# 4e-3 each), the decode and top-k stay fp32
+YOLO_BF16_TOL = 1e-2
+# the scoring run (cli/score.py's flow): fixture scenes at 256x256, 20 steps,
+# the CLI's seed, against self-consistency goldens
+SCORE_RES, SCORE_IMAGES, SCORE_SEED = 256, 2, 2946901
 # the training phase: the JAX bench's train row (cli/bench.py:_bench_train):
 # AdamW lr 1e-5, bf16, x0 / hint / ctx from default_rng(2946901), one step
 # timed apart, then TRAIN_STEPS timed steps each closed by float(loss); at
@@ -949,8 +991,10 @@ def family_attention_rows(cfg):
     the UNet alone, heads of 64 channels) and of the MiDaS ViTs at 512x512
     (split entry, head dim 64: DPT-L in the annotators row, the DPT-hybrid
     as MidasDetector(model_type="dpt_hybrid") runs it; at depth2img's 384x384
-    its 577 tokens stay under the gate), where attention_rows(cfg) does not
-    hold them already."""
+    its 577 tokens stay under the gate) and of UniFormer-S's stage 3 at a
+    512x512 detection ((1, 5, 1024, 64), q / k / v views of its qkv
+    projection as in the ViTs), where attention_rows(cfg) does not hold them
+    already."""
     from stablediffusioneo_tpu_torch.config import sd2_depth_pipeline
     from stablediffusioneo_tpu_torch.ops.dispatch import ATTN_MIN_TQ
 
@@ -965,7 +1009,17 @@ def family_attention_rows(cfg):
         t, h = vit_tokens(RES), VIT_HEADS[kind]
         if t >= ATTN_MIN_TQ:
             rows[("fused_attention", (1, h, t, 64), t, h)] = [path]
+    t = uniformer_tokens(RES)
+    if t >= ATTN_MIN_TQ:
+        rows[("fused_attention", (1, UNIFORMER_HEADS, t, 64), t, UNIFORMER_HEADS)] = [
+            "annotators:uniformer"]
     return rows
+
+
+def uniformer_tokens(res):
+    """Tokens of UniFormer-S's stage 3 at a res x res detection (1/16 of the
+    side: 1,024 at 512x512)."""
+    return (res // 16) ** 2
 
 
 def quant_sites(cfg, res, batch=2):
@@ -2538,60 +2592,102 @@ def inpaint_phase(tokenizer):
 # ---------------------------------------------------------------- annotators
 
 
+def seeded_batch_norms(net, generator):
+    """`net`'s BatchNorms moved off the identity that init_weights leaves:
+    gains 1 + 0.1 N(0, 1), shifts, means 0.1 N(0, 1), variances U(0.5, 1.5),
+    drawn from `generator` (on the net's device)."""
+    from stablediffusioneo_tpu_torch.ops.layers import FrozenBatchNorm2d
+
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (torch.nn.BatchNorm2d, FrozenBatchNorm2d)):
+                c, dev = m.weight.shape, m.weight.device
+                m.weight.copy_(1.0 + 0.1 * torch.randn(c, generator=generator, device=dev))
+                m.bias.copy_(0.1 * torch.randn(c, generator=generator, device=dev))
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=generator, device=dev))
+                m.running_var.copy_(0.5 + torch.rand(c, generator=generator, device=dev))
+    return net
+
+
 def annotator_net(kind, generator):
     """A seeded full-width annotator net of `kind` on the generator's device,
-    fp32, and its forward on an NCHW input."""
+    fp32 (a BatchNorm net's statistics drawn too), and its forward on an
+    NCHW input."""
     from stablediffusioneo_tpu_torch.annotators.hed import init_hed
     from stablediffusioneo_tpu_torch.annotators.midas import init_dpt
     from stablediffusioneo_tpu_torch.annotators.midas_hybrid import init_dpt_hybrid
+    from stablediffusioneo_tpu_torch.annotators.mlsd_net import init_mlsd_large
     from stablediffusioneo_tpu_torch.annotators.openpose import init_body
+    from stablediffusioneo_tpu_torch.annotators.uniformer import init_uniformer
 
     net = {"dpt_large": init_dpt, "dpt_hybrid": init_dpt_hybrid, "hed": init_hed,
-           "openpose_body": init_body}[kind](generator)
+           "openpose_body": init_body, "mlsd_large": init_mlsd_large,
+           "uniformer": init_uniformer}[kind](generator)
+    if kind in ("mlsd_large", "uniformer"):
+        seeded_batch_norms(net, generator)
     return net.eval().requires_grad_(False)
+
+
+def card_vs_cpu(label, net, x, want, forward=None):
+    """`net` (fp32, on the card: through the kernels) against its copy on the
+    CPU (plain versions) on the CPU tensor x, TF32 off; forward(net, x)
+    gives the output or a list of them (default net(x)). Fails unless every
+    output is finite and within REF_TOL x max |ref| and the card's launches
+    equal `want`."""
+    from stablediffusioneo_tpu_torch.ops import dispatch
+
+    forward = forward or (lambda n, t: n(t))
+    cpu = copy.deepcopy(net).cpu()
+    dispatch.reset_launches()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        card = forward(net, x.cuda())
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = {k: v for k, v in dispatch.launches.items() if v}
+        t0 = time.perf_counter()
+        ref = forward(cpu, x)
+        cpu_s = time.perf_counter() - t0
+    outs = [(c.cpu(), r) for c, r in zip(card if isinstance(card, (list, tuple)) else [card],
+                                         ref if isinstance(ref, (list, tuple)) else [ref])]
+    errs = [((c - r).abs().max().item(), r.abs().max().item()) for c, r in outs]
+    print(f"{label}, fp32: card vs CPU max|d| / max|ref| "
+          f"{[f'{e:.3e} / {m:.3e}' for e, m in errs]}; card {card_s:.2f} s (first call), "
+          f"CPU {cpu_s:.2f} s; launches {launches} (expected {want})", flush=True)
+    if not (all(torch.isfinite(c).all() for c, _ in outs)
+            and all(e <= REF_TOL * m for e, m in errs) and launches == want):
+        raise AssertionError(f"{label} card vs CPU failed: {errs}, {launches}")
+    return {"max_rel_err": max(e / m for e, m in errs), "launches": launches,
+            "card_first_s": card_s, "cpu_s": cpu_s}
 
 
 def annotator_reference():
     """The annotator nets at full width in fp32, card (through the kernels:
-    DPT-L's 24 ViT blocks at 1,025 tokens launch the split entry) against the
-    same weights on the CPU (plain versions), TF32 off: DPT-L at 512x512, the
-    DPT-hybrid at 384x384 (577 tokens: plain attention), HED at 512x512, the
-    body net at 368x368; within REF_TOL x max |ref| for every output."""
-    from stablediffusioneo_tpu_torch.ops import dispatch
+    DPT-L's 24 ViT blocks at 1,025 tokens and UniFormer's 8 stage-3 blocks
+    at 1,024 launch the split entry) against the same weights on the CPU
+    (plain versions), TF32 off: DPT-L at 512x512, the DPT-hybrid at 384x384
+    (577 tokens: plain attention), HED at 512x512, the body net at 368x368,
+    MLSD (a 4-channel input in [-1, 1]) and UniFormer + UperNet at 512x512;
+    within REF_TOL x max |ref| for every output."""
     from stablediffusioneo_tpu_torch.ops.dispatch import ATTN_MIN_TQ
 
     out = {}
     for kind, side in ANNOTATOR_REFERENCE:
         net = annotator_net(kind, torch.Generator(device="cuda").manual_seed(5))
-        cpu = copy.deepcopy(net).cpu()
-        x = torch.randn((1, 3, side, side), generator=torch.Generator().manual_seed(6))
+        gen = torch.Generator().manual_seed(6)
+        if kind == "mlsd_large":
+            x = torch.rand((1, 4, side, side), generator=gen) * 2 - 1
+        else:
+            x = torch.randn((1, 3, side, side), generator=gen)
         if kind in ("hed",):
             x = (x * 60 + 120).clamp(0, 255)  # raw pixel values
-        dispatch.reset_launches()
-        with torch.no_grad():
-            t0 = time.perf_counter()
-            card = net(x.cuda())
-            torch.cuda.synchronize()
-            card_s = time.perf_counter() - t0
-            launches = {k: v for k, v in dispatch.launches.items() if v}
-            t0 = time.perf_counter()
-            ref = cpu(x)
-            cpu_s = time.perf_counter() - t0
-        outs = [(c.cpu(), r) for c, r in zip(card if isinstance(card, (list, tuple)) else [card],
-                                             ref if isinstance(ref, (list, tuple)) else [ref])]
-        errs = [((c - r).abs().max().item(), r.abs().max().item()) for c, r in outs]
         want = ({"fused_attention": VIT_BLOCKS[kind]}
                 if kind in VIT_BLOCKS and vit_tokens(side) >= ATTN_MIN_TQ else {})
-        print(f"annotator reference ({kind} {side}x{side}, fp32): card vs CPU max|d| / "
-              f"max|ref| {[f'{e:.3e} / {m:.3e}' for e, m in errs]}; card {card_s:.2f} s "
-              f"(first call), CPU {cpu_s:.2f} s; launches {launches} (expected {want})",
-              flush=True)
-        if not (all(torch.isfinite(c).all() for c, _ in outs)
-                and all(e <= REF_TOL * m for e, m in errs) and launches == want):
-            raise AssertionError(f"annotator reference ({kind}) failed: {errs}, {launches}")
-        out[kind] = {"side": side, "max_rel_err": max(e / m for e, m in errs),
-                     "launches": launches}
-        del net, cpu, card, ref, outs
+        if kind == "uniformer" and uniformer_tokens(side) >= ATTN_MIN_TQ:
+            want = {"fused_attention": UNIFORMER_SA_BLOCKS}
+        out[kind] = {"side": side, **card_vs_cpu(f"annotator reference ({kind} {side}x{side})",
+                                                 net, x, want)}
+        del net
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -2618,101 +2714,361 @@ def make_detector(family):
             "openpose": OpenposeDetector}[family]()
 
 
-def annotators_phase(model, cfg, tokenizer):
-    """The JAX bench's annotators row (tracked config 4) on the loaded SD-1.5
-    model: for Canny, HED, MiDaS dpt_large and OpenPose (seeded weights), one
-    warm process() and two timed ones at 512x512, 20 steps, scale 9, seed 1;
-    each family's p50 and preprocess_ms, the worst p50, the detector's weight
-    bytes and the peak memory of one detector call above what was allocated
-    before it. Held: every request's launches are the default request's (560
-    packed + 1 split), plus MiDaS's 24 split launches at 1,025 tokens; Canny's
-    map takes the bit-packed hint engine and the others' maps (not binary)
-    the uint8 one."""
+def detector_requests(pipe, cfg, family, build, hint, splits):
+    """One detector as the annotator of process() on the pipeline's model:
+    `build()` makes it on the card (its seconds and weight bytes); its map
+    alone (the peak memory of one call above what was allocated before it,
+    the hint variant process() takes for it, which must be `hint`); then one
+    warm process() and two timed ones at RES x RES, STEPS steps, scale 9,
+    seed 1: p50 and preprocess_ms. Held: every request's launches are the
+    default request's (560 packed + 1 split) plus the detector's own split
+    launches, `splits` ({key length: launches a request}), on the
+    tensor-core variants; the sample engine is the hint variant's."""
+    from stablediffusioneo_tpu_torch.annotators import CannyDetector
     from stablediffusioneo_tpu_torch.annotators.util import HWC3
     from stablediffusioneo_tpu_torch.ops import dispatch
-    from stablediffusioneo_tpu_torch.ops.dispatch import ATTN_MIN_TQ
     from stablediffusioneo_tpu_torch.ops.kernels.attention import (
         key_length_launches,
         variant_launches,
     )
-    from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
 
-    pipe = Canny2ImagePipeline(model, tokenizer, cfg, device="cuda")
-    rt = pipe.runtime
     img = annotator_image()
     kw = dict(num_samples=1, image_resolution=RES, ddim_steps=STEPS)
     base, base_keys = expected_request_launches(cfg, "default")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    det = build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated() - before
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    raw = pipe._annotate(img, 100, 200, det)[1]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - start
+    variant = "bithint" if pipe._pack_hint(HWC3(raw), raw) is not None else "uint8"
+    pipe.apply_canny = det
+    t0 = time.perf_counter()
+    pipe.process(img, ANNOTATOR_PROMPT, seed=1, **kw)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    for counter in (variant_launches, key_length_launches):
+        counter.clear()
+    times, pre = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res = pipe.process(img, ANNOTATOR_PROMPT, seed=1, **kw)
+        times.append(time.perf_counter() - t0)
+        pre.append(pipe.last_timings["preprocess_ms"])
+    launches = dict(dispatch.launches)
+    variants = {k: v for k, v in variant_launches.items() if v}
+    key_lengths = {k: v for k, v in key_length_launches.items() if v}
+    extra = 2 * sum(splits.values())
+    want = {**base, "fused_attention": base["fused_attention"] + extra}
+    want_keys = dict(base_keys)
+    for s, n in splits.items():
+        want_keys[s] = want_keys.get(s, 0) + 2 * n
+    want_variants = {k: n for k, n in (("wgmma", want["fused_attention_packed"] + extra),
+                                       ("wgmma_split", base["fused_attention"])) if n}
+    names = sorted(e.name for e in pipe.runtime._engines.values()
+                   if e.name.startswith("ddim+decode"))
+    p50 = statistics.median(times)
+    print(f"annotators ({family}): p50 {p50 * 1e3:.1f} ms over {times} s (warm-up "
+          f"{warm_s:.2f} s), preprocess_ms {pre}; detector built in {build_s:.2f} s, "
+          f"weights {weights} bytes, one call's peak {peak} bytes; map "
+          f"{raw.shape} {raw.dtype} ({int((raw > 0).sum())} non-zero) -> the {variant} hint; "
+          f"sample engines {names}; launches {launches} by variant {variants} by key length "
+          f"{key_lengths}", flush=True)
+    wanted = f"ddim+decode_{STEPS}x1x{RES}x{RES}" + ("_bithint" if variant == "bithint"
+                                                    else "")
+    if (variant != hint or wanted not in names
+            or not (res[1].shape == (RES, RES, 3) and res[1].dtype == np.uint8)):
+        raise AssertionError(f"annotators ({family}): {variant} hint, engines {names}")
+    if launches != want or key_lengths != want_keys or variants != want_variants:
+        raise AssertionError(f"annotators ({family}) launches {launches}, {key_lengths}, "
+                             f"{variants} != {want}, {want_keys}, {want_variants}")
+    pipe.apply_canny = CannyDetector()
+    del det
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"p50_s": p50, "request_s": times, "warm_s": warm_s, "preprocess_ms": pre,
+            "detector_build_s": build_s, "detector_weight_bytes": weights,
+            "detector_peak_bytes": peak, "hint": variant, "launches": launches,
+            "key_lengths": key_lengths, "map_nonzero": int((raw > 0).sum())}
+
+
+def annotators_phase(model, cfg, tokenizer):
+    """The JAX bench's annotators row (tracked config 4) on the loaded SD-1.5
+    model: for Canny, HED, MiDaS dpt_large and OpenPose (seeded weights),
+    detector_requests: each family's p50 and preprocess_ms, the worst p50,
+    the detector's weight bytes and peak memory. Held: every request's
+    launches are the default request's (560 packed + 1 split), plus MiDaS's
+    24 split launches at 1,025 tokens; Canny's map takes the bit-packed hint
+    engine and the others' maps (not binary) the uint8 one."""
+    from stablediffusioneo_tpu_torch.ops.dispatch import ATTN_MIN_TQ
+    from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
+
+    pipe = Canny2ImagePipeline(model, tokenizer, cfg, device="cuda")
     out = {}
     for family in ANNOTATOR_FAMILIES:
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        det = make_detector(family)
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        weights = torch.cuda.memory_allocated() - before
-        # the detector alone: its map, the hint variant it takes, its peak
-        torch.cuda.reset_peak_memory_stats()
-        start = torch.cuda.memory_allocated()
-        raw = pipe._annotate(img, 100, 200, det)[1]
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - start
-        variant = "bithint" if pipe._pack_hint(HWC3(raw), raw) is not None else "uint8"
-        pipe.apply_canny = det
-        t0 = time.perf_counter()
-        pipe.process(img, ANNOTATOR_PROMPT, seed=1, **kw)
-        warm_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        dispatch.reset_launches()
-        for counter in (variant_launches, key_length_launches):
-            counter.clear()
-        times, pre = [], []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            res = pipe.process(img, ANNOTATOR_PROMPT, seed=1, **kw)
-            times.append(time.perf_counter() - t0)
-            pre.append(pipe.last_timings["preprocess_ms"])
-        launches = dict(dispatch.launches)
-        variants = {k: v for k, v in variant_launches.items() if v}
-        key_lengths = {k: v for k, v in key_length_launches.items() if v}
-        vit = (2 * VIT_BLOCKS["dpt_large"]
-               if family == "midas" and vit_tokens(RES) >= ATTN_MIN_TQ else 0)
-        want = {**base, "fused_attention": base["fused_attention"] + vit}
-        want_keys = dict(base_keys)
-        if vit:
-            want_keys[vit_tokens(RES)] = want_keys.get(vit_tokens(RES), 0) + vit
-        want_variants = {k: n for k, n in (("wgmma", want["fused_attention_packed"] + vit),
-                                           ("wgmma_split", base["fused_attention"])) if n}
-        names = sorted(e.name for e in rt._engines.values()
-                       if e.name.startswith("ddim+decode"))
-        p50 = statistics.median(times)
-        print(f"annotators ({family}): p50 {p50 * 1e3:.1f} ms over {times} s (warm-up "
-              f"{warm_s:.2f} s), preprocess_ms {pre}; detector built in {build_s:.2f} s, "
-              f"weights {weights} bytes, one call's peak {peak} bytes; map "
-              f"{raw.shape} {raw.dtype} -> the {variant} hint; sample engines {names}; "
-              f"launches {launches} by variant {variants} by key length {key_lengths}",
-              flush=True)
-        wanted = f"ddim+decode_{STEPS}x1x{RES}x{RES}" + ("_bithint" if variant == "bithint"
-                                                        else "")
-        if ((variant == "bithint") != (family == "canny") or wanted not in names
-                or not (res[1].shape == (RES, RES, 3) and res[1].dtype == np.uint8)):
-            raise AssertionError(f"annotators ({family}): {variant} hint, engines {names}")
-        if launches != want or key_lengths != want_keys or variants != want_variants:
-            raise AssertionError(f"annotators ({family}) launches {launches}, {key_lengths}, "
-                                 f"{variants} != {want}, {want_keys}, {want_variants}")
-        out[family] = {"p50_s": p50, "request_s": times, "warm_s": warm_s,
-                       "preprocess_ms": pre, "detector_weight_bytes": weights,
-                       "detector_peak_bytes": peak, "hint": variant, "launches": launches}
-        pipe.apply_canny = make_detector("canny")
-        del det
-        gc.collect()
-        torch.cuda.empty_cache()
+        vit = ({vit_tokens(RES): VIT_BLOCKS["dpt_large"]}
+               if family == "midas" and vit_tokens(RES) >= ATTN_MIN_TQ else {})
+        out[family] = detector_requests(pipe, cfg, family, lambda: make_detector(family),
+                                        "bithint" if family == "canny" else "uint8", vit)
     worst = max(r["p50_s"] for r in out.values())
     print(f"annotators: canny2image_{RES}x{RES}_{STEPS}step_multi_annotator_worst_p50 "
           f"{worst:.4f} s ({ {f: round(r['p50_s'], 4) for f, r in out.items()} })",
           flush=True)
     pipe.runtime.release()
     return {"worst_p50_s": worst, "families": out}
+
+
+def detector_file_phase(model, cfg, tokenizer, directory):
+    """MLSD and UniFormer on the loaded SD-1.5 model, after the annotators
+    row: each a seeded full-width net (annotator_net: BatchNorm statistics
+    drawn) written by torch.save under its upstream file name, read back by
+    the detector's ckpt_path with strict accounting (all 344 / 398 keys),
+    then detector_requests. MLSD runs at MLSD_THRESHOLDS (process() hands an
+    annotator the Canny thresholds, which MLSDdetector would take as its
+    own); its map is binary and takes the bit-packed hint. UniFormer's
+    coloured map takes the uint8 hint, and each detection launches the split
+    kernel once for each of stage 3's 8 blocks at 1,024 tokens."""
+    import functools
+
+    from stablediffusioneo_tpu_torch.annotators.mlsd import MLSDdetector
+    from stablediffusioneo_tpu_torch.annotators.uniformer import UniformerDetector
+    from stablediffusioneo_tpu_torch.ops.dispatch import ATTN_MIN_TQ
+    from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
+
+    pipe = Canny2ImagePipeline(model, tokenizer, cfg, device="cuda")
+    out = {}
+    for family, (kind, filename) in FILE_DETECTORS.items():
+        net = annotator_net(kind, torch.Generator().manual_seed(9))
+        path = os.path.join(directory, filename)
+        keys = len(net.state_dict())
+        torch.save(net.state_dict(), path)
+        del net
+        if family == "mlsd":
+            def build():
+                return functools.partial(MLSDdetector(ckpt_path=path), thr_v=MLSD_THRESHOLDS[0],
+                                         thr_d=MLSD_THRESHOLDS[1])
+            hint, splits = "bithint", {}
+        else:
+            def build():
+                return UniformerDetector(ckpt_path=path)
+            t = uniformer_tokens(RES)
+            hint, splits = "uint8", ({t: UNIFORMER_SA_BLOCKS} if t >= ATTN_MIN_TQ else {})
+        out[family] = {"file_keys": keys, "file_bytes": os.path.getsize(path),
+                       **detector_requests(pipe, cfg, family, build, hint, splits)}
+        os.remove(path)
+        if not out[family]["map_nonzero"]:
+            raise AssertionError(f"{family}: an empty map")
+    pipe.runtime.release()
+    return out
+
+
+def yolo_phase(directory):
+    """The JAX bench's yolo row (cli/bench.py:_bench_yolo) on the port:
+    YOLOv5s with seeded weights (init_yolov5(0) on the CPU, BatchNorm
+    statistics drawn) written under the upstream names and read back by
+    load_yolov5 (strict accounting); the net in fp32 card vs CPU at
+    YOLO_REF_SIDE within REF_TOL, boxes and scores each to its own max |ref|;
+    then the request of the row on the net load_yolov5 gives by default (the
+    card, bf16): a 720x1280 image from default_rng(0), letterboxed to
+    1120x1120 by PreProcessor, uploaded as uint8, yolov5_detect k=300 on the
+    device (fp32 decode), PostProcessor (0.99, 0.45) on the host: 1 warm-up
+    and YOLO_TIMED timed requests (p50, img/s), the detect call alone by CUDA
+    events. Held: predictions (1, 300, 85), finite, sorted by objectness, the
+    top 300 rows of the card's full prediction tensor on the same image;
+    that tensor and those rows, boxes and scores apart, within YOLO_BF16_TOL
+    x max |ref| of the fp32 net on the CPU (the same rows); no kernel of this
+    package launched (convolutions only)."""
+    from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.yolo import (
+        PostProcessor,
+        PreProcessor,
+        init_yolov5,
+        load_yolov5,
+        yolov5_detect,
+    )
+    from stablediffusioneo_tpu_torch.yolo.model import yolov5_apply
+
+    def boxes_and_scores(net, x):
+        pred = yolov5_apply(net, x)
+        return [pred[..., :4], pred[..., 4:]]
+
+    net = seeded_batch_norms(init_yolov5(0, device="cpu"), torch.Generator().manual_seed(10))
+    path = os.path.join(directory, "yolov5s.pt")
+    torch.save(net.state_dict(), path)
+    x = torch.rand((1, 3, YOLO_REF_SIDE, YOLO_REF_SIDE), generator=torch.Generator().manual_seed(11))
+    ref = card_vs_cpu(f"yolov5s {YOLO_REF_SIDE}x{YOLO_REF_SIDE}", net.cuda(), x, {},
+                      forward=boxes_and_scores)
+    del net
+    card = load_yolov5(ckpt_path=path)
+    cpu = load_yolov5(ckpt_path=path, device="cpu")
+    keys = len(card.state_dict())
+    os.remove(path)
+    dtype = next(card.parameters()).dtype
+    if dtype != torch.bfloat16 or next(cpu.parameters()).dtype != torch.float32:
+        raise AssertionError(f"yolo: load_yolov5 gave {dtype} on the card")
+    pre = PreProcessor(YOLO_SIDE, YOLO_SIDE)
+    img = (np.random.default_rng(0).random((*YOLO_IMAGE, 3)) * 255).astype(np.uint8)
+    _, _, left, top = pre(img)
+    post = PostProcessor(YOLO_CONF, YOLO_IOU, left, top, img.shape[1] / YOLO_SIDE,
+                         img.shape[0] / YOLO_SIDE)
+
+    def request():
+        x, _, _, _ = pre(img)
+        u8 = torch.from_numpy((x * 255.0).astype(np.uint8)[None]).cuda()
+        pred = yolov5_detect(card, u8, k=YOLO_TOPK).cpu().numpy()
+        return pred, post(pred), u8
+
+    t0 = time.perf_counter()
+    pred, dets, u8 = request()
+    warm_s = time.perf_counter() - t0
+    dispatch.reset_launches()
+    times = []
+    for _ in range(YOLO_TIMED):
+        t0 = time.perf_counter()
+        pred, dets, u8 = request()
+        times.append(time.perf_counter() - t0)
+    launches = {k: v for k, v in dispatch.launches.items() if v}
+    detect_ms = time_ms(lambda: yolov5_detect(card, u8, k=YOLO_TOPK), warmup=1, reps=8)
+    p50 = statistics.median(times)
+    obj = pred[0, :, 4]
+    with torch.no_grad():
+        full = yolov5_apply(card, (u8.float() / 255.0).permute(0, 3, 1, 2).to(dtype))
+        want = yolov5_apply(cpu, (u8.cpu().float() / 255.0).permute(0, 3, 1, 2))
+    idx = torch.topk(full[..., 4], YOLO_TOPK, dim=1).indices
+    rows = idx[..., None].expand(-1, -1, full.shape[-1])
+    full, top = full.cpu(), torch.gather(full, 1, rows).cpu()
+    want_top = torch.gather(want, 1, rows.cpu())
+    errs = {f"{what} {part}": ((c[..., cols] - r[..., cols]).abs().max().item(),
+                               r[..., cols].abs().max().item())
+            for what, c, r in (("all", full, want), ("top", top, want_top))
+            for part, cols in (("boxes", slice(0, 4)), ("scores", slice(4, None)))}
+    print(f"yolo: yolov5_{YOLO_SIDE}x{YOLO_SIDE}_e2e p50 {p50 * 1e3:.2f} ms, "
+          f"{1.0 / p50:.3f} img/s over {times} s (warm-up {warm_s:.2f} s); detect alone "
+          f"{detect_ms:.3f} ms (CUDA events); pred {pred.shape} {pred.dtype}, objectness "
+          f"{obj[0]:.4f}..{obj[-1]:.4f}, {len(dets[0])} detections; {keys} keys loaded; "
+          f"launches {launches}; {dtype} card vs fp32 CPU max|d| / max|ref| "
+          f"{ {k: f'{e:.3e} / {m:.3e}' for k, (e, m) in errs.items()} } "
+          f"(tolerance {YOLO_BF16_TOL} x max|ref|)", flush=True)
+    if not (pred.shape == (1, YOLO_TOPK, 85) and np.isfinite(pred).all()
+            and (np.diff(obj) <= 0).all() and not launches
+            and np.array_equal(pred, top.numpy()) and torch.isfinite(full).all()
+            and all(e <= YOLO_BF16_TOL * m for e, m in errs.values())):
+        raise AssertionError(f"yolo: pred {pred.shape}, launches {launches}, errors {errs}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {"metric": f"yolov5_{YOLO_SIDE}x{YOLO_SIDE}_e2e_imgs_per_sec", "value": 1.0 / p50,
+            "p50_s": p50, "request_s": times, "warm_s": warm_s, "detect_ms": detect_ms,
+            "detections": len(dets[0]), "keys": keys, "reference": ref,
+            "bf16_vs_fp32": {k: e / m for k, (e, m) in errs.items()}}
+
+
+def scoring_phase(model, cfg, tokenizer, directory):
+    """The scoring harness (cli/score.py's flow) on the loaded SD-1.5 model:
+    the FID Inception tower with seeded weights (init_inception, BatchNorm
+    statistics drawn) written under pt_inception's name and read back with
+    strict accounting (470 keys), fp32 with TF32 off; its features of a
+    fixture scene, card vs CPU, within REF_TOL x max |ref|, and the card's
+    time for one image; then ScoreHarness with that extractor over the
+    replayed process() at SCORE_RES, STEPS steps, on SCORE_IMAGES fixture
+    scenes against self-consistency goldens (a first pass of the same
+    requests, which captures the engines): every PD exactly 0; the same
+    requests at the next seed: every PD above 0."""
+    from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
+    from stablediffusioneo_tpu_torch.scoring import InceptionFeatureExtractor, ScoreHarness
+    from stablediffusioneo_tpu_torch.scoring.inception import init_inception
+    from stablediffusioneo_tpu_torch.testing.fixtures import make_scene
+
+    net = seeded_batch_norms(init_inception(torch.Generator().manual_seed(12)),
+                             torch.Generator().manual_seed(13))
+    path = os.path.join(directory, "pt_inception-2015-12-05.pth")
+    torch.save(net.state_dict(), path)
+    del net
+    ext = InceptionFeatureExtractor(ckpt_path=path, device="cuda")
+    cpu_ext = InceptionFeatureExtractor(ckpt_path=path, device="cpu")
+    os.remove(path)
+    images = [make_scene(1000 + i, SCORE_RES) for i in range(SCORE_IMAGES)]
+    card_f, ref_f = ext(images[0]), cpu_ext(images[0])
+    err, scale = float(np.abs(card_f - ref_f).max()), float(np.abs(ref_f).max())
+    feature_ms = time_ms(lambda: ext(images[0]), warmup=1, reps=5)
+    print(f"scoring: Inception {len(ext.report.consumed)} keys; features {card_f.shape} card "
+          f"vs CPU max|d| / max|ref| {err:.3e} / {scale:.3e}; one image {feature_ms:.2f} ms",
+          flush=True)
+    if not (np.isfinite(card_f).all() and err <= REF_TOL * scale
+            and len(ext.report.consumed) == 470):
+        raise AssertionError(f"scoring: Inception card vs CPU {err} / {scale}")
+    pipe = Canny2ImagePipeline(model, tokenizer, cfg, device="cuda")
+    kw = dict(prompt="a bird", ddim_steps=STEPS, image_resolution=SCORE_RES, seed=SCORE_SEED)
+    t0 = time.perf_counter()
+    goldens = [pipe.process(img, num_samples=1, **kw)[-1] for img in images]
+    golden_s = time.perf_counter() - t0
+    result = ScoreHarness(pipe.process, ext).run(images, goldens, **kw)
+    other = ScoreHarness(pipe.process, ext).run(images, goldens, **{**kw, "seed": SCORE_SEED + 1})
+    print(f"scoring: self-consistency ({SCORE_IMAGES} scenes, {SCORE_RES}x{SCORE_RES}, {STEPS} "
+          f"steps; goldens {golden_s:.2f} s): mean_t_ms {result['mean_t_ms']:.1f}, mean_pd "
+          f"{result['mean_pd']}, mean_score {result['mean_score']:.4f}; seed "
+          f"{SCORE_SEED + 1}: mean_pd {other['mean_pd']:.4f}, mean_score "
+          f"{other['mean_score']:.4f}", flush=True)
+    if not (all(r["pd"] == 0.0 for r in result["records"])
+            and all(r["pd"] > 0.0 for r in other["records"])):
+        raise AssertionError(f"scoring: PDs {result['records']}, {other['records']}")
+    pipe.runtime.release()
+    return {"inception_keys": len(ext.report.consumed), "feature_max_rel_err": err / scale,
+            "feature_ms": feature_ms, "self_consistency": result, "other_seed": other}
+
+
+def native_phase():
+    """The preprocessing library (native/preproc.cpp) built by the port's
+    loader on this machine (g++ into csrc/build/) and held to cv2 at
+    tests/test_native.py's bounds: Canny exact on a blurred box and an IoU
+    above 0.8 on blurred noise, the bilinear resize within 1; each timed on
+    the host (median of 10) beside cv2 at 512x512."""
+    import cv2
+
+    from stablediffusioneo_tpu_torch.annotators import native
+    from stablediffusioneo_tpu_torch.utils.native import library_path
+
+    t0 = time.perf_counter()
+    ok = native.native_available()
+    build_s = time.perf_counter() - t0
+    box = np.zeros((64, 64), np.uint8)
+    box[16:48, 16:48] = 200
+    box = cv2.GaussianBlur(box, (5, 5), 1.2)
+    exact = np.array_equal(native.canny(box, 100, 200) > 0, cv2.Canny(box, 100, 200) > 0)
+    noise = cv2.GaussianBlur((np.random.default_rng(14).random((128, 128)) * 255)
+                             .astype(np.uint8), (7, 7), 2.0)
+    a, b = native.canny(noise, 60, 150) > 0, cv2.Canny(noise, 60, 150) > 0
+    iou = (a & b).sum() / max((a | b).sum(), 1)
+    img = annotator_image()
+    resize_d = int(np.abs(native.resize_bilinear(img, 384, 448).astype(int)
+                          - cv2.resize(img, (448, 384), interpolation=cv2.INTER_LINEAR)
+                          .astype(int)).max())
+
+    def host_ms(fn):
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    gray = cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)
+    times = {"canny": host_ms(lambda: native.canny(gray, 100, 200)),
+             "cv2_canny": host_ms(lambda: cv2.Canny(gray, 100, 200)),
+             "resize_bilinear": host_ms(lambda: native.resize_bilinear(img, 384, 448)),
+             "cv2_resize": host_ms(lambda: cv2.resize(img, (448, 384)))}
+    print(f"native: {library_path('sdeo_preproc').name} built and loaded in {build_s:.2f} s; "
+          f"canny exact on the box {exact}, IoU on noise {iou:.3f}; resize max|d| {resize_d}; "
+          f"host ms {times}", flush=True)
+    if not (ok and exact and iou > 0.8 and resize_d <= 1):
+        raise AssertionError(f"native: {ok}, {exact}, {iou}, {resize_d}")
+    return {"build_s": build_s, "canny_iou": iou, "resize_max_abs": resize_d, "host_ms": times}
 
 
 # ----------------------------------------------------------------- depth2img
@@ -3498,6 +3854,16 @@ def main():
     print(f"hackathon phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     annotators = annotators_phase(loaded, cfg, tokenizer)
     print(f"annotators phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as directory:
+        detectors = detector_file_phase(loaded, cfg, tokenizer, directory)
+        print(f"MLSD and UniFormer phases done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        scoring = scoring_phase(loaded, cfg, tokenizer, directory)
+        print(f"scoring phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        yolo = yolo_phase(directory)
+        print(f"yolo phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    native = native_phase()
+    print(f"native phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     lora_pipe, lora = lora_phase(loaded, cfg, tokenizer)
     print(f"lora phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     inversion = textual_inversion_phase(lora_pipe, tokenizer)
@@ -3542,6 +3908,14 @@ def main():
           f"{np.abs(base - runs['fused norms']['image']).mean():.3f}, int8 "
           f"{np.abs(base - runs['int8']['image']).mean():.3f}", flush=True)
 
+    # the UniFormer row's launches: its detections' split launches at stage
+    # 3's key length, two requests of one detection each
+    t = uniformer_tokens(RES)
+    for row in kernels["fused_attention"]:
+        if "annotators:uniformer" in row["paths"]:
+            row["launches"] = detectors["uniformer"]["key_lengths"].get(t, 0) \
+                - expected_request_launches(cfg, "default")[1].get(t, 0)
+            row["launches_per_detection"] = row["launches"] / 2
     out = []
     for name, (source, replaces) in KERNELS.items():
         rows = kernels[name]
@@ -3562,6 +3936,8 @@ def main():
                                  "multi-ControlNet": multi["launches"].get(name, 0),
                                  **{f"annotators:{f}": r["launches"][name]
                                     for f, r in annotators["families"].items()},
+                                 **{f"annotators:{f}": r["launches"][name]
+                                    for f, r in detectors.items()},
                                  # the training runs: TRAIN_STEPS steps each,
                                  # LoRA and the user path 2 steps
                                  **{run: r["launches"][name]
@@ -3590,6 +3966,8 @@ def main():
                       "lora": lora, "textual_inversion": inversion, "families": families,
                       "refiner_reference": runs["sdxl refiner 1024"]["reference"],
                       "annotators": annotators, "annotator_reference": annotator_ref,
+                      "mlsd": detectors["mlsd"], "uniformer": detectors["uniformer"],
+                      "yolo": yolo, "scoring": scoring, "native": native,
                       "sampler_variants_request_s": variants_s,
                       "serving": serving, "multi_controlnet": multi,
                       "attention_grads": attention_grads, "training": training,

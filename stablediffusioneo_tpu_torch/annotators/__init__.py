@@ -6,11 +6,14 @@ stablediffusioneo_tpu/annotators/).
   MiDaS    -> annotators.midas    (DPT-L), annotators.midas_hybrid (DPT-hybrid)
   OpenPose -> annotators.openpose (body and hand nets on the device, the JAX
                                    package's numpy decode)
-plus the image helpers of annotators/util.py. The host-side copies are held
-to the JAX package's by tests/test_torch_imports.py; the nets by
-tests/test_torch_annotators.py. The detectors load lazily, as the JAX
-package's. MLSD and UniFormer are not ported yet (ROADMAP.md, queue 1
-item 5): their names raise NotImplementedError.
+  MLSD     -> annotators.mlsd     (MobileV2-MLSD-Large, annotators.mlsd_net,
+                                   on the device; the JAX package's decode)
+  UniFormer-> annotators.uniformer (UniFormer-S + UperNet on the device)
+plus the image helpers of annotators/util.py and the native preprocessing
+library's wrappers (annotators/native.py). The host-side copies are held to
+the JAX package's by tests/test_torch_imports.py; the nets by
+tests/test_torch_annotators.py and tests/test_torch_mlsd_uniformer.py. The
+detectors load lazily, as the JAX package's.
 """
 
 from stablediffusioneo_tpu_torch.annotators.canny import CannyDetector
@@ -20,8 +23,9 @@ _LAZY = {
     "HEDdetector": "stablediffusioneo_tpu_torch.annotators.hed",
     "MidasDetector": "stablediffusioneo_tpu_torch.annotators.midas",
     "OpenposeDetector": "stablediffusioneo_tpu_torch.annotators.openpose",
+    "MLSDdetector": "stablediffusioneo_tpu_torch.annotators.mlsd",
+    "UniformerDetector": "stablediffusioneo_tpu_torch.annotators.uniformer",
 }
-_NOT_PORTED = ("MLSDdetector", "UniformerDetector")
 
 
 def __getattr__(name):
@@ -30,12 +34,8 @@ def __getattr__(name):
         import importlib
 
         return getattr(importlib.import_module(_LAZY[name]), name)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported to the PyTorch package yet: ROADMAP.md, queue 1 "
-            "item 5 (MLSD and UniFormer)")
     raise AttributeError(name)
 
 
 __all__ = ["CannyDetector", "HWC3", "resize_image", "HEDdetector", "MidasDetector",
-           "OpenposeDetector"]
+           "OpenposeDetector", "MLSDdetector", "UniformerDetector"]

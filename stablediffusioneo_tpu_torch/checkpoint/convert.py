@@ -21,7 +21,9 @@ Two users, so that no second table of names exists:
 The annotators' trees (HED, DPT-L, DPT-hybrid, the OpenPose body and hand
 nets) are built by name in the JAX converters rather than by a path map, so
 `annotator_state_dict_from_jax` inverts each converter directly; the
-depth2img model's MiDaS tower goes through it too.
+depth2img model's MiDaS tower goes through it too. The nets whose JAX
+converters fold BatchNorm (MLSD, UniFormer, the FID Inception, YOLOv5) come
+back through `folded_state_dict_from_jax` with identity BatchNorms.
 The parameters arrive as arrays (numpy, or anything numpy can read), so this
 module needs no JAX. Every parameter of the port's model gets one, and no
 other key is made, so its `load_checkpoint` loads the result with nothing
@@ -330,14 +332,24 @@ def openclip_state_dict(sd: StateDict, p, prefix="cond_stage_model.model.") -> N
 
 # ------------------------------------------------------------- annotators
 
-ANNOTATOR_KINDS = ("hed", "dpt_large", "dpt_hybrid", "openpose_body", "openpose_hand")
+ANNOTATOR_KINDS = ("hed", "dpt_large", "dpt_hybrid", "openpose_body", "openpose_hand",
+                   "mlsd_large", "uniformer")
+# the nets whose JAX converters fold BatchNorm into the convs, and the eps of
+# their BatchNorms; the MLSD and UniFormer files carry a num_batches_tracked
+# counter a BatchNorm, pytorch_fid's Inception none, and YOLOv5's loader
+# reads none
+FOLDED_KINDS = ("mlsd_large", "uniformer", "inception", "yolov5")
+BN_EPS = {"mlsd_large": 1e-5, "uniformer": 1e-5, "inception": 1e-3, "yolov5": 1e-3}
+_TRACKED = ("mlsd_large", "uniformer")
 
 
 def annotator_state_dict_from_jax(kind: str, params) -> StateDict:
     """A JAX annotator tree -> the port module's state dict under the
     upstream names (no prefix), fp32: the inverse of the JAX package's
     convert_hed, convert_dpt, convert_dpt_hybrid, convert_body and
-    convert_hand (annotators/*.py) for `kind` in ANNOTATOR_KINDS. HWIO convs
+    convert_hand (annotators/*.py) for `kind` in ANNOTATOR_KINDS, and of
+    convert_mlsd_large and convert_uniformer_upernet by
+    `folded_state_dict_from_jax`. HWIO convs
     go back to OIHW, (in, out) linears to (out, in), g/b norms to
     weight/bias, HED's NHWC `norm` to (1, 3, 1, 1).
 
@@ -350,6 +362,8 @@ def annotator_state_dict_from_jax(kind: str, params) -> StateDict:
     port as upstream runs it)."""
     if kind not in ANNOTATOR_KINDS:
         raise KeyError(f"annotator kind {kind!r}; have {ANNOTATOR_KINDS}")
+    if kind in FOLDED_KINDS:
+        return folded_state_dict_from_jax(kind, params)
     sd: StateDict = {}
 
     def put(name, a, layout="raw"):
@@ -420,4 +434,111 @@ def annotator_state_dict_from_jax(kind: str, params) -> StateDict:
         node(f"{base}.out_conv", f["out_conv"], "conv")
     for j, c in (("0", "conv1"), ("2", "conv2"), ("4", "conv3")):
         node(f"scratch.output_conv.{j}", params["head"][c], "conv")
+    return sd
+
+
+def folded_state_dict_from_jax(kind: str, params) -> StateDict:
+    """The weight carry of the BatchNorm-folded nets (`kind` in FOLDED_KINDS:
+    the JAX convert_mlsd_large, convert_uniformer_upernet, convert_inception
+    and convert_yolov5 trees): the port module's state dict under the
+    upstream names, fp32. A folded tree does not give back the upstream
+    BatchNorm parameters, so each folded conv becomes its conv weight and an
+    identity BatchNorm: weight 1, the folded shift as bias (no conv before a
+    BatchNorm has a bias upstream), running_mean 0 and running_var 1 - eps at
+    the net's own eps (BN_EPS; var + eps is then exactly 1 in fp32), and
+    num_batches_tracked 0 where the net's file has one. UniFormer's CBlock
+    norms (a per-channel scale and shift in the JAX tree) become BatchNorms
+    of that weight and bias. Converting the result again gives the tree
+    back exactly."""
+    if kind not in FOLDED_KINDS:
+        raise KeyError(f"folded kind {kind!r}; have {FOLDED_KINDS}")
+    eps = BN_EPS[kind]
+    sd: StateDict = {}
+
+    def put(name, a, layout="raw"):
+        sd[name] = torch.from_numpy(np.array(port_layout(np.asarray(a, np.float32), layout)))
+
+    def node(name, p, layout):  # {"w", "b"} or {"g", "b"}
+        for leaf, v in p.items():
+            put(f"{name}.{ {'w': 'weight', 'g': 'weight', 'b': 'bias'}[leaf] }", v,
+                layout if leaf == "w" else "raw")
+
+    def bn(name, scale, shift):
+        c = np.asarray(shift).shape[0]
+        put(f"{name}.weight", scale)
+        put(f"{name}.bias", shift)
+        put(f"{name}.running_mean", np.zeros(c, np.float32))
+        put(f"{name}.running_var", np.full(c, 1.0 - eps, np.float32))
+        if kind in _TRACKED:
+            sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    def folded(conv, norm, p):  # a folded {"w", "b"} conv
+        put(f"{conv}.weight", p["w"], "conv")
+        bn(norm, np.ones(np.asarray(p["b"]).shape[0], np.float32), p["b"])
+
+    if kind == "mlsd_large":
+        fb, bb = "backbone.features", params["backbone"]
+        folded(f"{fb}.0.0", f"{fb}.0.1", bb["stem"])
+        for idx, p in enumerate(bb["blocks"], start=1):
+            base, off = f"{fb}.{idx}.conv", int("expand" in p)
+            if off:
+                folded(f"{base}.0.0", f"{base}.0.1", p["expand"])
+            folded(f"{base}.{off}.0", f"{base}.{off}.1", p["dw"])
+            folded(f"{base}.{off + 1}", f"{base}.{off + 2}", p["project"])
+        for blk in range(15, 24):
+            for ci in (1, 2):
+                folded(f"block{blk}.conv{ci}.0", f"block{blk}.conv{ci}.1",
+                       params[f"block{blk}"][f"conv{ci}"])
+        node("block23.conv3", params["block23"]["conv3"], "conv")
+    elif kind == "uniformer":
+        for si, stage in enumerate(params["backbone"]["stages"], start=1):
+            node(f"backbone.patch_embed{si}.proj", stage["patch_embed"], "conv")
+            node(f"backbone.patch_embed{si}.norm", stage["patch_norm"], "raw")
+            for bi, blk in enumerate(stage["blocks"]):
+                base = f"backbone.blocks{si}.{bi}"
+                node(f"{base}.pos_embed", blk["pos"], "conv")
+                if "mix_in" in blk:  # CBlock
+                    for part, sub in (("mix_in", "conv1"), ("mix_dw", "attn"),
+                                      ("mix_out", "conv2"), ("mlp1", "mlp.fc1"),
+                                      ("mlp2", "mlp.fc2")):
+                        node(f"{base}.{sub}", blk[part], "conv")
+                    for norm in ("norm1", "norm2"):
+                        bn(f"{base}.{norm}", blk[norm]["g"], blk[norm]["b"])
+                else:  # SABlock
+                    for part, sub in (("norm1", "norm1"), ("qkv", "attn.qkv"),
+                                      ("proj", "attn.proj"), ("norm2", "norm2"),
+                                      ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+                        node(f"{base}.{sub}", blk[part],
+                             "raw" if part.startswith("norm") else "linear")
+        head, dh = params["decode_head"], "decode_head."
+        modules = ([(f"psp_modules.{i}.1", p) for i, p in enumerate(head["ppm"])]
+                   + [("bottleneck", head["bottleneck"]), ("fpn_bottleneck", head["fusion"])]
+                   + [(f"lateral_convs.{i}", p) for i, p in enumerate(head["laterals"])]
+                   + [(f"fpn_convs.{i}", p) for i, p in enumerate(head["fpn_convs"])])
+        for name, p in modules:
+            folded(f"{dh}{name}.conv", f"{dh}{name}.bn", p)
+        node(f"{dh}conv_seg", head["classifier"], "conv")
+    elif kind == "inception":
+        for top, tree in params.items():
+            for leaf, p in ([("", tree)] if "w" in tree else tree.items()):
+                name = f"{top}.{leaf}" if leaf else top
+                folded(f"{name}.conv", f"{name}.bn", p)
+    else:  # yolov5: model.{i}. Conv blocks, C3s, SPPF and the Detect convs
+        def block(prefix, p):
+            folded(f"{prefix}.conv", f"{prefix}.bn", p["conv"])
+
+        for key, tree in params.items():
+            m = f"model.{key}"
+            if key == "24":
+                for i in range(3):
+                    node(f"{m}.m.{i}", tree[f"m{i}"], "conv")
+            elif "conv" in tree:
+                block(m, tree)
+            else:
+                for part in ("cv1", "cv2", "cv3"):
+                    if part in tree:
+                        block(f"{m}.{part}", tree[part])
+                for i, b in enumerate(tree.get("m", ())):
+                    block(f"{m}.m.{i}.cv1", b["cv1"])
+                    block(f"{m}.m.{i}.cv2", b["cv2"])
     return sd

@@ -39,6 +39,7 @@ from stablediffusioneo_tpu_torch.models.clip import (
 from stablediffusioneo_tpu_torch.models.controlnet import ControlNet
 from stablediffusioneo_tpu_torch.models.unet import UNetModel
 from stablediffusioneo_tpu_torch.models.vae import AutoencoderKL
+from stablediffusioneo_tpu_torch.ops.layers import FrozenBatchNorm2d
 
 
 def openclip_text(cfg: PipelineConfig) -> bool:
@@ -138,7 +139,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     zero-initialises (ResBlock conv2, proj_out, the ControlNet taps and the
     hint block's last conv, the UNet's out conv) get the same non-zero draw,
     as a trained net has non-zero weights there, so a broken control path
-    shows in the output. Norms start at weight 1, bias 0; the text towers'
+    shows in the output. Norms start at weight 1, bias 0 (a BatchNorm's
+    statistics at their identity defaults); the text towers'
     token and position embeddings at N(0, 0.02) and N(0, 0.01), an OpenCLIP
     text_projection (d, proj) at N(0, 1 / d), as the JAX init_clip_text.
     Transposed convs (the DPT reassemble's upsamplers) draw as convs; a module
@@ -157,7 +159,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             for p in (m.weight, m.bias):
                 if p is not None:
                     fill(p, bound)
-        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
+        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm, nn.BatchNorm2d, FrozenBatchNorm2d)):
             m.weight.fill_(1.0)
             m.bias.zero_()
             done.update((id(m.weight), id(m.bias)))

@@ -9,6 +9,7 @@ take and return the JAX package's NHWC.
 from __future__ import annotations
 
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 from stablediffusioneo_tpu_torch.ops.quant import QuantizedLinear
@@ -69,3 +70,22 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
 
 def nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+class FrozenBatchNorm2d(nn.Module):
+    """Inference BatchNorm over NCHW with torch's parameter names (weight,
+    bias, running_mean, running_var) and no num_batches_tracked buffer, for
+    the files that carry none (pytorch_fid's pt_inception) or whose loader
+    reads none (YOLOv5's): x - mean over sqrt(var + eps), then the affine."""
+
+    def __init__(self, channels: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x):
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                            False, 0.0, self.eps)

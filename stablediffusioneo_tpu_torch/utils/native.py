@@ -4,7 +4,8 @@
 One thread-safe loader a library: `load_native_lib(name, configure)` compiles
 `native/<source>` with g++ at first use into
 `stablediffusioneo_tpu_torch/csrc/build/`, with the library's own link flags
-(`LINK_FLAGS`: the loader links libpng and libjpeg), named by a hash of the
+(`LINK_FLAGS`: the loader links libpng and libjpeg; the batch-cut policy and
+the preprocessing library need none), named by a hash of the
 source and the flags (an edited source rebuilds, an unchanged one loads the library
 already built), loads it with ctypes, runs the caller's one-time signature
 configuration and caches the handle. The JAX package's loader reads
@@ -27,7 +28,8 @@ from typing import Callable, Dict, Optional
 NATIVE = Path(__file__).resolve().parents[2] / "native"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "csrc" / "build"
 # library name -> its source under native/
-SOURCES = {"sdeo_sched": "scheduler.cpp", "sdeo_loader": "loader.cpp"}
+SOURCES = {"sdeo_sched": "scheduler.cpp", "sdeo_loader": "loader.cpp",
+           "sdeo_preproc": "preproc.cpp"}
 # native/Makefile's flags without -march=native: a library built on one
 # machine may be loaded on another from the same directory
 CXX_FLAGS = ("-O3", "-fno-math-errno", "-std=c++17", "-fPIC", "-Wall", "-shared")

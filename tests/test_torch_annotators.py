@@ -40,9 +40,12 @@ from stablediffusioneo_tpu_torch.checkpoint.accounting import (
 )
 from stablediffusioneo_tpu_torch.checkpoint.convert import annotator_state_dict_from_jax
 
-from torch_port_util import UNIVERSES, assert_close_scaled, draw_upstream, universe_sd
+from torch_port_util import assert_close_scaled, draw_upstream, universe_sd
 
 SIDE_TOL, NET_TOL = 1e-5, 1e-4
+# the universes of this file's nets (tests/test_torch_mlsd_uniformer.py and
+# tests/test_torch_scoring.py hold the BatchNorm-folded ones)
+KINDS = ("dpt_hybrid", "hed", "openpose_body", "openpose_hand")
 CONVERT = {"hed": jhed.convert_hed, "dpt_large": jmidas.convert_dpt,
            "dpt_hybrid": jhybrid.convert_dpt_hybrid, "openpose_body": jpose.convert_body,
            "openpose_hand": jpose.convert_hand}
@@ -166,12 +169,16 @@ def test_dtype_policy(monkeypatch):
 
 
 def test_detector_exports():
+    from stablediffusioneo_tpu_torch.annotators import mlsd as pmlsd
+    from stablediffusioneo_tpu_torch.annotators import uniformer as puni
+
     assert port_annotators.HEDdetector is phed.HEDdetector
     assert port_annotators.MidasDetector is pmidas.MidasDetector
     assert port_annotators.OpenposeDetector is ppose.OpenposeDetector
-    for name in ("MLSDdetector", "UniformerDetector"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            getattr(port_annotators, name)
+    assert port_annotators.MLSDdetector is pmlsd.MLSDdetector
+    assert port_annotators.UniformerDetector is puni.UniformerDetector
+    with pytest.raises(AttributeError):
+        getattr(port_annotators, "SegmentAnythingDetector")
 
 
 # ------------------------------------------------------------------------ HED
@@ -454,7 +461,7 @@ def test_hand_flow_matches_jax(hand_tree, monkeypatch):
 # ------------------------------------------------------- carry and loaders
 
 
-@pytest.mark.parametrize("kind", sorted(UNIVERSES))
+@pytest.mark.parametrize("kind", KINDS)
 def test_carry_inverts_the_jax_converter(kind):
     """universe state dict -> JAX converter -> annotator_state_dict_from_jax
     gives the state dict back, every key and value."""
@@ -488,7 +495,7 @@ def _detector(kind, sd):
     return det.body if kind.endswith("body") else det.hand
 
 
-@pytest.mark.parametrize("kind", sorted(UNIVERSES))
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("fault", [None, "missing", "extra"])
 def test_loader_takes_exactly_its_universe(kind, fault):
     """Each detector's strict load at full width from a state dict of exactly

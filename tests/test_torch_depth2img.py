@@ -280,7 +280,8 @@ NEW_ROWS = chip_smoke.family_attention_rows(port_config.sd15_pipeline())
 
 def test_smoke_takes_the_new_paths_rows():
     """depth2img's four packed sites (heads of 64 channels: 5 at 4096 tokens,
-    10 at 1024) and the MiDaS ViTs' split sites at a 512x512 input."""
+    10 at 1024), the MiDaS ViTs' split sites at a 512x512 input and
+    UniFormer's stage 3 at a 512x512 detection (5 heads at 1,024 tokens)."""
     rows = {(r[0], r[1], r[2], r[3]): paths for r, paths in NEW_ROWS.items()}
     assert rows == {
         ("fused_attention_packed", (2, 4096, 320), 4096, 5): ["depth2img 512"],
@@ -288,7 +289,8 @@ def test_smoke_takes_the_new_paths_rows():
         ("fused_attention_packed", (2, 1024, 640), 1024, 10): ["depth2img 512"],
         ("fused_attention_packed", (2, 1024, 640), 77, 10): ["depth2img 512"],
         ("fused_attention", (1, 16, 1025, 64), 1025, 16): ["annotators:midas"],
-        ("fused_attention", (1, 12, 1025, 64), 1025, 12): ["midas dpt_hybrid 512"]}
+        ("fused_attention", (1, 12, 1025, 64), 1025, 12): ["midas dpt_hybrid 512"],
+        ("fused_attention", (1, 5, 1024, 64), 1024, 5): ["annotators:uniformer"]}
     assert not set(NEW_ROWS) & set(chip_smoke.attention_rows(port_config.sd15_pipeline()))
 
 

@@ -85,9 +85,21 @@ def test_the_walk_covers_the_port():
                  "stablediffusioneo_tpu_torch/training/data.py",
                  "stablediffusioneo_tpu_torch/training/logger.py",
                  "stablediffusioneo_tpu_torch/training/loop.py",
-                 "stablediffusioneo_tpu_torch/training/__init__.py"):
+                 "stablediffusioneo_tpu_torch/training/__init__.py",
+                 "stablediffusioneo_tpu_torch/annotators/native.py",
+                 "stablediffusioneo_tpu_torch/annotators/mlsd.py",
+                 "stablediffusioneo_tpu_torch/annotators/mlsd_net.py",
+                 "stablediffusioneo_tpu_torch/annotators/uniformer.py",
+                 "stablediffusioneo_tpu_torch/scoring/__init__.py",
+                 "stablediffusioneo_tpu_torch/scoring/score.py",
+                 "stablediffusioneo_tpu_torch/scoring/inception.py",
+                 "stablediffusioneo_tpu_torch/cli/score.py",
+                 "stablediffusioneo_tpu_torch/yolo/__init__.py",
+                 "stablediffusioneo_tpu_torch/yolo/model.py",
+                 "stablediffusioneo_tpu_torch/yolo/pipeline.py",
+                 "stablediffusioneo_tpu_torch/testing/fixtures.py"):
         assert must in names
-    assert len(names) >= 58
+    assert len(names) >= 72
 
 
 # numpy-only functions of the JAX package the port keeps its own copy of,
@@ -149,6 +161,19 @@ SOURCE_COPIES = [
     for name in ("make_grid", "ImageLogger.__init__", "ImageLogger.on_step",
                  "MetricsLogger.__init__", "MetricsLogger.log")
 ] + [
+    ("annotators.mlsd", "annotators.mlsd", name)
+    for name in ("decode_center_and_displacement", "pred_lines")
+] + [
+    ("annotators.uniformer", "annotators.uniformer", "ade20k_palette"),
+    ("testing.fixtures", "testing.fixtures", "make_scene"),
+    ("testing.fixtures", "testing.fixtures", "main"),
+] + [
+    ("scoring.score", "scoring.score", name)
+    for name in ("get_score", "PixelFeatureExtractor", "perceptual_distance", "ScoreHarness")
+] + [
+    ("yolo.pipeline", "yolo.pipeline", name)
+    for name in ("PreProcessor", "iou_matrix", "nms", "PostProcessor", "draw_boxes")
+] + [
     ("annotators.openpose", "annotators.openpose", name)
     for name in ("_stage1_spec", "_stageN_spec", "_hand_stage1", "_hand_stageN",
                  "_cv2_cubic_weights", "_upsample_matrices", "_gaussian_matrix", "_VirtualMap",
@@ -163,10 +188,13 @@ SOURCE_COPIES = [
 def test_source_copies_are_their_originals(port_mod, jax_mod, name):
     """The batch-cut policy's mirror (and its ctypes signatures), the future
     resolver, the hint packer, the training data loader's and loggers'
-    functions, and OpenPose's spec tables and numpy decode are the JAX
-    package's code, statement for statement (docstrings aside); their
-    results are held in tests/test_torch_serving.py,
-    tests/test_torch_train_data.py and tests/test_torch_annotators.py."""
+    functions, OpenPose's spec tables and numpy decode, MLSD's decode,
+    UniFormer's palette, the fixture scenes, the score harness and YOLOv5's
+    pre- and post-processing are the JAX package's code, statement for
+    statement (docstrings aside); their results are held in
+    tests/test_torch_serving.py, tests/test_torch_train_data.py,
+    tests/test_torch_annotators.py, tests/test_torch_mlsd_uniformer.py,
+    tests/test_torch_scoring.py and tests/test_torch_yolo.py."""
     import importlib
     import inspect
 
@@ -232,6 +260,45 @@ def test_serve_cli_runs_with_both_packages_blocked():
                          text=True, env=env, cwd=str(REPO), timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().endswith("OK")
+
+
+def test_score_cli_runs_with_both_packages_blocked():
+    """With `stablediffusioneo_tpu` and `jax` blocked, the new detectors,
+    the Inception extractor and YOLOv5 import, and sdeo-score-torch --cpu
+    scores two fixture scenes on seeded tiny weights against
+    self-consistency goldens: the distance is exactly 0."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "stablediffusioneo_tpu", "regex", "safetensors"):
+            sys.modules[name] = None
+        import torch
+        torch.set_num_threads(1)
+        import stablediffusioneo_tpu_torch.annotators.mlsd
+        import stablediffusioneo_tpu_torch.annotators.native
+        import stablediffusioneo_tpu_torch.annotators.uniformer
+        import stablediffusioneo_tpu_torch.scoring.inception
+        import stablediffusioneo_tpu_torch.yolo
+        from stablediffusioneo_tpu_torch.cli import score
+        result = score.main(["--cpu", "--n", "2"])
+        assert result["mean_pd"] == 0.0 and len(result["records"]) == 2
+        assert all(r["score"] > 0 for r in result["records"])
+        loaded = [m for m in sys.modules if sys.modules[m] is not None
+                  and m.split(".")[0] in ("jax", "stablediffusioneo_tpu", "regex",
+                                          "safetensors")]
+        assert not loaded, loaded
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(REPO), timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "mean perceptual distance: 0.000" in res.stdout
+    assert res.stdout.strip().endswith("OK")
+
+
+def test_score_console_script_is_registered():
+    text = (REPO / "pyproject.toml").read_text()
+    assert 'sdeo-score-torch = "stablediffusioneo_tpu_torch.cli.score:main"' in text
 
 
 def test_tiny_process_runs_with_both_packages_blocked():
@@ -358,11 +425,14 @@ def test_refiner_configs_equal_the_jax_packages(name):
 
 
 def test_native_sources_name_the_loader():
-    """The port builds the JAX package's two native libraries from the same
-    sources: the batch-cut policy and the training data loader."""
+    """The port builds the JAX package's three native libraries from the same
+    sources: the batch-cut policy, the training data loader and the
+    annotators' preprocessing library (no link flags, as native/Makefile)."""
     from stablediffusioneo_tpu_torch.utils import native
 
-    assert native.SOURCES == {"sdeo_sched": "scheduler.cpp", "sdeo_loader": "loader.cpp"}
+    assert native.SOURCES == {"sdeo_sched": "scheduler.cpp", "sdeo_loader": "loader.cpp",
+                              "sdeo_preproc": "preproc.cpp"}
+    assert "sdeo_preproc" not in native.LINK_FLAGS
     assert all((native.NATIVE / src).exists() for src in native.SOURCES.values())
 
 

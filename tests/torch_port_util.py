@@ -166,9 +166,11 @@ def numpy_params(init_fn, cfg, seed):
 
 # ------------------------------------------------ annotator weights by name
 
-# the universe of each annotator's upstream file (DPT-L has none)
+# the universe of each annotator's upstream file (DPT-L has none), and of
+# the FID Inception's (YOLOv5 has none)
 UNIVERSES = {"hed": "hed", "dpt_hybrid": "dpt_hybrid", "openpose_body": "openpose_body",
-             "openpose_hand": "openpose_hand"}
+             "openpose_hand": "openpose_hand", "mlsd_large": "mlsd_large",
+             "uniformer": "uniformer", "inception": "pt_inception"}
 
 
 def draw_upstream(rng, name, shape):
@@ -182,14 +184,31 @@ def draw_upstream(rng, name, shape):
     return np.float32(0.1) * z
 
 
+def with_batch_norms(sd, rng):
+    """Seeded BatchNorm statistics where `sd` has BatchNorms (a
+    `.running_var` key): gains 1 + N(0, 0.01), means 0.1 N(0, 1), variances
+    U(0.5, 1.5), counters 0; drawn after the other tensors, so that a state
+    dict without BatchNorms keeps its draws."""
+    for name in sorted(k[:-len(".running_var")] for k in sd if k.endswith(".running_var")):
+        c = sd[f"{name}.running_var"].shape
+        sd[f"{name}.weight"] = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+        sd[f"{name}.running_mean"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+        sd[f"{name}.running_var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        if f"{name}.num_batches_tracked" in sd:
+            sd[f"{name}.num_batches_tracked"] = np.zeros((), np.int64)
+    return sd
+
+
 def universe_sd(kind, seed=0):
-    """{name: float32 array} with exactly the names and shapes of the
-    universe file of `kind` (stablediffusioneo_tpu/checkpoint/universes/)."""
+    """{name: array} with exactly the names and shapes of the universe file
+    of `kind` (stablediffusioneo_tpu/checkpoint/universes/): float32, a
+    BatchNorm's num_batches_tracked (a scalar) int64."""
     from stablediffusioneo_tpu.checkpoint.manifest import load_universe
 
     rng = np.random.default_rng(seed)
-    return {k: draw_upstream(rng, k, tuple(int(d) for d in s.split("x")))
-            for k, s in sorted(load_universe(UNIVERSES[kind]).items())}
+    sd = {k: draw_upstream(rng, k, tuple(int(d) for d in s.split("x") if d))
+          for k, s in sorted(load_universe(UNIVERSES[kind]).items())}
+    return with_batch_norms(sd, rng)
 
 
 # ------------------------------------------------ training: the two nets
