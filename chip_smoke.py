@@ -178,6 +178,27 @@ source, all started together), then:
      repository; the script prints whether PIL and libpng's headers are
      there) with the runtime's captured CLIP and encoder engines, 2 steps of
      train() with EMA and a metrics file.
+  17. the checkpoint tools (after the native library, on the loaded SD-1.5
+     model's machine): the offline drill (drill_phase: every family of
+     testing/offline_drill.py at full width, files synthesized from the
+     packaged key universes (the sd15 .pth of 5.7 GB, the SDXL .safetensors
+     of 13.9 GB), manifest verify, strict load, one bf16 inference on the
+     card at DRILL_RES; #1 and #2 launched on sd15 and sdxl as the plans
+     say; then a drill file pinned into a copy of the manifest verifies and,
+     one byte flipped, is rejected on its sha256), sdeo-readiness-torch's
+     flow on the drill's sd15 file (readiness_phase: --verify-manifest over
+     the checkpoint and the smoke vocabulary's vocab.json / merges.txt, the
+     card's bf16 run against the port's fp32 CPU run at READINESS_RES,
+     READINESS_STEPS steps, each PD and the mean against READINESS_PD_LIMIT,
+     the final latents within READINESS_LATENT_TOL of the reference's; the
+     card in fp32 within READINESS_FP32_TOL, a request without the ControlNet
+     or with another prompt outside it; then --dry-run), T5 v1.1-large
+     (t5_phase: fp32 card vs CPU within REF_TOL with and without a padding
+     mask, the bf16 p50, clip_t5_encode) and sdeo-smoke-torch
+     (smoke_cli_phase: the CLIP engine captured over seeded SD-1.5
+     weights). unet_reference holds SD-2.1's UNet + ControlNet
+     (256x256, before its main path) and SDXL base's UNet (512x512, drawn
+     apart in fp32) to the CPU in fp32 within REF_TOL.
 The kernel phase also takes every attention shape of the SD-2.1, SDXL,
 SDXL-refiner and depth2img requests (heads of 64 channels; the 768x768
 decode's (1, 1, 9216, 512)), the MiDaS ViTs' split sites at 512x512 ((1,
@@ -195,9 +216,11 @@ non-zero and prints no result. The last line is {"ok": true, "device":
 before that lists the kernels.
 """
 
+import contextlib
 import copy
 import dataclasses
 import gc
+import io
 import itertools
 import json
 import math
@@ -361,6 +384,23 @@ YOLO_BF16_TOL = 1e-2
 # the scoring run (cli/score.py's flow): fixture scenes at 256x256, 20 steps,
 # the CLI's seed, against self-consistency goldens
 SCORE_RES, SCORE_IMAGES, SCORE_SEED = 256, 2, 2946901
+# the checkpoint tools: the offline drill's sd15 / sdxl sample side and steps
+# (512: SDXL's level-1 sites then hold 1,024 tokens and reach the packed
+# kernel); sdeo-readiness-torch on the drill's sd15 file; T5's timed calls;
+# the full-width fp32 references' sides (SD-2.1's level-0 sites hold 1,024
+# tokens at 256, SDXL base's level-1 sites at 512)
+DRILL_RES, DRILL_STEPS = 512, 1
+READINESS_RES, READINESS_STEPS, READINESS_N, READINESS_PD_LIMIT = 256, 4, 2, 10.0
+# the drill's N(0, 0.02) weights decode to near-flat images whose PD stays
+# ~6e-4 whatever the card did, and the nets move the latents by less than
+# their bf16 rounding. So the final latents, max |dz| / max |z_ref| against
+# the CPU's fp32 run, are held twice: card bf16 (read 0.0049-0.0050), then
+# card fp32 (read 2.4e-7-3.2e-7), where a request without the ControlNet
+# (3.0e-3) or with another prompt (3.1e-5) must land outside the bound
+# (readings on an H100 80GB HBM3 at 700 W, PERF.md)
+READINESS_LATENT_TOL, READINESS_FP32_TOL = 1e-2, 3e-6
+T5_CALLS = 20
+REFERENCE_RES, SDXL_REF_RES = 256, 512
 # the training phase: the JAX bench's train row (cli/bench.py:_bench_train):
 # AdamW lr 1e-5, bf16, x0 / hint / ctx from default_rng(2946901), one step
 # timed apart, then TRAIN_STEPS timed steps each closed by float(loss); at
@@ -1250,24 +1290,13 @@ def expected_request_launches(cfg, config):
 # ------------------------------------------------------ model-level phases
 
 
-def build_seeded(make, seed, dtype=torch.bfloat16):
-    """A model made on the meta device, its weights drawn on the card from a
-    seed (models/cldm.py:init_weights), in `dtype`."""
-    from stablediffusioneo_tpu_torch.models.cldm import init_weights
-
-    with torch.device("meta"):
-        model = make()
-    model.to_empty(device="cuda")
-    init_weights(model, torch.Generator(device="cuda").manual_seed(seed))
-    return model.to(dtype).eval().requires_grad_(False)
-
-
 def build_model(cfg, seed, n_controlnets=1):
     """A ControlLDM of `cfg` with seeded weights on the card, fp32 (the
     runtime casts it to cfg.dtype in place)."""
-    from stablediffusioneo_tpu_torch.models.cldm import ControlLDM
+    from stablediffusioneo_tpu_torch.models.cldm import ControlLDM, seeded
 
-    return build_seeded(lambda: ControlLDM(cfg, n_controlnets), seed, torch.float32)
+    return seeded(lambda: ControlLDM(cfg, n_controlnets),
+                  torch.Generator(device="cuda").manual_seed(seed))
 
 
 def reference_phase(model, cfg):
@@ -1522,9 +1551,12 @@ def main_path(model, cfg, config, tokenizer=stand_in_tokenizer):
 def build_sdxl(seed):
     """SDXL base at full width (2.57 B UNet parameters), its weights drawn on
     the card from a seed, in bf16."""
+    from stablediffusioneo_tpu_torch.models.cldm import seeded
     from stablediffusioneo_tpu_torch.models.sdxl import SDXL
 
-    return build_seeded(lambda: SDXL(family_configs()[1]), seed)
+    model = seeded(lambda: SDXL(family_configs()[1]),
+                   torch.Generator(device="cuda").manual_seed(seed))
+    return model.to(torch.bfloat16)
 
 
 def sdxl_ids(tokenizer):
@@ -2543,10 +2575,11 @@ def inpaint_phase(tokenizer):
     same image in bytes."""
     from stablediffusioneo_tpu_torch.checkpoint import load_inpaint_pipeline
     from stablediffusioneo_tpu_torch.config import sd15_inpaint_pipeline
-    from stablediffusioneo_tpu_torch.models.cldm import LatentDiffusion
+    from stablediffusioneo_tpu_torch.models.cldm import LatentDiffusion, seeded
 
     cfg = sd15_inpaint_pipeline()
-    model = build_seeded(lambda: LatentDiffusion(cfg), 0)
+    model = seeded(lambda: LatentDiffusion(cfg), torch.Generator(device="cuda").manual_seed(0))
+    model = model.to(torch.bfloat16)
     ids = torch.as_tensor(np.asarray(tokenizer([PROMPT, ""])), dtype=torch.long,
                           device="cuda")
     run = captured_path("inpaint 9ch", inpaint_build(model, ids), cfg, RES, STEPS,
@@ -3071,6 +3104,335 @@ def native_phase():
     return {"build_s": build_s, "canny_iou": iou, "resize_max_abs": resize_d, "host_ms": times}
 
 
+# ------------------------------------------- checkpoint tools, T5, the CLIs
+
+
+def drill_phase(directory):
+    """The offline drill (testing/offline_drill.py:run_drill) on the card,
+    every family at full width: files synthesized from the packaged key
+    universes under their real names, manifest verify, strict load through
+    the port's loaders, one inference in bf16, finite uint8. The sd15 file is
+    kept in `directory` for readiness_phase; the other families' files are
+    written to a temporary directory and deleted after each family. Each
+    family's seconds, bytes written, keys verified and attention launches;
+    sd15's request and sdxl's sample+decode (DRILL_RES, DRILL_STEPS) launch
+    #1 and #2 as the plans say (at 256x256 SDXL's attention sites hold 256
+    and 64 tokens, under the kernels' 1,024-query gate, hence DRILL_RES 512).
+    Then a drill file pinned into a copy of the manifest verifies, and with
+    one byte flipped is rejected on its sha256."""
+    from stablediffusioneo_tpu_torch.checkpoint import manifest
+    from stablediffusioneo_tpu_torch.models.sdxl import SDXLConfig
+    from stablediffusioneo_tpu_torch.testing.offline_drill import (
+        ALL_FAMILIES,
+        run_drill,
+        synth_state_dict,
+        write_pth,
+    )
+
+    def log(msg):
+        print(msg, flush=True)
+
+    print(f"drill: {shutil.disk_usage(directory).free} bytes free where the files are "
+          f"written", flush=True)
+    reports = run_drill(ALL_FAMILIES[:1], out_dir=directory, res=DRILL_RES,
+                        steps=DRILL_STEPS, keep_files=True, log=log)
+    with tempfile.TemporaryDirectory() as scratch:
+        reports += run_drill(ALL_FAMILIES[1:], out_dir=scratch, res=DRILL_RES,
+                             steps=DRILL_STEPS, log=log)
+    # sd15's process() is its runtime's first request: each engine runs once
+    # eagerly before its capture (runtime/engine.py:Engine.load), and those
+    # launches count, then the replay's; sdxl's loop runs eagerly, once
+    want = {}
+    for fam, cfg, runs in (("sd15", sd15_config(), 2), ("sdxl", SDXLConfig(), 1)):
+        step, split = expected_launches(cfg, DRILL_RES)
+        want[fam] = {"fused_attention_packed": runs * DRILL_STEPS
+                     * step["fused_attention_packed"], "fused_attention": runs * split}
+    out = {}
+    for r in reports:
+        attn = {k: v for k, v in r["launches"].items() if k.startswith("fused_attention")}
+        print(f"drill {r['family']}: {r['seconds']} s, {r['bytes'] / 1e9:.3f} GB written, "
+              f"{r['keys']} keys verified, attention launches {attn}"
+              + (f" (expected {want[r['family']]})" if r["family"] in want else ""),
+              flush=True)
+        out[r["family"]] = {k: r[k] for k in ("seconds", "bytes", "keys")}
+        out[r["family"]]["launches"] = attn
+    if [r["family"] for r in reports] != list(ALL_FAMILIES):
+        raise AssertionError(f"drill families {[r['family'] for r in reports]}")
+    for fam, launches in want.items():
+        if out[fam]["launches"] != launches or not all(launches.values()):
+            raise AssertionError(f"drill {fam}: launches {out[fam]['launches']}, "
+                                 f"expected {launches}")
+    with tempfile.TemporaryDirectory() as scratch:
+        path = write_pth(synth_state_dict(manifest.load_universe("hed"), seed=3),
+                         os.path.join(scratch, "ControlNetHED.pth"))
+        local = os.path.join(scratch, "manifest.json")
+        shutil.copy(manifest.default_manifest_path(), local)
+        entry = manifest.pin_file(path, manifest_path=local)
+        pinned = manifest.verify_file(path, manifest_path=local)
+        raw = bytearray(open(path, "rb").read())
+        raw[len(raw) // 2] ^= 0xFF
+        with open(path, "wb") as f:
+            f.write(raw)
+        try:
+            manifest.verify_file(path, manifest_path=local)
+            rejected = None
+        except manifest.ManifestError as e:
+            rejected = str(e)
+    print(f"drill: ControlNetHED.pth pinned (sha256 {entry['sha256'][:16]}, "
+          f"{entry['size_bytes']} bytes) verifies {pinned['ok']}; with one byte flipped: "
+          f"{rejected!r}", flush=True)
+    if not (pinned["ok"] and pinned["sha256"] == entry["sha256"] and rejected
+            and "sha256" in rejected):
+        raise AssertionError(f"the tampered file was not rejected on its sha256: {rejected}")
+    return {"families": out, "tampered": rejected.splitlines()[-1].strip()}
+
+
+def sd15_config():
+    from stablediffusioneo_tpu_torch.config import sd15_pipeline
+
+    return sd15_pipeline(dtype="bfloat16")
+
+
+def tokenizer_files(tokenizer, directory):
+    """`tokenizer`'s vocabulary and merges as HF's vocab.json and merges.txt
+    in `directory` (what sdeo-readiness-torch --vocab / --merges take)."""
+    vocab = os.path.join(directory, "vocab.json")
+    merges = os.path.join(directory, "merges.txt")
+    with open(vocab, "w", encoding="utf-8") as f:
+        json.dump(tokenizer.encoder, f)
+    ranked = sorted(tokenizer.bpe_ranks, key=tokenizer.bpe_ranks.get)
+    with open(merges, "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(" ".join(m) for m in ranked) + "\n")
+    return vocab, merges
+
+
+def readiness_phase(tokenizer, ckpt):
+    """sdeo-readiness-torch's flow (cli/readiness.py) on the drill's sd15
+    file with the smoke's BPE vocabulary as vocab.json / merges.txt:
+    --verify-manifest over the three files (each OK), then the parity
+    check: strict accounting, the card's bf16 run through captured engines
+    against the port's fp32 run on the CPU from the same file (plain
+    versions), READINESS_N fixture scenes at READINESS_RES, READINESS_STEPS
+    DDIM steps; each PD and the mean against READINESS_PD_LIMIT, the card's
+    attention launches as the plans say. The PD cannot see a wrong card path
+    on these weights (near-flat images), so each image's final latents are
+    held within READINESS_LATENT_TOL x max |z_ref| of the reference's; then
+    the file loaded on the card in fp32 runs the same requests within
+    READINESS_FP32_TOL x max |z_ref|, and two broken ones (strength 0: no
+    ControlNet residual; another prompt: another text context) must differ
+    by more. Then --dry-run (the tiny seeded flow, its card side on the card)
+    exits 0."""
+    from stablediffusioneo_tpu_torch.cli import readiness
+    from stablediffusioneo_tpu_torch.ops import dispatch
+
+    cfg = sd15_config()
+    with tempfile.TemporaryDirectory() as directory:
+        vocab, merges = tokenizer_files(tokenizer, directory)
+        args = readiness.parse_args(
+            ["--ckpt", ckpt, "--vocab", vocab, "--merges", merges, "--verify-manifest",
+             "--res", str(READINESS_RES), "--steps", str(READINESS_STEPS),
+             "--n", str(READINESS_N), "--pd-limit", str(READINESS_PD_LIMIT)])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            verified = readiness.check_manifest(args)
+        print(buf.getvalue().rstrip(), flush=True)
+        if not (verified and sum(line.startswith("OK ")
+                                 for line in buf.getvalue().splitlines()) == 3):
+            raise AssertionError("readiness --verify-manifest did not pass the three files")
+        before = dispatch.counts()
+        t0 = time.perf_counter()
+        result = readiness.parity(args)
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in dispatch.counts_since(before)[0].items()
+                    if k.startswith("fused_attention")}
+    # the card's requests: the first one's engines run once eagerly before
+    # their capture, then every request replays (READINESS_N + 1 runs)
+    step, split = expected_launches(cfg, READINESS_RES)
+    runs = READINESS_N + 1
+    want = {"fused_attention_packed": runs * READINESS_STEPS * step["fused_attention_packed"],
+            "fused_attention": runs * split}
+    print(f"readiness: card bf16 vs CPU fp32 PDs {[round(p, 4) for p in result['pds']]}, "
+          f"mean {result['mean_pd']:.4f} (limit {READINESS_PD_LIMIT}); card request ms "
+          f"{[round(t, 1) for t in result['times_ms']]}; {result['consumed']} keys consumed, "
+          f"{result['ignored']} known-unused; {seconds:.1f} s with the CPU reference; card "
+          f"attention launches {launches} (expected {want})", flush=True)
+    if not (result["pass"] and launches == want and all(want.values())):
+        raise AssertionError(f"readiness failed: {result}, launches {launches}")
+    del result["pipeline"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same flow with the card in fp32 (TF32 off): on these weights the
+    # nets move the latents by less than their bf16 rounding, so only here
+    # can a broken request be told apart from the reference
+    pipe = readiness._pipeline(ckpt, dataclasses.replace(cfg, dtype="float32"), tokenizer,
+                               "cuda")[1]
+    fp32 = {}
+    for name, prompt, strength in (("card fp32", readiness.PROMPT, 1.0),
+                                   ("no ControlNet", readiness.PROMPT, 0.0),
+                                   ("another prompt", "a red car on a street", 1.0)):
+        errs = []
+        for img, z_ref in zip(result["images"], result["ref_latents"]):
+            pipe.process(img, prompt, **dict(result["kwargs"], strength=strength))
+            z = pipe.last_latents.float().cpu()
+            errs.append(float((z - z_ref).abs().max() / z_ref.abs().max()))
+        fp32[name] = errs
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"readiness latents, max|dz|/max|z_ref| against the CPU's fp32 run: card bf16 "
+          f"{[f'{e:.3g}' for e in result['latent_errs']]} (bound {READINESS_LATENT_TOL}); "
+          f"card fp32 {[f'{e:.3g}' for e in fp32['card fp32']]} (bound "
+          f"{READINESS_FP32_TOL}); broken fp32 requests (each must exceed "
+          f"{READINESS_FP32_TOL}): no ControlNet "
+          f"{[f'{e:.3g}' for e in fp32['no ControlNet']]}, another prompt "
+          f"{[f'{e:.3g}' for e in fp32['another prompt']]}", flush=True)
+    if not (max(result["latent_errs"]) <= READINESS_LATENT_TOL
+            and max(fp32["card fp32"]) <= READINESS_FP32_TOL
+            and min(fp32["no ControlNet"] + fp32["another prompt"]) > READINESS_FP32_TOL):
+        raise AssertionError(f"readiness latents: bf16 {result['latent_errs']}, fp32 {fp32}")
+    dry = readiness.main(["--dry-run"])
+    print(f"readiness --dry-run: exit code {dry}", flush=True)
+    if dry != 0:
+        raise AssertionError("readiness --dry-run failed")
+    return {"pds": result["pds"], "mean_pd": result["mean_pd"],
+            "latent_errs": result["latent_errs"], "fp32_latent_errs": fp32,
+            "request_ms": result["times_ms"], "seconds": seconds, "launches": launches}
+
+
+def t5_phase(clip):
+    """T5 v1.1-large at full width (24 layers, d 1024; models/t5.py), seeded
+    on the card: fp32 on the card against fp32 on the CPU (TF32 off), within
+    REF_TOL x max |ref|, without and with a padding mask; then in bf16 the
+    eager p50 of T5_CALLS calls (CUDA events) and clip_t5_encode's two
+    outputs with the loaded SD-1.5 CLIP tower. T5 runs no kernel (its
+    attention takes an additive bias, as in the JAX package's plain
+    einsums)."""
+    from stablediffusioneo_tpu_torch.models.t5 import T5Config, clip_t5_encode, init_t5, t5_encode
+    from stablediffusioneo_tpu_torch.ops import dispatch
+
+    cfg = T5Config()
+    t5 = init_t5(torch.Generator(device="cuda").manual_seed(0), cfg)
+    cpu = copy.deepcopy(t5).cpu()
+    g = torch.Generator().manual_seed(5)
+    ids = torch.randint(1, cfg.vocab_size, (2, cfg.max_length), generator=g)
+    mask = torch.ones_like(ids)
+    mask[0, 40:] = 0
+    ids[0, 40:] = 0
+    errs = {}
+    before = dispatch.counts()
+    with torch.no_grad():
+        for label, m in (("no mask", None), ("padding mask", mask)):
+            card = t5_encode(t5, ids.cuda(), None if m is None else m.cuda()).cpu()
+            ref = t5_encode(cpu, ids, m)
+            err, scale = (card - ref).abs().max().item(), ref.abs().max().item()
+            errs[label] = err / scale
+            print(f"t5 ({label}): T5 v1.1-large fp32 at {cfg.max_length} tokens, card vs CPU "
+                  f"max|d| {err:.3e} (max|ref| {scale:.3e})", flush=True)
+            if not (torch.isfinite(card).all() and err <= REF_TOL * scale):
+                raise AssertionError(f"t5 ({label}): {err} against {scale}")
+        del cpu
+        t5 = t5.to(torch.bfloat16)
+        ids_c, mask_c = ids.cuda(), mask.cuda()
+        ms = time_ms(lambda: t5_encode(t5, ids_c, mask_c), warmup=3, reps=T5_CALLS)
+        clip_ids = torch.randint(0, 49408, (2, 77), generator=g).cuda()
+        zs = clip_t5_encode(clip, t5, clip_ids, ids_c, mask_c)
+    shapes = [tuple(z.shape) for z in zs]
+    launches = {k: v for k, v in dispatch.counts_since(before)[0].items() if v}
+    print(f"t5: bf16 (2, {cfg.max_length}) with a padding mask, eager p50 {ms:.3f} ms over "
+          f"{T5_CALLS} calls; clip_t5_encode shapes {shapes}; kernel launches {launches}",
+          flush=True)
+    if shapes != [(2, 77, 768), (2, 77, cfg.d_model)] or not all(
+            torch.isfinite(z).all() for z in zs):
+        raise AssertionError(f"clip_t5_encode: {shapes}")
+    del t5
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_rel_err": errs, "bf16_p50_ms": ms}
+
+
+def smoke_cli_phase():
+    """sdeo-smoke-torch (cli/smoke.py:main) as a user runs it: the CLIP
+    engine of a runtime over seeded SD-1.5 weights captured on the card;
+    its output (1, 77, 768) bf16 and finite, the engine compiled."""
+    from stablediffusioneo_tpu_torch.cli import smoke
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        code = smoke.main([])
+    seconds = time.perf_counter() - t0
+    text = buf.getvalue().rstrip()
+    print(f"sdeo-smoke-torch ({seconds:.2f} s, exit code {code}):\n{text}", flush=True)
+    mean = re.search(r"mean\|x\|= (\S+)", text)
+    if not (code == 0 and "clip engine OK: (1, 77, 768) torch.bfloat16" in text
+            and "'compiled': True" in text and mean and math.isfinite(float(mean.group(1)))):
+        raise AssertionError("sdeo-smoke-torch did not bring the CLIP engine up")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"seconds": seconds, "mean_abs": float(mean.group(1))}
+
+
+def unet_reference(label, unet, cfg, control=None, res=REFERENCE_RES):
+    """One full-width fp32 evaluation at res x res of a family's UNet (and
+    its ControlNet), card (kernel entries where the gates send them) against
+    the same weights on the CPU (plain versions), TF32 off: within REF_TOL x
+    max |ref|, the card's kernel launches as the plans say."""
+    from stablediffusioneo_tpu_torch.models.controlnet import controlled_unet_apply
+    from stablediffusioneo_tpu_torch.ops import dispatch
+
+    ucfg = cfg.unet
+    lat = res // cfg.vae.downsample_factor
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, lat, lat, 4), generator=g)
+    ctx = torch.randn((2, text_length(cfg), ucfg.context_dim), generator=g)
+    t = torch.tensor([801.0, 801.0])
+    y = torch.randn((2, ucfg.adm_in_channels), generator=g) if ucfg.adm_in_channels else None
+    hint = (torch.rand((2, res, res, 3), generator=g) > 0.8).float() if control else None
+    nets = {"cuda": (unet, control),
+            "cpu": tuple(None if m is None else copy.deepcopy(m).cpu() for m in (unet, control))}
+    outs, seconds = {}, {}
+    for dev, (u, c) in nets.items():
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = controlled_unet_apply(
+                u, c, x.to(dev), None if hint is None else hint.to(dev), t.to(dev),
+                ctx.to(dev), control_scales=None if c is None else [1.0] * 13,
+                y=None if y is None else y.to(dev))
+        outs[dev] = out.cpu()
+        seconds[dev] = time.perf_counter() - t0
+        if dev == "cuda":
+            launches = {k: v for k, v in dispatch.launches.items() if v}
+    del nets
+    err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    ref_scale = outs["cpu"].abs().max().item()
+    want = {k: v for k, v in expected_launches(cfg, res, torch.float32)[0].items() if v}
+    print(f"reference ({label}): full-width {'controlled ' if control else ''}UNet "
+          f"{res}x{res} fp32, card vs CPU max|d| {err:.3e} (max|ref| {ref_scale:.3e}); card "
+          f"{seconds['cuda']:.2f} s, CPU {seconds['cpu']:.2f} s; kernel launches {launches} "
+          f"(expected {want})", flush=True)
+    if not (torch.isfinite(outs["cuda"]).all() and err <= REF_TOL * ref_scale
+            and launches == want):
+        raise AssertionError(f"{label} reference failed: {err}, {launches}")
+    return {"max_abs_err": err, "max_abs_ref": ref_scale, "launches": launches}
+
+
+def sdxl_reference():
+    """The SDXL base UNet (SDXLConfig(), seeded on the card in fp32, built
+    apart: the smoke's SDXL model is drawn in bf16) through unet_reference
+    at SDXL_REF_RES (1,024-token level-1 sites: the packed kernel's fp32
+    variant at head dim 64)."""
+    from stablediffusioneo_tpu_torch.models.cldm import init_unet
+
+    cfg = family_configs()[1]
+    unet = init_unet(torch.Generator(device="cuda").manual_seed(0), cfg.unet)
+    out = unet_reference("sdxl base", unet, cfg, res=SDXL_REF_RES)
+    del unet
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # ----------------------------------------------------------------- depth2img
 
 
@@ -3132,10 +3494,11 @@ def depth2img_phase(tokenizer):
     bytes."""
     from stablediffusioneo_tpu_torch.checkpoint import load_depth2img_pipeline
     from stablediffusioneo_tpu_torch.config import sd2_depth_pipeline
-    from stablediffusioneo_tpu_torch.models.cldm import Depth2ImgModel
+    from stablediffusioneo_tpu_torch.models.cldm import Depth2ImgModel, seeded
 
     cfg = sd2_depth_pipeline()
-    model = build_seeded(lambda: Depth2ImgModel(cfg), 0)
+    model = seeded(lambda: Depth2ImgModel(cfg), torch.Generator(device="cuda").manual_seed(0))
+    model = model.to(torch.bfloat16)
     ids = torch.as_tensor(np.asarray(tokenizer([PROMPT, ""])), dtype=torch.long,
                           device="cuda")
     sd = dict(model.state_dict())
@@ -3274,10 +3637,11 @@ def refiner_phase(tokenizer, z_base):
     load_sdxl_refiner_pipeline: every key consumed or named, none orphaned,
     the same image in bytes."""
     from stablediffusioneo_tpu_torch.checkpoint import load_sdxl_refiner_pipeline
+    from stablediffusioneo_tpu_torch.models.cldm import seeded
     from stablediffusioneo_tpu_torch.models.sdxl import SDXLRefiner, sdxl_tokenize
 
     cfg = refiner_config()
-    model = build_seeded(lambda: SDXLRefiner(cfg), 0, torch.float32)
+    model = seeded(lambda: SDXLRefiner(cfg), torch.Generator(device="cuda").manual_seed(0))
     reference = refiner_reference(model)
     model = model.to(torch.bfloat16)
     gc.collect()
@@ -3864,6 +4228,19 @@ def main():
         print(f"yolo phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     native = native_phase()
     print(f"native phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as directory:
+        drill = drill_phase(directory)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"drill phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        ready = readiness_phase(tokenizer, os.path.join(directory, "control_sd15_canny.pth"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"readiness phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t5 = t5_phase(loaded.clip)
+    print(f"t5 phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    smoke_cli = smoke_cli_phase()
+    print(f"sdeo-smoke-torch phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     lora_pipe, lora = lora_phase(loaded, cfg, tokenizer)
     print(f"lora phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     inversion = textual_inversion_phase(lora_pipe, tokenizer)
@@ -3880,11 +4257,14 @@ def main():
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     sd21_cfg, _ = family_configs()
     model = build_model(sd21_cfg, seed=0)
+    references = {"sd21": unet_reference("sd21", model.unet, sd21_cfg, model.control_model)}
     runs["sd21 768"] = main_path(model, sd21_cfg, "sd21 768")
     del model
     gc.collect()
     torch.cuda.empty_cache()
     print(f"main path (sd21 768) done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    references["sdxl base"] = sdxl_reference()
+    print(f"sdxl base reference done at {time.perf_counter() - t_start:.1f} s", flush=True)
     model = build_sdxl(seed=0)
     for config in ("sdxl 1024", "sdxl 1024, fused norms"):
         runs[config] = sdxl_path(model, config, tokenizer)
@@ -3968,6 +4348,8 @@ def main():
                       "annotators": annotators, "annotator_reference": annotator_ref,
                       "mlsd": detectors["mlsd"], "uniformer": detectors["uniformer"],
                       "yolo": yolo, "scoring": scoring, "native": native,
+                      "drill": drill, "readiness": ready, "t5": t5, "smoke_cli": smoke_cli,
+                      "unet_references": references,
                       "sampler_variants_request_s": variants_s,
                       "serving": serving, "multi_controlnet": multi,
                       "attention_grads": attention_grads, "training": training,

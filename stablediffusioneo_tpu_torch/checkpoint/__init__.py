@@ -12,6 +12,11 @@ port's model holding its weights.
                             9-channel UNet) -> LatentDiffusion
   load_depth2img_pipeline   512-depth-ema (a 5-channel UNet and its MiDaS
                             DPT-hybrid tower) -> Depth2ImgModel
+One network of a file loads with `convert_unet` / `convert_controlnet` /
+`convert_vae` / `convert_clip` (the keys under its prefix, strictly, into
+its module); a diffusers-layout network's state dict comes out of
+`convert_{unet,vae,clip,clip_g}_diffusers` under the sgm / OpenCLIP names
+those take (checkpoint/diffusers.py, prefix="").
 Textual-inversion concepts load with `load_concept` and go into a tower
 with `add_concepts` / into a live runtime with `apply_textual_inversion`
 (checkpoint/textual_inversion.py).
@@ -35,6 +40,12 @@ from stablediffusioneo_tpu_torch.checkpoint.accounting import (
     copy_checkpoint_,
     tree_ignores,
 )
+from stablediffusioneo_tpu_torch.checkpoint.diffusers import (
+    convert_clip_diffusers,
+    convert_clip_g_diffusers,
+    convert_unet_diffusers,
+    convert_vae_diffusers,
+)
 from stablediffusioneo_tpu_torch.checkpoint.textual_inversion import (
     add_concepts,
     apply_textual_inversion,
@@ -50,6 +61,14 @@ from stablediffusioneo_tpu_torch.config import (
 
 __all__ = [
     "load_torch_state_dict",
+    "convert_unet",
+    "convert_controlnet",
+    "convert_vae",
+    "convert_clip",
+    "convert_unet_diffusers",
+    "convert_vae_diffusers",
+    "convert_clip_diffusers",
+    "convert_clip_g_diffusers",
     "load_controlnet_pipeline",
     "load_sdxl_pipeline",
     "load_sdxl_refiner_pipeline",
@@ -88,16 +107,72 @@ def _load(path: str, build: Callable[[Mapping], torch.nn.Module],
     missing keys and wrong shapes raise either way. The accounting is kept
     as `model.load_report`."""
     sd = load_torch_state_dict(path)
+    return _strict_load(lambda: build(sd), sd, tree_ignores(trees), device, strict, dtype,
+                        tag)
+
+
+def _strict_load(make: Callable[[], torch.nn.Module], sd: Mapping, ignores: Sequence[str],
+                 device, strict: bool, dtype: Optional[torch.dtype], tag: str):
+    """make() built on the meta device, every key of `sd` accounted for
+    (`ignores`: the documented leftovers), then materialised on `device` in
+    `dtype` (default fp32) and filled from `sd`; the report kept as
+    `model.load_report`."""
     with torch.device("meta"):
-        model = build(sd)
+        model = make()
         if dtype is not None:
             model.to(dtype)
-    report = account_checkpoint(model, sd, tree_ignores(trees)).assert_complete(
-        tag, orphans=strict)
+    report = account_checkpoint(model, sd, ignores).assert_complete(tag, orphans=strict)
     model.to_empty(device=device)
     copy_checkpoint_(model, sd)
     model.load_report = report
     return model.eval().requires_grad_(False)
+
+
+def _convert(sd: Mapping, prefix: str, make: Callable[[], torch.nn.Module],
+             ignores: Sequence[str], device, dtype: Optional[torch.dtype], tag: str):
+    """The keys of `sd` under `prefix`, stripped of it, loaded strictly into
+    make(): any other key under the prefix that `ignores` does not name, a
+    missing key or a wrong shape raises ConversionAccountingError."""
+    sub = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    return _strict_load(make, sub, ignores, device, True, dtype, tag)
+
+
+def convert_unet(sd: Mapping, cfg, prefix: str = "model.diffusion_model.", device="cuda",
+                 dtype: Optional[torch.dtype] = None):
+    """The UNetModel of `cfg` (a UNetConfig) holding the keys of `sd` under
+    `prefix` (prefix="" for a network's own state dict, e.g. the output of
+    convert_unet_diffusers)."""
+    from stablediffusioneo_tpu_torch.models.unet import UNetModel
+
+    return _convert(sd, prefix, lambda: UNetModel(cfg), (), device, dtype, "unet")
+
+
+def convert_controlnet(sd: Mapping, cfg, prefix: str = "control_model.", device="cuda",
+                       dtype: Optional[torch.dtype] = None):
+    """The ControlNet of `cfg` (a ControlNetConfig) from the keys under
+    `prefix`."""
+    from stablediffusioneo_tpu_torch.models.controlnet import ControlNet
+
+    return _convert(sd, prefix, lambda: ControlNet(cfg), (), device, dtype, "controlnet")
+
+
+def convert_vae(sd: Mapping, cfg, prefix: str = "first_stage_model.", device="cuda",
+                dtype: Optional[torch.dtype] = None):
+    """The AutoencoderKL of `cfg` (a VAEConfig) from the keys under
+    `prefix`."""
+    from stablediffusioneo_tpu_torch.models.vae import AutoencoderKL
+
+    return _convert(sd, prefix, lambda: AutoencoderKL(cfg), (), device, dtype, "vae")
+
+
+def convert_clip(sd: Mapping, cfg, prefix: str = "cond_stage_model.transformer.",
+                 device="cuda", dtype: Optional[torch.dtype] = None):
+    """The HF-named CLIPTextModel of `cfg` (a CLIPTextConfig) from the keys
+    under `prefix` (its position_ids leftover named by HF_CLIP_IGNORES)."""
+    from stablediffusioneo_tpu_torch.models.clip import CLIPTextModel
+
+    return _convert(sd, prefix, lambda: CLIPTextModel(cfg), HF_CLIP_IGNORES, device, dtype,
+                    "clip")
 
 
 def load_controlnet_pipeline(path: str, cfg: Optional[PipelineConfig] = None,

@@ -542,3 +542,32 @@ def folded_state_dict_from_jax(kind: str, params) -> StateDict:
                     block(f"{m}.m.{i}.cv1", b["cv1"])
                     block(f"{m}.m.{i}.cv2", b["cv2"])
     return sd
+
+
+# -------------------------------------------------------------------- T5
+
+
+def t5_state_dict_from_jax(params) -> StateDict:
+    """The weight carry of a JAX T5 tree (init_t5 / convert_t5's) into HF
+    T5EncoderModel's names, the port's models/t5.py:T5Encoder's, fp32:
+    token_embedding -> shared.weight, rel_bias -> block 0's
+    relative_attention_bias, the (in, out) linears stored (out, in), the
+    RMSNorm gains as layer_norm weights."""
+    sd: StateDict = {}
+
+    def put(name, a, layout="raw"):
+        sd[name] = torch.from_numpy(np.array(port_layout(np.asarray(a, np.float32), layout)))
+
+    put("shared.weight", params["token_embedding"])
+    put("encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight",
+        params["rel_bias"])
+    for i, p in enumerate(params["blocks"]):
+        base = f"encoder.block.{i}.layer"
+        for name in ("q", "k", "v", "o"):
+            put(f"{base}.0.SelfAttention.{name}.weight", p[name]["w"], "linear")
+        for name in ("wi_0", "wi_1", "wo"):
+            put(f"{base}.1.DenseReluDense.{name}.weight", p[name]["w"], "linear")
+        put(f"{base}.0.layer_norm.weight", p["norm1"]["g"])
+        put(f"{base}.1.layer_norm.weight", p["norm2"]["g"])
+    put("encoder.final_layer_norm.weight", params["final_norm"]["g"])
+    return sd

@@ -83,7 +83,9 @@ def main(argv=None):
     else:
         from stablediffusioneo_tpu_torch.testing.fixtures import make_scene
 
-        images = [make_scene(1000 + i, res) for i in range(args.n)]
+        # drawn at --res, as the JAX CLI draws them: process() resizes them
+        # to the tiny path's clamped resolution
+        images = [make_scene(1000 + i, args.res) for i in range(args.n)]
     kwargs = dict(prompt="a bird", ddim_steps=steps, image_resolution=res, seed=args.seed)
     if args.golden_dir:
         goldens = [cv2.imread(os.path.join(args.golden_dir, f"bird_{i}.jpg"))[:, :, ::-1]

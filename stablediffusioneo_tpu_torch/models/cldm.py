@@ -26,6 +26,7 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
+from stablediffusioneo_tpu_torch.annotators._dtype import default_device
 from stablediffusioneo_tpu_torch.checkpoint.accounting import (
     account_checkpoint,
     copy_checkpoint_,
@@ -183,3 +184,38 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     left = [n for n, p in model.named_parameters() if id(p) not in done]
     if left:
         raise RuntimeError(f"init_weights left parameters unset: {left[:8]}")
+
+
+def seeded(make, generator: torch.Generator, device=None):
+    """make() built on the meta device, filled by init_weights from
+    `generator` on the generator's device (one seed gives the same weights
+    wherever they go), fp32, for inference, on `device` (the card unless the
+    caller names another). With a generator on `device` a full-width
+    network never passes through the host."""
+    with torch.device("meta"):
+        model = make()
+    model.to_empty(device=generator.device)
+    init_weights(model, generator)
+    return model.to(default_device(device)).eval().requires_grad_(False)
+
+
+def init_unet(generator: torch.Generator, cfg, device=None) -> UNetModel:
+    """A UNetModel of `cfg` with seeded weights (the JAX init_unet's role)."""
+    return seeded(lambda: UNetModel(cfg), generator, device)
+
+
+def init_controlnet(generator: torch.Generator, cfg, device=None) -> ControlNet:
+    return seeded(lambda: ControlNet(cfg), generator, device)
+
+
+def init_vae(generator: torch.Generator, cfg, device=None) -> AutoencoderKL:
+    return seeded(lambda: AutoencoderKL(cfg), generator, device)
+
+
+def init_clip_text(generator: torch.Generator, cfg, device=None) -> nn.Module:
+    """The text tower of `cfg`: OpenCLIP's (OpenCLIPTextModel) for a
+    projected tower or the SD-2.x "penultimate" layout, else HF's
+    CLIPTextModel."""
+    openclip = bool(cfg.projection_dim) or cfg.layer == "penultimate"
+    return seeded(lambda: (OpenCLIPTextModel if openclip else CLIPTextModel)(cfg),
+                   generator, device)

@@ -478,3 +478,12 @@ def unet_forward(unet: UNetModel, x, timesteps, context, control=None,
                     ctx_kv, tome)
     return unet_out(unet, h)
 
+
+def unet_apply(unet: UNetModel, x, timesteps, context, control=None,
+               only_mid_control: bool = False, ctx_kv=None, y=None):
+    """The JAX unet_apply's interface: NHWC x (N, h, w, C) and NHWC control
+    taps -> NHWC output (unet_forward on NCHW tensors)."""
+    if control is not None:
+        control = [nchw(c) for c in control]
+    return nhwc(unet_forward(unet, nchw(x), timesteps, context, control,
+                             only_mid_control, ctx_kv=ctx_kv, y=y))

@@ -119,10 +119,17 @@ def test_reader_round_trip(sd, tmp_path, form):
 
 
 def test_safetensors_reader_refuses_other_dtypes(tmp_path):
+    """The reader takes the float dtypes and the integer ones of counters
+    and index rows (I64 since the offline drill's files carry them); a dtype
+    outside its table (fp8) raises naming it."""
     safetensors_torch = pytest.importorskip("safetensors.torch")
     path = tmp_path / "ids.safetensors"
     safetensors_torch.save_file({"ids": torch.arange(4)}, str(path))
-    with pytest.raises(TypeError, match="I64"):
+    back = load_torch_state_dict(str(path))
+    assert back["ids"].dtype == torch.int64 and torch.equal(back["ids"], torch.arange(4))
+    path = tmp_path / "fp8.safetensors"
+    safetensors_torch.save_file({"w": torch.zeros(4).to(torch.float8_e4m3fn)}, str(path))
+    with pytest.raises(TypeError, match="F8_E4M3"):
         load_torch_state_dict(str(path))
 
 

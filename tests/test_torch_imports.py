@@ -97,9 +97,18 @@ def test_the_walk_covers_the_port():
                  "stablediffusioneo_tpu_torch/yolo/__init__.py",
                  "stablediffusioneo_tpu_torch/yolo/model.py",
                  "stablediffusioneo_tpu_torch/yolo/pipeline.py",
-                 "stablediffusioneo_tpu_torch/testing/fixtures.py"):
+                 "stablediffusioneo_tpu_torch/testing/fixtures.py",
+                 "stablediffusioneo_tpu_torch/checkpoint/manifest.py",
+                 "stablediffusioneo_tpu_torch/checkpoint/diffusers.py",
+                 "stablediffusioneo_tpu_torch/checkpoint/store.py",
+                 "stablediffusioneo_tpu_torch/testing/offline_drill.py",
+                 "stablediffusioneo_tpu_torch/cli/readiness.py",
+                 "stablediffusioneo_tpu_torch/cli/smoke.py",
+                 "stablediffusioneo_tpu_torch/models/t5.py",
+                 "stablediffusioneo_tpu_torch/utils/debug.py",
+                 "stablediffusioneo_tpu_torch/utils/misc.py"):
         assert must in names
-    assert len(names) >= 72
+    assert len(names) >= 81
 
 
 # numpy-only functions of the JAX package the port keeps its own copy of,
@@ -173,6 +182,16 @@ SOURCE_COPIES = [
 ] + [
     ("yolo.pipeline", "yolo.pipeline", name)
     for name in ("PreProcessor", "iou_matrix", "nms", "PostProcessor", "draw_boxes")
+] + [
+    ("testing.offline_drill", "testing.offline_drill", "synth_state_dict"),
+    ("models.t5", "models.t5", "_rel_pos_buckets"),
+    ("utils.misc", "utils.misc", "log_txt_as_img"),
+    ("checkpoint.diffusers", "checkpoint.diffusers", "_vae_pairs"),
+    ("checkpoint.diffusers", "checkpoint.diffusers", "_expand"),
+] + [
+    ("checkpoint.manifest", "checkpoint.manifest", name)
+    for name in ("default_manifest_path", "sha256_file", "key_universe_digest", "load_manifest",
+                 "load_universe", "_shape_str", "_match_entry", "verify_file", "pin_file")
 ] + [
     ("annotators.openpose", "annotators.openpose", name)
     for name in ("_stage1_spec", "_stageN_spec", "_hand_stage1", "_hand_stageN",
@@ -299,6 +318,131 @@ def test_score_cli_runs_with_both_packages_blocked():
 def test_score_console_script_is_registered():
     text = (REPO / "pyproject.toml").read_text()
     assert 'sdeo-score-torch = "stablediffusioneo_tpu_torch.cli.score:main"' in text
+
+
+@pytest.mark.parametrize("script", ["readiness", "smoke"])
+def test_checkpoint_console_scripts_are_registered(script):
+    text = (REPO / "pyproject.toml").read_text()
+    assert f'sdeo-{script}-torch = "stablediffusioneo_tpu_torch.cli.{script}:main"' in text
+
+
+def test_manifest_is_package_data():
+    text = (REPO / "pyproject.toml").read_text()
+    assert ('"stablediffusioneo_tpu_torch.checkpoint" = ["weights_manifest.json", '
+            '"universes/*.txt.gz"]') in text
+
+
+CHECKPOINT_DATA = ["weights_manifest.json"] + sorted(
+    f"universes/{p.name}"
+    for p in (REPO / "stablediffusioneo_tpu/checkpoint/universes").glob("*.txt.gz"))
+
+
+@pytest.mark.parametrize("name", CHECKPOINT_DATA)
+def test_manifest_data_is_the_jax_packages(name):
+    """The port's packaged manifest and key universes are the JAX package's
+    files byte for byte (nine universes)."""
+    port = REPO / "stablediffusioneo_tpu_torch/checkpoint" / name
+    ref = REPO / "stablediffusioneo_tpu/checkpoint" / name
+    assert port.read_bytes() == ref.read_bytes()
+    assert len(CHECKPOINT_DATA) == 10
+    assert sorted(p.name for p in (REPO / "stablediffusioneo_tpu_torch/checkpoint/universes")
+                  .iterdir()) == [n.split("/")[1] for n in CHECKPOINT_DATA[1:]]
+
+
+@pytest.mark.parametrize("package", ["models", "checkpoint", "utils"])
+def test_exports_cover_the_jax_packages(package):
+    import importlib
+
+    port = importlib.import_module(f"stablediffusioneo_tpu_torch.{package}")
+    ref = importlib.import_module(f"stablediffusioneo_tpu.{package}")
+    assert set(ref.__all__) <= set(port.__all__)
+    assert all(hasattr(port, name) for name in port.__all__)
+
+
+@pytest.mark.parametrize("mode", ["tiny", "fixtures"])
+def test_score_cli_hands_process_the_jax_clis_images(tmp_path, monkeypatch, mode):
+    """Both score CLIs with process() recorded (the networks stubbed out):
+    the port's hands process() the JAX CLI's fixture images, in size and in
+    bytes: without --ckpt the scenes drawn at --res (256), resized by
+    process() to the tiny path's 64; with --fixtures the files read."""
+    import cv2
+
+    import stablediffusioneo_tpu.models as jax_models
+    import stablediffusioneo_tpu.pipeline.canny2image as jax_c2i
+    import stablediffusioneo_tpu_torch.pipeline.canny2image as port_c2i
+    from stablediffusioneo_tpu.cli import score as jax_score
+    from stablediffusioneo_tpu.testing.fixtures import make_scene
+    from stablediffusioneo_tpu_torch.cli import score as port_score
+
+    seen = {"jax": [], "port": []}
+
+    def fake(key):
+        class Pipe:
+            def __init__(self, *a, **kw):
+                pass
+
+            def process(self, img, prompt=None, num_samples=1, image_resolution=256, **kw):
+                seen[key].append((img.copy(), image_resolution))
+                out = np.zeros((image_resolution, image_resolution, 3), np.uint8)
+                return [out, out]
+
+        return Pipe
+
+    monkeypatch.setattr(jax_c2i, "Canny2ImagePipeline", fake("jax"))
+    monkeypatch.setattr(port_c2i, "Canny2ImagePipeline", fake("port"))
+    for name in ("init_unet", "init_controlnet", "init_vae", "init_clip_text"):
+        monkeypatch.setattr(jax_models, name, lambda *a, **kw: {})
+    argv = ["--n", "2"]
+    if mode == "fixtures":
+        for i in range(2):
+            cv2.imwrite(str(tmp_path / f"bird_{i}.jpg"), make_scene(2000 + i, 200))
+        argv += ["--fixtures", str(tmp_path)]
+    monkeypatch.setattr(sys, "argv", ["sdeo-score"] + argv)
+    jax_score.main()
+    port_score.main(argv + ["--cpu"])
+    assert len(seen["port"]) == len(seen["jax"]) == 4  # goldens pass, then the scored pass
+    side = 200 if mode == "fixtures" else 256
+    for (a, res_a), (b, res_b) in zip(seen["port"], seen["jax"]):
+        assert a.shape == b.shape == (side, side, 3) and res_a == res_b == 64
+        assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("args", [["readiness", "--dry-run", "--cpu"],
+                                  ["smoke", "--tiny", "--cpu"]], ids=["readiness", "smoke"])
+def test_checkpoint_clis_run_with_both_packages_blocked(args):
+    """With `stablediffusioneo_tpu`, `jax`, `regex` and `safetensors`
+    blocked, sdeo-readiness-torch --dry-run --cpu passes and
+    sdeo-smoke-torch --tiny --cpu brings the CLIP engine up; the manifest,
+    diffusers, store, drill and T5 modules import."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "stablediffusioneo_tpu", "regex", "safetensors"):
+            sys.modules[name] = None
+        import torch
+        torch.set_num_threads(1)
+        import stablediffusioneo_tpu_torch.checkpoint.manifest
+        import stablediffusioneo_tpu_torch.checkpoint.diffusers
+        import stablediffusioneo_tpu_torch.checkpoint.store
+        import stablediffusioneo_tpu_torch.testing.offline_drill
+        import stablediffusioneo_tpu_torch.models.t5
+        import stablediffusioneo_tpu_torch.utils
+        from stablediffusioneo_tpu_torch.cli import {args[0]} as cli
+        assert cli.main({args[1:]!r}) == 0
+        loaded = [m for m in sys.modules if sys.modules[m] is not None
+                  and m.split(".")[0] in ("jax", "stablediffusioneo_tpu", "regex",
+                                          "safetensors")]
+        assert not loaded, loaded
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(REPO), timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("OK")
+    if args[0] == "readiness":
+        assert "READINESS: PASS" in res.stdout
+    else:
+        assert "clip engine OK" in res.stdout
 
 
 def test_tiny_process_runs_with_both_packages_blocked():

@@ -201,9 +201,11 @@ def with_batch_norms(sd, rng):
 
 def universe_sd(kind, seed=0):
     """{name: array} with exactly the names and shapes of the universe file
-    of `kind` (stablediffusioneo_tpu/checkpoint/universes/): float32, a
-    BatchNorm's num_batches_tracked (a scalar) int64."""
-    from stablediffusioneo_tpu.checkpoint.manifest import load_universe
+    of `kind` (the port's packaged copy, stablediffusioneo_tpu_torch/
+    checkpoint/universes/, held to the JAX package's byte for byte by
+    tests/test_torch_imports.py): float32, a BatchNorm's num_batches_tracked
+    (a scalar) int64."""
+    from stablediffusioneo_tpu_torch.checkpoint.manifest import load_universe
 
     rng = np.random.default_rng(seed)
     sd = {k: draw_upstream(rng, k, tuple(int(d) for d in s.split("x") if d))
