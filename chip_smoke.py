@@ -199,6 +199,36 @@ source, all started together), then:
      weights). unet_reference holds SD-2.1's UNet + ControlNet
      (256x256, before its main path) and SDXL base's UNet (512x512, drawn
      apart in fp32) to the CPU in fp32 within REF_TOL.
+  18. the parallel layer (parallel_phase, last; parallel/mesh.py,
+     parallel/pipeline.py): ranks spawned on the one card. Two over gloo
+     (NCCL takes one rank a device; the collectives staged through pinned
+     host memory, engines eager), each path's launch counts from 0 and each
+     rank's launches, by kernel and by attention call (batch, heads, Tq, S,
+     head dim), held to the plan (mesh_plan): (a) SD-1.5 + ControlNet at
+     full width through process(): fp32 at PARALLEL_RES, PARALLEL_STEPS
+     steps at dp=2 (batch 2), tp=2 and sp=2 (batch 1), and at tp=2 and sp=2
+     with the fused norms on (the one-pass GroupNorm under tp, the stats and
+     apply pair with the partial sums all-reduced under sp, LayerNorm on a
+     rank's tokens), the latents within PARALLEL_TOL of the same request
+     unsharded on the card, and each fault of PARALLEL_FAULTS (a skipped
+     row-parallel all-reduce, zeroed halo rows) planted in a rank's model
+     outside it; then bf16 at 512x512, 20 steps, fused norms, at tp=2 and
+     sp=2 against the unsharded image (the share of pixels off by more than
+     1 at most PARALLEL_PIXEL_SLACK x that of a 1.01-scaled-x_T control);
+     (b) CLIP ViT-L (12 layers) and T5 v1.1-large at pp=2 against the
+     sequential towers within PP_TOL, fp32, (2, 77), T5 with and without a
+     padding mask; (c) one full-width fp32 ControlNet train step at dp=2,
+     tp=2 and dp=2 with FSDP against the single-process step (loss and
+     AdamW's first moments within REF_TOL, the parameters' moves within
+     TRAIN_MOVE_TOL of the step's, each rank on its slices); then (d) one
+     rank over NCCL: a mesh runtime with graphs=True captures its engines
+     with the collectives of its size-1 dp and tp axes inside, and its
+     replayed request equals the eager one in bytes. The kernel phase also
+     holds the rank-local kernel calls of these requests (parallel_rows):
+     those of the bf16 512x512 ones as timed rows (attention at half the
+     heads or half the queries, LayerNorm at half the tokens, the GroupNorm
+     stats and apply pair at the largest and smallest of a rank's rows),
+     the rest against their plain versions untimed (check_calls).
 The kernel phase also takes every attention shape of the SD-2.1, SDXL,
 SDXL-refiner and depth2img requests (heads of 64 channels; the 768x768
 decode's (1, 1, 9216, 512)), the MiDaS ViTs' split sites at 512x512 ((1,
@@ -216,6 +246,7 @@ non-zero and prints no result. The last line is {"ok": true, "device":
 before that lists the kernels.
 """
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -695,7 +726,10 @@ def kernel_phase(cfg):
         return randn((c,), dtype, 0.1, 1.0), randn((c,), dtype, 0.1)
 
     results = {name: [] for name in KERNELS}
-    rows = {**attention_rows(cfg, paths=True), **family_attention_rows(cfg)}
+    timed, checked = parallel_rows(cfg)
+    rows = {**attention_rows(cfg, paths=True), **family_attention_rows(cfg),
+            **{attention_row(*entry): paths for entry, paths in timed.items()
+               if entry[0].startswith("fused_att")}}
     for (name, q_shape, s, heads), paths in rows.items():
         make = lambda dt: (randn(q_shape, dt), randn(kv_shape, dt), randn(kv_shape, dt))
         if name == "fused_attention" and heads > 1:
@@ -761,12 +795,7 @@ def kernel_phase(cfg):
 
     # the one-pass GroupNorm at every gated main-path site of a step, SD-1.5
     # at 512x512 and SDXL at 1024x1024, channels-last
-    gn_sites = sorted({(shape, swish, groups)
-                       for pcfg, res in ((cfg, RES), (family_configs()[1], SDXL_RES))
-                       for kind, shape, swish, groups in norm_sites(pcfg, res)["step"]
-                       if kind == "gn" and gated((kind, shape, swish, groups),
-                                                 torch.bfloat16)})
-    for shape, swish, groups in gn_sites:
+    for shape, groups, swish in group_norm_rows(cfg):
         eps = 1e-5 if swish else 1e-6
         results["fused_group_norm"].append(measure(
             "fused_group_norm", {"x": list(shape), "groups": groups, "swish": swish},
@@ -778,15 +807,27 @@ def kernel_phase(cfg):
                                      else F.group_norm(x, groups, w, b, eps)),
             variants=kg.plan_launches))
 
-    # the two-pass pair, reached only by calling fused_group_norm directly
-    for shape in APPLY_SHAPES:
+    # the two-pass pair: at two large slabs, and at the largest and the
+    # smallest of a rank's rows of the GroupNorm sites under sp=2 (the
+    # rest of them are checked below, untimed)
+    pairs = sorted({call[0] for (name, call) in timed if name == "group_norm_stats"},
+                   key=math.prod)
+    for entry in list(timed):
+        if entry[0].startswith("group_norm_") and pairs and entry[1][0] not in (
+                pairs[0], pairs[-1]):
+            checked.setdefault(entry, []).extend(timed.pop(entry))
+    for shape in APPLY_SHAPES + tuple(pairs[:1] + pairs[-1:]):
         x32 = randn(shape, torch.float32, channels_last=True)
         rows = kg.chunk_rows(x32, 32)
         desc = {"x": list(shape), "groups": 32, "chunk_rows": rows}
+        if shape not in APPLY_SHAPES:
+            desc["paths"] = sorted({p for (name, call), paths in timed.items()
+                                    if call[0] == shape for p in paths})
         # beside the plan stats_plan picks, each of the two kernels forced
         # (bf16): the (sample, group, chunk) kernel is the earlier one
         forced = {name: kg.stats_plan(shape, 32, torch.bfloat16, True, rows, by_rows=by)
-                  for name, by in (("group_x_chunk", False), ("rows_x_channels", True))}
+                  for name, by in (("group_x_chunk", False), ("rows_x_channels", True))
+                  if shape in APPLY_SHAPES}
         results["group_norm_stats"].append(measure(
             "group_norm_stats", desc,
             lambda x: kg.group_norm_stats(x, 32, rows),
@@ -808,7 +849,8 @@ def kernel_phase(cfg):
             variants=kg.apply_plan_launches))
         del x32
 
-    for shape in layer_norm_shapes(cfg):
+    parallel_ln = [call[0] for (name, call) in timed if name == "fused_layer_norm"]
+    for shape in layer_norm_shapes(cfg) + parallel_ln:
         row = measure(
             "fused_layer_norm", {"x": list(shape)},
             lambda x, w, b: kl.fused_layer_norm(x, w, b, 1e-5),
@@ -817,11 +859,85 @@ def kernel_phase(cfg):
             ops=NORM_OPS * math.prod(shape),
             library=lambda x, w, b: F.layer_norm(x, x.shape[-1:], w, b, 1e-5),
             variants=kl.plan_launches)
+        if shape in parallel_ln:  # a rank's tokens under sp=2
+            row["paths"] = timed[("fused_layer_norm", (shape, 0, False))]
         if row["bf16_ms"] > row["library_ms"] * (1 + LIBRARY_SPREAD):
             raise AssertionError(f"fused_layer_norm {shape} bf16 {row['bf16_ms']:.4f} ms is "
                                  f"slower than F.layer_norm {row['library_ms']:.4f} ms")
         results["fused_layer_norm"].append(row)
+    unexpected = [e for e in timed if e[0] in ("fused_group_norm", "quantized_matmul")]
+    if unexpected:
+        raise AssertionError(f"parallel rows without a timed row: {unexpected}")
+    results["checked"] = check_calls(checked, randn, affine)
     return results
+
+
+def check_calls(calls, randn, affine):
+    """Each kernel call of `calls` ({(entry, call): paths}, parallel_rows'
+    form) against its plain version on the same inputs, bf16 and fp32, with
+    the kernel phase's tolerances, untimed: {entry: [rows]}."""
+    from stablediffusioneo_tpu_torch.ops.kernels import attention as ka
+    from stablediffusioneo_tpu_torch.ops.kernels import groupnorm as kg
+    from stablediffusioneo_tpu_torch.ops.kernels import layernorm as kl
+
+    out = {}
+    for (name, call), paths in sorted(calls.items(), key=str):
+        row = {"call": list(call) if name.startswith("fused_att") else
+               [list(call[0]), call[1], call[2]], "paths": paths}
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            if name.startswith("fused_att"):
+                b, h, tq, s, d = call
+                scale = d ** -0.5
+                if name == "fused_attention":
+                    args = (randn((b, h, tq, d), dtype), *(randn((b, h, s, d), dtype)
+                                                           for _ in range(2)))
+                    kern = lambda q, k, v: ka.fused_attention(q, k, v, scale)
+                    plain = lambda q, k, v: ka.fused_attention_plain(q, k, v, scale)
+                else:
+                    args = (randn((b, tq, h * d), dtype), *(randn((b, s, h * d), dtype)
+                                                            for _ in range(2)))
+                    kern = lambda q, k, v, e=getattr(ka, name): e(q, k, v, h, scale)
+                    plain = (lambda q, k, v, e=getattr(ka, name + "_plain"):
+                             e(q, k, v, h, scale))
+            else:
+                shape, groups, swish = call
+                x = randn(shape, dtype, channels_last=len(shape) == 4)
+                if name == "fused_layer_norm":
+                    args = (x, *affine(shape[-1], dtype))
+                    kern = lambda x, w, b: kl.fused_layer_norm(x, w, b, 1e-5)
+                    plain = lambda x, w, b: kl.fused_layer_norm_plain(x, w, b, 1e-5)
+                elif name == "fused_group_norm":
+                    args = (x, *affine(shape[1], dtype))
+                    kern = lambda x, w, b: kg.fused_group_norm(x, w, b, groups, 1e-5, swish)
+                    plain = lambda x, w, b: kg.fused_group_norm_plain(x, w, b, groups, 1e-5,
+                                                                      swish)
+                elif name == "group_norm_stats":
+                    rows = kg.chunk_rows(x, groups)
+                    args = (x,)
+                    kern = lambda x: kg.group_norm_stats(x, groups, rows)
+                    plain = lambda x: kg.group_norm_stats_plain(x, groups, rows)
+                else:
+                    rows = kg.chunk_rows(x, groups)
+                    args = (x, kg.group_norm_stats_plain(x, groups, rows), *affine(shape[1], dtype))
+                    kern = lambda x, p, w, b: kg.group_norm_apply(x, p, w, b, rows, 1e-5, swish)
+                    plain = lambda x, p, w, b: kg.group_norm_apply_plain(x, p, w, b, 1e-5, swish)
+            ref = plain(*args).float()
+            err = (kern(*args).float() - ref).abs()
+            mx, mean = err.max().item(), err.mean().item()
+            row[f"{tag}_max_abs_err"], row[f"{tag}_mean_abs_err"] = mx, mean
+            if name == "group_norm_stats":
+                ok = mx / ref.abs().max().item() <= STATS_TOL
+            elif tag == "bf16":
+                ok = mx <= BF16_TOL[0] and mean <= BF16_TOL[1]
+            else:
+                ok = mx <= FP32_TOL
+            if not ok:
+                raise AssertionError(f"{name} {call} {tag} disagrees with its plain version: "
+                                     f"{mx}, {mean}")
+        out.setdefault(name, []).append(row)
+    print(f"rank-local kernel calls of the parallel phase checked against their plain "
+          f"versions, untimed: { {n: len(r) for n, r in out.items()} }", flush=True)
+    return out
 
 
 def attention_grad_phase():
@@ -1054,6 +1170,116 @@ def family_attention_rows(cfg):
         rows[("fused_attention", (1, UNIFORMER_HEADS, t, 64), t, UNIFORMER_HEADS)] = [
             "annotators:uniformer"]
     return rows
+
+
+def mesh_sites(cfg, res, dtype, mesh, samples=1, norms=False):
+    """Every kernel call one rank of a two-rank mesh makes in one process()
+    request of `samples` images at res x res (x_T handed in: no encode), by
+    the gates and the partition algebra the port applies (ops/attention.py,
+    ops/norms.py): {"step": [(entry, call)], "decode": [...]}, "step" one
+    evaluation of the nets on the rank's CFG batch. mesh: {"dp": 2},
+    {"tp": 2} or {"sp": 2}. An attention call is (batch, heads, Tq, S, head
+    dim) as the kernel launches it (tp: half the heads; sp: half the
+    queries, where the algebra keeps them split, against the whole K/V),
+    a norm call its input shape (and groups, swish): under sp a GroupNorm
+    whose whole image's slab the kernel gate admits is a stats and an apply
+    call on the rank's rows, a LayerNorm's gate reads the rank's tokens."""
+    from stablediffusioneo_tpu_torch.ops.attention import packed_partition
+    from stablediffusioneo_tpu_torch.ops.dispatch import ATTN_MIN_TQ
+    from stablediffusioneo_tpu_torch.ops.kernels.groupnorm import group_norm_supported
+    from stablediffusioneo_tpu_torch.ops.kernels.layernorm import layer_norm_supported
+
+    dp, tp, sp = (mesh.get(k, 1) for k in ("dp", "tp", "sp"))
+    local = samples // dp if samples % dp == 0 else samples
+    item = torch.finfo(dtype).bits // 8
+
+    def split_queries(b, tq, s, c, heads, nc=1):
+        return (sp > 1 and tq % 128 == 0
+                and packed_partition(b, tq, s, c, heads, item, ntq=sp, nc=nc)[1] > 1)
+
+    out = {"step": [], "decode": []}
+    for (b, tq, c), s, heads in attention_sites(cfg, res, batch=2 * local):
+        route = attention_route((b, tq, c), s, dtype)
+        if route is None:
+            continue
+        d, lh = c // heads, heads // tp if heads % tp == 0 else heads
+        ltq = tq // sp if split_queries(b, tq, s, c, heads, tp) else tq
+        out["step"].append((route, (b, lh, ltq, s, d)))
+    lat = res // cfg.vae.downsample_factor
+    c = cfg.vae.ch * cfg.vae.ch_mult[-1]
+    if lat * lat >= ATTN_MIN_TQ:
+        t = lat * lat
+        out["decode"].append(("fused_attention", (local, 1, t // sp if split_queries(
+            local, t, t, c, 1) else t, t, c)))
+    if norms:
+        sites = norm_sites(cfg, res, samples=local)
+        for part in ("step", "decode"):
+            for kind, shape, swish, groups in sites[part]:
+                if kind == "gn" and group_norm_supported(shape, groups):
+                    if sp > 1:
+                        rows = (shape[0], shape[1], shape[2] // sp, shape[3])
+                        out[part] += [("group_norm_stats", (rows, groups, swish)),
+                                      ("group_norm_apply", (rows, groups, swish))]
+                    else:
+                        out[part].append(("fused_group_norm", (shape, groups, swish)))
+                elif kind == "ln":
+                    tokens = (shape[0], shape[1] // sp, shape[2])
+                    if layer_norm_supported(tokens, dtype):
+                        out[part].append(("fused_layer_norm", (tokens, 0, False)))
+    return out
+
+
+def mesh_plan(cfg, res, steps, dtype, mesh, samples=1, norms=False):
+    """(launches by kernel, attention launches by call) of one rank in one
+    such request: `steps` evaluations and one decode."""
+    sites = mesh_sites(cfg, res, dtype, mesh, samples, norms)
+    calls = [c for c in sites["step"] for _ in range(steps)] + sites["decode"]
+    kernels = collections.Counter(name for name, _ in calls)
+    shapes = collections.Counter(call for name, call in calls if name.startswith("fused_att"))
+    return dict(kernels), dict(shapes)
+
+
+def group_norm_rows(cfg):
+    """(shape, groups, swish) of every gated GroupNorm site of a step, SD-1.5
+    at 512x512 and SDXL at 1024x1024: the one-pass kernel's rows."""
+    return sorted({(shape, groups, swish)
+                   for pcfg, res in ((cfg, RES), (family_configs()[1], SDXL_RES))
+                   for kind, shape, swish, groups in norm_sites(pcfg, res)["step"]
+                   if kind == "gn" and gated((kind, shape, swish, groups), torch.bfloat16)})
+
+
+def attention_row(name, call):
+    """The kernel phase's row key (entry, q shape, key length, heads) of an
+    attention call (batch, heads, Tq, S, head dim)."""
+    b, heads, tq, s, d = call
+    if name == "fused_attention":
+        return name, (b, heads, tq, d), s, heads
+    return name, (b, tq, heads * d), s, heads
+
+
+def parallel_rows(cfg):
+    """The rank-local kernel calls of parallel_phase's requests that the
+    other passes do not give, {(entry, call): paths}: those of the bf16
+    512x512 requests at tp=2 and sp=2 (fused norms on; timed rows), and
+    those of the fp32 256x256 requests (checked against the plain versions,
+    untimed)."""
+    have = (set(attention_rows(cfg)) | set(family_attention_rows(cfg))
+            | {("fused_layer_norm", (shape, 0, False)) for shape in layer_norm_shapes(cfg)}
+            | {("fused_group_norm", site) for site in group_norm_rows(cfg)})
+    timed, checked = {}, {}
+    for rows, dtype, res, runs in ((timed, torch.bfloat16, RES, PARALLEL_BF16_RUNS),
+                                   (checked, torch.float32, PARALLEL_RES, PARALLEL_FP32_RUNS)):
+        for name, norms in runs:
+            mesh = {name[:2]: int(name[3:])}
+            sites = mesh_sites(cfg, res, dtype, mesh, 2 if "dp" in mesh else 1, norms)
+            path = f"parallel {name}{', fused norms' if norms else ''} {str(dtype)[6:]}"
+            for entry in sites["step"] + sites["decode"]:
+                key = attention_row(*entry) if entry[0].startswith("fused_att") else entry
+                if key in have or (rows is checked and entry in timed):
+                    continue
+                if path not in rows.setdefault(entry, []):
+                    rows[entry].append(path)
+    return timed, checked
 
 
 def uniformer_tokens(res):
@@ -4119,6 +4345,414 @@ def training_phase(cfg):
     return out
 
 
+# ------------------------------------------------------------- parallel phase
+# Ranks spawned on the one card: gloo (NCCL takes one rank a device), the
+# collectives staged through pinned host memory (parallel/mesh.py), engines
+# eager; then one rank over NCCL with captured engines.
+PARALLEL_RES, PARALLEL_STEPS = 256, 4  # the fp32 process() checks
+# (mesh, fused norms) of the fp32 PARALLEL_RES x PARALLEL_STEPS requests and
+# of the bf16 RES x STEPS ones
+PARALLEL_FP32_RUNS = (("dp=2", False), ("tp=2", False), ("sp=2", False),
+                      ("tp=2", True), ("sp=2", True))
+PARALLEL_BF16_RUNS = (("tp=2", True), ("sp=2", True))
+# the fp32 latents of a mesh request against the unsharded request on the
+# card, max |d| / max |ref|: sound meshes read 5.0e-6 to 5.8e-6, a skipped
+# row-parallel all-reduce at the UNet's middle block 3.5e-3 (PR 17's runs);
+# and the images within PARALLEL_IMAGE_TOL of 255 (sound: 1, a rounding)
+PARALLEL_TOL, PARALLEL_IMAGE_TOL = 2e-5, 1
+# faults planted in a rank's sharded model, each run as an fp32 request of
+# its mesh that the checks above must fail: (mesh, what, module, how)
+PARALLEL_FAULTS = (
+    ("tp=2", "one row-parallel all-reduce skipped (the UNet middle block's "
+     "cross-attention output)", "unet.middle_block.1.transformer_blocks.0.attn2.to_out.0",
+     "no reduce"),
+    ("sp=2", "one conv's halo rows zeroed (the UNet's output conv)", "unet.out.2", "no halo"),
+    ("sp=2", "one conv's halo rows zeroed (the ControlNet's first ResBlock conv)",
+     "control_model.input_blocks.1.0.in_layers.2", "no halo"),
+    ("sp=2", "one conv's halo rows zeroed (the VAE decoder's output conv)",
+     "first_stage_model.decoder.conv_out", "no halo"),
+)
+PP_TOL = 1e-4  # the fp32 pp towers against the sequential ones, relative to max |ref|
+TRAIN_CHECK_LR = 1e-5
+# one train step's parameter moves against the single-process step's, summed
+# over a rank's slices: sum |d move| <= TRAIN_MOVE_TOL x sum |move| (a step
+# left untaken reads 1)
+TRAIN_MOVE_TOL = 1e-4  # sound: 8.6e-6 to 8.7e-6 (PR 17's run)
+# the bf16 512x512 20-step requests at tp=2 and sp=2 (fused norms on) against
+# the unsharded image: the share of pixels off by more than 1 may be at most
+# this multiple of the share of the unsharded request against itself with
+# one x_T value scaled by 1.01 (the serving phase's control). The fp32 checks
+# hold the function; bf16 on these near-flat nets shows rounding order, which
+# 20 steps spread as they spread that control's last-bit change.
+PARALLEL_PIXEL_SLACK = 1.5
+
+
+def _hold(ok, what):
+    """The parallel phase's checks: a failed one fails the run."""
+    if not ok:
+        raise AssertionError(what)
+
+
+def _rank_entry(rank, world, store, backend, job, out_dir):
+    """A spawned rank: one process group over a FileStore, the card 0, the
+    job (a function of this module) and its result in a file."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        result = globals()[job](rank)
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(job, world, backend):
+    """Every rank's result of job(rank) in `world` spawned processes."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_rank_entry, args=(world, os.path.join(d, "store"), backend, job, d),
+                 nprocs=world, join=True)
+        return [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
+def card_generator(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def _say(rank, text):
+    if rank == 0:
+        print(text, flush=True)
+
+
+def _launched(before):
+    from stablediffusioneo_tpu_torch.ops import dispatch
+
+    return {k: v for k, v in dispatch.counts_since(before)[0].items() if v}
+
+
+def _parallel_request(pipe, batch, res, steps, x_T, seed=1):
+    """One process() of the smoke image at res, `steps` steps, x_T handed
+    in; (images, latents, seconds)."""
+    import cv2
+
+    img = cv2.resize(smoke_image(), (res, res), interpolation=cv2.INTER_AREA)
+    t0 = time.perf_counter()
+    out = pipe.process(img, PROMPT, num_samples=batch, image_resolution=res,
+                       ddim_steps=steps, scale=9.0, seed=seed, x_T=x_T)
+    torch.cuda.synchronize()
+    return np.stack(out[1:]), pipe.last_latents.float().cpu(), time.perf_counter() - t0
+
+
+def plant_fault(model, module, how):
+    """A planted fault in a rank's sharded model: "no reduce" drops a
+    row-parallel linear's all-reduce (it adds its bias to this rank's
+    partial product), "no halo" makes a row-split conv pad this rank's rows
+    with zeros instead of its neighbours' rows."""
+    m = model.get_submodule(module)
+    if how == "no reduce":
+        m.tp_row = None
+    else:
+        m.__class__ = torch.nn.Conv2d
+
+
+def parallel_inference_job(rank):
+    """(a) SD-1.5 + ControlNet at full width through process() on meshes of
+    the two ranks: fp32 at PARALLEL_RES x PARALLEL_STEPS, each of
+    PARALLEL_FP32_RUNS against the unsharded request on the card (within
+    PARALLEL_TOL), and each of PARALLEL_FAULTS outside it; then the bf16
+    512x512 20-step requests of PARALLEL_BF16_RUNS against the unsharded
+    image (pixel share beside its control). Each mesh path's launch counts
+    start from 0 and are read after it, and each rank's launches, by kernel
+    and by attention call, must be the plan's (mesh_plan)."""
+    from stablediffusioneo_tpu_torch.config import sd15_pipeline
+    from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.ops.kernels import attention as ka
+    from stablediffusioneo_tpu_torch.parallel import make_mesh
+    from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
+
+    out = {"fp32": {}, "bf16": {}, "faults": {}, "launches": {}}
+    meshes = {"dp=2": make_mesh(dp=2), "tp=2": make_mesh(dp=1, tp=2),
+              "sp=2": make_mesh(dp=1, sp=2)}
+    _say(rank, f"parallel: meshes {meshes['tp=2']!r} ...; transport "
+               f"{meshes['tp=2'].transport}")
+    flags = dispatch.kernel_flags()
+    g = torch.Generator().manual_seed(11)
+    f = 8
+    for dtype, res, steps, runs in (("float32", PARALLEL_RES, PARALLEL_STEPS, PARALLEL_FP32_RUNS),
+                                    ("bfloat16", RES, STEPS, PARALLEL_BF16_RUNS)):
+        cfg = sd15_pipeline(dtype=dtype)
+        model = build_model(sd15_pipeline(), seed=0)
+        x_T = torch.randn((2, res // f, res // f, 4), generator=g).numpy()
+        for norms in sorted({n for _, n in runs}):
+            dispatch.set_kernels(groupnorm=norms, layernorm=norms)
+            tag = f"{dtype}{', fused norms' if norms else ''}"
+            mine = [name for name, n in runs if n == norms]
+            ref_pipe = Canny2ImagePipeline(copy.deepcopy(model), stand_in_tokenizer, cfg,
+                                           graphs=False)
+            refs = {b: _parallel_request(ref_pipe, b, res, steps, x_T[:b])
+                    for b in sorted({2 if name == "dp=2" else 1 for name in mine})}
+            if dtype == "bfloat16":
+                ctl = x_T[:1].copy()
+                ctl[0, res // (2 * f), res // (2 * f), 0] *= 1.01
+                control = pixel_share(refs[1][0],
+                                      _parallel_request(ref_pipe, 1, res, steps, ctl)[0])
+            del ref_pipe
+            faults = PARALLEL_FAULTS if dtype == "float32" and not norms else ()
+            for name, what, module, how in [(n, None, None, None) for n in mine] + list(faults):
+                batch = 2 if name == "dp=2" else 1
+                pipe = Canny2ImagePipeline(model, stand_in_tokenizer, cfg, mesh=meshes[name])
+                if what:
+                    plant_fault(pipe.runtime.model, module, how)
+                before, shapes = dispatch.counts(), collections.Counter(ka.shape_launches)
+                imgs, lat, sec = _parallel_request(pipe, batch, res, steps, x_T[:batch])
+                launched = _launched(before)
+                shapes = {k: v for k, v in (collections.Counter(ka.shape_launches)
+                                            - shapes).items()}
+                ref_imgs, ref_lat, ref_sec = refs[batch]
+                _hold(bool(torch.isfinite(lat).all()) and imgs.shape == ref_imgs.shape,
+                      f"parallel {name} {tag}: {imgs.shape}")
+                d_img = int(np.abs(imgs.astype(int) - ref_imgs.astype(int)).max())
+                if what:
+                    err = (lat - ref_lat).abs().max().item() / ref_lat.abs().max().item()
+                    out["faults"][what] = {"mesh": name, "max_rel_err": err,
+                                           "image_max_abs": d_img, "request_s": sec}
+                    _say(rank, f"parallel {name} fp32, planted fault: {what}: latents max|d| "
+                               f"/ max|ref| {err:.3e}, images max|d| {d_img} (one must exceed "
+                               f"PARALLEL_TOL {PARALLEL_TOL} / PARALLEL_IMAGE_TOL "
+                               f"{PARALLEL_IMAGE_TOL})")
+                    _hold(err > PARALLEL_TOL or d_img > PARALLEL_IMAGE_TOL,
+                          f"parallel fault passed the checks: {what}: {err}, {d_img}")
+                    del pipe
+                    continue
+                want_k, want_s = mesh_plan(cfg, res, steps, getattr(torch, dtype),
+                                           {name[:2]: 2}, batch, norms)
+                _say(rank, f"parallel {name} {tag}: launches {launched}, by attention "
+                           f"call (batch, heads, Tq, S, d) {shapes}")
+                _hold(launched == want_k and shapes == want_s,
+                      f"parallel {name} {tag}: rank {rank} launched {launched} {shapes}, "
+                      f"the plan {want_k} {want_s}")
+                if dtype == "float32":
+                    err = (lat - ref_lat).abs().max().item() / ref_lat.abs().max().item()
+                    out["fp32"][f"{name}{', fused norms' if norms else ''}"] = {
+                        "max_rel_err": err, "image_max_abs": d_img, "request_s": sec,
+                        "unsharded_s": ref_sec}
+                    _say(rank, f"parallel {name} {tag}: {res}x{res} x {steps} steps, batch "
+                               f"{batch}, latents against the unsharded request: max|d| / "
+                               f"max|ref| {err:.3e} (PARALLEL_TOL {PARALLEL_TOL}), images "
+                               f"max|d| {d_img} (PARALLEL_IMAGE_TOL {PARALLEL_IMAGE_TOL}); "
+                               f"request {sec:.2f} s (unsharded {ref_sec:.2f} s)")
+                    _hold(err <= PARALLEL_TOL and d_img <= PARALLEL_IMAGE_TOL,
+                          f"parallel {name} {tag}: {err}, images {d_img}")
+                else:
+                    share = pixel_share(ref_imgs, imgs)
+                    limit = PARALLEL_PIXEL_SLACK * control
+                    out["bf16"][name] = {"pixel_share_off": share, "control": control,
+                                         "limit": limit, "image_max_abs": d_img,
+                                         "request_s": sec, "unsharded_s": ref_sec}
+                    _say(rank, f"parallel {name} {tag}: {res}x{res} x {steps} steps against "
+                               f"the unsharded image: share of pixels off by > 1 {share:.4f} "
+                               f"(control, one x_T value x 1.01: {control:.4f}; limit "
+                               f"{limit:.4f}), max|d| {d_img}; request {sec:.2f} s "
+                               f"(unsharded {ref_sec:.2f} s)")
+                    _hold(share <= limit, f"parallel {name} bf16: {share} > {limit}")
+                out["launches"][f"{name} {tag}"] = launched
+                del pipe
+                gc.collect()
+                torch.cuda.empty_cache()
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    dispatch.set_kernels(**dict(flags))
+    return out
+
+
+def parallel_towers_job(rank):
+    """(b) CLIP ViT-L (12 layers) and T5 v1.1-large (24 blocks) at pp=2,
+    (2, 77), fp32, against the sequential towers on the card."""
+    from stablediffusioneo_tpu_torch.config import sd15_pipeline
+    from stablediffusioneo_tpu_torch.models.cldm import init_clip_text
+    from stablediffusioneo_tpu_torch.models.clip import clip_text_apply, clip_text_apply_pp
+    from stablediffusioneo_tpu_torch.models.t5 import T5Config, init_t5, t5_encode, t5_encode_pp
+    from stablediffusioneo_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(pp=2, dp=1)
+    g = torch.Generator().manual_seed(5)
+    ccfg, tcfg = sd15_pipeline().clip, T5Config()
+    clip = init_clip_text(card_generator(3), ccfg)
+    t5 = init_t5(card_generator(4), tcfg)
+    ids = torch.randint(0, ccfg.vocab_size, (2, ccfg.max_length), generator=g).cuda()
+    tids = torch.randint(1, tcfg.vocab_size, (2, 77), generator=g).cuda()
+    mask = torch.ones_like(tids)
+    mask[1, 30:] = 0
+    out = {}
+    with torch.no_grad():
+        for name, pp, seq in (
+                ("clip", lambda: clip_text_apply_pp(clip, ids, mesh),
+                 lambda: clip_text_apply(clip, ids)),
+                ("t5", lambda: t5_encode_pp(t5, tids, mesh), lambda: t5_encode(t5, tids)),
+                ("t5 mask", lambda: t5_encode_pp(t5, tids, mesh, mask=mask),
+                 lambda: t5_encode(t5, tids, mask=mask))):
+            t0 = time.perf_counter()
+            got = pp()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            want = seq()
+            err = (got - want).abs().max().item() / want.abs().max().item()
+            out[name] = {"max_rel_err": err, "seconds": sec}
+            _say(rank, f"parallel pp=2 {name}: {tuple(got.shape)} against the sequential "
+                       f"tower, max|d| / max|ref| {err:.3e} (PP_TOL {PP_TOL}); {sec:.3f} s")
+            if not torch.isfinite(got).all() or err > PP_TOL:
+                raise AssertionError(f"parallel pp {name}: {err}")
+    return out
+
+
+def parallel_training_job(rank):
+    """(c) One full-width ControlNet train step (fp32, PARALLEL_TRAIN_RES,
+    batch 2, the draws handed in) at dp=2, tp=2 and dp=2 with FSDP, against
+    the single-process step: the loss within REF_TOL, AdamW's first moment
+    (the step's gradients) within REF_TOL of max |ref| and the parameters'
+    moves within TRAIN_MOVE_TOL of the step's, each rank on its slices."""
+    from stablediffusioneo_tpu_torch.config import sd15_pipeline
+    from stablediffusioneo_tpu_torch.parallel import make_mesh, shard_params
+    from stablediffusioneo_tpu_torch.parallel.mesh import fsdp_dim, local_slice, tp_local
+    from stablediffusioneo_tpu_torch.training import trainer
+
+    cfg = sd15_pipeline(dtype="float32")
+    model = build_model(cfg, seed=0)
+    unet, control = model.unet.requires_grad_(False), model.control_model
+    res, b = PARALLEL_RES, 2
+    g = torch.Generator().manual_seed(9)
+    batch = {"x0": torch.randn((b, res // 8, res // 8, 4), generator=g).cuda(),
+             "hint": torch.rand((b, res, res, 3), generator=g).cuda(),
+             "ctx": torch.randn((b, cfg.clip.max_length, cfg.unet.context_dim),
+                                generator=g).cuda()}
+    t = torch.randint(0, 1000, (b,), generator=g).cuda()
+    noise = torch.randn(batch["x0"].shape, generator=g).cuda()
+    sa, s1 = trainer.make_schedule_buffers(cfg, "cuda")
+
+    def step(state, tx, u):
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, tx, u, cfg, sa, s1, batch, key=0, t=t,
+                                         noise=noise)
+        torch.cuda.synchronize()
+        return state, tx, float(loss), time.perf_counter() - t0
+
+    start = {n: p.detach().clone() for n, p in control.named_parameters()}
+    ref_state, ref_tx, ref_loss, ref_s = step(*trainer.create_train_state(
+        copy.deepcopy(control), TRAIN_CHECK_LR), unet)
+    ref = {n: (p.detach(), ref_tx.state[p]["exp_avg"], start[n])
+           for n, p in ref_state.params.items()}
+    del ref_tx
+    out = {"unsharded": {"loss": ref_loss, "seconds": ref_s}}
+    for name, kw, fsdp in (("dp=2", dict(dp=2), False), ("tp=2", dict(dp=1, tp=2), False),
+                           ("dp=2 fsdp", dict(dp=2), True)):
+        mesh = make_mesh(**kw)
+        u = shard_params(copy.deepcopy(unet), mesh)
+        if fsdp:
+            u = trainer.fsdp_frozen(u, mesh)
+        net = shard_params(copy.deepcopy(control), mesh)
+        state, tx, loss, sec = step(*trainer.create_train_state(
+            net, TRAIN_CHECK_LR, mesh=mesh, fsdp=fsdp), u)
+        tp_specs, specs = net.tp_specs, state.fsdp_specs or {}
+        worst_m, off, moved = 0.0, 0.0, 0.0
+        for n, p in state.params.items():
+            wants = ref[n]
+            if n in tp_specs:
+                wants = [tp_local(w, n, tp_specs[n], mesh.axis("tp")) for w in wants]
+            d = fsdp_dim(specs.get(n, ()))
+            if d is not None:
+                wants = [local_slice(w, mesh.axis("dp"), d) for w in wants]
+            want_p, want_m, was = wants
+            m = tx.state[p]["exp_avg"]
+            worst_m = max(worst_m, (m - want_m).abs().max().item()
+                          / max(want_m.abs().max().item(), 1e-30))
+            off += (p.detach() - want_p).abs().sum().item()
+            moved += (want_p - was).abs().sum().item()
+        loss_err = abs(loss - ref_loss) / abs(ref_loss)
+        move_err = off / moved
+        out[name] = {"loss": loss, "loss_rel_err": loss_err, "moment_rel_err": worst_m,
+                     "move_rel_err": move_err, "seconds": sec}
+        _say(rank, f"parallel train step {name}: loss {loss:.6f} (unsharded "
+                   f"{ref_loss:.6f}, rel {loss_err:.2e}); first moments max|d| / max|ref| "
+                   f"{worst_m:.2e}; parameter moves off the unsharded step's, summed: "
+                   f"{move_err:.2e} of theirs (TRAIN_MOVE_TOL {TRAIN_MOVE_TOL}); step "
+                   f"{sec:.2f} s (unsharded {ref_s:.2f} s)")
+        _hold(loss_err <= REF_TOL and worst_m <= REF_TOL and move_err <= TRAIN_MOVE_TOL,
+              f"parallel train step {name} rank {rank}: {out[name]}")
+        del state, tx, u, net
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_gloo_job(rank):
+    return {"inference": parallel_inference_job(rank), "towers": parallel_towers_job(rank),
+            "training": parallel_training_job(rank)}
+
+
+def parallel_graphs_job(rank):
+    """(d) One rank over NCCL: a mesh runtime with graphs=True captures its
+    engines with the NCCL collectives inside (its mesh's dp and tp axes,
+    of size 1, still run them); the replayed request equals the eager
+    one (graphs=False) in bytes."""
+    from stablediffusioneo_tpu_torch.config import sd15_pipeline
+    from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.parallel import make_mesh
+    from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
+
+    cfg = sd15_pipeline(dtype="bfloat16")
+    mesh = make_mesh(dp=1, tp=1)
+    pipe = Canny2ImagePipeline(build_model(cfg, seed=0), stand_in_tokenizer, cfg, mesh=mesh,
+                               graphs=True)
+    x_T = torch.randn((1, RES // 8, RES // 8, 4), generator=torch.Generator().manual_seed(2))
+    first = _parallel_request(pipe, 1, RES, STEPS, x_T.numpy())
+    before = dispatch.counts()
+    replay = _parallel_request(pipe, 1, RES, STEPS, x_T.numpy())
+    launched = _launched(before)
+    engines = {e.name: e.get_engine_infor() for e in pipe.runtime._engines.values()}
+    pipe.runtime.graphs = False
+    eager = _parallel_request(pipe, 1, RES, STEPS, x_T.numpy())
+    equal = bool(np.array_equal(replay[0], eager[0]))
+    print(f"parallel graphs: NCCL mesh {mesh!r}, engines captured "
+          f"{ {n: i['compiled'] for n, i in engines.items()} }; replayed request "
+          f"{replay[2]:.3f} s (first, with captures, {first[2]:.2f} s), eager "
+          f"{eager[2]:.3f} s, equal in bytes: {equal}; launches of the replay {launched}",
+          flush=True)
+    _hold(equal and all(i["compiled"] for i in engines.values()),
+          f"parallel graphs: equal {equal}, engines {engines}")
+    want = mesh_plan(cfg, RES, STEPS, torch.bfloat16, {})[0]
+    _hold(launched == want, f"parallel graphs: the replay launched {launched}, the plan {want}")
+    return {"equal": equal, "replay_s": replay[2], "eager_s": eager[2],
+            "capture_s": first[2], "launches": launched,
+            "device_ops": {n: i.get("device_ops") for n, i in engines.items()}}
+
+
+def parallel_phase(card):
+    """Ranks on the one card (see the module docstring, item 18): two over
+    gloo for (a)-(c), then one over NCCL for (d)."""
+    t0 = time.perf_counter()
+    gloo = run_ranks("parallel_gloo_job", 2, "gloo")
+    t1 = time.perf_counter()
+    graphs = run_ranks("parallel_graphs_job", 1, "nccl")[0]
+    t2 = time.perf_counter()
+    out = {**gloo[0], "graphs": graphs, "card": card,
+           "seconds": {"gloo ranks": t1 - t0, "nccl rank": t2 - t1}}
+    launches = {f"parallel {k}": v for k, v in gloo[0]["inference"]["launches"].items()}
+    for k, v in gloo[1]["inference"]["launches"].items():  # the other rank's
+        launches[f"parallel {k}"] = {n: launches[f"parallel {k}"].get(n, 0) + c
+                                     for n, c in v.items()}
+    launches["parallel graphs"] = graphs["launches"]
+    out["launches"] = launches
+    print(f"parallel phase on {card}: {out['seconds']}", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card only")
@@ -4280,6 +4914,10 @@ def main():
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     training = training_phase(cfg)
     print(f"training phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel = parallel_phase(card)
+    print(f"parallel phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     latencies = {config: r["latencies"] for config, r in runs.items()}
     eager = {config: r["eager_latency"] for config, r in runs.items()}
     base = runs["default"]["image"].astype(np.int16)
@@ -4323,8 +4961,14 @@ def main():
                                  **{run: r["launches"][name]
                                     for run, r in training["runs"].items()},
                                  "train lora": training["lora"]["launches"][name],
-                                 "train user path": training["user_path"]["launches"][name]},
-            "max_abs_err": max(r["bf16_max_abs_err"] for r in rows),
+                                 "train user path": training["user_path"]["launches"][name],
+                                 # the parallel phase's requests, both ranks
+                                 **{path: c.get(name, 0)
+                                    for path, c in parallel["launches"].items()}},
+            "max_abs_err": max(r["bf16_max_abs_err"]
+                               for r in rows + kernels["checked"].get(name, [])),
+            # the parallel phase's rank-local calls checked untimed
+            "checked_calls": kernels["checked"].get(name, []),
             # device time of one call at each main-path (or listed) shape,
             # bf16, summed over the shapes; the bound and the library call's
             # time summed over the same shapes
@@ -4353,6 +4997,7 @@ def main():
                       "sampler_variants_request_s": variants_s,
                       "serving": serving, "multi_controlnet": multi,
                       "attention_grads": attention_grads, "training": training,
+                      "parallel": parallel,
                       "encode_image_replay_ms": encode_ms,
                       "key_lengths": {config: r["key_lengths"] for config, r in runs.items()},
                       "traced": {config: r["traced"] for config, r in runs.items()},

@@ -93,7 +93,11 @@ def apply_textual_inversion(runtime, tokenizer, concepts: Dict) -> int:
     """Inject concepts into a LIVE runtime: grows the resident CLIP
     embedding table and evicts the runtime's CLIP engines (captured on the
     old table; they are built again at their next use). The samplers,
-    decoders and encoders are untouched. Returns the number of new rows."""
+    decoders and encoders are untouched. Returns the number of new rows.
+    On a mesh runtime every rank calls it: the TP rules leave the table
+    whole (parallel/mesh.py, as the JAX rules replicate it), so the grown
+    table on each rank is its sharding under the mesh, and the rebuilt
+    CLIP engines run on the mesh as before."""
     add_concepts(runtime._require_model().clip, tokenizer, concepts)
     for key in [k for k in runtime._engines if k[0] == "clip"]:
         del runtime._engines[key]

@@ -19,6 +19,7 @@ extractor (pixel statistics), as the JAX CLI.
 
 import argparse
 import os
+import sys
 
 
 def parse_args(argv=None):
@@ -68,9 +69,9 @@ def build_pipeline(args, device):
     return pipe, min(args.steps, 2), min(args.res, 64)
 
 
-def main(argv=None):
-    args = parse_args(argv)
-
+def score(args) -> dict:
+    """The scoring run of parsed `args`: the harness's result dict (mean
+    latency, distance and score, one record a fixture)."""
     import cv2
 
     from stablediffusioneo_tpu_torch.scoring import ScoreHarness
@@ -100,5 +101,13 @@ def main(argv=None):
     return result
 
 
+def main(argv=None) -> int:
+    """The console entry: the exit code, 0 once the run has scored every
+    fixture (a failing run raises). `score(parse_args(argv))` returns the
+    result itself."""
+    score(parse_args(argv))
+    return 0
+
+
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

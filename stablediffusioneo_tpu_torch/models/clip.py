@@ -29,7 +29,8 @@ import torch.nn as nn
 from stablediffusioneo_tpu_torch.config import CLIPTextConfig
 from stablediffusioneo_tpu_torch.models.unet import LayerNorm
 from stablediffusioneo_tpu_torch.ops.attention import attention
-from stablediffusioneo_tpu_torch.ops.layers import gelu, linear
+from stablediffusioneo_tpu_torch.ops.layers import dense, gelu, linear
+from stablediffusioneo_tpu_torch.parallel.mesh import copy_to
 
 MASK_NEG = -10000.0
 
@@ -79,13 +80,10 @@ class CLIPEncoderLayer(nn.Module):
     def forward(self, x, mask):
         a = self.self_attn
         h = self.layer_norm1(x)
-        q, k, v = (linear(h, m.weight, m.bias) for m in (a.q_proj, a.k_proj, a.v_proj))
-        x = x + linear(_attend(q, k, v, self.heads, mask), a.out_proj.weight,
-                       a.out_proj.bias)
+        q, k, v = (dense(h, m) for m in (a.q_proj, a.k_proj, a.v_proj))
+        x = x + dense(_attend(q, k, v, self.heads, mask), a.out_proj)
         h = self.layer_norm2(x)
-        fc1, fc2 = self.mlp.fc1, self.mlp.fc2
-        return x + linear(self.act(linear(h, fc1.weight, fc1.bias)),
-                          fc2.weight, fc2.bias)
+        return x + dense(self.act(dense(h, self.mlp.fc1)), self.mlp.fc2)
 
 
 class CLIPTextTransformer(nn.Module):
@@ -156,12 +154,10 @@ class OpenCLIPResidualBlock(nn.Module):
 
     def forward(self, x, mask):
         a = self.attn
-        q, k, v = linear(self.ln_1(x), a.in_proj_weight, a.in_proj_bias).chunk(3, dim=-1)
-        x = x + linear(_attend(q, k, v, self.heads, mask), a.out_proj.weight,
-                       a.out_proj.bias)
-        fc, proj = self.mlp.c_fc, self.mlp.c_proj
-        return x + linear(self.act(linear(self.ln_2(x), fc.weight, fc.bias)),
-                          proj.weight, proj.bias)
+        h = copy_to(self.ln_1(x), getattr(a, "tp_col", None))
+        q, k, v = linear(h, a.in_proj_weight, a.in_proj_bias).chunk(3, dim=-1)
+        x = x + dense(_attend(q, k, v, self.heads, mask), a.out_proj)
+        return x + dense(self.act(dense(self.ln_2(x), self.mlp.c_fc)), self.mlp.c_proj)
 
 
 class OpenCLIPTextModel(nn.Module):
@@ -224,6 +220,45 @@ def clip_text_apply(clip, input_ids, clip_skip: int = 0, layer: Optional[str] = 
         return clip.final_ln(_run_blocks(clip, input_ids, n)[0])
     x = _run_blocks(clip, input_ids, n - 1)[0]
     return x if layer == "penultimate_raw" else clip.final_ln(x)
+
+
+def _layer_fn(clip):
+    """One block as a (p, x, mask) -> x function of that block's tensors p:
+    the tower's own block module (the last, as a template) run by
+    torch.func.functional_call, so the sequential and pipelined paths run
+    the same code (the JAX _layer_fn)."""
+    template = clip.blocks[-1]
+    return lambda p, x, mask: torch.func.functional_call(template, p, (x, mask))
+
+
+def clip_text_apply_pp(clip, input_ids, mesh, layer: Optional[str] = None,
+                       microbatches: Optional[int] = None, remat: bool = False,
+                       stacked=None):
+    """clip_text_apply with the block stack pipeline-parallel over the mesh's
+    `pp` axis (parallel/pipeline.py: GPipe, batch over dp), on every rank
+    of the mesh; every rank returns the whole batch. Every `layer` mode of
+    the sequential path (no clip_skip). stacked: the blocks' tensors
+    pre-stacked once (parallel.stack_layer_params(clip.blocks)) or this
+    rank's stage of them (parallel.pp_shard_params); default: stacked from
+    the tower at each call."""
+    from stablediffusioneo_tpu_torch.parallel.pipeline import (
+        pipeline_apply,
+        stack_layer_params,
+    )
+
+    layer = layer or clip.cfg.layer
+    x = clip.embed(input_ids)
+    mask = _causal_mask(input_ids.shape[1], x.device)
+    if stacked is None:
+        stacked = stack_layer_params(clip.blocks)
+    out, pen = pipeline_apply(_layer_fn(clip), stacked, x, mesh, extra=(mask,),
+                              microbatches=microbatches, capture_last_input=True,
+                              remat=remat)
+    if layer == "penultimate":
+        return clip.final_ln(pen)
+    if layer == "penultimate_raw":
+        return pen
+    return clip.final_ln(out)
 
 
 def clip_text_apply_with_pooled(clip, input_ids, eot_id: Optional[int] = None):

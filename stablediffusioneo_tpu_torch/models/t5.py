@@ -24,8 +24,8 @@ T5 quirks kept, as in the JAX package:
   - no biases on any linear; embeddings are not scaled.
 T5's attention takes an additive bias, which the attention kernels do not,
 and the JAX package runs it as plain einsums: here plain torch.matmul and
-softmax. The pipeline-parallel t5_encode_pp of the JAX package is not
-ported.
+softmax. `t5_encode_pp` runs the block stack pipeline-parallel over a
+mesh's pp axis (parallel/pipeline.py).
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from stablediffusioneo_tpu_torch.annotators._dtype import default_device
 
 __all__ = ["T5Config", "T5Encoder", "clip_t5_encode", "convert_t5", "init_t5",
-           "t5_encode", "tiny_t5"]
+           "t5_encode", "t5_encode_pp", "tiny_t5"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,18 +245,71 @@ def t5_encode(t5: T5Encoder, ids: torch.Tensor, mask: Optional[torch.Tensor] = N
     T5EncoderModel.forward semantics."""
     cfg = t5.cfg
     dtype = dtype or t5.shared.weight.dtype
-    t = ids.shape[1]
     x = t5.shared.weight[ids].to(dtype)
+    bias = _attn_bias(t5, ids, mask)
+    for blk in t5.encoder.block:
+        x = blk(x, bias, cfg.num_heads)
+    return t5.encoder.final_layer_norm(x)
+
+
+def _attn_bias(t5: T5Encoder, ids: torch.Tensor, mask: Optional[torch.Tensor]):
+    """The fp32 additive attention bias: the relative-position bias (1, H,
+    T, T), shared by every block (HF block 0's table), plus -1e9 at the
+    padded keys of each row where a (B, T) mask is given (then (B, H, T, T))."""
+    cfg, t = t5.cfg, ids.shape[1]
     buckets = torch.from_numpy(_rel_pos_buckets(
         t, t, cfg.relative_attention_num_buckets,
         cfg.relative_attention_max_distance)).to(ids.device)
-    # (T, T, H) -> (1, H, T, T), shared by every block (HF block 0's table)
     bias = t5.rel_bias[buckets].float().permute(2, 0, 1)[None]
     if mask is not None:
         neg = torch.where(mask[:, None, None, :].bool(), 0.0, -1e9)
         bias = bias + neg.float()
-    for blk in t5.encoder.block:
-        x = blk(x, bias, cfg.num_heads)
+    return bias
+
+
+def stacked_blocks(t5: T5Encoder):
+    """The blocks' tensors stacked for parallel.pipeline_apply, by the names
+    of a block without the relative-bias table (block 0 holds it; it stays
+    out of the stack and reaches every block through the bias)."""
+    from stablediffusioneo_tpu_torch.parallel.pipeline import stack_layer_params
+
+    names = [n for n, _ in t5.encoder.block[-1].named_parameters()]
+    return stack_layer_params([{n: dict(b.named_parameters())[n] for n in names}
+                               for b in t5.encoder.block])
+
+
+def t5_encode_pp(t5: T5Encoder, ids: torch.Tensor, mesh, mask: Optional[torch.Tensor] = None,
+                 dtype: Optional[torch.dtype] = None, microbatches: Optional[int] = None,
+                 remat: bool = False, stacked=None) -> torch.Tensor:
+    """t5_encode with the block stack pipeline-parallel over the mesh's `pp`
+    axis (parallel/pipeline.py), on every rank of the mesh; every rank
+    returns the whole batch. The bias is the GPipe-subtle part, as in the
+    JAX package: without a mask it is batch-independent and reaches every
+    stage whole (`extra`); with a padding mask it is per sample and is
+    microbatched with the activations (`batched_extra`: each stage takes
+    the microbatch it is working on). The block is the sequential path's
+    own module (the last block as a template, by torch.func.functional_call).
+    stacked: `stacked_blocks(t5)` made once, or this rank's stage of it
+    (parallel.pp_shard_params)."""
+    from stablediffusioneo_tpu_torch.parallel.pipeline import pipeline_apply
+
+    cfg = t5.cfg
+    dtype = dtype or t5.shared.weight.dtype
+    x = t5.shared.weight[ids].to(dtype)
+    bias = _attn_bias(t5, ids, mask)
+    template = t5.encoder.block[-1]
+
+    def block(p, h, b):
+        return torch.func.functional_call(template, p, (h, b, cfg.num_heads))
+
+    stacked = stacked_blocks(t5) if stacked is None else stacked
+    if mask is not None:
+        bias = bias.expand(ids.shape[0], *bias.shape[1:])
+        x = pipeline_apply(block, stacked, x, mesh, batched_extra=(bias,),
+                           microbatches=microbatches, remat=remat)
+    else:
+        x = pipeline_apply(block, stacked, x, mesh, extra=(bias,),
+                           microbatches=microbatches, remat=remat)
     return t5.encoder.final_layer_norm(x)
 
 

@@ -51,6 +51,12 @@ from stablediffusioneo_tpu_torch.ops.layers import (
 from stablediffusioneo_tpu_torch.ops.norms import group_norm, layer_norm
 from stablediffusioneo_tpu_torch.ops.schedule import timestep_embedding
 from stablediffusioneo_tpu_torch.ops.tome import build_merge, merge_count
+from stablediffusioneo_tpu_torch.parallel.mesh import (
+    gather_from,
+    local_slice,
+    spatial,
+    spatial_axis,
+)
 
 ATTN_NORM_EPS = 1e-6  # ldm/modules/attention.py Normalize eps
 LN_EPS = 1e-5
@@ -169,7 +175,7 @@ class CrossAttention(nn.Module):
         out = self.to_out[0]
         return multi_head_attention(
             x, context, self.to_q.weight, self.to_k.weight, self.to_v.weight,
-            out.weight, out.bias, self.heads, kv=kv)
+            out.weight, out.bias, self.heads, kv=kv, tp=getattr(out, "tp_row", None))
 
     def context_kv(self, context):
         return context_kv(context, self.to_k.weight, self.to_v.weight)
@@ -211,10 +217,22 @@ class BasicTransformerBlock(nn.Module):
 
     def forward(self, x, context, ctx_kv=None, tome=None, grid_hw=None):
         r = 0
-        if tome is not None and grid_hw is not None and x.shape[1] >= tome.min_tokens:
+        sp = spatial_axis()
+        if sp is not None and grid_hw is not None:  # this rank's rows of the grid
+            grid_hw = (grid_hw[0] * sp.size, grid_hw[1])
+        if (tome is not None and grid_hw is not None
+                and grid_hw[0] * grid_hw[1] >= tome.min_tokens):
             r = merge_count(grid_hw[0], grid_hw[1], tome.ratio, tome.sx, tome.sy)
         h = self.norm1(x)
-        if r > 0:
+        if r > 0 and sp is not None:
+            # the merge matches tokens over the whole grid: the rows of
+            # every sp rank take part, and this rank keeps its own
+            xg, hg = gather_from(x, sp, 1), gather_from(h, sp, 1)
+            merge, unmerge, _ = build_merge(xg, grid_hw[0], grid_hw[1], r,
+                                            tome.sx, tome.sy)
+            with spatial(None):
+                x = x + local_slice(unmerge(self.attn1(merge(hg))), sp, 1)
+        elif r > 0:
             merge, unmerge, _ = build_merge(x, grid_hw[0], grid_hw[1], r,
                                             tome.sx, tome.sy)
             x = x + unmerge(self.attn1(merge(h)))

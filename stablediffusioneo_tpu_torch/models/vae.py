@@ -14,13 +14,13 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from stablediffusioneo_tpu_torch.config import VAEConfig
 from stablediffusioneo_tpu_torch.models.unet import GroupNorm32, conv1x1_as_linear
-from stablediffusioneo_tpu_torch.ops.attention import attention
+from stablediffusioneo_tpu_torch.ops.attention import grid_attention
 from stablediffusioneo_tpu_torch.ops.dispatch import const_tensor
 from stablediffusioneo_tpu_torch.ops.layers import nchw, nhwc, upsample_nearest_2x
+from stablediffusioneo_tpu_torch.parallel.mesh import conv2d_padded
 
 
 class ResnetBlock(nn.Module):
@@ -58,7 +58,7 @@ class AttnBlock(nn.Module):
         # (n, 1, hw, c): an explicit head axis, so at >= 1024 tokens the
         # fused kernel's split entry takes it (4096 x 512 at 512x512)
         q, k, v = (conv1x1_as_linear(t, m)[:, None] for m in (self.q, self.k, self.v))
-        out = attention(q, k, v)[:, 0]
+        out = grid_attention(q, k, v)[:, 0]
         out = conv1x1_as_linear(out, self.proj_out)
         return x + nchw(out.reshape(n, h, w, c))
 
@@ -81,7 +81,7 @@ class Downsample(nn.Module):
         self.conv = nn.Conv2d(c, c, 3, stride=2, padding=0)
 
     def forward(self, x):
-        return self.conv(F.pad(x, (0, 1, 0, 1)))
+        return conv2d_padded(self.conv, x, (0, 1, 0, 1))
 
 
 class Encoder(nn.Module):

@@ -25,6 +25,14 @@ from stablediffusioneo_tpu_torch.ops.kernels.attention import (
     fused_attention_packed_stream,
 )
 from stablediffusioneo_tpu_torch.ops.layers import linear
+from stablediffusioneo_tpu_torch.parallel.mesh import (
+    all_gather,
+    copy_to,
+    gather_from,
+    local_slice,
+    row_linear,
+    spatial_axis,
+)
 
 
 # The JAX package's routing constants (ops/pallas/attention.py): the budget
@@ -70,6 +78,55 @@ def stream_attention(tq: int, s: int, c: int, dtype: torch.dtype) -> bool:
             and _pick_blocks_stream(tq, s, itemsize) is not None)
 
 
+def packed_partition(b: int, tq: int, s: int, c: int, heads: int, itemsize: int,
+                     nb: int = 1, ntq: int = 1, nc: int = 1):
+    """The partition algebra of the JAX package's packed attention
+    (ops/pallas/attention.py:_packed_partition): of the candidates (batch,
+    query-token, channel shard counts) (nb, ntq, nc), (nb, 1, nc),
+    (nb, ntq, 1), (nb, 1, 1), (1, 1, 1), the first whose per-rank shape the
+    kernel takes: shards tile b, tq, c and the heads, a rank's query count
+    is a multiple of 128 and a q block fits (or the streaming kernel
+    takes the self-attention). K/V are never split. Degrading to 1 on an
+    axis means that axis's ranks run the site whole."""
+    def shard_ok(nb_, ntq_, nc_):
+        if b % nb_ or tq % ntq_ or c % nc_ or heads % nc_:
+            return False
+        ltq, lc, lh = tq // ntq_, c // nc_, heads // nc_
+        if ltq % 128 or lc % lh:
+            return False
+        if _pick_block_q_packed(ltq, s, lc, itemsize) > 0:
+            return True
+        return ltq == s and _pick_blocks_stream(ltq, s, itemsize) is not None
+
+    for cand in ((nb, ntq, nc), (nb, 1, nc), (nb, ntq, 1), (nb, 1, 1), (1, 1, 1)):
+        if shard_ok(*cand):
+            return cand
+    raise ValueError(f"packed attention unsupported even replicated: q {(b, tq, c)} "
+                     f"x kv_len {s}, heads={heads}")
+
+
+def _sp_queries(q, k, v, dim: int, run, self_attention: bool, heads: int,
+                kernel: bool, nc: int = 1):
+    """Attention of this rank's rows under sp (parallel/mesh.py): K/V of a
+    self-attention all-gathered over sp on `dim` (a cross-attention's come
+    whole from the context), and the queries kept as this rank's where the
+    partition algebra keeps them sharded (kernel sites; plain sites always),
+    else gathered too and the rank's rows of the output taken back."""
+    ax = spatial_axis()
+    if self_attention:
+        k, v = gather_from(k, ax, dim), gather_from(v, ax, dim)
+    if kernel:
+        b, tq, c = q.shape[0], q.shape[dim] * ax.size, q.shape[-1] * nc
+        itemsize = torch.finfo(q.dtype).bits // 8
+        # the JAX kernel takes no site whose query count is not a multiple
+        # of 128 (its plain path runs it); the port's kernel does, whole
+        ntq = packed_partition(b, tq, k.shape[dim], c, heads * nc, itemsize,
+                               ntq=ax.size, nc=nc)[1] if tq % 128 == 0 else 1
+        if ntq == 1:
+            return local_slice(run(all_gather(q, ax, dim), k, v), ax, dim)
+    return run(q, k, v)
+
+
 def attention(q, k, v, mask: Optional[torch.Tensor] = None,
               scale: Optional[float] = None):
     """Scaled dot-product attention, fp32 logits and softmax, output in q's
@@ -86,6 +143,20 @@ def attention(q, k, v, mask: Optional[torch.Tensor] = None,
     return torch.matmul(w.float(), v.float()).to(q.dtype)
 
 
+def grid_attention(q, k, v):
+    """`attention` of (N, 1, T, C) single-head tokens of an image (the VAE
+    mid-block): inside a mesh engine split by rows, this rank's queries
+    against the whole image's K/V, the fused-kernel gate read on the whole
+    image's query count (as the JAX gate reads the global shape)."""
+    ax = spatial_axis()
+    if ax is None:
+        return attention(q, k, v)
+    kernel = q.shape[-2] * ax.size >= ATTN_MIN_TQ
+    run = ((lambda q_, k_, v_: fused_attention(q_, k_, v_, q_.shape[-1] ** -0.5))
+           if kernel else attention)
+    return _sp_queries(q, k, v, 2, run, True, 1, kernel)
+
+
 def context_kv(context, wk, wv):
     """(B, Tk, Ck) -> (k, v), each (B, Tk, inner). wk/wv are (inner, Ck)."""
     kv = linear(context, torch.cat([wk, wv], dim=0))
@@ -93,13 +164,21 @@ def context_kv(context, wk, wv):
 
 
 def multi_head_attention(x, context, wq, wk, wv, wo, bo, num_heads: int,
-                         mask=None, kv=None):
+                         mask=None, kv=None, tp=None):
     """x (B, Tq, C); context (B, Tk, Ck) or None for self-attention.
     Weights in torch (out, in) layout; kv: optional precomputed (k, v) from
-    `context_kv` (samplers hoist the step-invariant context projection)."""
+    `context_kv` (samplers hoist the step-invariant context projection).
+    tp: the tp axis of a site parallel/mesh.py:shard_params split by heads
+    (the weights are this rank's heads; wo's rows reduced by `row_linear`).
+    Inside a mesh engine split by rows over sp, x is this rank's tokens:
+    a self-attention's K/V are all-gathered over sp, and the kernel gate
+    reads the whole image's query count."""
     b, tq, _ = x.shape
     inner = wq.shape[0]
     head_dim = inner // num_heads
+    x = copy_to(x, tp)
+    if context is not None:
+        context = copy_to(context, tp)
     if kv is not None:
         q = linear(x, wq)
         k, v = kv
@@ -108,15 +187,30 @@ def multi_head_attention(x, context, wq, wk, wv, wo, bo, num_heads: int,
     else:
         q = linear(x, wq)
         k, v = context_kv(context, wk, wv)
-    tk = k.shape[1]
-    if mask is None and tq >= ATTN_MIN_TQ:
-        entry = (fused_attention_packed_stream
-                 if stream_attention(tq, tk, inner, q.dtype) else fused_attention_packed)
-        out = entry(q, k, v, num_heads, scale=head_dim ** -0.5)
-    else:
-        def heads(t, n):
-            return t.reshape(b, n, num_heads, head_dim).transpose(1, 2)
+    sp = spatial_axis()
+    n_sp = sp.size if sp is not None else 1
+    tq_all = tq * n_sp
+    tk_all = k.shape[1] * (n_sp if context is None and kv is None else 1)
+    kernel = mask is None and tq_all >= ATTN_MIN_TQ
 
-        out = attention(heads(q, tq), heads(k, tk), heads(v, tk), mask=mask)
-        out = out.transpose(1, 2).reshape(b, tq, inner)
+    def run(q, k, v):
+        if kernel:
+            entry = (fused_attention_packed_stream
+                     if stream_attention(tq_all, tk_all, inner, q.dtype)
+                     else fused_attention_packed)
+            return entry(q, k, v, num_heads, scale=head_dim ** -0.5)
+
+        def heads(t):
+            return t.reshape(t.shape[0], t.shape[1], num_heads, head_dim).transpose(1, 2)
+
+        out = attention(heads(q), heads(k), heads(v), mask=mask)
+        return out.transpose(1, 2).reshape(q.shape[0], q.shape[1], inner)
+
+    if sp is None:
+        out = run(q, k, v)
+    else:
+        out = _sp_queries(q, k, v, 1, run, context is None and kv is None, num_heads,
+                          kernel, tp.size if tp is not None else 1)
+    if tp is not None:
+        return row_linear(out, wo, bo, tp)
     return linear(out, wo, bo)

@@ -29,7 +29,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -53,6 +53,11 @@ dispatch.register_counter(variant_launches)
 # cross-attention runs at S = 154 or 231 instead of 77 (chip_smoke.py reads it)
 key_length_launches: "collections.Counter[int]" = collections.Counter()
 dispatch.register_counter(key_length_launches)
+# launches by (batch, heads, Tq, S, head dim) since the last clear(): a mesh
+# rank's share of a site (half the heads under tp=2, half the queries under
+# sp=2) shows here (chip_smoke.py reads it)
+shape_launches: "collections.Counter[Tuple[int, ...]]" = collections.Counter()
+dispatch.register_counter(shape_launches)
 
 
 def attention_variant(dtype: torch.dtype, head_dim: int, tq: int, s: int,
@@ -131,6 +136,7 @@ def _launch(q, k, v, out, batch, heads, tq, s, head_dim, strides, scale,
                            f"cudaError {err}")
     variant_launches[variant] += 1
     key_length_launches[s] += 1
+    shape_launches[(batch, heads, tq, s, head_dim)] += 1
 
 
 # ------------------------------------------------------------- packed entry

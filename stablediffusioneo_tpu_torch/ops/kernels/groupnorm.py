@@ -362,11 +362,12 @@ def group_norm_stats_plain(x, groups: int, rows: int):
                         for ch in xf.split(rows, dim=3)], dim=2)
 
 
-def group_norm_apply_plain(x, partials, weight, bias, eps: float, swish: bool):
+def group_norm_apply_plain(x, partials, weight, bias, eps: float, swish: bool,
+                           count: Optional[int] = None):
     """Plain version of the apply kernel: reduce the partials, normalize."""
     n, c, h, w = x.shape
     sums = partials.sum(2)
-    inv_count = 1.0 / (c // partials.shape[1] * h * w)
+    inv_count = 1.0 / (count or c // partials.shape[1] * h * w)
     return _normalize(x, *_mean_rstd(sums[..., 0], sums[..., 1], inv_count, eps),
                       weight, bias, swish)
 
@@ -460,13 +461,16 @@ def group_norm_stats(x, groups: int, rows: int,
 
 
 def group_norm_apply(x, partials, weight, bias, rows: int, eps: float,
-                     swish: bool, plan: Optional[ApplyPlan] = None):
+                     swish: bool, plan: Optional[ApplyPlan] = None,
+                     count: Optional[int] = None):
     """Normalize, affine and SiLU from the stats kernel's partials. plan: an
     ApplyPlan to run instead of `apply_plan`'s choice (tests, measurements);
-    the C entry refuses a plan that does not fit, and the refusal raises."""
+    the C entry refuses a plan that does not fit, and the refusal raises.
+    count: the elements a group's partials sum over (default x's own, c /
+    groups * h * w; partials summed over an image's row shards cover more)."""
     dispatch.refuse_grad("group_norm_apply", x, partials, weight, bias)
     if not dispatch.use_kernel(x, partials, weight, bias):
-        return group_norm_apply_plain(x, partials, weight, bias, eps, swish)
+        return group_norm_apply_plain(x, partials, weight, bias, eps, swish, count)
     n, c, h, w = x.shape
     groups, chunks = partials.shape[1], partials.shape[2]
     cl = _check_input(x, groups)
@@ -483,7 +487,7 @@ def group_norm_apply(x, partials, weight, bias, rows: int, eps: float,
         x.data_ptr(), partials.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         y.data_ptr(), _DTYPE_CODE[x.dtype], _DTYPE_CODE[weight.dtype], cl, n, c,
         h * w, groups, rows, chunks, int(plan.by_rows), plan.vec, plan.threads,
-        plan.tile_rows, 1.0 / (c // groups * h * w), eps, int(swish),
+        plan.tile_rows, 1.0 / (count or c // groups * h * w), eps, int(swish),
         _stream(x)), f"group norm apply ({plan})")
     apply_plan_launches[plan] += 1
     dispatch.count_launch("group_norm_apply")

@@ -13,6 +13,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from stablediffusioneo_tpu_torch.ops.quant import QuantizedLinear
+from stablediffusioneo_tpu_torch.parallel.mesh import copy_to, row_linear
 
 
 def linear(x, weight, bias=None):
@@ -24,10 +25,16 @@ def linear(x, weight, bias=None):
 def dense(x, layer):
     """x through an nn.Linear, or through the int8 form that
     ops/quant.py:quantize_linear_modules put in its place (the JAX
-    package's linear(x, p) on a {"w_q", "scale"} leaf)."""
+    package's linear(x, p) on a {"w_q", "scale"} leaf). A linear that
+    parallel/mesh.py:shard_params made tensor-parallel runs as such:
+    row-parallel (`tp_row`) through `row_linear`, column-parallel
+    (`tp_col`) with its input through `copy_to`."""
     if isinstance(layer, QuantizedLinear):
         return layer(x)
-    return linear(x, layer.weight, layer.bias)
+    row = getattr(layer, "tp_row", None)
+    if row is not None:
+        return row_linear(x, layer.weight, layer.bias, row)
+    return linear(copy_to(x, getattr(layer, "tp_col", None)), layer.weight, layer.bias)
 
 
 def silu(x):

@@ -21,17 +21,40 @@ import torch.nn.functional as F
 
 from stablediffusioneo_tpu_torch.ops import dispatch
 from stablediffusioneo_tpu_torch.ops.kernels.groupnorm import (
+    chunk_rows,
     fused_group_norm,
+    group_norm_apply,
+    group_norm_stats,
     group_norm_supported,
 )
 from stablediffusioneo_tpu_torch.ops.kernels.layernorm import (
     fused_layer_norm,
     layer_norm_supported,
 )
+from stablediffusioneo_tpu_torch.parallel.mesh import (
+    all_reduce,
+    sp_group_norm,
+    spatial_axis,
+)
 
 
 def group_norm(x, weight, bias, groups: int, eps: float, swish: bool = False):
-    """GroupNorm over NCHW (N, C, ...) in fp32, optional fused SiLU."""
+    """GroupNorm over NCHW (N, C, ...) in fp32, optional fused SiLU. Inside
+    a mesh engine whose rows are split over sp, the fp32 moments are
+    all-reduced over sp: with the kernel flag on and the whole image's slab
+    gated in, the stats kernel's partial sums of this rank's rows, then the
+    apply kernel on the summed partials and the whole image's count; else
+    plain (parallel/mesh.py:sp_group_norm)."""
+    sp = spatial_axis()
+    if sp is not None and x.dim() == 4:
+        n, c, h, w = x.shape
+        if (dispatch.kernels_enabled("groupnorm")
+                and group_norm_supported((n, c, h * sp.size, w), groups)):
+            rows = chunk_rows(x, groups)
+            partials = all_reduce(group_norm_stats(x, groups, rows), sp)
+            return group_norm_apply(x, partials, weight, bias, rows, eps, swish,
+                                    count=c // groups * h * sp.size * w)
+        return sp_group_norm(x, weight, bias, groups, eps, swish, sp)
     if (dispatch.kernels_enabled("groupnorm") and x.dim() == 4
             and group_norm_supported(x.shape, groups)):
         return fused_group_norm(x, weight, bias, groups, eps, swish)
@@ -42,7 +65,11 @@ def group_norm(x, weight, bias, groups: int, eps: float, swish: bool = False):
 
 
 def layer_norm(x, weight, bias, eps: float):
-    """LayerNorm over the last dim in fp32."""
+    """LayerNorm over the last dim in fp32. Inside a mesh engine the kernel
+    takes this rank's tokens as they are: each row is whole under dp, tp and
+    sp. (The JAX package keeps its kernel off under a mesh, because GSPMD
+    has no partitioning rule for that pallas_call and would gather its
+    operands; the port has no such limit.)"""
     if (dispatch.kernels_enabled("layernorm")
             and layer_norm_supported(x.shape, x.dtype)):
         return fused_layer_norm(x, weight, bias, eps)

@@ -46,6 +46,7 @@ from stablediffusioneo_tpu_torch.config import PipelineConfig, sd15_pipeline
 from stablediffusioneo_tpu_torch.models.cldm import ControlLDM
 from stablediffusioneo_tpu_torch.ops.layers import resize_latent_bilinear
 from stablediffusioneo_tpu_torch.runtime.engine import CNSDRuntime
+from stablediffusioneo_tpu_torch.runtime.profiling import _hard_sync
 
 
 class Canny2ImagePipeline:
@@ -53,12 +54,15 @@ class Canny2ImagePipeline:
     array. annotator: a callable (image, low, high) -> hint map (or (image)
     -> map); default Canny (cv2). With a multi-ControlNet model (ControlLDM
     of N nets) a list of annotators, one a net, padded with Canny
-    (`self.annotators`; None for one net)."""
+    (`self.annotators`; None for one net). mesh: a parallel.make_mesh mesh,
+    handed down to the runtime as in the JAX package: every rank of it
+    builds the pipeline and makes the same process() calls, and every rank
+    gets the whole result."""
 
     def __init__(self, model: ControlLDM, tokenizer: Callable,
                  cfg: Optional[PipelineConfig] = None, device="cuda",
                  annotator=None, quantize_linears: bool = False,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, mesh=None):
         from stablediffusioneo_tpu_torch.annotators.canny import CannyDetector
 
         self.cfg = cfg or sd15_pipeline()
@@ -79,7 +83,7 @@ class Canny2ImagePipeline:
             self.apply_canny = annotator or CannyDetector()
         self.runtime = CNSDRuntime(model, self.cfg, device=device,
                                    quantize_linears=quantize_linears,
-                                   graphs=graphs)
+                                   graphs=graphs, mesh=mesh)
         self.last_timings: Dict[str, float] = {}
         self.last_latents: Optional[torch.Tensor] = None
         self.last_detected_maps: List[np.ndarray] = []
@@ -89,10 +93,6 @@ class Canny2ImagePipeline:
         canny2image_TRT.py:20-50), with the runtime's self-test."""
         self.runtime.warmup(warmup_resolution, warmup_steps)
         return self
-
-    def _sync(self) -> None:
-        if self.runtime.device.type == "cuda":
-            torch.cuda.synchronize(self.runtime.device)
 
     def _annotate(self, img: np.ndarray, low: int, high: int,
                   annotator=None) -> Tuple[np.ndarray, np.ndarray]:
@@ -311,10 +311,10 @@ class Canny2ImagePipeline:
             # diagnostic path: a device synchronisation between sample and
             # decode, so the phase split is honest
             z = rt.sample(ddim_steps, x_T, hint, ctx_cond, ctx_uncond, **run)
-            self._sync()
+            _hard_sync(z)
             t_sample = time.perf_counter()
             images_dev = rt.decode_latent_device(z)
-            self._sync()
+            _hard_sync(images_dev)
             t_decode = time.perf_counter()
             images = images_dev.cpu().numpy()
             t_end = time.perf_counter()

@@ -62,6 +62,7 @@ from stablediffusioneo_tpu_torch.models.unet import (
 from stablediffusioneo_tpu_torch.ops.dispatch import const_tensor
 from stablediffusioneo_tpu_torch.ops.layers import nchw, nhwc
 from stablediffusioneo_tpu_torch.ops.schedule import DiffusionSchedule
+from stablediffusioneo_tpu_torch.parallel.mesh import sp_std, spatial_axis
 
 
 def _tile_cfg(control_scales):
@@ -94,8 +95,12 @@ def _cfg_combine(e_c: torch.Tensor, e_u: torch.Tensor, scale,
     if rescale:
         dims = tuple(range(1, out.dim()))
         of = out.float()
-        std_pos = e_c.float().std(dim=dims, keepdim=True, unbiased=False)
-        std_cfg = of.std(dim=dims, keepdim=True, unbiased=False)
+        sp = spatial_axis()  # rows split over sp: the moments are all-reduced
+        if sp is not None:
+            std_pos, std_cfg = sp_std(e_c, dims, sp), sp_std(of, dims, sp)
+        else:
+            std_pos = e_c.float().std(dim=dims, keepdim=True, unbiased=False)
+            std_cfg = of.std(dim=dims, keepdim=True, unbiased=False)
         renorm = of * (std_pos / torch.clamp(std_cfg, min=1e-8))
         out = (rescale * renorm + (1.0 - rescale) * of).to(out.dtype)
     return out

@@ -68,6 +68,13 @@ from stablediffusioneo_tpu_torch.models.vae import vae_decode, vae_encode
 from stablediffusioneo_tpu_torch.ops import dispatch, quant
 from stablediffusioneo_tpu_torch.ops.schedule import DiffusionSchedule
 from stablediffusioneo_tpu_torch.ops.tome import tome_of
+from stablediffusioneo_tpu_torch.parallel.mesh import (
+    all_gather,
+    local_slice,
+    shard_params,
+    spatial,
+    spatial_modules,
+)
 from stablediffusioneo_tpu_torch.pipeline.ddim import (
     ddim_sample,
     schedule_tail,
@@ -411,6 +418,68 @@ def concat_sample_decode_engine(model, num_steps: int, batch: int, h: int, w: in
                  (ctx, dtype), ((batch,), torch.float32)], capture)
 
 
+class MeshEngine:
+    """An Engine over this rank's part of its arguments, on a runtime with a
+    mesh (parallel/mesh.py): a call cuts each global argument to the rank's
+    part by its layout, runs the engine (built, and captured on NCCL, at the
+    local shapes, its function inside `mesh.spatial`, so that the collectives
+    of the tensor- and row-parallel models are part of it), and gathers the
+    outputs back, so that every rank returns the whole batch (the JAX
+    runtime's dp-sharded and replicated outputs, which its callers read
+    whole). Layouts, a string an argument or output: "b" batch on dim 0,
+    "bh" batch on dim 0 and NHWC rows on dim 1, "sbh" per-step (batch on
+    dim 1, rows on dim 2), "" whole. dp=False: the batch does not tile dp and
+    every rank runs it whole (the JAX `_put_batch` replicated case); sp:
+    the sp axis the rows are split on, or None."""
+
+    def __init__(self, engine: Engine, mesh, layouts: Sequence[str],
+                 out_layouts: Sequence[str], dp: bool, sp):
+        self.engine, self.mesh = engine, mesh
+        self.layouts, self.out_layouts = tuple(layouts), tuple(out_layouts)
+        self.dp = mesh.axis("dp") if dp else None
+        self.sp = sp
+        self.name = engine.name
+
+    def _dims(self, layout: str):
+        """(axis, dim) pairs a layout splits: batch over dp, rows over sp."""
+        b = layout.find("b")
+        out = []
+        if b >= 0 and self.dp is not None:
+            out.append((self.dp, b))
+        if "h" in layout and self.sp is not None:
+            out.append((self.sp, layout.find("h")))
+        return out
+
+    def local(self, args) -> List[torch.Tensor]:
+        out = []
+        for a, lay in zip(args, self.layouts):
+            for ax, d in self._dims(lay):
+                a = local_slice(a, ax, d)
+            out.append(a)
+        return out
+
+    def _join(self, out):
+        if isinstance(out, tuple):
+            return tuple(self._gather(o, lay) for o, lay in zip(out, self.out_layouts))
+        return self._gather(out, self.out_layouts[0])
+
+    def _gather(self, x, layout: str):
+        for ax, d in reversed(self._dims(layout)):
+            x = all_gather(x, ax, d)
+        return x
+
+    def __call__(self, *args: torch.Tensor):
+        if len(args) != len(self.layouts):
+            raise ValueError(f"engine {self.name} takes {len(self.layouts)} "
+                             f"tensors, got {len(args)}")
+        return self._join(self.engine(*self.local(args)))
+
+    infer = __call__
+
+    def __getattr__(self, name):  # compiled, replay, compile_seconds, ...
+        return getattr(self.engine, name)
+
+
 def _kept(out):
     """A copy of an engine's output that the next call does not overwrite."""
     if isinstance(out, tuple):
@@ -448,18 +517,36 @@ class CNSDRuntime:
     capture_guard: None, or a context manager factory entered around every
     capture (a server makes captures wait for the device-to-host fetches of
     other threads: a capture in torch's default global mode fails beside
-    them)."""
+    them).
+
+    mesh: a parallel.make_mesh mesh (the JAX runtime's mesh=): every rank of
+    it builds the runtime with the same model and makes the same calls. The
+    runtime works on a copy of the model, sharded after the dtype cast and
+    the int8 conversion, as the JAX runtime shards its params: the TP rules
+    of parallel/mesh.py:shard_params (the int8 linears, which the JAX rule
+    does not name, stay whole), and with an sp axis the row-mixing convs
+    made halo-exchanging. Engine calls run each rank's slice of the batch
+    (a batch that does not tile dp runs whole on every rank) and, with sp,
+    its rows of the latents, hints and images where the latent rows tile
+    sp times the UNet's downsampling; every call returns the whole result
+    on every rank (`MeshEngine`). The device is the mesh's. Engines are
+    captured over NCCL (the collectives in the graph); over gloo they run
+    eagerly, and graphs=True is refused."""
 
     def __init__(self, model: ControlLDM, cfg: PipelineConfig,
                  device="cuda", quantize_linears: bool = False,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, mesh=None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
         if graphs and self.device.type != "cuda":
             raise ValueError("graphs=True needs a CUDA device")
+        if graphs and mesh is not None and mesh.backend != "nccl":
+            raise ValueError(f"graphs=True needs NCCL collectives (this mesh's "
+                             f"transport: {mesh.transport})")
         self.graphs = graphs
         self.dtype = DTYPES[cfg.dtype]
-        if quantize_linears:
+        if quantize_linears or mesh is not None:
             model = copy.deepcopy(model)
         self.model = model.to(device=self.device, dtype=self.dtype).eval()
         self.model.requires_grad_(False)
@@ -470,6 +557,12 @@ class CNSDRuntime:
             for net in (self.model.unet, self.model.control_model):
                 quant.quantize_linear_modules(net)
         self.quantized = quantize_linears
+        self._sp_rows = 0  # latent rows must tile this for an sp split
+        if mesh is not None:
+            shard_params(self.model, mesh)
+            if mesh.axis("sp") is not None:
+                spatial_modules(self.model)
+                self._sp_rows = mesh.size("sp") * 2 ** (len(cfg.unet.channel_mult) - 1)
         d = cfg.diffusion
         self.schedule = DiffusionSchedule(d.timesteps, d.linear_start,
                                           d.linear_end, d.schedule)
@@ -485,7 +578,8 @@ class CNSDRuntime:
 
     @property
     def capturing(self) -> bool:
-        return self.device.type == "cuda" and self.graphs is not False
+        return (self.device.type == "cuda" and self.graphs is not False
+                and (self.mesh is None or self.mesh.backend == "nccl"))
 
     def apply_lora(self, lora: Dict, scale: float = 1.0, on: str = "unet") -> int:
         """Merge a LoRA adapter tree (training/lora.py) into the resident `on`
@@ -510,6 +604,10 @@ class CNSDRuntime:
                 "vae": model.first_stage_model}
         if on not in nets:
             raise KeyError(f"apply_lora: no {on!r} tree in runtime params")
+        if self.mesh is not None:  # each rank merges its slice of the update
+            from stablediffusioneo_tpu_torch.training.lora import shard_lora
+
+            lora = shard_lora(nets[on], lora)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         n = merge_lora(nets[on], lora, scale)
@@ -520,16 +618,37 @@ class CNSDRuntime:
     # ------------------------------------------------------------- engines
 
     def _engine(self, key_t: Tuple, name: str, make_fn: Callable,
-                example: Callable) -> Engine:
+                example: Callable, layouts: Sequence[str] = (),
+                out_layouts: Sequence[str] = (), batch: int = 0,
+                rows: int = 0) -> Engine:
         """The engine of this key, built (and captured) at first use. The
-        kernel flags are part of the key: they change what a capture holds."""
+        kernel flags are part of the key: they change what a capture holds.
+        With a mesh, a MeshEngine over the arguments' `layouts` (batch: the
+        global batch; rows: the latent rows, 0 where nothing is split by
+        rows)."""
         key_t = key_t + (self.capturing, dispatch.kernel_flags())
         eng = self._engines.get(key_t)
         if eng is None:
-            eng = Engine(make_fn(), name=name, capture=self.capturing)
+            fn, mesh = make_fn(), self.mesh
+            if mesh is not None:
+                sp = (mesh.axis("sp") if self._sp_rows and rows
+                      and rows % self._sp_rows == 0 else None)
+                inner = fn
+
+                def fn(*a):
+                    with spatial(sp):
+                        return inner(*a)
+
+            eng = Engine(fn, name=name, capture=self.capturing)
+            if mesh is not None:
+                eng = MeshEngine(eng, mesh, layouts, out_layouts,
+                                 batch % mesh.size("dp") == 0, sp)
             if self.capturing:
+                ex = example()
+                if mesh is not None:
+                    ex = eng.local(ex)
                 with self.capture_guard() if self.capture_guard else contextlib.nullcontext():
-                    eng.load(*example())
+                    eng.load(*ex)
             self._engines[key_t] = eng
         return eng
 
@@ -691,6 +810,20 @@ class CNSDRuntime:
                    self._zeros((num_steps,) + lat, torch.float32)]
         return ex
 
+    def _sampler_layouts(self, num_steps, hint_u8, gen_xT, inpaint, eta,
+                         schedule_steps, sampler="ddim") -> List[str]:
+        """The MeshEngine layouts of `_sampler_example`'s arguments."""
+        sched = self._loop_schedule(num_steps, schedule_steps, eta, sampler)
+        n_hints = self.n_nets if hint_u8 == "multi" else 1
+        lay = ["bh"] * (1 + n_hints) + ["b"] * (3 + n_hints)
+        if _noisy_steps(sampler, sched).any():
+            lay.append("sbh")
+        if gen_xT == "img2img":
+            lay.append("bh")
+        if inpaint:
+            lay += ["bh", "bh", "sbh"]
+        return lay
+
     def _decode_u8(self, z: torch.Tensor) -> torch.Tensor:
         return decode_u8(self._require_model().first_stage_model, z, self.dtype)
 
@@ -743,7 +876,10 @@ class CNSDRuntime:
             + ("_inpaint" if inpaint else ""), make,
             lambda: self._sampler_example(num_steps, batch, h, w, ctx_len, hint_u8,
                                           gen_xT, inpaint, eta, schedule_steps,
-                                          sampler))
+                                          sampler),
+            self._sampler_layouts(num_steps, hint_u8, gen_xT, inpaint, eta,
+                                  schedule_steps, sampler),
+            ("bh", "bh"), batch, h // self.cfg.vae.downsample_factor)
 
     def sampler_engine(
         self, num_steps: int, batch: int, h: int, w: int,
@@ -773,7 +909,10 @@ class CNSDRuntime:
                                      schedule_steps, sampler, tome_ratio),
             lambda: self._sampler_example(num_steps, batch, h, w, ctx_len, hint_u8,
                                           gen_xT, inpaint, eta, schedule_steps,
-                                          sampler))
+                                          sampler),
+            self._sampler_layouts(num_steps, hint_u8, gen_xT, inpaint, eta,
+                                  schedule_steps, sampler),
+            ("bh",), batch, h // self.cfg.vae.downsample_factor)
 
     def clip_engine(self, batch: int, clip_skip: int = 0) -> Engine:
         clip, dtype = self._require_model().clip, self.dtype
@@ -782,14 +921,16 @@ class CNSDRuntime:
             f"clip_b{batch}" + (f"_skip{clip_skip}" if clip_skip > 1 else ""),
             lambda: lambda ids: clip_text_apply(clip, ids,
                                                 clip_skip=clip_skip).to(dtype),
-            lambda: [self._zeros((batch, self.cfg.clip.max_length), torch.long)])
+            lambda: [self._zeros((batch, self.cfg.clip.max_length), torch.long)],
+            ("b",), ("b",), batch)
 
     def decoder_engine(self, batch: int, h: int, w: int) -> Engine:
         f = self.cfg.vae.downsample_factor
         return self._engine(
             ("decoder", batch, h, w), f"decoder_b{batch}_{h}x{w}",
             lambda: self._decode_u8,
-            lambda: [self._zeros((batch, h // f, w // f, 4), self.dtype)])
+            lambda: [self._zeros((batch, h // f, w // f, 4), self.dtype)],
+            ("bh",), ("bh",), batch, h // f)
 
     def encoder_engine(self, batch: int, h: int, w: int,
                        deterministic: bool = False) -> Engine:
@@ -806,7 +947,8 @@ class CNSDRuntime:
             f"encoder_b{batch}_{h}x{w}" + ("_det" if deterministic else ""),
             lambda: _encode_fn(vae, deterministic),
             lambda: [self._zeros((batch, h, w, 3), self.dtype)]
-            + ([] if deterministic else [self._zeros(lat, self.dtype)]))
+            + ([] if deterministic else [self._zeros(lat, self.dtype)]),
+            ("bh",) * (1 if deterministic else 2), ("bh",), batch, h // f)
 
     # ----------------------------------------------------------- user API
 

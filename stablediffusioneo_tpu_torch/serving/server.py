@@ -39,6 +39,13 @@ captures: warm every (bucket, resolution) before traffic, and a request that
 still needs a new engine is captured only when nothing is in flight. The
 pipeline's runtime must not be used from another thread while the server
 runs.
+
+Over a mesh runtime (a pipeline built with mesh=, parallel/mesh.py) every
+rank builds the same pipeline and server; rank 0 calls start() and owns
+the queues, the batch-cut policy and the futures, and the other ranks call
+follow(): at each cut (and warm-up) rank 0 broadcasts the cut's requests,
+so that every rank makes the same engine calls. A bucket that does not tile
+dp runs whole on every rank, not as a failure.
 """
 
 from __future__ import annotations
@@ -225,6 +232,9 @@ class DiffusionServer:
     def start(self) -> "DiffusionServer":
         if self._thread is not None:
             return self
+        if not self._lead():
+            raise RuntimeError("on a mesh runtime only rank 0 serves; the other "
+                               "ranks call follow()")
         self._stop = False
         self._thread = threading.Thread(target=self._dispatch_loop,
                                         name="sdeo-dispatch", daemon=True)
@@ -235,7 +245,8 @@ class DiffusionServer:
         return self
 
     def stop(self, drain: bool = True):
-        """Stop the dispatcher. drain=True serves queued requests first."""
+        """Stop the dispatcher. drain=True serves queued requests first. On
+        a mesh runtime the other ranks' `follow` returns."""
         if self._thread is None:
             return
         if drain:
@@ -245,6 +256,7 @@ class DiffusionServer:
             self._wake.notify_all()
         self._thread.join()
         self._thread = None
+        self._publish(None)
         self._done_q.put(None)  # the completer drains in-flight batches first
         self._completer.join()
         self._completer = None
@@ -284,6 +296,7 @@ class DiffusionServer:
             hint_mode = "packed"  # canny maps are binary: requests arrive packed
         else:
             hint_mode = True
+        self._publish(("warmup", (tuple(resolutions), steps, sampler)))
         with self._device_lock:
             engines = []
             for res in resolutions:
@@ -298,6 +311,48 @@ class DiffusionServer:
         with self._lock:
             self.stats.engines = rt.engine_census()
         return self
+
+    # ------------------------------------------------------------- mesh
+
+    def _lead(self) -> bool:
+        mesh = self.pipe.runtime.mesh
+        return mesh is None or mesh.rank == mesh.ranks[0]
+
+    def _publish(self, msg) -> None:
+        """Rank 0 of a mesh runtime: hand `msg` (a warm-up, a cut, or None
+        to stop) to the other ranks' `follow`, so that every rank makes the
+        same engine calls. No-op without a mesh."""
+        mesh = self.pipe.runtime.mesh
+        if mesh is not None and self._lead():
+            from stablediffusioneo_tpu_torch.parallel.mesh import broadcast_object
+
+            broadcast_object(msg, mesh)
+
+    def follow(self) -> int:
+        """The loop of a rank other than 0 of a mesh runtime (the JAX server
+        over a mesh runtime is one controller; the port's is one process a
+        rank): rank 0 owns the queue, the batch-cut policy and the futures;
+        at each cut it broadcasts the cut's requests (ids, hints, seeds,
+        sizes), and this rank runs the same warm-ups and engine calls, until
+        rank 0's `stop()`. Returns the number of cuts run."""
+        mesh = self.pipe.runtime.mesh
+        if mesh is None or self._lead():
+            raise RuntimeError("follow() runs on the other ranks of a mesh runtime; "
+                               "rank 0 calls start()")
+        from stablediffusioneo_tpu_torch.parallel.mesh import broadcast_object
+
+        cuts = 0
+        with torch.no_grad():
+            while True:
+                msg = broadcast_object(None, mesh)
+                if msg is None:
+                    return cuts
+                kind, payload = msg
+                if kind == "warmup":
+                    self.warmup(*payload)
+                else:
+                    self._run_call(payload).cpu()
+                    cuts += 1
 
     @contextlib.contextmanager
     def _capture_window(self):
@@ -547,39 +602,23 @@ class DiffusionServer:
 
     # -------------------------------------------------------------- execution
 
-    def _dispatch_batch(self, batch: List[_Pending]):
-        """Encode the prompts and enqueue the batched engine call on this
-        thread's stream; hand the copied output and an event recorded after
-        it to the completion thread, so that the next batch can be cut and
-        enqueued while this one computes and is fetched."""
-        rt = self.pipe.runtime
-        t0 = time.perf_counter()
+    def _batch_call(self, batch: List[_Pending]) -> Dict:
+        """Everything the device work of a cut needs, as host values (the
+        message rank 0 of a mesh runtime broadcasts): ids, hints, seeds,
+        sizes and the request knobs the cut shares."""
         r0 = batch[0].req
         b = len(batch)
-        n_engines = len(rt._engines)
-
         # one batched CLIP call: rows [cond_0..cond_{B-1}, uncond_0..]
         ids = np.concatenate([np.stack([p.ids[0] for p in batch]),
                               np.stack([p.ids[1] for p in batch])])
-        if ids.ndim == 3:  # long-prompt windows: (2B, F, 77) -> (2B*F, 77)
-            n2b, fw, lw = ids.shape
-            ctx = rt.encode_prompt(ids.reshape(n2b * fw, lw), clip_skip=r0.clip_skip)
-            ctx = ctx.reshape(n2b, fw * lw, -1)
-        else:
-            ctx = rt.encode_prompt(ids, clip_skip=r0.clip_skip)
+        emph_w = None
         if any(p.weights is not None for p in batch):
-            from stablediffusioneo_tpu_torch.models.text_encoding import apply_emphasis
-
             ones = np.ones_like(ids[0], np.float32)
             emph_w = np.concatenate(
                 [np.stack([p.weights[0] if p.weights is not None else ones
                            for p in batch]),
                  np.stack([p.weights[1] if p.weights is not None else ones
                            for p in batch])])
-            ctx = apply_emphasis(ctx, emph_w)
-        ctx_cond, ctx_uncond = ctx[:b], ctx[b:]
-
-        scales = np.asarray([p.req.scale for p in batch], np.float32)
         if isinstance(batch[0].hint, tuple):  # multi-ControlNet
             n_nets = len(batch[0].hint)
             hint = tuple(np.stack([p.hint[n] for p in batch]) for n in range(n_nets))
@@ -594,27 +633,65 @@ class DiffusionServer:
             hint = np.stack([p.hint for p in batch])
             strengths = np.asarray([p.req.strength for p in batch], np.float32)
 
+        return dict(
+            b=b, ids=ids, emph_w=emph_w, clip_skip=r0.clip_skip, hint=hint,
+            scales=np.asarray([p.req.scale for p in batch], np.float32),
+            strengths=strengths, seeds=[p.seed for p in batch],
+            inpaint_src=(None if batch[0].inpaint_src is None
+                         else np.stack([p.inpaint_src for p in batch])),
+            inpaint_mask=(None if batch[0].inpaint_src is None
+                          else np.stack([p.inpaint_mask for p in batch])),
+            init_src=(np.stack([p.init_src for p in batch]) if batch[0].t_enc else None),
+            t_enc=batch[0].t_enc,
+            knobs=dict(num_steps=r0.ddim_steps, eta=r0.eta, guess_mode=r0.guess_mode,
+                       sampler=r0.sampler,
+                       encoder_cache_interval=r0.encoder_cache_interval,
+                       cfg_rescale=r0.cfg_rescale, tome_ratio=r0.tome_ratio))
+
+    def _run_call(self, call: Dict) -> torch.Tensor:
+        """The device work of a cut: the CLIP call, the encodes of
+        inpainting or img2img sources, the fused engine; the images on the
+        device."""
+        rt = self.pipe.runtime
+        b, ids = call["b"], call["ids"]
+        if ids.ndim == 3:  # long-prompt windows: (2B, F, 77) -> (2B*F, 77)
+            n2b, fw, lw = ids.shape
+            ctx = rt.encode_prompt(ids.reshape(n2b * fw, lw), clip_skip=call["clip_skip"])
+            ctx = ctx.reshape(n2b, fw * lw, -1)
+        else:
+            ctx = rt.encode_prompt(ids, clip_skip=call["clip_skip"])
+        if call["emph_w"] is not None:
+            from stablediffusioneo_tpu_torch.models.text_encoding import apply_emphasis
+
+            ctx = apply_emphasis(ctx, call["emph_w"])
         extra_kw = {}
-        if batch[0].inpaint_src is not None:
+        if call["inpaint_src"] is not None:
             # one batched posterior-mode encode: no batch-dependent noise
             extra_kw.update(
-                inpaint_latent=rt.encode_image(np.stack([p.inpaint_src for p in batch]),
-                                               deterministic=True),
-                inpaint_mask=np.stack([p.inpaint_mask for p in batch]))
-        if batch[0].t_enc:
+                inpaint_latent=rt.encode_image(call["inpaint_src"], deterministic=True),
+                inpaint_mask=call["inpaint_mask"])
+        if call["t_enc"]:
             extra_kw.update(
-                init_latent=rt.encode_image(np.stack([p.init_src for p in batch]),
-                                            deterministic=True),
-                t_enc=batch[0].t_enc)
+                init_latent=rt.encode_image(call["init_src"], deterministic=True),
+                t_enc=call["t_enc"])
+        knobs = dict(call["knobs"])
+        return rt.sample_decode(
+            knobs.pop("num_steps"), None, call["hint"], ctx[:b], ctx[b:],
+            seeds=call["seeds"], guidance_scale=call["scales"],
+            strength=call["strengths"], **knobs, **extra_kw)
 
-        images_dev = rt.sample_decode(
-            r0.ddim_steps, None, hint, ctx_cond, ctx_uncond,
-            seeds=[p.seed for p in batch],
-            guidance_scale=scales, strength=strengths, eta=r0.eta,
-            guess_mode=r0.guess_mode, sampler=r0.sampler,
-            encoder_cache_interval=r0.encoder_cache_interval,
-            cfg_rescale=r0.cfg_rescale, tome_ratio=r0.tome_ratio,
-            **extra_kw)
+    def _dispatch_batch(self, batch: List[_Pending]):
+        """Encode the prompts and enqueue the batched engine call on this
+        thread's stream; hand the copied output and an event recorded after
+        it to the completion thread, so that the next batch can be cut and
+        enqueued while this one computes and is fetched. On a mesh runtime
+        the cut is first published to the other ranks (`follow`)."""
+        rt = self.pipe.runtime
+        t0 = time.perf_counter()
+        n_engines = len(rt._engines)
+        call = self._batch_call(batch)
+        self._publish(("batch", call))
+        images_dev = self._run_call(call)
         ready = None
         if images_dev.device.type == "cuda":
             ready = torch.cuda.Event()

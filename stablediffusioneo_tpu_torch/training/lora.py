@@ -198,6 +198,8 @@ def merged_weights(net: nn.Module, lora: Dict, scale: float = 1.0) -> Dict[str, 
     network (not a multi-ControlNet); its sites are whole linears."""
     kind = net_kind(net)
     out = {}
+    if getattr(net, "tp_specs", None):  # a tensor-parallel net: slices of the update
+        lora = shard_lora(net, lora)
     for path, w, layout, a, b in _merge_plan({(): net}, lora):
         t = leaf_target(kind, _ucfg(net), tuple(path) + ("w",))
         if t.rows is not None:
@@ -241,7 +243,7 @@ def lora_train_step(
     function, so the gradients flow to the rank-r factors only. key, t,
     noise: as in trainer.train_step."""
     from stablediffusioneo_tpu_torch.training.trainer import (
-        apply_gradients, diffusion_loss, prepare_batch, step_draws,
+        apply_gradients, diffusion_loss, dp_local, prepare_batch, step_draws,
     )
 
     if on not in ("unet", "controlnet"):
@@ -251,11 +253,18 @@ def lora_train_step(
     batch = prepare_batch(batch)
     if t is None or noise is None:
         t, noise = step_draws(key, state.step, batch["x0"], cfg.diffusion.timesteps)
+    tp_summed = ()
+    if state.mesh is not None:
+        batch, t, noise = dp_local(state.mesh, batch, t, noise)
+        # a tensor-parallel site's factors: each rank's merge reaches only
+        # its slice of the update, so their gradients are summed over tp
+        tp_summed = tuple(f for path, *_ in _tp_sites({(): frozen[on]}, state.params)
+                          for f in _get(state.params, path).values())
     merged = {f"{on}_params": merged_weights(frozen[on], state.params, scale)}
     loss = diffusion_loss(
         frozen["controlnet"], frozen["unet"], cfg, sqrt_abar, sqrt_one_minus_abar,
         batch["x0"], batch["hint"], batch["ctx"], t, noise, **merged)
-    return apply_gradients(state, loss)
+    return apply_gradients(state, loss, tp_summed)
 
 
 # ------------------------------------------------------------- save / load
@@ -333,6 +342,46 @@ def tree_map(fn, *trees):
     if isinstance(trees[0], dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
     return fn(*trees)
+
+
+def shard_lora(net, lora: Dict) -> Dict:
+    """The adapter tree cut to the slices of a network that
+    parallel/mesh.py:shard_params made tensor-parallel, so that `merge_lora`
+    adds to each rank's weight slice its slice of the update: b's output
+    columns at a column-parallel site (GEGLU ff1: the rank's part of each
+    half), a's input rows at a row-parallel one; sites left whole keep
+    their factors. A multi-ControlNet: the nets of `_nets`."""
+    from stablediffusioneo_tpu_torch.parallel.mesh import _rows, tp_parts
+
+    def rebuilt(tree):  # new dicts, the same tensors (autograd follows them)
+        return {k: rebuilt(v) if isinstance(v, dict) else v for k, v in tree.items()}
+
+    nets = _nets(net)
+    if () not in nets and isinstance(lora, (tuple, list)):
+        lora = dict(enumerate(lora))
+    out = rebuilt(lora)
+    for path, t, col, row in _tp_sites(nets, lora):
+        site = _get(out, path)
+        if col is not None:
+            # an OpenCLIP q / k / v site is one third of the packed in_proj
+            parts = 1 if t.rows is not None else tp_parts(t.name)
+            site["b"] = _rows(torch.as_tensor(site["b"]).T, col.index, col.size, parts).T
+        if row is not None:
+            site["a"] = torch.as_tensor(site["a"]).chunk(row.size, dim=0)[row.index]
+    return out
+
+
+def _tp_sites(nets: Dict, lora: Dict):
+    """(path, target, column axis, row axis) of every adapter site whose
+    linear is tensor-parallel."""
+    for path in _site_paths(lora):
+        prefix = () if () in nets else path[:1]
+        n = nets[prefix]
+        t = leaf_target(net_kind(n), _ucfg(n), tuple(path[len(prefix):]) + ("w",))
+        mod = n.get_submodule(t.name.rpartition(".")[0])
+        col, row = getattr(mod, "tp_col", None), getattr(mod, "tp_row", None)
+        if col is not None or row is not None:
+            yield path, t, col, row
 
 
 def _site_paths(tree: Dict, path=()) -> Iterable[Tuple]:

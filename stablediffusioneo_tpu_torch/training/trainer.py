@@ -26,6 +26,17 @@ not JAX's bits; the parity tests hand the JAX draws in through `t=` and
 
 Unlike the JAX step, which returns a new state, the port's step updates the
 state's tensors in place (the optimiser's way) and returns the same state.
+
+On a mesh (parallel/mesh.py; `create_train_state(..., mesh=, fsdp=)`) every
+rank runs the same step on the same global batch: the draws are made for
+the whole batch, then each rank keeps its dp slice; the nets are the
+tensor-parallel copies `shard_params` made; with FSDP the masters (and so
+both AdamW moments) hold each large leaf's 1/dp slice, all-gathered at use,
+the frozen UNet's too. The rank's loss is divided by dp before the
+backward; gradients are summed over dp (the FSDP leaves' by their gather's
+backward, the rest by one all-reduce each), and LoRA factors of a
+tensor-parallel site over tp as well (each rank's merge touches only its
+slice of the site). The returned loss is the whole batch's.
 """
 
 from __future__ import annotations
@@ -53,13 +64,18 @@ class TrainState:
     opt_state: the torch.optim.AdamW over them, which holds both moments;
     step: the steps taken; net: the network whose parameters `params` take
     the place of (for LoRA, the network the adapters merge into); ema: the
-    EMA shadow of params that training/loop.py:train kept, else None."""
+    EMA shadow of params that training/loop.py:train kept, else None;
+    mesh: the parallel.make_mesh mesh of a parallel run, else None;
+    fsdp_specs: {name: spec} of the FSDP rules where params are FSDP slices
+    (`fsdp_param_sharding_rules`), else None."""
 
     params: Dict
     opt_state: torch.optim.AdamW
     step: int
     net: nn.Module
     ema: Optional[Dict] = None
+    mesh: Optional[object] = None
+    fsdp_specs: Optional[Dict[str, Tuple]] = None
 
 
 def create_train_state(
@@ -68,20 +84,78 @@ def create_train_state(
     weight_decay: float = 0.01,
     params: Optional[Dict] = None,
     device=None,
+    mesh=None,
+    fsdp: bool = False,
 ) -> Tuple[TrainState, torch.optim.AdamW]:
     """The state of a fine-tuning run of `net`: fp32 copies of its
     parameters on `device` (default: the net's) that require grad (the
     network itself is not changed), or the given `params` tree (LoRA
     adapters), and an AdamW over them. Returns (state, tx) as the JAX
-    function does; tx is state.opt_state."""
+    function does; tx is state.opt_state. mesh: a parallel run's mesh (net
+    already tensor-parallel where the mesh has tp: its masters are this
+    rank's slices); fsdp=True: the masters' large leaves cut to their FSDP
+    slices (the net's own tensors too, which the masters stand in for)."""
+    specs = None
     if params is None:
         params = {n: p.detach().to(device, torch.float32, copy=True)
                   for n, p in net.named_parameters()}
+        if fsdp:
+            from stablediffusioneo_tpu_torch.parallel.mesh import fsdp_shard_params
+
+            params, specs = fsdp_shard_params(params, mesh,
+                                              tp_specs=getattr(net, "tp_specs", None))
+            _hold_slices(net, params)
     for p in leaves(params):
         p.requires_grad_(True)
     tx = torch.optim.AdamW(list(leaves(params)), lr=learning_rate, betas=(0.9, 0.999),
                            eps=1e-8, weight_decay=weight_decay)
-    return TrainState(params=params, opt_state=tx, step=0, net=net), tx
+    return TrainState(params=params, opt_state=tx, step=0, net=net, mesh=mesh,
+                      fsdp_specs=specs), tx
+
+
+def _hold_slices(net: nn.Module, slices: Dict[str, torch.Tensor]) -> None:
+    """Let `net` hold only the FSDP slices of its parameters (in its dtype):
+    the whole tensors are gathered at use and handed in by name."""
+    with torch.no_grad():
+        for n, p in net.named_parameters():
+            if slices[n].shape != p.shape:
+                p.data = slices[n].detach().to(p.dtype).clone()
+
+
+def fsdp_frozen(net: nn.Module, mesh) -> nn.Module:
+    """A frozen network (the UNet) under FSDP: it keeps the 1/dp slices of
+    its large leaves (`net.fsdp_specs`), gathered at each step
+    (`fsdp_tensors`)."""
+    from stablediffusioneo_tpu_torch.parallel.mesh import fsdp_shard_params
+
+    slices, net.fsdp_specs = fsdp_shard_params(dict(net.named_parameters()), mesh,
+                                               tp_specs=getattr(net, "tp_specs", None))
+    _hold_slices(net, slices)
+    return net
+
+
+def fsdp_tensors(net: nn.Module, params: Optional[Dict], specs: Optional[Dict],
+                 mesh) -> Optional[Dict]:
+    """{name: whole tensor} of `params` (default: the net's own tensors)
+    with their FSDP slices all-gathered over dp; `params` as it is without
+    FSDP."""
+    if not specs:
+        return params
+    from stablediffusioneo_tpu_torch.parallel.mesh import fsdp_gather
+
+    params = params if params is not None else dict(net.named_parameters())
+    return {n: fsdp_gather(t, specs[n], mesh) for n, t in params.items()}
+
+
+def dp_local(mesh, batch: Dict, t: torch.Tensor, noise: torch.Tensor):
+    """This rank's dp slice of a global batch and of its draws."""
+    from stablediffusioneo_tpu_torch.parallel.mesh import local_slice
+
+    ax = mesh.axis("dp")
+    if batch["x0"].shape[0] % ax.size:
+        raise ValueError(f"batch {batch['x0'].shape[0]} does not tile dp={ax.size}")
+    return ({k: local_slice(v, ax, 0) for k, v in batch.items()},
+            local_slice(t, ax, 0), local_slice(noise, ax, 0))
 
 
 def frozen(net: nn.Module, dtype, device=None) -> nn.Module:
@@ -180,10 +254,32 @@ def prepare_batch(batch: Dict) -> Dict[str, torch.Tensor]:
     return out
 
 
-def apply_gradients(state: TrainState, loss: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
-    """Backward of `loss` into the state's tensors, one AdamW step, step+1."""
+def apply_gradients(state: TrainState, loss: torch.Tensor,
+                    tp_summed: Tuple[torch.Tensor, ...] = ()) -> Tuple[TrainState, torch.Tensor]:
+    """Backward of `loss` into the state's tensors, one AdamW step, step+1.
+    On a mesh, `loss` is this rank's (its dp slice's mean): the gradients
+    are synchronised as the module docstring says (tp_summed: the tensors
+    whose gradients are also summed over tp) and the whole batch's loss is
+    returned."""
     state.opt_state.zero_grad(set_to_none=True)
-    loss.backward()
+    mesh = state.mesh
+    if mesh is None:
+        loss.backward()
+    else:
+        from stablediffusioneo_tpu_torch.parallel.mesh import all_reduce, fsdp_dim
+
+        dp = mesh.axis("dp")
+        (loss / dp.size).backward()
+        specs = state.fsdp_specs or {}
+        named = state.params.items() if specs else enumerate(leaves(state.params))
+        with torch.no_grad():
+            for name, p in named:
+                if p.grad is not None and fsdp_dim(specs.get(name, ())) is None:
+                    p.grad = all_reduce(p.grad, dp)
+            for p in tp_summed:
+                if p.grad is not None:
+                    p.grad = all_reduce(p.grad, mesh.axis("tp"))
+            loss = all_reduce(loss.detach(), dp) / dp.size
     state.opt_state.step()
     state.step += 1
     return state, loss.detach()
@@ -204,17 +300,21 @@ def train_step(
     """One AdamW step on the ControlNet branch. batch: {x0, hint, ctx}
     (NHWC; a uint8 hint is normalised on the device). key: the run's seed;
     t / noise: the step's draws, to hand in instead of drawing them
-    (`step_draws(key, state.step, ...)`). tx is state.opt_state (an
-    argument for the JAX signature). Returns (state, loss), the loss
-    before the update, as a tensor on the device."""
+    (`step_draws(key, state.step, ...)`), for the whole batch on a mesh.
+    tx is state.opt_state (an argument for the JAX signature). Returns
+    (state, loss), the loss before the update, as a tensor on the device."""
     del tx
     batch = prepare_batch(batch)
     if t is None or noise is None:
         t, noise = step_draws(key, state.step, batch["x0"], cfg.diffusion.timesteps)
+    mesh = state.mesh
+    if mesh is not None:
+        batch, t, noise = dp_local(mesh, batch, t, noise)
     loss = diffusion_loss(
         state.net, unet, cfg, sqrt_abar, sqrt_one_minus_abar,
         batch["x0"], batch["hint"], batch["ctx"], t, noise,
-        controlnet_params=state.params)
+        controlnet_params=fsdp_tensors(state.net, state.params, state.fsdp_specs, mesh),
+        unet_params=fsdp_tensors(unet, None, getattr(unet, "fsdp_specs", None), mesh))
     return apply_gradients(state, loss)
 
 

@@ -51,6 +51,10 @@ def test_port_file_imports_neither_the_jax_package_nor_jax(path):
 def test_the_walk_covers_the_port():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for must in ("chip_smoke.py", "stablediffusioneo_tpu_torch/config.py",
+                 "stablediffusioneo_tpu_torch/parallel/__init__.py",
+                 "stablediffusioneo_tpu_torch/parallel/mesh.py",
+                 "stablediffusioneo_tpu_torch/parallel/pipeline.py",
+                 "stablediffusioneo_tpu_torch/runtime/profiling.py",
                  "stablediffusioneo_tpu_torch/annotators/canny.py",
                  "stablediffusioneo_tpu_torch/pipeline/canny2image.py",
                  "stablediffusioneo_tpu_torch/ops/kernels/attention.py",
@@ -298,7 +302,7 @@ def test_score_cli_runs_with_both_packages_blocked():
         import stablediffusioneo_tpu_torch.scoring.inception
         import stablediffusioneo_tpu_torch.yolo
         from stablediffusioneo_tpu_torch.cli import score
-        result = score.main(["--cpu", "--n", "2"])
+        result = score.score(score.parse_args(["--cpu", "--n", "2"]))
         assert result["mean_pd"] == 0.0 and len(result["records"]) == 2
         assert all(r["score"] > 0 for r in result["records"])
         loaded = [m for m in sys.modules if sys.modules[m] is not None
@@ -313,6 +317,27 @@ def test_score_cli_runs_with_both_packages_blocked():
     assert res.returncode == 0, res.stderr[-3000:]
     assert "mean perceptual distance: 0.000" in res.stdout
     assert res.stdout.strip().endswith("OK")
+
+
+def test_score_console_entry_returns_exit_code():
+    """The installed sdeo-score-torch runs sys.exit(main()): main returns
+    the int 0 on a passing run (a dict would exit 1)."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "stablediffusioneo_tpu"):
+            sys.modules[name] = None
+        import torch
+        torch.set_num_threads(1)
+        from stablediffusioneo_tpu_torch.cli import score
+        rc = score.main(["--cpu", "--n", "1"])
+        assert type(rc) is int and rc == 0, rc
+        sys.exit(rc)
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(REPO), timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "mean perceptual distance: 0.000" in res.stdout
 
 
 def test_score_console_script_is_registered():
@@ -349,7 +374,7 @@ def test_manifest_data_is_the_jax_packages(name):
                   .iterdir()) == [n.split("/")[1] for n in CHECKPOINT_DATA[1:]]
 
 
-@pytest.mark.parametrize("package", ["models", "checkpoint", "utils"])
+@pytest.mark.parametrize("package", ["models", "checkpoint", "utils", "parallel"])
 def test_exports_cover_the_jax_packages(package):
     import importlib
 

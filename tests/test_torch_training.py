@@ -374,6 +374,8 @@ def test_train_two_steps_with_metrics(nets, tmp_path, lora_rank):
 
 @pytest.mark.parametrize("mesh", [{"dp": 2}, {"tp": 2}, {"fsdp": True}])
 def test_train_refuses_a_mesh(nets, mesh):
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    """dp, tp and fsdp train on a mesh of a torch.distributed process group
+    (tests/test_torch_parallel.py); without one, train() says so."""
+    with pytest.raises(RuntimeError, match="initialised process group"):
         ploop.train(PORT_CFG, nets["unet"][1], nets["controlnet"][1], _batches(), 1,
                     device="cpu", metrics_path=None, **mesh)

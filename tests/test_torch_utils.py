@@ -125,3 +125,40 @@ def test_seed_everything_seeds_python_numpy_and_torch():
 def test_exports_are_the_jax_packages():
     assert utils.__all__ == jax_utils.__all__
     assert all(callable(getattr(utils, name)) for name in utils.__all__)
+
+
+def test_profiling_timed_is_the_median_of_synced_calls():
+    """runtime/profiling.py: timed returns the median of `iters` calls after
+    `warmup` (each synchronised by a scalar fetch) and the last result."""
+    from stablediffusioneo_tpu_torch.runtime import profiling
+
+    calls, sleeps = [], iter([0.0, 0.03, 0.01, 0.02])
+
+    def fn(x):
+        import time
+
+        time.sleep(next(sleeps))
+        calls.append(x)
+        return {"out": torch.full((2, 2), float(len(calls)))}
+
+    seconds, result = profiling.timed(fn, 5, iters=3, warmup=1)
+    assert calls == [5] * 4 and float(result["out"][0, 0]) == 4.0
+    assert 0.015 <= seconds < 0.03  # the median of 0.03, 0.01, 0.02
+    profiling._hard_sync((None, [torch.zeros(0), torch.ones(3)]))
+
+
+def test_profiling_memory_stats_keys_and_trace(tmp_path):
+    """device_memory_stats carries the JAX keys for each card ({} without
+    one); trace writes a Chrome trace of the block."""
+    from stablediffusioneo_tpu.runtime import profiling as jax_profiling
+    from stablediffusioneo_tpu_torch.runtime import profiling
+
+    stats = profiling.device_memory_stats()
+    keys = {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
+    assert all(set(v) == keys for v in stats.values())
+    assert stats or not torch.cuda.is_available()
+    assert {n for n in dir(jax_profiling) if not n.startswith("__")} >= {
+        "trace", "_hard_sync", "timed", "device_memory_stats"}
+    with profiling.trace(str(tmp_path)) as prof:
+        torch.ones(8).sum()
+    assert (tmp_path / "trace.json").exists() and prof.key_averages()

@@ -142,6 +142,30 @@ def run_sampler_pair(params, model, jitted, port_fn, sched, parameterization,
     return out, ref
 
 
+def jax_sampler_reference(trees, x):
+    """The JAX package's unsharded answers to torch_parallel_ranks.request():
+    2 DDIM steps at CFG SAMPLER_SCALE and strength SAMPLER_STRENGTH (the
+    latents), their uint8 decode and the CLIP contexts of the ids."""
+    import jax.numpy as jnp
+
+    from stablediffusioneo_tpu.models.clip import clip_text_apply
+    from stablediffusioneo_tpu.models.vae import vae_decode
+    from stablediffusioneo_tpu.pipeline.ddim import ddim_sample_scan
+
+    sched = {k: jnp.asarray(v) for k, v in schedules()[1].ddim(2).items()}
+    z = jitted_scan(ddim_sample_scan, "eps")(
+        trees["unet"], trees["controlnet"], sched,
+        *(jnp.asarray(x[k]) for k in ("x_T", "hint", "ctx_c", "ctx_u")),
+        jax.random.PRNGKey(0))
+    img = jax.jit(lambda p, z: jnp.clip(
+        vae_decode(p, CFG.vae, z).astype(jnp.float32) * 127.5 + 127.5, 0, 255))(
+        trees["vae"], z)
+    ctx = jax.jit(lambda p, i: clip_text_apply(p, CFG.clip, i))(trees["clip"],
+                                                               jnp.asarray(x["ids"]))
+    return {"z": np.asarray(z), "img": np.asarray(img).astype(np.uint8),
+            "ctx": np.asarray(ctx)}
+
+
 def numpy_params(init_fn, cfg, seed):
     """A JAX parameter tree of init_fn(key, cfg)'s structure, its leaves drawn
     with numpy (the JAX initialisers, op by op or jitted, take most of a
