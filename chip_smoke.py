@@ -2281,9 +2281,14 @@ def serving_phase(model, cfg, card):
                                 * per_eval["fused_attention_packed"]),
                                ("fused_attention", st["batches"] * per_decode)) if v}
     img_s = SERVE_TIMED / elapsed
+    # mean host ms of the batches' and requests' spans, and the batch's device ms
+    span_ms = {name: round(v["mean_ms"], 1) for name, v in st["spans"].items()
+               if name.startswith("serving.")}
+    batch_device_ms = st["spans"].get("serving.dispatch", {}).get("mean_device_ms")
     print(f"serving [{card}]: {SERVE_TIMED} requests from {SERVE_CLIENTS} clients in "
           f"{elapsed:.3f} s: {img_s:.4f} img/s; batch_hist {st['batch_hist']}, mean queue "
-          f"{st['mean_queue_ms']:.1f} ms, mean batch run {st['mean_batch_run_ms']:.1f} ms; "
+          f"{st['mean_queue_ms']:.1f} ms, span means {span_ms} ms, batch device "
+          f"{batch_device_ms} ms; "
           f"compositions {compositions}; launches {launches} (expected {want})", flush=True)
     if not (st["batch_hist"].get(4, 0) >= 2 and launches == want and st["errors"] == 0
             and len(rt._engines) == n_engines):
@@ -2435,7 +2440,7 @@ def serving_phase(model, cfg, card):
     rt.release()
     return {"img_per_s": img_s, "elapsed_s": elapsed, "batch_hist": st["batch_hist"],
             "mean_queue_ms": st["mean_queue_ms"],
-            "mean_batch_run_ms": st["mean_batch_run_ms"], "warmup_s": warm_s,
+            "span_ms": span_ms, "batch_device_ms": batch_device_ms, "warmup_s": warm_s,
             "engines": engines, "launches": launches, "pixel_share_off": offs,
             "pixel_share_off_control": control, "direct_equal": direct_equal,
             "traced_b4_device_ms": None if trace is None else trace[0],

@@ -59,6 +59,7 @@ from stablediffusioneo_tpu_torch.models.unet import UNetModel
 from stablediffusioneo_tpu_torch.models.vae import AutoencoderKL
 from stablediffusioneo_tpu_torch.ops.schedule import timestep_embedding
 from stablediffusioneo_tpu_torch.pipeline.ddim import ddim_sample, stochastic_tail_entry
+from stablediffusioneo_tpu_torch.runtime import profiling
 
 
 # ------------------------------------------------------------------ configs
@@ -227,16 +228,18 @@ def sdxl_conditioning(
     """(context (B, 77, 2048) in the towers' dtype, y (B, 2816) fp32) from
     both towers' token ids (sdxl_tokenize). size_hw is the TARGET size;
     original_size defaults to it (the no-crop, native-size conditioning that
-    sampling uses). One bigG forward gives both its halves."""
+    sampling uses). One bigG forward gives both its halves. The `text.encode`
+    span, device time on the current stream."""
     cfg = model.cfg
-    hl = clip_text_apply(model.clip_l, ids_l)
-    hg, pooled = clip_text_apply_with_pooled(model.clip_g, ids_g)
-    context = torch.cat([hl, hg], dim=-1)
-    proj = cfg.clip_g.projection_dim or cfg.clip_g.hidden_size
-    tids = add_time_ids(original_size or size_hw, crop_coords, size_hw, ids_l.shape[0],
-                        fourier_dim=(cfg.unet.adm_in_channels - proj) // 6,
-                        device=pooled.device)
-    return context, torch.cat([pooled.float(), tids], dim=-1)
+    with profiling.span("text.encode", device=ids_l.device):
+        hl = clip_text_apply(model.clip_l, ids_l)
+        hg, pooled = clip_text_apply_with_pooled(model.clip_g, ids_g)
+        context = torch.cat([hl, hg], dim=-1)
+        proj = cfg.clip_g.projection_dim or cfg.clip_g.hidden_size
+        tids = add_time_ids(original_size or size_hw, crop_coords, size_hw, ids_l.shape[0],
+                            fourier_dim=(cfg.unet.adm_in_channels - proj) // 6,
+                            device=pooled.device)
+        return context, torch.cat([pooled.float(), tids], dim=-1)
 
 
 # ------------------------------------------------------------------ sampler

@@ -36,7 +36,6 @@ and `strength` as a number or a tuple of one a net.
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -45,8 +44,36 @@ import torch
 from stablediffusioneo_tpu_torch.config import PipelineConfig, sd15_pipeline
 from stablediffusioneo_tpu_torch.models.cldm import ControlLDM
 from stablediffusioneo_tpu_torch.ops.layers import resize_latent_bilinear
+from stablediffusioneo_tpu_torch.runtime import profiling
 from stablediffusioneo_tpu_torch.runtime.engine import CNSDRuntime
 from stablediffusioneo_tpu_torch.runtime.profiling import _hard_sync
+
+
+def _timings(request: profiling.Span, granular: bool) -> Dict[str, float]:
+    """`last_timings` from a request's spans, under the JAX package's keys in
+    its order: preprocess_ms (the `pipeline.preprocess` span), clip_ms (its
+    end to the end of the last `text.encode`: tokenizing and the text
+    encoder's enqueue), then sample_ms, decode_ms and fetch_ms (the granular
+    path's spans, each ended by a device synchronisation) or
+    sample_decode_fetch_ms (the text's end to the fetch's end), and total_ms
+    (the `pipeline.request` span's start to the fetch's end; the span itself
+    is still open). Empty with tracing off."""
+    if not request:
+        return {}
+    by = {}
+    for sp in request.children:
+        by.setdefault(sp.name, sp)  # the first of each name
+    pre, fetch = by["pipeline.preprocess"], by["pipeline.fetch"]
+    text_end = max((sp.t1 for sp in request.children if sp.name == "text.encode"),
+                   default=pre.t1)
+    out = {"preprocess_ms": pre.ms, "clip_ms": (text_end - pre.t1) * 1e3}
+    if granular:
+        out.update(sample_ms=by["pipeline.sample"].ms, decode_ms=by["pipeline.decode"].ms,
+                   fetch_ms=fetch.ms)
+    else:
+        out["sample_decode_fetch_ms"] = (fetch.t1 - text_end) * 1e3
+    out["total_ms"] = (fetch.t1 - request.t0) * 1e3
+    return out
 
 
 class Canny2ImagePipeline:
@@ -216,113 +243,105 @@ class Canny2ImagePipeline:
         them raise ValueError before any work, as in the JAX package.
         tome_ratio > 0: token merging at the self-attention sites of at least
         cfg.controlnet.unet.tome_min_tokens tokens, in both nets."""
-        hires = bool(hires_upscale and hires_upscale > 1.0) and not granular_timings
-        if hires and self.annotators is not None:
-            raise ValueError("hires_upscale + multi-ControlNet is unsupported")
-        if hires and step_noise is not None:
-            raise ValueError("step_noise takes a request without the hires fix")
-        if hires and (init_image is not None or inpaint_image is not None):
-            raise ValueError("hires_upscale composes with plain txt2img only "
-                             "(no img2img/inpaint)")
-        self.runtime.check_sampler(sampler, eta, encoder_cache_interval,
-                                   inpaint=inpaint_image is not None,
-                                   img2img=init_image is not None or hires)
-        if inpaint_image is not None:
-            if inpaint_mask is None:
-                raise ValueError("inpaint_image requires inpaint_mask")
-            if granular_timings:
-                raise ValueError("inpainting is unsupported on the "
-                                 "granular-timings diagnostic path")
-        if init_image is not None:
-            if granular_timings:
-                raise ValueError("img2img is unsupported on the "
-                                 "granular-timings diagnostic path")
+        with profiling.span("pipeline.request",
+                            requests=(profiling.new_id(),)) as req_span:
+            hires = bool(hires_upscale and hires_upscale > 1.0) and not granular_timings
+            if hires and self.annotators is not None:
+                raise ValueError("hires_upscale + multi-ControlNet is unsupported")
+            if hires and step_noise is not None:
+                raise ValueError("step_noise takes a request without the hires fix")
+            if hires and (init_image is not None or inpaint_image is not None):
+                raise ValueError("hires_upscale composes with plain txt2img only "
+                                 "(no img2img/inpaint)")
+            self.runtime.check_sampler(sampler, eta, encoder_cache_interval,
+                                       inpaint=inpaint_image is not None,
+                                       img2img=init_image is not None or hires)
+            if inpaint_image is not None:
+                if inpaint_mask is None:
+                    raise ValueError("inpaint_image requires inpaint_mask")
+                if granular_timings:
+                    raise ValueError("inpainting is unsupported on the "
+                                     "granular-timings diagnostic path")
+            if init_image is not None:
+                if granular_timings:
+                    raise ValueError("img2img is unsupported on the "
+                                     "granular-timings diagnostic path")
+                if x_T is not None:
+                    raise ValueError("init_image and x_T are mutually exclusive")
+            if prompt_emphasis and long_prompt:
+                raise ValueError("prompt_emphasis + long_prompt is unsupported "
+                                 "(pick one encoder path)")
+            from stablediffusioneo_tpu_torch.annotators.util import HWC3, resize_image
+
+            rt = self.runtime
+            with profiling.span("pipeline.preprocess"):
+                img = resize_image(HWC3(input_image), image_resolution)
+                H, W = img.shape[:2]
+                self.last_detected_maps, hint = self._hint(img, low_threshold,
+                                                           high_threshold, num_samples)
+                detected_map = self.last_detected_maps[0]
+                if seed == -1:
+                    seed = int(np.random.randint(0, 2**31 - 1))
+                gen = torch.Generator(device=rt.device).manual_seed(seed)
+
+            texts = [prompt + ", " + a_prompt if a_prompt else prompt, n_prompt]
+            if prompt_emphasis:
+                from stablediffusioneo_tpu_torch.models.text_encoding import (
+                    apply_emphasis,
+                    tokenize_weighted,
+                )
+
+                ids, weights = tokenize_weighted(self.tokenizer, texts)
+                ctx = apply_emphasis(rt.encode_prompt(ids, clip_skip=clip_skip), weights)
+            elif long_prompt:
+                ctx = rt.encode_prompt_windowed(
+                    self.tokenizer, texts, clip_skip=clip_skip,
+                    windows="auto" if long_prompt == "auto" else 3)
+            else:
+                ctx = rt.encode_prompt(self.tokenizer(texts), clip_skip=clip_skip)
+            ctx_cond = ctx[0:1].repeat(num_samples, 1, 1)
+            ctx_uncond = ctx[1:2].repeat(num_samples, 1, 1)
+
+            f = self.cfg.vae.downsample_factor
+            run = dict(guidance_scale=scale, strength=strength, eta=eta,
+                       guess_mode=guess_mode, generator=gen,
+                       encoder_cache_interval=encoder_cache_interval,
+                       cfg_rescale=cfg_rescale, sampler=sampler, tome_ratio=tome_ratio,
+                       noise=step_noise)
+            if inpaint_image is not None:
+                from stablediffusioneo_tpu_torch.pipeline.inpaint import prepare_inpaint
+
+                src_f, m = prepare_inpaint(inpaint_image, inpaint_mask, H, W, f)
+                run.update(
+                    inpaint_latent=rt.encode_image(
+                        np.repeat(src_f[None], num_samples, axis=0), deterministic=True),
+                    inpaint_mask=torch.from_numpy(np.repeat(m[None], num_samples, axis=0)),
+                    inpaint_noise=inpaint_noise)
+            if init_image is not None:
+                import cv2
+
+                src = cv2.resize(HWC3(init_image), (W, H), interpolation=cv2.INTER_AREA)
+                src_f = src.astype(np.float32) / 127.5 - 1.0
+                run.update(
+                    init_latent=rt.encode_image(
+                        np.repeat(src_f[None], num_samples, axis=0), deterministic=True),
+                    t_enc=max(1, min(ddim_steps, int(round(denoise_strength * ddim_steps)))),
+                    renoise=img2img_noise)
+            elif x_T is None:
+                x_T = torch.randn((num_samples, H // f, W // f, 4), generator=gen,
+                                  device=rt.device)
             if x_T is not None:
-                raise ValueError("init_image and x_T are mutually exclusive")
-        if prompt_emphasis and long_prompt:
-            raise ValueError("prompt_emphasis + long_prompt is unsupported "
-                             "(pick one encoder path)")
-        from stablediffusioneo_tpu_torch.annotators.util import HWC3, resize_image
-
-        t_start = time.perf_counter()
-        img = resize_image(HWC3(input_image), image_resolution)
-        H, W = img.shape[:2]
-        self.last_detected_maps, hint = self._hint(img, low_threshold, high_threshold,
-                                                   num_samples)
-        detected_map = self.last_detected_maps[0]
-        rt = self.runtime
-        if seed == -1:
-            seed = int(np.random.randint(0, 2**31 - 1))
-        gen = torch.Generator(device=rt.device).manual_seed(seed)
-        t_pre = time.perf_counter()
-
-        texts = [prompt + ", " + a_prompt if a_prompt else prompt, n_prompt]
-        if prompt_emphasis:
-            from stablediffusioneo_tpu_torch.models.text_encoding import (
-                apply_emphasis,
-                tokenize_weighted,
-            )
-
-            ids, weights = tokenize_weighted(self.tokenizer, texts)
-            ctx = apply_emphasis(rt.encode_prompt(ids, clip_skip=clip_skip), weights)
-        elif long_prompt:
-            ctx = rt.encode_prompt_windowed(
-                self.tokenizer, texts, clip_skip=clip_skip,
-                windows="auto" if long_prompt == "auto" else 3)
-        else:
-            ctx = rt.encode_prompt(self.tokenizer(texts), clip_skip=clip_skip)
-        ctx_cond = ctx[0:1].repeat(num_samples, 1, 1)
-        ctx_uncond = ctx[1:2].repeat(num_samples, 1, 1)
-        t_clip = time.perf_counter()
-
-        f = self.cfg.vae.downsample_factor
-        run = dict(guidance_scale=scale, strength=strength, eta=eta,
-                   guess_mode=guess_mode, generator=gen,
-                   encoder_cache_interval=encoder_cache_interval,
-                   cfg_rescale=cfg_rescale, sampler=sampler, tome_ratio=tome_ratio,
-                   noise=step_noise)
-        if inpaint_image is not None:
-            from stablediffusioneo_tpu_torch.pipeline.inpaint import prepare_inpaint
-
-            src_f, m = prepare_inpaint(inpaint_image, inpaint_mask, H, W, f)
-            run.update(
-                inpaint_latent=rt.encode_image(
-                    np.repeat(src_f[None], num_samples, axis=0), deterministic=True),
-                inpaint_mask=torch.from_numpy(np.repeat(m[None], num_samples, axis=0)),
-                inpaint_noise=inpaint_noise)
-        if init_image is not None:
-            import cv2
-
-            src = cv2.resize(HWC3(init_image), (W, H), interpolation=cv2.INTER_AREA)
-            src_f = src.astype(np.float32) / 127.5 - 1.0
-            run.update(
-                init_latent=rt.encode_image(
-                    np.repeat(src_f[None], num_samples, axis=0), deterministic=True),
-                t_enc=max(1, min(ddim_steps, int(round(denoise_strength * ddim_steps)))),
-                renoise=img2img_noise)
-        elif x_T is None:
-            x_T = torch.randn((num_samples, H // f, W // f, 4), generator=gen,
-                              device=rt.device)
-        if x_T is not None:
-            x_T = torch.as_tensor(x_T, device=rt.device)
-        timings = {"preprocess_ms": (t_pre - t_start) * 1e3,
-                   "clip_ms": (t_clip - t_pre) * 1e3}
-        if granular_timings:
-            # diagnostic path: a device synchronisation between sample and
-            # decode, so the phase split is honest
-            z = rt.sample(ddim_steps, x_T, hint, ctx_cond, ctx_uncond, **run)
-            _hard_sync(z)
-            t_sample = time.perf_counter()
-            images_dev = rt.decode_latent_device(z)
-            _hard_sync(images_dev)
-            t_decode = time.perf_counter()
-            images = images_dev.cpu().numpy()
-            t_end = time.perf_counter()
-            timings.update(sample_ms=(t_sample - t_clip) * 1e3,
-                           decode_ms=(t_decode - t_sample) * 1e3,
-                           fetch_ms=(t_end - t_decode) * 1e3)
-        else:
-            if hires:
+                x_T = torch.as_tensor(x_T, device=rt.device)
+            if granular_timings:
+                # diagnostic path: a device synchronisation between sample and
+                # decode, so the phase split is honest
+                with profiling.span("pipeline.sample"):
+                    z = rt.sample(ddim_steps, x_T, hint, ctx_cond, ctx_uncond, **run)
+                    _hard_sync(z)
+                with profiling.span("pipeline.decode"):
+                    images_dev = rt.decode_latent_device(z)
+                    _hard_sync(images_dev)
+            elif hires:
                 import cv2
 
                 z = rt.sample(ddim_steps, x_T, hint, ctx_cond, ctx_uncond, **run)
@@ -343,10 +362,10 @@ class Canny2ImagePipeline:
                 # the whole latent -> pixels path is one engine and one fetch
                 images_dev = rt.sample_decode(ddim_steps, x_T, hint, ctx_cond,
                                               ctx_uncond, **run)
-            images = images_dev.cpu().numpy()  # waits for the device
-            t_end = time.perf_counter()
-            timings["sample_decode_fetch_ms"] = (t_end - t_clip) * 1e3
-        timings["total_ms"] = (t_end - t_start) * 1e3
-        self.last_timings = timings
-        self.last_latents = rt.last_latents
-        return [detected_map] + [images[i] for i in range(num_samples)]
+            with profiling.span("pipeline.fetch"):
+                images = images_dev.cpu().numpy()  # waits for the device
+            if req_span:
+                profiling.resolve(req_span)  # the fetch waited for the device
+            self.last_timings = _timings(req_span, granular_timings)
+            self.last_latents = rt.last_latents
+            return [detected_map] + [images[i] for i in range(num_samples)]

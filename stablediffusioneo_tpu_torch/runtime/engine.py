@@ -88,6 +88,7 @@ from stablediffusioneo_tpu_torch.pipeline.k_diffusion import (
 )
 from stablediffusioneo_tpu_torch.pipeline.plms import plms_sample
 from stablediffusioneo_tpu_torch.pipeline.unipc import unipc_sample
+from stablediffusioneo_tpu_torch.runtime import profiling
 
 log = logging.getLogger("stablediffusioneo_tpu_torch")
 
@@ -185,6 +186,7 @@ class Engine:
         self._pool_bytes: Optional[int] = None
         self._device_ops: Optional[int] = None
         self.compile_seconds: Optional[float] = None
+        self._span_attrs: Optional[Dict[str, Any]] = None
 
     def load(self, *example: torch.Tensor) -> "Engine":
         if not self._capture:
@@ -214,9 +216,17 @@ class Engine:
         log.info("engine %s captured in %.1fs", self.name, self.compile_seconds)
         return self
 
+    def _span(self, first: torch.Tensor):
+        """The `runtime.engine` span of a call (profiling.span): attributes
+        the engine's name and batch (the first argument's leading size at
+        the first call), device time on the current stream."""
+        if self._span_attrs is None:
+            self._span_attrs = {"engine": self.name, "batch": int(first.shape[0])}
+        return profiling.span("runtime.engine", device=first.device, attrs=self._span_attrs)
+
     def __call__(self, *args: torch.Tensor):
         if not self._capture:
-            with torch.no_grad():
+            with torch.no_grad(), self._span(args[0]):
                 return self._fn(*(a.contiguous() for a in args))
         if self._graph is None:
             self.load(*args)
@@ -227,8 +237,10 @@ class Engine:
             if a.shape != buf.shape:
                 raise ValueError(f"engine {self.name} was captured for "
                                  f"{tuple(buf.shape)}, got {tuple(a.shape)}")
-            buf.copy_(a, non_blocking=True)
-        self._graph.replay()
+        with self._span(args[0]):
+            for buf, a in zip(self._inputs, args):
+                buf.copy_(a, non_blocking=True)
+            self._graph.replay()
         dispatch.add_counts(self._counts)
         return self._output
 
@@ -958,10 +970,12 @@ class CNSDRuntime:
         return _kept(out) if self.capturing else out
 
     def encode_prompt(self, ids, clip_skip: int = 0) -> torch.Tensor:
-        """(N, T) token ids -> (N, T, hidden) contexts in the compute dtype."""
-        ids = torch.as_tensor(np.asarray(ids), dtype=torch.long,
-                              device=self.device)
-        return self._out(self.clip_engine(ids.shape[0], clip_skip)(ids))
+        """(N, T) token ids -> (N, T, hidden) contexts in the compute dtype
+        (the `text.encode` span, device time on the current stream)."""
+        with profiling.span("text.encode", device=self.device):
+            ids = torch.as_tensor(np.asarray(ids), dtype=torch.long,
+                                  device=self.device)
+            return self._out(self.clip_engine(ids.shape[0], clip_skip)(ids))
 
     def encode_prompt_windowed(self, tokenizer, texts, windows=3,
                                clip_skip: int = 0) -> torch.Tensor:

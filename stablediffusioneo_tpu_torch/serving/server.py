@@ -18,6 +18,15 @@ bounds and grouping key).
   completion thread: waits for the event, fetches to the host, resolves the
   futures with (detected_map, image)
 
+Each request's life is recorded as spans (runtime/profiling.py), all carrying
+its request id: `serving.prep` (submit's host work), `serving.queue` (in its
+group until the cut), the batch's `serving.dispatch` (dispatch start -> device
+work enqueued; its device time runs from an event at dispatch start to the
+`ready` event), `serving.behind` (dispatch start -> the batch's device start:
+the host time the completion thread saw `ready`, less the batch's device time),
+`serving.fetch` (`ready` seen -> futures resolved), and the root
+`serving.request` (submit -> futures resolved). `ServerStats` tallies them.
+
 While the card runs one batch the queues keep filling (continuous batching),
 and with max_inflight_batches=2 the next batch is enqueued before the last
 one is fetched. Each row's x_T and step noise are drawn from its own seed's
@@ -62,6 +71,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from stablediffusioneo_tpu_torch.runtime import profiling
 from stablediffusioneo_tpu_torch.serving.scheduler import (
     decide_cut,
     next_deadline_ms,
@@ -143,20 +153,48 @@ class _Pending:
     init_src: np.ndarray = None        # (H, W, 3) f32 in [-1, 1] (img2img)
     t_enc: int = 0                     # img2img entry step (0 = off)
     weights: np.ndarray = None         # (2, 77) emphasis weights (or None)
+    rid: int = 0                       # request id: on every span of the request,
+                                       # and its `serving.request` span's own id
+    prep: Any = None                   # its `serving.prep` span
+    t_enq: float = 0.0                 # appended to its group
+    t_cut: float = 0.0                 # cut into a batch
+
+
+def _no_cuts() -> Dict[str, int]:
+    # `full`: the largest bucket filled; `window`: the oldest request's
+    # batching window ran out (serving/scheduler.py:decide_cut)
+    return {"full": 0, "window": 0}
 
 
 @dataclass
 class ServerStats:
+    """The traffic since the last reset(). queue_ms_sum: each row's submit ->
+    its batch's dispatch start. cuts: batches cut by reason. at_depth_s: the
+    dispatcher's time waiting with max_inflight_batches in flight.
+    span_sums: for each span name of the fetched batches (`add_spans`), the
+    count, host ms, count with a device time and device ms."""
+
     requests: int = 0
     batches: int = 0
     rows: int = 0
     errors: int = 0
     queue_ms_sum: float = 0.0
-    run_ms_sum: float = 0.0
     batch_hist: Dict[int, int] = field(default_factory=dict)
+    cuts: Dict[str, int] = field(default_factory=_no_cuts)
+    at_depth_s: float = 0.0
+    span_sums: Dict[str, List[float]] = field(default_factory=dict)
     # the runtime's engines ({name: get_engine_infor()}): capture seconds and
     # graph pool bytes. Not cleared by reset(): it is device state, not traffic.
     engines: Dict[str, Dict] = field(default_factory=dict)
+
+    def add_spans(self, spans) -> None:
+        for sp in spans:
+            acc = self.span_sums.setdefault(sp.name, [0, 0.0, 0, 0.0])
+            acc[0] += 1
+            acc[1] += sp.ms
+            if sp.device_ms is not None:
+                acc[2] += 1
+                acc[3] += sp.device_ms
 
     def snapshot(self) -> Dict:
         b = max(self.batches, 1)
@@ -164,11 +202,17 @@ class ServerStats:
         return {
             "requests": self.requests,
             "batches": self.batches,
+            "rows": self.rows,
             "mean_batch": self.rows / b,
             "mean_queue_ms": self.queue_ms_sum / max(self.rows, 1),
-            "mean_batch_run_ms": self.run_ms_sum / b,
             "errors": self.errors,
             "batch_hist": dict(self.batch_hist),
+            "cuts": dict(self.cuts),
+            "at_depth_s": self.at_depth_s,
+            # each span name: its count, mean host ms and mean device ms
+            "spans": {name: {"count": n, "mean_ms": host / n, "device_count": nd,
+                             "mean_device_ms": dev / nd if nd else None}
+                      for name, (n, host, nd, dev) in self.span_sums.items()},
             "engines": {name: dict(info) for name, info in self.engines.items()},
             "capture_s": sum(e["compile_seconds"] for e in captured),
             "pool_bytes": sum(e["memory"]["pool_bytes"] for e in captured),
@@ -176,8 +220,8 @@ class ServerStats:
 
     def reset(self):
         self.requests = self.batches = self.rows = self.errors = 0
-        self.queue_ms_sum = self.run_ms_sum = 0.0
-        self.batch_hist = {}
+        self.queue_ms_sum = self.at_depth_s = 0.0
+        self.batch_hist, self.cuts, self.span_sums = {}, _no_cuts(), {}
 
 
 class DiffusionServer:
@@ -372,8 +416,6 @@ class DiffusionServer:
         Future resolves to (detected_map, image), both uint8 HWC."""
         if self._thread is None:
             raise RuntimeError("server not started — call start()")
-        from stablediffusioneo_tpu_torch.annotators.util import HWC3, resize_image
-
         # ddim_steps, image_resolution, cfg_rescale and tome_ratio are in the
         # engine key: bound them, and snap the two continuous ones to a 0.05
         # grid, so that a client sweeping values cannot mint unbounded captures
@@ -413,7 +455,24 @@ class DiffusionServer:
         if quant:
             req = dataclasses.replace(req, **quant)  # the caller's req untouched
 
-        p = _Pending(req=req, future=Future(), t_submit=time.perf_counter())
+        p = _Pending(req=req, future=Future(), t_submit=time.perf_counter(),
+                     rid=profiling.new_id())
+        with profiling.span("serving.prep", requests=(p.rid,), parent=p.rid) as p.prep:
+            self._prepare(p)
+        with self._wake:
+            p.t_enq = time.perf_counter()
+            self._groups.setdefault(self._key(p), []).append(p)
+            self.stats.requests += 1
+            self._wake.notify_all()
+        return p.future
+
+    def _prepare(self, p: _Pending) -> None:
+        """submit()'s host work on the caller thread: resize, annotate,
+        bit-pack, tokenize, resolve the seed, prepare the img2img and
+        inpainting sources."""
+        from stablediffusioneo_tpu_torch.annotators.util import HWC3, resize_image
+
+        req = p.req
         img = resize_image(HWC3(req.image), req.image_resolution)
         p.hw = img.shape[:2]
         maps, hint = self.pipe._hint(img, req.low_threshold, req.high_threshold, 1)
@@ -463,11 +522,6 @@ class DiffusionServer:
             p.init_src = src.astype(np.float32) / 127.5 - 1.0
             p.t_enc = max(1, min(req.ddim_steps, int(round(
                 req.denoise_strength * req.ddim_steps))))
-        with self._wake:
-            self._groups.setdefault(self._key(p), []).append(p)
-            self.stats.requests += 1
-            self._wake.notify_all()
-        return p.future
 
     def submit_async(self, req: GenRequest) -> Future:
         """Like `submit`, with the host work on the server's worker pool: a
@@ -546,6 +600,12 @@ class DiffusionServer:
                 batch, self._groups[keys[gi]] = q[:n], q[n:]
                 if not self._groups[keys[gi]]:
                     del self._groups[keys[gi]]
+                # decide_cut cuts below the largest bucket only once the
+                # window has run out
+                self.stats.cuts["full" if n >= self.max_batch else "window"] += 1
+                t_cut = time.perf_counter()
+                for p in batch:
+                    p.t_cut = t_cut
                 return batch
             ages[gi] = -1.0  # holding: mask and consult the next group
 
@@ -575,8 +635,11 @@ class DiffusionServer:
                     while batch is None and not self._stop:
                         at_depth = self._inflight_batches >= self.max_inflight_batches
                         # at depth only a completion can unblock us
+                        t_wait = time.perf_counter()
                         self._wake.wait(timeout=None if at_depth
                                         else self._wait_timeout())
+                        if at_depth:
+                            self.stats.at_depth_s += time.perf_counter() - t_wait
                         if self._inflight_batches < self.max_inflight_batches:
                             batch = self._cut_batch()
                     if batch is None and self._stop:
@@ -682,50 +745,82 @@ class DiffusionServer:
 
     def _dispatch_batch(self, batch: List[_Pending]):
         """Encode the prompts and enqueue the batched engine call on this
-        thread's stream; hand the copied output and an event recorded after
-        it to the completion thread, so that the next batch can be cut and
-        enqueued while this one computes and is fetched. On a mesh runtime
-        the cut is first published to the other ranks (`follow`)."""
+        thread's stream, inside the batch's `serving.dispatch` span; hand
+        the copied output and the `ready` event recorded after it (the
+        span's end event, or a plain one with tracing off) to the completion
+        thread, so that the next batch can be cut and enqueued while this
+        one computes and is fetched. On a mesh runtime the cut is first
+        published to the other ranks (`follow`)."""
         rt = self.pipe.runtime
         t0 = time.perf_counter()
         n_engines = len(rt._engines)
-        call = self._batch_call(batch)
-        self._publish(("batch", call))
-        images_dev = self._run_call(call)
-        ready = None
-        if images_dev.device.type == "cuda":
+        with profiling.span("serving.dispatch", requests=tuple(p.rid for p in batch),
+                            device=rt.device, attrs={"batch": len(batch)}) as span:
+            call = self._batch_call(batch)
+            self._publish(("batch", call))
+            images_dev = self._run_call(call)
+        ready = span.end_event  # after the copy of the engine's static output
+        if ready is None and images_dev.device.type == "cuda":
             ready = torch.cuda.Event()
-            ready.record()  # after the copy of the engine's static output
+            ready.record()
         with self._wake:
             if len(rt._engines) != n_engines:
                 self.stats.engines = rt.engine_census()
             self._fetching += 1
-        self._done_q.put((batch, images_dev, ready, t0))
+        self._done_q.put((batch, images_dev, ready, t0, span))
 
-    def _fetch(self, images_dev: torch.Tensor, ready) -> np.ndarray:
+    def _fetch(self, images_dev: torch.Tensor, ready) -> Tuple[np.ndarray, float]:
         """The batch's images on the host (completion thread): wait for the
-        event recorded after the copy, then copy to the host."""
+        event recorded after the copy, then copy to the host. Also returns
+        the host time the wait ended."""
         if ready is not None:
             ready.synchronize()
-        return images_dev.cpu().numpy()
+        t_seen = time.perf_counter()
+        return images_dev.cpu().numpy(), t_seen
+
+    def _batch_spans(self, batch: List[_Pending], span, t_seen: float,
+                     t_done: float) -> List[profiling.Span]:
+        """A fetched batch's spans (completion thread, after the wait for
+        `ready`, so their device times resolve): `serving.dispatch` and what
+        ran inside it (text.encode, runtime.engine), `serving.behind` (with a
+        device time), `serving.fetch`, and each request's `serving.prep`,
+        `serving.queue` and `serving.request`. Empty with tracing off."""
+        if not span:
+            return []
+        profiling.resolve(span)
+        out = [span, *(span.children or ())]
+        if span.device_ms is not None:
+            device_start = max(span.t0, t_seen - span.device_ms / 1e3)
+            out.append(profiling.record("serving.behind", span.t0, device_start,
+                                        span.requests, parent=span.id))
+        out.append(profiling.record("serving.fetch", t_seen, t_done, span.requests,
+                                    parent=span.id))
+        for p in batch:
+            if p.prep:
+                out.append(p.prep)
+            out.append(profiling.record("serving.queue", p.t_enq, p.t_cut, (p.rid,),
+                                        parent=p.rid))
+            out.append(profiling.record("serving.request", p.t_submit, t_done, (p.rid,),
+                                        id=p.rid))
+        return [sp for sp in out if sp is not None]
 
     def _complete_loop(self):
         while True:
             item = self._done_q.get()
             if item is None:
                 return
-            batch, images_dev, ready, t0 = item
+            batch, images_dev, ready, t0, span = item
             try:
-                images = self._fetch(images_dev, ready)
-                t1 = time.perf_counter()
+                images, t_seen = self._fetch(images_dev, ready)
                 b = len(batch)
+                spans = self._batch_spans(batch, span, t_seen, time.perf_counter())
                 with self._lock:
                     self.stats.batches += 1
                     self.stats.rows += b
-                    self.stats.run_ms_sum += (t1 - t0) * 1e3
                     self.stats.queue_ms_sum += sum(
                         (t0 - p.t_submit) * 1e3 for p in batch)
                     self.stats.batch_hist[b] = self.stats.batch_hist.get(b, 0) + 1
+                    self.stats.add_spans(spans)
                 for i, p in enumerate(batch):
                     _resolve(p.future, (p.detected_map, images[i]))
             except Exception as e:  # noqa: BLE001
@@ -735,7 +830,7 @@ class DiffusionServer:
                     _resolve(p.future, exc=e)
             finally:
                 # drop the device tensor before the batch counts as fetched
-                del images_dev, ready, item
+                del images_dev, ready, item, span
                 with self._wake:
                     self._fetching -= 1
                     self._release(batch)

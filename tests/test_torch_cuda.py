@@ -878,6 +878,41 @@ def test_a_capture_that_fails_raises(gen):
         ok(torch.ones(5, device="cuda"))
 
 
+def test_a_capture_records_no_event_and_replays_carry_device_times(gen):
+    """With tracing on, a span inside the captured function records host
+    times only while the stream is captured (the graph holds no event: as
+    many nodes as a capture with tracing off), and every replay's
+    `runtime.engine` span carries a device time once it has completed."""
+    from stablediffusioneo_tpu_torch.runtime import profiling
+    from stablediffusioneo_tpu_torch.runtime.engine import Engine
+
+    def fn(x):
+        with profiling.span("inner", device=x.device):
+            return (x @ x).relu()
+
+    x = torch.randn(1024, 1024, device="cuda", generator=gen)
+    assert profiling.RECORDER.on
+    profiling.clear()
+    eng = Engine(fn, name="mm", capture=True).load(x)
+    eager, captured = [sp for sp in profiling.spans() if sp.name == "inner"]
+    assert eager.device_ms > 0  # the eager run before the capture, synchronised
+    assert captured.device_ms is None and captured.end_event is None
+    profiling.set_tracing(False)
+    try:
+        bare = Engine(fn, name="mm", capture=True).load(x)
+    finally:
+        profiling.set_tracing(True)
+    assert eng.get_engine_infor()["device_ops"] == bare.get_engine_infor()["device_ops"]
+    profiling.clear()
+    for _ in range(3):
+        eng(x)
+    torch.cuda.synchronize()
+    runs = profiling.spans()
+    assert [sp.name for sp in runs] == ["runtime.engine"] * 3
+    assert all(sp.device_ms > 0 for sp in runs)
+    assert runs[0].attrs == {"engine": "mm", "batch": 1024}
+
+
 # ------------------------------------------- the VAE encoder, img2img, inpaint
 
 

@@ -421,11 +421,14 @@ def test_drain_covers_inflight_batches_and_stats_reset(tiny_server):
     assert all(f.done() for f in futures)
     st = server.stats.snapshot()
     assert st["requests"] >= 5
-    assert st["mean_queue_ms"] > 0 and st["mean_batch_run_ms"] > 0
+    assert st["mean_queue_ms"] > 0 and st["spans"]["serving.dispatch"]["mean_ms"] > 0
+    assert sum(st["cuts"].values()) == st["batches"]
     engines = st["engines"]
     server.stats.reset()
     st = server.stats.snapshot()
     assert st["requests"] == 0 and st["batches"] == 0 and st["batch_hist"] == {}
+    assert st["spans"] == {} and st["cuts"] == {"full": 0, "window": 0}
+    assert st["at_depth_s"] == 0
     assert st["engines"] == engines  # the device's engines are not traffic
     assert st["capture_s"] == 0 and st["pool_bytes"] == 0  # the CPU captures nothing
 
