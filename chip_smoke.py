@@ -42,8 +42,9 @@ source, all started together), then:
      (20 DDIM steps, scale 9, eta 0, batch 1), counting the kernel launches
      of those two requests, then one eager request (graphs=False) with the
      first one's seed, whose image must equal the replayed one in bytes;
-     512x512 by default, with the fused-norm configuration, and with int8
-     linears (quantize_linears=True, set_kernels(int8_linear=True)); then
+     512x512 by default (every norm call held to a kernel route: on the card
+     the norms reach their kernels whatever the flags, ops/norms.py) and with
+     int8 linears (quantize_linears=True, set_kernels(int8_linear=True)); then
      the hires fix 512 -> 1024 (hires_upscale=2.0, hires_denoise=0.7: the
      last 14 of 20 steps again at 1024x1024); then the other samplers, each
      a main path of 20 steps: DPM-Solver++(2M) Karras, Euler-a (its step noise
@@ -81,12 +82,12 @@ source, all started together), then:
      tokenizer read by CLIPTokenizer.from_pretrained from a merges file this
      script writes (48,894 merges of byte-unicode pairs: CLIP's 49,408 ids);
   5. img2img (init_image, denoise_strength=0.75: the last 15 of 20 steps)
-     and inpainting (a rectangular mask, 20 steps), by default and with
-     fused norms, each as a main path above: the VAE encoder's engine
-     (posterior mode) and the loop's init-latent or inpaint variant; two split
-     attention launches a request (encode and decode), the encoder's
-     GroupNorms with fused norms; encode_image alone: replayed equals eager
-     in bytes, and a sample with a fixed eps repeats;
+     and inpainting (a rectangular mask, 20 steps), each as a main path
+     above: the VAE encoder's engine (posterior mode) and the loop's
+     init-latent or inpaint variant; two split attention launches a request
+     (encode and decode), the encoder's GroupNorms on the kernels;
+     encode_image alone: replayed equals eager in bytes, and a sample with a
+     fixed eps repeats;
   6. the prompt front end as main paths: long_prompt=True (3 x 77 windows: the
      14 cross-attention sites a step at S = 231), long_prompt="auto" on a
      prompt of two windows (S = 154) and prompt_emphasis=True;
@@ -98,7 +99,7 @@ source, all started together), then:
      seeded weights: 560 packed attention launches a request (5 and 10
      heads) and one split;
   9. SDXL base txt2img at 1024x1024, 20 DDIM steps, scale 5, batch 1, bf16,
-     weights drawn on the card ("sdxl 1024", and "sdxl 1024, fused norms"):
+     weights drawn on the card ("sdxl 1024"):
      sdxl_conditioning through both towers from the BPE tokenizer (their
      device time printed apart), then one captured sample+decode Engine
      (runtime/engine.py:sdxl_sample_decode_engine; capture seconds, graph
@@ -301,8 +302,9 @@ REF_TOL = 1e-3  # full-width UNet eval, card vs CPU, relative to max |ref|
 # 2.8% (F.layer_norm at (2, 4096, 640): 17.08 and 16.61 us), runs on different
 # cards by up to 8% (the kernel at (2, 4096, 320): 3.47 and 3.77 us).
 LIBRARY_SPREAD = 0.10
-# large channels-last slabs for the two-pass GroupNorm pair (no dispatch path
-# reaches it: the JAX package's gate keeps every SD-1.5 site on one pass)
+# two large channels-last slabs of the two-pass GroupNorm pair (the VAE
+# decoder's last level, SD-1.5's decoder at 64x64x960), at which the kernel
+# phase forces each of the pair's two stats kernels too
 APPLY_SHAPES = ((1, 128, 512, 512), (2, 960, 64, 64))
 STEPS, RES, SCALE = 20, 512, 9.0
 HIRES_UPSCALE, HIRES_DENOISE = 2.0, 0.7
@@ -337,13 +339,10 @@ EMPHASIS_PROMPT = "a (house:1.3) in the [woods], ((morning light))"
 # request runs ("init": img2img, "inpaint": a mask, "windows": context windows)
 RUNS = {
     "default": {},
-    "fused norms": {"norms": True},
     "int8": {"int8": True},
     "hires": {"process": {"hires_upscale": HIRES_UPSCALE, "hires_denoise": HIRES_DENOISE}},
     "img2img": {"init": True},
-    "img2img, fused norms": {"init": True, "norms": True},
     "inpaint": {"inpaint": True},
-    "inpaint, fused norms": {"inpaint": True, "norms": True},
     "long prompt": {"process": {"long_prompt": True, **WINDOW_TEXTS}, "prompt": LONG_PROMPT,
                     "windows": 3},
     "long prompt, auto": {"process": {"long_prompt": "auto", **WINDOW_TEXTS},
@@ -355,7 +354,6 @@ RUNS = {
     "tome 0.5": {"process": {"tome_ratio": TOME_RATIO}},
     "sd21 768": {"family": "sd21", "res": SD21_RES},
     "sdxl 1024": {"family": "sdxl", "res": SDXL_RES},
-    "sdxl 1024, fused norms": {"family": "sdxl", "res": SDXL_RES, "norms": True},
 }
 # the serving phase: the JAX bench's serving row (cli/bench.py:_bench_serving):
 # batch buckets, batching window, warm and timed requests, client threads
@@ -807,50 +805,69 @@ def kernel_phase(cfg):
                                      else F.group_norm(x, groups, w, b, eps)),
             variants=kg.plan_launches))
 
-    # the two-pass pair: at two large slabs, and at the largest and the
-    # smallest of a rank's rows of the GroupNorm sites under sp=2 (the
-    # rest of them are checked below, untimed)
+    # the two-pass pair at every site of a step and a decode that the card's
+    # rule sends to it (card_norm_rows: SD-1.5 at 512x512, SDXL at
+    # 1024x1024), and at the largest and the smallest of a rank's rows of
+    # the GroupNorm sites under sp=2 (the rest of them are checked below,
+    # untimed); a stats row a slab, an apply row a slab and SiLU, the apply
+    # row timing the whole pair and F.group_norm(+SiLU) beside it
     pairs = sorted({call[0] for (name, call) in timed if name == "group_norm_stats"},
                    key=math.prod)
     for entry in list(timed):
         if entry[0].startswith("group_norm_") and pairs and entry[1][0] not in (
                 pairs[0], pairs[-1]):
             checked.setdefault(entry, []).extend(timed.pop(entry))
-    for shape in APPLY_SHAPES + tuple(pairs[:1] + pairs[-1:]):
+    pair_rows = list(dict.fromkeys(card_norm_rows(cfg)["pair"]
+                                   + [(shape, 32, True) for shape in pairs[:1] + pairs[-1:]]))
+    stats_done = set()
+    for shape, groups, swish in pair_rows:
         x32 = randn(shape, torch.float32, channels_last=True)
-        rows = kg.chunk_rows(x32, 32)
-        desc = {"x": list(shape), "groups": 32, "chunk_rows": rows}
-        if shape not in APPLY_SHAPES:
+        rows = kg.chunk_rows(x32, groups)
+        desc = {"x": list(shape), "groups": groups, "chunk_rows": rows}
+        if shape in pairs:
             desc["paths"] = sorted({p for (name, call), paths in timed.items()
                                     if call[0] == shape for p in paths})
-        # beside the plan stats_plan picks, each of the two kernels forced
-        # (bf16): the (sample, group, chunk) kernel is the earlier one
-        forced = {name: kg.stats_plan(shape, 32, torch.bfloat16, True, rows, by_rows=by)
-                  for name, by in (("group_x_chunk", False), ("rows_x_channels", True))
-                  if shape in APPLY_SHAPES}
-        results["group_norm_stats"].append(measure(
-            "group_norm_stats", desc,
-            lambda x: kg.group_norm_stats(x, 32, rows),
-            lambda x: kg.group_norm_stats_plain(x, 32, rows),
-            lambda dt: (x32.to(dt),), relative=True, ops=3 * x32.numel(),
-            others={name: (lambda x, plan=plan: kg.group_norm_stats(x, 32, rows, plan=plan))
-                    for name, plan in forced.items()},
-            variants=kg.stats_plan_launches))
+        if (shape, groups) not in stats_done:
+            stats_done.add((shape, groups))
+            # beside the plan stats_plan picks, each of the two kernels forced
+            # (bf16): the (sample, group, chunk) kernel is the earlier one
+            forced = {name: kg.stats_plan(shape, groups, torch.bfloat16, True, rows, by_rows=by)
+                      for name, by in (("group_x_chunk", False), ("rows_x_channels", True))
+                      if shape in APPLY_SHAPES}
+            results["group_norm_stats"].append(measure(
+                "group_norm_stats", desc,
+                lambda x: kg.group_norm_stats(x, groups, rows),
+                lambda x: kg.group_norm_stats_plain(x, groups, rows),
+                lambda dt: (x32.to(dt),), relative=True, ops=3 * x32.numel(),
+                others={name: (lambda x, plan=plan: kg.group_norm_stats(x, groups, rows,
+                                                                        plan=plan))
+                        for name, plan in forced.items()},
+                variants=kg.stats_plan_launches))
 
         def apply_inputs(dt):
             x = x32.to(dt)
-            return (x, kg.group_norm_stats_plain(x, 32, rows), *affine(shape[1], dt))
+            return (x, kg.group_norm_stats_plain(x, groups, rows), *affine(shape[1], dt))
+
+        def library(x, p, w, b):
+            y = F.group_norm(x, groups, w, b, 1e-6)
+            return F.silu(y) if swish else y
 
         results["group_norm_apply"].append(measure(
-            "group_norm_apply", desc,
-            lambda x, p, w, b: kg.group_norm_apply(x, p, w, b, rows, 1e-6, True),
-            lambda x, p, w, b: kg.group_norm_apply_plain(x, p, w, b, 1e-6, True),
-            apply_inputs, ops=NORM_OPS * x32.numel(),
+            "group_norm_apply", {**desc, "swish": swish},
+            lambda x, p, w, b: kg.group_norm_apply(x, p, w, b, rows, 1e-6, swish),
+            lambda x, p, w, b: kg.group_norm_apply_plain(x, p, w, b, 1e-6, swish),
+            apply_inputs, ops=NORM_OPS * x32.numel(), library=library,
+            others={"pair": lambda x, p, w, b: kg.group_norm_apply(
+                x, kg.group_norm_stats(x, groups, rows), w, b, rows, 1e-6, swish)},
             variants=kg.apply_plan_launches))
         del x32
 
+    # the LayerNorm at every shape the card's rule sends to it (the gated
+    # shapes first: those, and a rank's tokens, may not be slower than
+    # F.layer_norm; the narrower prompt and 8x8 rows are timed beside it)
     parallel_ln = [call[0] for (name, call) in timed if name == "fused_layer_norm"]
-    for shape in layer_norm_shapes(cfg) + parallel_ln:
+    gated_ln = layer_norm_shapes(cfg)
+    for shape in list(dict.fromkeys(gated_ln + card_norm_rows(cfg)["ln"] + parallel_ln)):
         row = measure(
             "fused_layer_norm", {"x": list(shape)},
             lambda x, w, b: kl.fused_layer_norm(x, w, b, 1e-5),
@@ -861,7 +878,8 @@ def kernel_phase(cfg):
             variants=kl.plan_launches)
         if shape in parallel_ln:  # a rank's tokens under sp=2
             row["paths"] = timed[("fused_layer_norm", (shape, 0, False))]
-        if row["bf16_ms"] > row["library_ms"] * (1 + LIBRARY_SPREAD):
+        row["gated"] = shape in gated_ln or shape in parallel_ln
+        if row["gated"] and row["bf16_ms"] > row["library_ms"] * (1 + LIBRARY_SPREAD):
             raise AssertionError(f"fused_layer_norm {shape} bf16 {row['bf16_ms']:.4f} ms is "
                                  f"slower than F.layer_norm {row['library_ms']:.4f} ms")
         results["fused_layer_norm"].append(row)
@@ -1181,13 +1199,15 @@ def mesh_sites(cfg, res, dtype, mesh, samples=1, norms=False):
     {"tp": 2} or {"sp": 2}. An attention call is (batch, heads, Tq, S, head
     dim) as the kernel launches it (tp: half the heads; sp: half the
     queries, where the algebra keeps them split, against the whole K/V),
-    a norm call its input shape (and groups, swish): under sp a GroupNorm
-    whose whole image's slab the kernel gate admits is a stats and an apply
-    call on the rank's rows, a LayerNorm's gate reads the rank's tokens."""
+    a norm call its input shape (and groups, swish): under sp, with the flag
+    on (`norms`), a GroupNorm whose whole image's slab the kernel gate admits
+    is a stats and an apply call on the rank's rows; elsewhere the card's
+    rule (ops/norms.py) sends every norm to a kernel, flags or not, a
+    LayerNorm on the rank's tokens; "prompt" is the text tower's
+    LayerNorms."""
     from stablediffusioneo_tpu_torch.ops.attention import packed_partition
     from stablediffusioneo_tpu_torch.ops.dispatch import ATTN_MIN_TQ
     from stablediffusioneo_tpu_torch.ops.kernels.groupnorm import group_norm_supported
-    from stablediffusioneo_tpu_torch.ops.kernels.layernorm import layer_norm_supported
 
     dp, tp, sp = (mesh.get(k, 1) for k in ("dp", "tp", "sp"))
     local = samples // dp if samples % dp == 0 else samples
@@ -1197,7 +1217,7 @@ def mesh_sites(cfg, res, dtype, mesh, samples=1, norms=False):
         return (sp > 1 and tq % 128 == 0
                 and packed_partition(b, tq, s, c, heads, item, ntq=sp, nc=nc)[1] > 1)
 
-    out = {"step": [], "decode": []}
+    out = {"step": [], "decode": [], "prompt": []}
     for (b, tq, c), s, heads in attention_sites(cfg, res, batch=2 * local):
         route = attention_route((b, tq, c), s, dtype)
         if route is None:
@@ -1211,21 +1231,21 @@ def mesh_sites(cfg, res, dtype, mesh, samples=1, norms=False):
         t = lat * lat
         out["decode"].append(("fused_attention", (local, 1, t // sp if split_queries(
             local, t, t, c, 1) else t, t, c)))
-    if norms:
-        sites = norm_sites(cfg, res, samples=local)
-        for part in ("step", "decode"):
-            for kind, shape, swish, groups in sites[part]:
-                if kind == "gn" and group_norm_supported(shape, groups):
-                    if sp > 1:
-                        rows = (shape[0], shape[1], shape[2] // sp, shape[3])
-                        out[part] += [("group_norm_stats", (rows, groups, swish)),
-                                      ("group_norm_apply", (rows, groups, swish))]
-                    else:
-                        out[part].append(("fused_group_norm", (shape, groups, swish)))
-                elif kind == "ln":
-                    tokens = (shape[0], shape[1] // sp, shape[2])
-                    if layer_norm_supported(tokens, dtype):
-                        out[part].append(("fused_layer_norm", (tokens, 0, False)))
+    sites = norm_sites(cfg, res, samples=local)
+    for part in ("step", "decode", "prompt"):
+        for kind, shape, swish, groups in sites[part]:
+            if kind == "gn" and sp > 1:
+                if norms and group_norm_supported(shape, groups):
+                    rows = (shape[0], shape[1], shape[2] // sp, shape[3])
+                    out[part] += [("group_norm_stats", (rows, groups, swish)),
+                                  ("group_norm_apply", (rows, groups, swish))]
+            elif kind == "gn":
+                out[part] += [(name, (shape, groups, swish))
+                              for name in card_norm_entries((kind, shape, swish, groups))]
+            else:
+                tokens = (shape[0], shape[1] // sp, shape[2]) if part != "prompt" else shape
+                out[part] += [(name, (tokens, 0, False))
+                              for name in card_norm_entries((kind, tokens, swish, groups))]
     return out
 
 
@@ -1233,7 +1253,7 @@ def mesh_plan(cfg, res, steps, dtype, mesh, samples=1, norms=False):
     """(launches by kernel, attention launches by call) of one rank in one
     such request: `steps` evaluations and one decode."""
     sites = mesh_sites(cfg, res, dtype, mesh, samples, norms)
-    calls = [c for c in sites["step"] for _ in range(steps)] + sites["decode"]
+    calls = [c for c in sites["step"] for _ in range(steps)] + sites["decode"] + sites["prompt"]
     kernels = collections.Counter(name for name, _ in calls)
     shapes = collections.Counter(call for name, call in calls if name.startswith("fused_att"))
     return dict(kernels), dict(shapes)
@@ -1246,6 +1266,27 @@ def group_norm_rows(cfg):
                    for pcfg, res in ((cfg, RES), (family_configs()[1], SDXL_RES))
                    for kind, shape, swish, groups in norm_sites(pcfg, res)["step"]
                    if kind == "gn" and gated((kind, shape, swish, groups), torch.bfloat16)})
+
+
+def card_norm_rows(cfg):
+    """The kernel phase's norm rows that the card's rule gives: {"pair":
+    [(shape, groups, swish)] of every GroupNorm site of a step and a decode
+    that goes to the stats + apply pair, SD-1.5 (cfg) at 512x512 and SDXL at
+    1024x1024; "ln": [shape] of every LayerNorm site of a step and the
+    prompt, those and SD-1.5's 1024x1024 hires pass}, each once, in site
+    order."""
+    out = {"pair": [], "ln": []}
+    for pcfg, res, hires in ((cfg, RES, False), (cfg, HIRES_RES, True),
+                             (family_configs()[1], SDXL_RES, False)):
+        sites = norm_sites(pcfg, res)
+        for site in sites["step"] + sites["decode"] + sites["prompt"]:
+            kind, shape, swish, groups = site
+            entries = card_norm_entries(site)
+            if entries == ("fused_layer_norm",) and shape not in out["ln"]:
+                out["ln"].append(shape)
+            elif len(entries) == 2 and not hires and (shape, groups, swish) not in out["pair"]:
+                out["pair"].append((shape, groups, swish))
+    return out
 
 
 def attention_row(name, call):
@@ -1436,6 +1477,110 @@ def norm_launches(sites, dtype):
             for name, kind in (("fused_group_norm", "gn"), ("fused_layer_norm", "ln"))}
 
 
+NORM_ENTRIES = ("fused_group_norm", "group_norm_stats", "group_norm_apply", "fused_layer_norm")
+
+
+def card_norm_entries(site):
+    """The kernel entries a norm site launches on the card outside autograd,
+    whatever the flags (ops/norms.py's rule; a site of the port's nets is
+    contiguous bf16 or fp32, which the rule treats alike): one-pass
+    GroupNorm, the stats + apply pair, or the LayerNorm."""
+    from stablediffusioneo_tpu_torch.ops.norms import group_norm_route, layer_norm_route
+
+    kind, shape, _, groups = site
+    if kind == "gn":
+        route = group_norm_route(shape, groups, torch.bfloat16, "contiguous", "cuda", False)
+    else:
+        route = layer_norm_route(shape, torch.bfloat16, "contiguous", "cuda", False)
+    return {"one_pass": ("fused_group_norm",), "pair": ("group_norm_stats", "group_norm_apply"),
+            "kernel": ("fused_layer_norm",)}.get(route, ())
+
+
+def card_norm_launches(sites, times=1):
+    """Launches of each norm entry of `times` runs of these sites on the card."""
+    out = dict.fromkeys(NORM_ENTRIES, 0)
+    for site in sites:
+        for name in card_norm_entries(site):
+            out[name] += times
+    return out
+
+
+def routes_on_kernels(routes):
+    """Whether every norm call counted (ops/norms.py:route_counts) reached a
+    kernel: none ran plain."""
+    return bool(routes) and all(route in ("one_pass", "pair", "kernel") for _, route in routes)
+
+
+def add_norms(want, *parts):
+    """`want` (launches by kernel) with the norm entries' launches of these
+    (sites, times) parts on the card added in place; returned."""
+    for sites, times in parts:
+        for name, n in card_norm_launches(sites, times).items():
+            if n:
+                want[name] = want.get(name, 0) + n
+    return want
+
+
+def _vit_norms(dim, blocks, tokens):
+    """A MiDaS ViT's LayerNorms: two a block on (1, tokens, dim)."""
+    return [("ln", (1, tokens, dim), False, 0)] * (2 * blocks)
+
+
+def _resnetv2_norms(side):
+    """The DPT-hybrid's ResNetV2 GroupNorms (annotators/midas_hybrid.py) on a
+    side x side input: the stem's at 1/2, then each pre-activation
+    bottleneck's three (the first block of stages 2 and 3 strides in its 3x3
+    conv, between its second and third norm)."""
+    from stablediffusioneo_tpu_torch.annotators.midas_hybrid import (
+        GN_GROUPS,
+        STAGE_BLOCKS,
+        STAGE_MID,
+        STAGE_OUT,
+    )
+
+    def gn(c, s):
+        return ("gn", (1, c, s, s), False, GN_GROUPS)
+
+    sites, cin, s = [gn(64, side // 2)], 64, side // 4
+    for si, (n, cout, mid) in enumerate(zip(STAGE_BLOCKS, STAGE_OUT, STAGE_MID)):
+        for bi in range(n):
+            out = s // 2 if bi == 0 and si > 0 else s
+            sites += [gn(cin if bi == 0 else cout, s), gn(mid, s), gn(mid, out)]
+            s = out
+        cin = cout
+    return sites
+
+
+def annotator_norms(kind, side):
+    """The norm calls of one detection of an annotator net (batch 1) on a
+    side x side input: the MiDaS ViTs' LayerNorms (and the hybrid's
+    ResNetV2 GroupNorms), UniFormer-S's four patch-embedding LayerNorms and
+    its SA blocks' two each; the other nets have none (BatchNorms)."""
+    from stablediffusioneo_tpu_torch.annotators.uniformer import DEPTHS, DIMS
+
+    if kind == "dpt_large":
+        return _vit_norms(1024, VIT_BLOCKS[kind], vit_tokens(side))
+    if kind == "dpt_hybrid":
+        return _resnetv2_norms(side) + _vit_norms(768, VIT_BLOCKS[kind], vit_tokens(side))
+    if kind == "uniformer":
+        sites = []
+        for si, (depth, dim) in enumerate(zip(DEPTHS, DIMS)):
+            g = side // 2 ** (si + 2)
+            sites.append(("ln", (1, g, g, dim), False, 0))
+            if si >= 2:  # the SA stages
+                sites += [("ln", (1, g * g, dim), False, 0)] * (2 * depth)
+        return sites
+    return []
+
+
+def train_norms(cfg, res, batch):
+    """The norm calls of one ControlNet train step that run outside
+    autograd: the frozen UNet's encoder and middle block, which see no input
+    that requires grad (the ControlNet's and the UNet decoder's norms run
+    under grad, plain)."""
+    return _unet_norms(cfg.unet, res // cfg.vae.downsample_factor, batch, False)
+
+
 def sampler_evals(sampler, steps):
     """Evaluations of the nets (ControlNet + UNet on the CFG batch) that a
     sampler's loop of `steps` steps runs: PLMS one more, Heun 2N - 1 (its
@@ -1458,17 +1603,42 @@ def run_evals(config):
                          IMG2IMG_T_ENC if spec.get("init") else STEPS)
 
 
+def request_passes(config):
+    """(resolution, evaluations of the nets) of each sampling pass of a
+    request of this run: the hires run's base pass, then its hires pass."""
+    passes = [(run_res(config), run_evals(config))]
+    return passes + ([(HIRES_RES, HIRES_T_ENC)] if config == "hires" else [])
+
+
+def request_norm_parts(cfg, config):
+    """(norm sites, times a request runs them) of a request of this run: each
+    pass's evaluations, the decode of the last pass, the prompt (one tower
+    call, the context windows as its batch), the encoder where the request
+    encodes an image."""
+    spec = RUNS[config]
+    parts = [(norm_sites(cfg, res)["step"], evals) for res, evals in request_passes(config)]
+    windows = spec.get("windows", 1)
+    prompt = [(kind, (shape[0] * windows, *shape[1:]), swish, groups)
+              for kind, shape, swish, groups in norm_sites(cfg, run_res(config))["prompt"]]
+    parts += [(norm_sites(cfg, request_passes(config)[-1][0])["decode"], 1), (prompt, 1)]
+    if spec.get("init") or spec.get("inpaint"):
+        parts.append((_vae_encoder_norms(cfg.vae, RES, 1), 1))
+    return parts
+
+
 def expected_layer_norm_plans(cfg, config):
     """LayerNorm launches over the two timed requests of main_path, by the
-    plan each gated site's shape gives (bf16 rows and weights, aligned)."""
+    plan each site's shape gives (bf16 rows and weights, aligned): on the
+    card every LayerNorm of the request reaches the kernel. None for the ToMe
+    run, whose merged level-0 rows the sites do not list."""
     from stablediffusioneo_tpu_torch.ops.kernels.layernorm import layer_norm_plan
 
+    if RUNS[config].get("process", {}).get("tome_ratio"):
+        return None
     want = {}
-    if not RUNS[config].get("norms"):
-        return want
-    for part, times in (("step", run_evals(config)), ("decode", 1), ("prompt", 1)):
-        for site in norm_sites(cfg, run_res(config))[part]:
-            if site[0] == "ln" and gated(site, torch.bfloat16):
+    for sites, times in request_norm_parts(cfg, config):
+        for site in sites:
+            if card_norm_entries(site) == ("fused_layer_norm",):
                 plan = layer_norm_plan(math.prod(site[1][:-1]), site[1][-1],
                                        torch.bfloat16, torch.bfloat16)
                 want[plan] = want.get(plan, 0) + 2 * times
@@ -1486,8 +1656,7 @@ def expected_request_launches(cfg, config):
     ctx_len = run_ctx_len(cfg, config)
     tome_ratio = spec.get("process", {}).get("tome_ratio", 0.0)
     want = dict.fromkeys(KERNELS, 0)
-    passes = [(run_res(config), steps)] + ([(HIRES_RES, HIRES_T_ENC)] if config == "hires"
-                                           else [])
+    passes = request_passes(config)
     by_key = {}
     for res, n_steps in passes:  # the hires base pass is not decoded
         step, per_decode = expected_launches(cfg, res, ctx_len=ctx_len, tome_ratio=tome_ratio)
@@ -1498,14 +1667,9 @@ def expected_request_launches(cfg, config):
                 by_key[s] = by_key.get(s, 0) + 2 * n_steps
     encodes = int(bool(spec.get("init") or spec.get("inpaint")))
     want["fused_attention"] = per_decode * (1 + encodes)  # the encoder's mid-block too
-    if spec.get("norms"):
-        sites = norm_sites(cfg, run_res(config))
-        step, decode, prompt = (norm_launches(sites[k], torch.bfloat16)
-                                for k in ("step", "decode", "prompt"))
-        encode = norm_launches(_vae_encoder_norms(cfg.vae, RES, 1), torch.bfloat16)
-        for name in step:
-            want[name] = steps * step[name] + decode[name] + prompt[name] \
-                + encodes * encode[name]
+    for sites, times in request_norm_parts(cfg, config):
+        for name, n in card_norm_launches(sites, times).items():
+            want[name] += n
     if spec.get("int8"):
         want["quantized_matmul"] = steps * len(quant_gated(quant_sites(cfg, RES)))
     lat = passes[-1][0] // cfg.vae.downsample_factor  # the decoded pass
@@ -1543,7 +1707,8 @@ def reference_phase(model, cfg):
     t = torch.tensor([801.0, 801.0])
     scales = [1.0] * 13
     attn = expected_launches(cfg, 256, torch.float32)[0]
-    norms = norm_launches(norm_sites(cfg, 256)["step"], torch.float32)
+    # the card's rule: every norm on a kernel, whatever the flags
+    norms = card_norm_launches(norm_sites(cfg, 256)["step"])
     int8 = copy.deepcopy(model)
     for net in (int8.unet, int8.control_model):
         quantize_linear_modules(net)
@@ -1554,8 +1719,7 @@ def reference_phase(model, cfg):
                              int8_linear=config == "int8")
         want = dict.fromkeys(KERNELS, 0)
         want.update(attn)
-        if fused:
-            want.update(norms)
+        want.update(norms)
         if config == "int8":
             want["quantized_matmul"] = len(quant_gated(quant_sites(cfg, 256)))
         outs = {}
@@ -1637,7 +1801,7 @@ def run_kwargs(config):
 def main_path(model, cfg, config, tokenizer=stand_in_tokenizer):
     """One warm-up request (it captures the engines), two timed replayed
     requests, one eager request and one traced replayed request of one
-    configuration of RUNS: "default", "fused norms", "int8" (512x512),
+    configuration of RUNS: "default", "int8" (512x512),
     "hires" (512 -> 1024), img2img, inpainting and the prompt front end."""
     from stablediffusioneo_tpu_torch.ops import dispatch
     from stablediffusioneo_tpu_torch.ops.kernels.attention import (
@@ -1648,11 +1812,12 @@ def main_path(model, cfg, config, tokenizer=stand_in_tokenizer):
     from stablediffusioneo_tpu_torch.ops.kernels.groupnorm import plan_launches as gn_plans
     from stablediffusioneo_tpu_torch.ops.kernels.layernorm import plan_launches as ln_plans
     from stablediffusioneo_tpu_torch.ops.kernels.quant import plan_launches as qmm_plans
+    from stablediffusioneo_tpu_torch.ops.norms import route_counts
     from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
 
     spec = RUNS[config]
-    fused, int8 = bool(spec.get("norms")), bool(spec.get("int8"))
-    dispatch.set_kernels(groupnorm=fused, layernorm=fused, int8_linear=int8)
+    int8 = bool(spec.get("int8"))
+    dispatch.set_kernels(int8_linear=int8)
     pipe = Canny2ImagePipeline(model, tokenizer, cfg, device="cuda",
                                quantize_linears=int8)
     rt = pipe.runtime
@@ -1674,7 +1839,7 @@ def main_path(model, cfg, config, tokenizer=stand_in_tokenizer):
     torch.cuda.synchronize()
     dispatch.reset_launches()
     for counter in (variant_launches, gn_plans, qmm_plans, ln_plans, apply_plan_launches,
-                    key_length_launches):
+                    key_length_launches, route_counts):
         counter.clear()
     images, latencies = [], []
     for seed in (1, 2):
@@ -1693,6 +1858,7 @@ def main_path(model, cfg, config, tokenizer=stand_in_tokenizer):
     launches = dict(dispatch.launches)
     plans = [dict(c) for c in (variant_launches, qmm_plans, gn_plans, ln_plans,
                                apply_plan_launches)]
+    routes = dict(route_counts)
     key_lengths = {s: n for s, n in key_length_launches.items() if n}
     if len(rt._engines) != len(engines):
         raise AssertionError("a timed request built another engine: " + rt.report())
@@ -1719,6 +1885,8 @@ def main_path(model, cfg, config, tokenizer=stand_in_tokenizer):
         raise AssertionError(f"launch counts ({config}) {launches}, {key_lengths} != "
                              f"{want}, {want_keys}")
     variants, qmm, gn, ln, apply_plans = plans
+    want_ln = expected_layer_norm_plans(cfg, config)
+    print(f"main path ({config}) norm calls by (norm, route): {routes}", flush=True)
     # every attention launch of the bf16 main path is a tensor-core variant
     want_variants = {"wgmma": want["fused_attention_packed"]
                      + want["fused_attention_packed_stream"],
@@ -1739,8 +1907,9 @@ def main_path(model, cfg, config, tokenizer=stand_in_tokenizer):
             != want["quantized_matmul"] or sum(qmm.values()) != want["quantized_matmul"]
             or sum(gn.values()) != want["fused_group_norm"]
             or sum(ln.values()) != want["fused_layer_norm"]
-            or ln != expected_layer_norm_plans(cfg, config)
-            or sum(apply_plans.values()) != want["group_norm_apply"]):
+            or want_ln not in (None, ln)
+            or sum(apply_plans.values()) != want["group_norm_apply"]
+            or not routes_on_kernels(routes)):
         raise AssertionError(f"plans ({config}) {by_plan}, {gn}, {ln}, "
                              f"{apply_plans} do not add up to {want}")
     if np.array_equal(images[0], images[1]):
@@ -1768,7 +1937,7 @@ def main_path(model, cfg, config, tokenizer=stand_in_tokenizer):
     print(f"main path ({config}) one replay of each engine by CUDA events, ms: "
           + ", ".join(f"{n} {ms:.1f}" for n, ms in replays.items()), flush=True)
     pipe.runtime.release()
-    dispatch.set_kernels(groupnorm=False, layernorm=False, int8_linear=False)
+    dispatch.set_kernels(int8_linear=False)
     return {"launches": launches, "key_lengths": key_lengths, "latencies": latencies,
             "eager_latency": eager_latency, "image": images[0], "traced": traced,
             "engines": engines, "replay_ms": replays}
@@ -1827,11 +1996,10 @@ def sdxl_path(model, config, tokenizer):
     )
     from stablediffusioneo_tpu_torch.ops.kernels.groupnorm import plan_launches as gn_plans
     from stablediffusioneo_tpu_torch.ops.kernels.layernorm import plan_launches as ln_plans
+    from stablediffusioneo_tpu_torch.ops.norms import route_counts
     from stablediffusioneo_tpu_torch.runtime.engine import sdxl_sample_decode_engine
 
     cfg = model.cfg
-    fused = bool(RUNS[config].get("norms"))
-    dispatch.set_kernels(groupnorm=fused, layernorm=fused)
     ids = sdxl_ids(tokenizer)
     with torch.no_grad():
         towers_ms = device_ms(lambda: sdxl_conditioning(model, ids[0], ids[1],
@@ -1855,7 +2023,7 @@ def sdxl_path(model, config, tokenizer):
         raise AssertionError("the SDXL engine was not captured")
     torch.cuda.synchronize()
     dispatch.reset_launches()
-    for counter in (variant_launches, gn_plans, ln_plans, key_length_launches):
+    for counter in (variant_launches, gn_plans, ln_plans, key_length_launches, route_counts):
         counter.clear()
     images, latents, latencies = [], [], []
     for seed in (1, 2):
@@ -1873,6 +2041,7 @@ def sdxl_path(model, config, tokenizer):
               f"{z.abs().max().item():.3f}", flush=True)
     launches = dict(dispatch.launches)
     variants, gn, ln = dict(variant_launches), dict(gn_plans), dict(ln_plans)
+    routes = dict(route_counts)
     key_lengths = {s: n for s, n in key_length_launches.items() if n}
     eager_eng = sdxl_sample_decode_engine(model, STEPS, 1, SDXL_RES, SDXL_RES, capture=False)
     t0 = time.perf_counter()
@@ -1889,14 +2058,16 @@ def sdxl_path(model, config, tokenizer):
     print(f"sdxl ({config}) kernel launches over the 2 replayed requests: {launches} "
           f"(expected {want}); by key length {key_lengths} (expected {want_keys}); by "
           f"variant {variants}; GroupNorm plans { {str(p): n for p, n in gn.items()} }; "
-          f"LayerNorm plans { {str(p): n for p, n in ln.items()} }", flush=True)
+          f"LayerNorm plans { {str(p): n for p, n in ln.items()} }; norm calls by (norm, "
+          f"route) {routes}", flush=True)
     want_variants = {"wgmma": want["fused_attention_packed"],
                      "wgmma_split": want["fused_attention"]}
     if (launches != want or key_lengths != want_keys
             or {k: v for k, v in variants.items() if v}
             != {k: v for k, v in want_variants.items() if v}
             or sum(gn.values()) != want["fused_group_norm"]
-            or ln != expected_layer_norm_plans(cfg, config)):
+            or ln != expected_layer_norm_plans(cfg, config)
+            or not routes_on_kernels(routes)):
         raise AssertionError(f"sdxl launches ({config}) {launches}, {key_lengths}, "
                              f"{variants}, {gn}, {ln} != {want}, {want_keys}")
     if np.array_equal(images[0], images[1]):
@@ -1923,7 +2094,6 @@ def sdxl_path(model, config, tokenizer):
     torch.cuda.synchronize()
     replays = {eng.name: start.elapsed_time(end)}
     print(f"sdxl ({config}) one replay of the engine by CUDA events: {replays} ms", flush=True)
-    dispatch.set_kernels(groupnorm=False, layernorm=False)
     del eng, eager_eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -2020,7 +2190,8 @@ def sampler_variants(model, cfg, steps=4):
     and one eager request (graphs=False) with the same seed. The replayed
     latents are finite, its image equals the eager one in bytes and differs
     from DDIM's, and its attention launches are its evaluations' (packed)
-    and one decode's (split). Returns {sampler: replayed request seconds}."""
+    and one decode's (split), its norm kernels' those of its evaluations,
+    decode and prompt. Returns {sampler: replayed request seconds}."""
     from stablediffusioneo_tpu_torch.ops import dispatch
     from stablediffusioneo_tpu_torch.pipeline.canny2image import Canny2ImagePipeline
 
@@ -2030,6 +2201,7 @@ def sampler_variants(model, cfg, steps=4):
               eta=0.0, seed=1)
     ddim = pipe.process(img, PROMPT, **kw)[1]
     per_eval, per_decode = expected_launches(cfg, RES)
+    sites = norm_sites(cfg, RES)
     latencies = {}
     for sampler in SAMPLER_VARIANTS:
         pipe.process(img, PROMPT, sampler=sampler, **kw)  # captures
@@ -2043,8 +2215,9 @@ def sampler_variants(model, cfg, steps=4):
         eager = pipe.process(img, PROMPT, sampler=sampler, **kw)[1]
         pipe.runtime.graphs = None
         evals = sampler_evals(sampler, steps)
-        want = {"fused_attention_packed": evals * per_eval["fused_attention_packed"],
-                "fused_attention": per_decode}
+        want = add_norms({"fused_attention_packed": evals * per_eval["fused_attention_packed"],
+                          "fused_attention": per_decode},
+                         (sites["step"], evals), (sites["decode"], 1), (sites["prompt"], 1))
         differ = int((eager != out).sum())
         apart = float((out != ddim).mean())
         print(f"sampler {sampler}: {steps} steps, {evals} evaluations, replayed request "
@@ -2215,7 +2388,8 @@ def serving_phase(model, cfg, card):
     (1, 4), a 300 ms window, warmup() of both buckets, 4 warm requests, then
     16 timed requests from 8 client threads. Held: at least two batch-4 cuts
     (the in-flight check below replays two of them); launches as the plans
-    imply (560 packed + 1 split a batch, whatever its size); the first batch-4
+    imply (560 packed + 1 split a batch, whatever its size, and the norm
+    kernels of its evaluations, decode and CLIP call); the first batch-4
     cut equal in bytes to sample_decode(seeds=) of its four requests called
     directly; 3 batch-4 rows each nearer process() of its own request (batch
     1) than of the two others (the share of pixels off by more than 1 printed
@@ -2280,6 +2454,11 @@ def serving_phase(model, cfg, card):
     want = {k: v for k, v in (("fused_attention_packed", st["batches"] * STEPS
                                 * per_eval["fused_attention_packed"]),
                                ("fused_attention", st["batches"] * per_decode)) if v}
+    # a batch's norms: its evaluations, its decode and its one CLIP call (the
+    # kernels' plan follows a sample's slab, not the batch)
+    sites = norm_sites(cfg, RES)
+    add_norms(want, (sites["step"], st["batches"] * STEPS), (sites["decode"], st["batches"]),
+              (sites["prompt"], st["batches"]))
     img_s = SERVE_TIMED / elapsed
     # mean host ms of the batches' and requests' spans, and the batch's device ms
     span_ms = {name: round(v["mean_ms"], 1) for name, v in st["spans"].items()
@@ -2480,6 +2659,9 @@ def multi_controlnet_phase(cfg, card):
     per_net = (two - one) // 2
     want = {k: v for k, v in (("fused_attention_packed", STEPS * two),
                                ("fused_attention", expected_launches(cfg, RES)[1])) if v}
+    sites = norm_sites(cfg, RES)  # the UNet and one ControlNet an evaluation
+    second = _unet_norms(cfg.controlnet.unet, RES // cfg.vae.downsample_factor, 2, False)
+    add_norms(want, (sites["step"] + second, STEPS), (sites["decode"], 1), (sites["prompt"], 1))
     differ = int((out != eager).sum())
     print(f"multi-ControlNet [{card}]: 2 nets, strengths (1.0, 0.6), {STEPS} steps "
           f"{RES}x{RES}: warm-up request {warm_s:.2f} s with its capture, replayed "
@@ -2516,13 +2698,15 @@ def path_launches(cfg, res, evals, encodes=0):
     return {name: 2 * n for name, n in want.items()}, by_key
 
 
-def captured_path(config, build, cfg, res, evals, encodes=0):
+def captured_path(config, build, cfg, res, evals, encodes=0, towers=()):
     """A main path over free-standing engines: build(capture) -> ({name:
     Engine}, request(seed) -> (uint8 image on the host, x_0 latents)). One
     warm-up request with engines built to capture (their capture seconds,
     graph nodes and pools, the peak memory), two timed replayed requests whose
     launches are held to `path_launches` (every bf16 attention launch on a
-    tensor-core variant), one eager request (engines built with
+    tensor-core variant) and to the norms of the UNet's evaluations, the
+    decode, the encodes and the request's `towers` ((sites, calls) of its
+    text and depth towers), one eager request (engines built with
     capture=False) with the first one's seed, equal in bytes, one traced
     replayed request and one replay of each engine by CUDA events."""
     from stablediffusioneo_tpu_torch.ops import dispatch
@@ -2576,6 +2760,10 @@ def captured_path(config, build, cfg, res, evals, encodes=0):
         raise AssertionError(f"the replayed image ({config}) differs from the eager one "
                              f"in {differ} bytes")
     want, want_keys = path_launches(cfg, res, evals, encodes)
+    lat = res // cfg.vae.downsample_factor
+    add_norms(want, (_unet_norms(cfg.unet, lat, 2, True), 2 * evals),
+              (_vae_norms(cfg.vae, lat, 1), 2), (_vae_encoder_norms(cfg.vae, res, 1), 2 * encodes),
+              *((sites, 2 * calls) for sites, calls in towers))
     want_keys = {s: n for s, n in want_keys.items() if n}
     want_variants = {k: n for k, n in (("wgmma", want["fused_attention_packed"]),
                                        ("wgmma_split", want["fused_attention"])) if n}
@@ -2814,7 +3002,7 @@ def inpaint_phase(tokenizer):
     ids = torch.as_tensor(np.asarray(tokenizer([PROMPT, ""])), dtype=torch.long,
                           device="cuda")
     run = captured_path("inpaint 9ch", inpaint_build(model, ids), cfg, RES, STEPS,
-                        encodes=1)
+                        encodes=1, towers=[(_tower_norms(cfg.clip), 1)])
     sd = dict(model.state_dict())
     extra = {"betas": torch.linspace(1e-4, 2e-2, 1000),
              "cond_stage_model.transformer.text_model.embeddings.position_ids":
@@ -2932,7 +3120,8 @@ def annotator_reference():
     (plain versions), TF32 off: DPT-L at 512x512, the DPT-hybrid at 384x384
     (577 tokens: plain attention), HED at 512x512, the body net at 368x368,
     MLSD (a 4-channel input in [-1, 1]) and UniFormer + UperNet at 512x512;
-    within REF_TOL x max |ref| for every output."""
+    within REF_TOL x max |ref| for every output; every LayerNorm and
+    GroupNorm of the nets on its kernel (annotator_norms)."""
     from stablediffusioneo_tpu_torch.ops.dispatch import ATTN_MIN_TQ
 
     out = {}
@@ -2949,6 +3138,7 @@ def annotator_reference():
                 if kind in VIT_BLOCKS and vit_tokens(side) >= ATTN_MIN_TQ else {})
         if kind == "uniformer" and uniformer_tokens(side) >= ATTN_MIN_TQ:
             want = {"fused_attention": UNIFORMER_SA_BLOCKS}
+        add_norms(want, (annotator_norms(kind, side), 1))
         out[kind] = {"side": side, **card_vs_cpu(f"annotator reference ({kind} {side}x{side})",
                                                  net, x, want)}
         del net
@@ -2978,7 +3168,7 @@ def make_detector(family):
             "openpose": OpenposeDetector}[family]()
 
 
-def detector_requests(pipe, cfg, family, build, hint, splits):
+def detector_requests(pipe, cfg, family, build, hint, splits, norms=()):
     """One detector as the annotator of process() on the pipeline's model:
     `build()` makes it on the card (its seconds and weight bytes); its map
     alone (the peak memory of one call above what was allocated before it,
@@ -2987,7 +3177,8 @@ def detector_requests(pipe, cfg, family, build, hint, splits):
     seed 1: p50 and preprocess_ms. Held: every request's launches are the
     default request's (560 packed + 1 split) plus the detector's own split
     launches, `splits` ({key length: launches a request}), on the
-    tensor-core variants; the sample engine is the hint variant's."""
+    tensor-core variants, and its norm kernels' (`norms`, the sites of one
+    detection); the sample engine is the hint variant's."""
     from stablediffusioneo_tpu_torch.annotators import CannyDetector
     from stablediffusioneo_tpu_torch.annotators.util import HWC3
     from stablediffusioneo_tpu_torch.ops import dispatch
@@ -3030,7 +3221,7 @@ def detector_requests(pipe, cfg, family, build, hint, splits):
     variants = {k: v for k, v in variant_launches.items() if v}
     key_lengths = {k: v for k, v in key_length_launches.items() if v}
     extra = 2 * sum(splits.values())
-    want = {**base, "fused_attention": base["fused_attention"] + extra}
+    want = add_norms({**base, "fused_attention": base["fused_attention"] + extra}, (norms, 2))
     want_keys = dict(base_keys)
     for s, n in splits.items():
         want_keys[s] = want_keys.get(s, 0) + 2 * n
@@ -3050,7 +3241,7 @@ def detector_requests(pipe, cfg, family, build, hint, splits):
     if (variant != hint or wanted not in names
             or not (res[1].shape == (RES, RES, 3) and res[1].dtype == np.uint8)):
         raise AssertionError(f"annotators ({family}): {variant} hint, engines {names}")
-    if launches != want or key_lengths != want_keys or variants != want_variants:
+    if (launches != want or key_lengths != want_keys or variants != want_variants):
         raise AssertionError(f"annotators ({family}) launches {launches}, {key_lengths}, "
                              f"{variants} != {want}, {want_keys}, {want_variants}")
     pipe.apply_canny = CannyDetector()
@@ -3080,7 +3271,9 @@ def annotators_phase(model, cfg, tokenizer):
         vit = ({vit_tokens(RES): VIT_BLOCKS["dpt_large"]}
                if family == "midas" and vit_tokens(RES) >= ATTN_MIN_TQ else {})
         out[family] = detector_requests(pipe, cfg, family, lambda: make_detector(family),
-                                        "bithint" if family == "canny" else "uint8", vit)
+                                        "bithint" if family == "canny" else "uint8", vit,
+                                        annotator_norms("dpt_large", RES)
+                                        if family == "midas" else ())
     worst = max(r["p50_s"] for r in out.values())
     print(f"annotators: canny2image_{RES}x{RES}_{STEPS}step_multi_annotator_worst_p50 "
           f"{worst:.4f} s ({ {f: round(r['p50_s'], 4) for f, r in out.items()} })",
@@ -3118,14 +3311,15 @@ def detector_file_phase(model, cfg, tokenizer, directory):
             def build():
                 return functools.partial(MLSDdetector(ckpt_path=path), thr_v=MLSD_THRESHOLDS[0],
                                          thr_d=MLSD_THRESHOLDS[1])
-            hint, splits = "bithint", {}
+            hint, splits, norms = "bithint", {}, ()
         else:
             def build():
                 return UniformerDetector(ckpt_path=path)
             t = uniformer_tokens(RES)
             hint, splits = "uint8", ({t: UNIFORMER_SA_BLOCKS} if t >= ATTN_MIN_TQ else {})
+            norms = annotator_norms("uniformer", RES)
         out[family] = {"file_keys": keys, "file_bytes": os.path.getsize(path),
-                       **detector_requests(pipe, cfg, family, build, hint, splits)}
+                       **detector_requests(pipe, cfg, family, build, hint, splits, norms)}
         os.remove(path)
         if not out[family]["map_nonzero"]:
             raise AssertionError(f"{family}: an empty map")
@@ -3638,6 +3832,9 @@ def unet_reference(label, unet, cfg, control=None, res=REFERENCE_RES):
     err = (outs["cuda"] - outs["cpu"]).abs().max().item()
     ref_scale = outs["cpu"].abs().max().item()
     want = {k: v for k, v in expected_launches(cfg, res, torch.float32)[0].items() if v}
+    add_norms(want, (_unet_norms(ucfg, lat, 2, True), 1),
+              (_unet_norms(cfg.controlnet.unet, lat, 2, False) if control is not None else [],
+               1))
     print(f"reference ({label}): full-width {'controlled ' if control else ''}UNet "
           f"{res}x{res} fp32, card vs CPU max|d| {err:.3e} (max|ref| {ref_scale:.3e}); card "
           f"{seconds['cuda']:.2f} s, CPU {seconds['cpu']:.2f} s; kernel launches {launches} "
@@ -3726,6 +3923,7 @@ def depth2img_phase(tokenizer):
     from stablediffusioneo_tpu_torch.checkpoint import load_depth2img_pipeline
     from stablediffusioneo_tpu_torch.config import sd2_depth_pipeline
     from stablediffusioneo_tpu_torch.models.cldm import Depth2ImgModel, seeded
+    from stablediffusioneo_tpu_torch.pipeline.concat_cond import DEPTH_SIZE
 
     cfg = sd2_depth_pipeline()
     model = seeded(lambda: Depth2ImgModel(cfg), torch.Generator(device="cuda").manual_seed(0))
@@ -3755,7 +3953,9 @@ def depth2img_phase(tokenizer):
     if not (report.complete and len(report.consumed) == len(sd)
             and report.ignored == set(extra)):
         raise AssertionError(f"depth2img checkpoint load: {report.problems()}")
-    run = captured_path("depth2img", depth2img_build(loaded, ids), cfg, RES, STEPS)
+    run = captured_path("depth2img", depth2img_build(loaded, ids), cfg, RES, STEPS,
+                        towers=[(_tower_norms(cfg.clip), 1),
+                                (annotator_norms("dpt_hybrid", DEPTH_SIZE), 1)])
     run["tower_ms"] = depth_tower_ms(loaded)
     print(f"depth2img: the depth tower (384x384) and depth_to_concat "
           f"{run['tower_ms']:.2f} ms a call", flush=True)
@@ -3810,6 +4010,7 @@ def refiner_reference(model):
     err = (outs["cuda"] - outs["cpu"]).abs().max().item()
     ref_scale = outs["cpu"].abs().max().item()
     want = {k: v for k, v in expected_launches(model.cfg, 256, torch.float32)[0].items() if v}
+    add_norms(want, (_unet_norms(ucfg, 32, 2, True), 1))
     print(f"reference (sdxl refiner): full-width refiner UNet 256x256 fp32, card vs CPU "
           f"max|d| {err:.3e} (max|ref| {ref_scale:.3e}), kernel launches {launches} "
           f"(expected {want})", flush=True)
@@ -3880,7 +4081,8 @@ def refiner_phase(tokenizer, z_base):
     ids_g = torch.as_tensor(sdxl_tokenize(tokenizer, [PROMPT, ""])[1], dtype=torch.long,
                             device="cuda")
     run = captured_path("sdxl refiner 1024", refiner_build(model, ids_g, z_base), cfg,
-                        SDXL_RES, REFINER_T_ENC)
+                        SDXL_RES, REFINER_T_ENC,
+                        towers=[(_tower_norms(cfg.clip_g, pooled=True), 2)])
     sd = dict(model.state_dict())
     t = cfg.clip_g.max_length
     extra = {"conditioner.embedders.0.model.attn_mask": torch.full(
@@ -4059,6 +4261,7 @@ def train_run(model, unet, cfg, name):
     per_step = train_attention_launches(cfg, res, remat)
     want = dict.fromkeys(KERNELS, 0)
     want["fused_attention_packed"] = per_step * TRAIN_STEPS
+    add_norms(want, (train_norms(cfg, res, b), TRAIN_STEPS))
     p50 = statistics.median(times)
     row = {"resolution": res, "batch": b, "remat": remat, "first_step_s": first_s,
            "step_s": times, "p50_s": p50, "steps_per_s": 1 / p50, "samples_per_s": b / p50,
@@ -4133,9 +4336,11 @@ def train_remat_check(model, unet, cfg):
 def train_reference(model, cfg):
     """One train step's loss and ControlNet gradients at full width, 256x256
     batch 1, fp32, the same t and noise: the card (through the kernels: the
-    packed attention Function at the 1024-token sites) against the CPU
-    (plain versions), per tensor within TRAIN_REF_TOL; the level-0
-    attention projections' gradients are non-zero on the card."""
+    packed attention Function at the 1024-token sites; the norms of the
+    frozen UNet's encoder, whose inputs need no gradient, on the norm
+    kernels) against the CPU (plain versions), per tensor within
+    TRAIN_REF_TOL; the level-0 attention projections' gradients are non-zero
+    on the card."""
     from stablediffusioneo_tpu_torch.ops import dispatch
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -4164,6 +4369,7 @@ def train_reference(model, cfg):
     zero = [n for n in level0 if out["cuda"][0][n].abs().max().item() == 0]
     want = dict.fromkeys(KERNELS, 0)
     want["fused_attention_packed"] = train_attention_launches(cfg, 256)
+    add_norms(want, (train_norms(cfg, 256, 1), 1))
     print(f"train reference: full-width ControlNet step 256x256 b1 fp32, card vs CPU: loss "
           f"{out['cuda'][1]:.6f} / {out['cpu'][1]:.6f}; gradients of {len(out['cpu'][0])} tensors, "
           f"max |d| / max |CPU| {err:.3e} ({worst}); level-0 attention projections "
@@ -4314,10 +4520,14 @@ def train_user_path(model, cfg):
     moved = sum(not torch.equal(p, before[n].float()) for n, p in state.params.items())
     want = dict.fromkeys(KERNELS, 0)
     want.update(fused_attention_packed=2 * train_attention_launches(cfg, 256), fused_attention=2)
+    # a step's batch: one CLIP call and one VAE encode (b2), then the step
+    add_norms(want, (_tower_norms(cfg.clip), 2), (_vae_encoder_norms(cfg.vae, 256, 2), 2),
+              (train_norms(cfg, 256, 2), 2))
     print(f"user path: 2 train() steps at 256x256 b2 from the stand-in loader in {seconds:.2f} s, "
           f"metrics {records}; tensors moved {moved} of {len(before)}; EMA kept: "
           f"{state.ema is not None}; launches {launches} (expected {want})", flush=True)
-    if launches != want or len(records) != 2 or not all(math.isfinite(r["loss"]) for r in records) \
+    if launches != want or len(records) != 2 \
+            or not all(math.isfinite(r["loss"]) for r in records) \
             or not moved or state.ema is None:
         raise AssertionError(f"user path failed: {launches}, {records}, {moved}")
     rt.release()
@@ -4817,7 +5027,7 @@ def main():
     annotator_ref = annotator_reference()
     print(f"annotator reference done at {time.perf_counter() - t_start:.1f} s", flush=True)
     runs = {}
-    for config in ("default", "fused norms", "int8", "hires", "dpmpp-karras", "euler-a",
+    for config in ("default", "int8", "hires", "dpmpp-karras", "euler-a",
                    "heun", "tome 0.5"):
         runs[config] = main_path(model, cfg, config)
         print(f"main path ({config}) done at {time.perf_counter() - t_start:.1f} s",
@@ -4840,7 +5050,7 @@ def main():
     with tempfile.TemporaryDirectory() as directory:
         tokenizer = bpe_tokenizer(directory)
     encode_ms = encode_phase(loaded, cfg)
-    for config in ("img2img", "img2img, fused norms", "inpaint", "inpaint, fused norms",
+    for config in ("img2img", "inpaint",
                    "long prompt", "long prompt, auto", "emphasis"):
         if RUNS[config].get("windows"):
             from stablediffusioneo_tpu_torch.models.text_encoding import needed_windows
@@ -4905,7 +5115,7 @@ def main():
     references["sdxl base"] = sdxl_reference()
     print(f"sdxl base reference done at {time.perf_counter() - t_start:.1f} s", flush=True)
     model = build_sdxl(seed=0)
-    for config in ("sdxl 1024", "sdxl 1024, fused norms"):
+    for config in ("sdxl 1024",):
         runs[config] = sdxl_path(model, config, tokenizer)
         print(f"main path ({config}) done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
@@ -4927,8 +5137,7 @@ def main():
     eager = {config: r["eager_latency"] for config, r in runs.items()}
     base = runs["default"]["image"].astype(np.int16)
     print(f"replayed request latency, s: {latencies}; eager request latency, s: {eager}; "
-          f"seed-1 images against the default's, mean |d| of 255: fused norms "
-          f"{np.abs(base - runs['fused norms']['image']).mean():.3f}, int8 "
+          f"seed-1 images against the default's, mean |d| of 255: int8 "
           f"{np.abs(base - runs['int8']['image']).mean():.3f}", flush=True)
 
     # the UniFormer row's launches: its detections' split launches at stage
@@ -4942,7 +5151,7 @@ def main():
     out = []
     for name, (source, replaces) in KERNELS.items():
         rows = kernels[name]
-        launches = runs[EXERCISED_BY.get(name, "fused norms")]["launches"]
+        launches = runs[EXERCISED_BY.get(name, "default")]["launches"]
         by = {kind: sum(r["bound_ms"] for r in rows if r["bound_by"] == kind)
               for kind in ("operations", "bytes")}
         library = [r["library_ms"] for r in rows]
@@ -4985,7 +5194,7 @@ def main():
             "shapes": rows,
         })
     sdxl = {config: {k: runs[config][k] for k in ("text_towers_ms", "peak_bytes", "warm_s")}
-            for config in ("sdxl 1024", "sdxl 1024, fused norms")}
+            for config in ("sdxl 1024",)}
     families = {config: {k: runs[config][k] for k in ("peak_bytes", "warm_s", "checkpoint")}
                 for config in ("inpaint 9ch", "depth2img", "sdxl refiner 1024")}
     families["depth2img"]["tower_ms"] = runs["depth2img"]["tower_ms"]

@@ -14,9 +14,10 @@ keys).
 
   * `StdConv2d` standardises its weight in fp32 (population variance, eps
     1e-6) and convolves in the input's dtype, as the JAX `_std_conv`;
-  * the GroupNorms (eps 1e-5) go through ops/norms.py:group_norm, so with
-    the fused-norm configuration the one-pass GroupNorm kernel takes them;
-    the ReLU stays outside (the kernel fuses SiLU or nothing);
+  * the GroupNorms (eps 1e-5) go through ops/norms.py:group_norm, so on
+    the card (and on the CPU with the fused-norm configuration) the
+    GroupNorm kernels take them; the ReLU stays outside (the kernel fuses
+    SiLU or nothing);
   * the stem's 3x3 stride-2 max-pool pads with -inf (F.max_pool2d's
     padding), as the JAX stem.
 """

@@ -5,7 +5,7 @@ The one inference path of the reference's UniFormer annotator
 (annotator/uniformer/__init__.py:15-28) as nn.Modules under mmseg's names
 (the 398 keys of the `uniformer` universe, upernet_global_small.pth):
   * `backbone.patch_embed{1..4}`: `proj` (a 4x4 / 2x2 stride-k conv) and
-    `norm` (LayerNorm over channels, eps 1e-6);
+    `norm` (LayerNorm over channels, eps 1e-6, on channels-last bytes);
   * `backbone.blocks{1,2}.{j}` (CBlock, depths 3 and 4, widths 64 and 128):
     x + pos_embed(x) (3x3 depthwise); x + conv2(attn(conv1(norm1(x))))
     (1x1, 5x5 depthwise, 1x1); x + mlp.fc2(gelu(mlp.fc1(norm2(x)))) (1x1
@@ -27,9 +27,9 @@ The one inference path of the reference's UniFormer annotator
     (3x3), `fpn_bottleneck` (3x3 over the four levels at 1/4) and
     `conv_seg` (1x1 to the 150 ADE20K classes). A ConvModule is a conv
     without bias, a BatchNorm and a ReLU.
-The LayerNorms go through ops/norms.py:layer_norm (the kernel where the
-fused-norm configuration is on and its gate admits the site, as the JAX
-gate). Resizes are half-pixel bilinear (F.interpolate, align_corners
+The LayerNorms go through ops/norms.py:layer_norm (the kernel on the card;
+on the CPU where the fused-norm configuration is on and its gate admits
+the site). Resizes are half-pixel bilinear (F.interpolate, align_corners
 False): at every input of at least 192 pixels they only upsample, where
 they equal jax.image.resize; below it the PPM's 6-bin map would shrink,
 where jax.image.resize antialiases and this does not.
@@ -138,7 +138,9 @@ class PatchEmbed(nn.Module):
         self.norm = nn.LayerNorm(c, eps=1e-6)
 
     def forward(self, x):
-        x = self.proj(x).permute(0, 2, 3, 1)
+        # channels-last bytes whatever layout the convolution gave, so that
+        # the LayerNorm kernel takes every stage's norm on the card
+        x = self.proj(x).permute(0, 2, 3, 1).contiguous()
         return layer_norm(x, self.norm.weight, self.norm.bias, 1e-6).permute(0, 3, 1, 2)
 
 

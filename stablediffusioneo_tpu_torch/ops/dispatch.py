@@ -2,10 +2,15 @@
 
 Counterpart of stablediffusioneo_tpu/ops/dispatch.py. Attention has no
 switch: its gate is the JAX package's default (ops/attention.py: no mask and
-at least `ATTN_MIN_TQ` query tokens). The norm kernels and the int8
-dequant-matmul are behind the JAX package's flags of the same names, off by
-default as there: `set_kernels(groupnorm=True, layernorm=True)` is the
-fused-norm configuration (the JAX package's SDEO_FORCE_GN_PALLAS=1
+at least `ATTN_MIN_TQ` query tokens). The norms have no switch on the card
+either: a GroupNorm or LayerNorm call on CUDA tensors outside autograd goes
+to the hand-written kernel wherever the kernel takes its input, whatever the
+flags say, and runs plain where it does not (ops/norms.py:
+`group_norm_route`, `layer_norm_route`). On CPU tensors and under autograd
+the norm kernels, and everywhere the int8 dequant-matmul, are behind the
+JAX package's flags of the same names, off by default as there:
+`set_kernels(groupnorm=True, layernorm=True)` is the fused-norm
+configuration (the JAX package's SDEO_FORCE_GN_PALLAS=1
 SDEO_FORCE_LN_PALLAS=1), `set_kernels(int8_linear=True)` sends the linears
 that `quantize_linears=True` converted to the kernel (SDEO_INT8_PALLAS=1).
 `set_kernels(remat=True)` is the JAX package's SDEO_REMAT: under grad, the
@@ -14,14 +19,15 @@ activations and run their forward again in the backward
 (models/unet.py:remat). The flags are process-wide; the port reads no
 environment variable.
 
-The device rule: a kernel-gated site given CUDA tensors launches the
+The device rule: a kernel entry given CUDA tensors launches the
 hand-written kernel (or raises when the kernel does not take the input);
 given CPU tensors it runs the kernel's plain PyTorch version. Under
 autograd (`needs_grad`) the attention and LayerNorm entries run through
 their torch.autograd.Function, the same on both devices; the GroupNorm and
 int8 matmul entries, which have no VJP in the JAX package, raise
 (`refuse_grad`): no entry returns a tensor cut off from an input that
-requires grad.
+requires grad. So the norms' card rule leaves autograd to the flags: in
+`train()` every norm a gradient flows through stays plain by default.
 
 `launches` holds one plain integer per kernel entry. A wrapper adds one
 exactly where it launches its kernel, so a run can show that its main path

@@ -34,8 +34,10 @@ from typing import Optional, Tuple
 import torch
 
 from stablediffusioneo_tpu_torch.ops import dispatch
+from stablediffusioneo_tpu_torch.ops.kernels import build
 
 SOURCES = ("attention.cu",)
+build.register("attention", SOURCES)
 HEAD_DIMS = (40, 64, 80, 160, 512)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LL = ctypes.c_longlong
@@ -84,9 +86,7 @@ def views_aligned(q, k, v, out, strides) -> bool:
 
 
 def _library() -> ctypes.CDLL:
-    from stablediffusioneo_tpu_torch.ops.kernels.build import load_library
-
-    lib = load_library("attention", SOURCES)
+    lib = build.load_library("attention", SOURCES)
     fn = lib.sdeo_attention_forward
     if fn.argtypes is None:
         fn.restype = ctypes.c_int

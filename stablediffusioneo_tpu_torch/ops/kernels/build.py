@@ -5,7 +5,10 @@ Each library is compiled at first use from the `.cu` files under
 its sources, the shared headers (`csrc/*.cuh`) and the flags, so an edited
 source or header rebuilds and an unchanged one loads the library already
 built. The libraries export plain C functions
-(no PyTorch headers), which keeps a build to seconds.
+(no PyTorch headers), which keeps a build to seconds. The libraries every
+inference launches (attention, GroupNorm, LayerNorm) are registered, and the
+first build of a process builds every one of them that is missing, one nvcc
+each, all started together.
 """
 
 from __future__ import annotations
@@ -27,6 +30,10 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# the libraries every inference launches, built together with any other that
+# has to be built, so that a checkout's first request waits for one nvcc
+# rather than one after another ({name: sources}, by `register`)
+_TOGETHER: Dict[str, Sequence[str]] = {}
 # seconds each library took to compile in this process (absent when loaded
 # from an earlier build)
 build_seconds: Dict[str, float] = {}
@@ -87,8 +94,15 @@ def load_libraries(specs: Dict[str, Sequence[str]]) -> Dict[str, ctypes.CDLL]:
     return {name: _LIBS[name] for name in specs}
 
 
+def register(name: str, sources: Sequence[str]) -> None:
+    """Name a library that the first `load_library` of this process loads,
+    building it beside the one asked for where it is missing."""
+    _TOGETHER[name] = tuple(sources)
+
+
 def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Compile (if needed) and load `lib<name>.so` from csrc sources; called
-    at every launch, so a loaded library returns at once."""
+    """Compile (if needed) and load `lib<name>.so` from csrc sources, and
+    with it every registered library; called at every launch, so a loaded
+    library returns at once."""
     lib = _LIBS.get(name)
-    return lib if lib is not None else load_libraries({name: sources})[name]
+    return lib if lib is not None else load_libraries({**_TOGETHER, name: sources})[name]

@@ -28,8 +28,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from stablediffusioneo_tpu_torch.ops import dispatch
+from stablediffusioneo_tpu_torch.ops.kernels import build
 
 SOURCES = ("groupnorm.cu",)
+build.register("groupnorm", SOURCES)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # The JAX package's VMEM regimes (ops/pallas/groupnorm.py), kept so that the
@@ -316,6 +318,52 @@ def chunk_rows(x: torch.Tensor, groups: int) -> int:
     return min(hw, max(rows, -(-hw // _MAX_CHUNKS)))
 
 
+def memory_layout(x: torch.Tensor) -> str:
+    """"contiguous", "channels_last" (4-D only) or "strided"."""
+    if x.is_contiguous():
+        return "contiguous"
+    if x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last):
+        return "channels_last"
+    return "strided"
+
+
+def refusal(shape, groups: int, dtype: torch.dtype, layout: str) -> Optional[Exception]:
+    """Why the kernels do not take an input of this shape, dtype and memory
+    layout (`memory_layout`'s name), or None where they do, one pass or the
+    stats + apply pair as `fused_group_norm` picks. The one rule: the
+    entries raise it (`_check_input`) and ops/norms.py routes by it. There
+    is no gate of the JAX package's here; the batch stays within the grid's
+    y limit, which the rows x channels kernels take it along. (A chunk count
+    `chunk_rows` gives never passes that limit.)"""
+    if len(shape) != 4:
+        return ValueError(f"group norm kernel takes NCHW, got shape {tuple(shape)}")
+    if dtype not in _DTYPE_CODE:
+        return TypeError(f"group norm kernel takes float32 or bfloat16, got {dtype}")
+    n, c, h, w = shape
+    if groups < 1 or c % groups:
+        return ValueError(f"{c} channels not divisible by {groups} groups")
+    if not 0 < n * c * h * w < 2 ** 31 or n > _MAX_CHUNKS:
+        return ValueError(f"group norm kernel shape {tuple(shape)} out of range")
+    if layout not in ("contiguous", "channels_last"):
+        return ValueError("group norm kernel needs contiguous NCHW or channels-last memory")
+    return None
+
+
+def affine_refusal(what: str, c: int, device: torch.device, weight: torch.Tensor,
+                   bias: torch.Tensor) -> Optional[Exception]:
+    """Why the kernel `what` ("group norm", "layer norm") does not take this
+    weight and bias for c channels on `device`, or None where it does:
+    contiguous (c,) tensors on that device, both float32 or both bfloat16."""
+    for t in (weight, bias):
+        if t.shape != (c,) or not t.is_contiguous() or t.device != device:
+            return ValueError(f"{what} weight and bias must be contiguous ({c},) "
+                              f"on {device}, got {tuple(t.shape)} on {t.device}")
+    if weight.dtype not in _DTYPE_CODE or bias.dtype != weight.dtype:
+        return TypeError(f"{what} weight and bias must share a float32 or "
+                         f"bfloat16 dtype, got {weight.dtype} and {bias.dtype}")
+    return None
+
+
 # ------------------------------------------------------------ plain versions
 
 
@@ -376,9 +424,7 @@ def group_norm_apply_plain(x, partials, weight, bias, eps: float, swish: bool,
 
 
 def _library() -> ctypes.CDLL:
-    from stablediffusioneo_tpu_torch.ops.kernels.build import load_library
-
-    lib = load_library("groupnorm", SOURCES)
+    lib = build.load_library("groupnorm", SOURCES)
     if lib.sdeo_group_norm_fused.argtypes is None:
         ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sdeo_group_norm_fused.argtypes = [ptr] * 4 + [i] * 11 + [f, f, i, ptr]
@@ -391,33 +437,19 @@ def _library() -> ctypes.CDLL:
 
 
 def _check_input(x: torch.Tensor, groups: int) -> int:
-    """Raise on what the kernels do not take; return 1 for channels-last
-    memory, 0 for plain NCHW."""
-    if x.dim() != 4:
-        raise ValueError(f"group norm kernel takes NCHW, got shape {tuple(x.shape)}")
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"group norm kernel takes float32 or bfloat16, got {x.dtype}")
-    n, c, h, w = x.shape
-    if c % groups:
-        raise ValueError(f"{c} channels not divisible by {groups} groups")
-    if x.numel() == 0 or x.numel() >= 2 ** 31:
-        raise ValueError(f"group norm kernel shape {tuple(x.shape)} out of range")
-    if x.is_contiguous():
-        return 0
-    if x.is_contiguous(memory_format=torch.channels_last):
-        return 1
-    raise ValueError("group norm kernel needs contiguous NCHW or channels-last memory")
+    """Raise `refusal`'s reason; return 1 for channels-last memory, 0 for
+    plain NCHW."""
+    layout = memory_layout(x)
+    err = refusal(x.shape, groups, x.dtype, layout)
+    if err is not None:
+        raise err
+    return int(layout == "channels_last")
 
 
 def _check_affine(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor):
-    c = x.shape[1]
-    for t in (weight, bias):
-        if t.shape != (c,) or not t.is_contiguous() or t.device != x.device:
-            raise ValueError(f"group norm weight and bias must be contiguous ({c},) "
-                             f"on {x.device}, got {tuple(t.shape)} on {t.device}")
-    if weight.dtype not in _DTYPE_CODE or bias.dtype != weight.dtype:
-        raise TypeError("group norm weight and bias must share a float32 or "
-                        f"bfloat16 dtype, got {weight.dtype} and {bias.dtype}")
+    err = affine_refusal("group norm", x.shape[1], x.device, weight, bias)
+    if err is not None:
+        raise err
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:

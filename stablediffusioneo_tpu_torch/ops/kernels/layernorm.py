@@ -22,9 +22,15 @@ from typing import NamedTuple, Optional
 import torch
 
 from stablediffusioneo_tpu_torch.ops import dispatch
-from stablediffusioneo_tpu_torch.ops.kernels.groupnorm import access_width
+from stablediffusioneo_tpu_torch.ops.kernels import build
+from stablediffusioneo_tpu_torch.ops.kernels.groupnorm import (
+    access_width,
+    affine_refusal,
+    memory_layout,
+)
 
 SOURCES = ("layernorm.cu",)
+build.register("layernorm", SOURCES)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # The JAX package's gate constants (ops/pallas/layernorm.py).
@@ -130,6 +136,19 @@ def layer_norm_supported(shape, dtype) -> bool:
     return _pick_rows(rows, c) > 0
 
 
+def refusal(shape, dtype: torch.dtype, layout: str) -> Optional[Exception]:
+    """Why the kernel does not take an input of this shape, dtype and memory
+    layout (groupnorm.memory_layout's name), or None where it does: any
+    width, with no gate of the JAX package's. The one rule: the entry raises
+    it and ops/norms.py routes by it."""
+    if dtype not in _DTYPE_CODE:
+        return TypeError(f"layer norm kernel takes float32 or bfloat16, got {dtype}")
+    if len(shape) < 1 or not all(s > 0 for s in shape) or layout != "contiguous":
+        return ValueError(f"layer norm kernel needs a contiguous non-empty input, "
+                          f"got {tuple(shape)} in {layout} memory")
+    return None
+
+
 def fused_layer_norm_plain(x, weight, bias, eps: float):
     """Plain version of the kernel (`_ln_kernel` math)."""
     xf = x.float()
@@ -141,9 +160,7 @@ def fused_layer_norm_plain(x, weight, bias, eps: float):
 
 
 def _library() -> ctypes.CDLL:
-    from stablediffusioneo_tpu_torch.ops.kernels.build import load_library
-
-    lib = load_library("layernorm", SOURCES)
+    lib = build.load_library("layernorm", SOURCES)
     fn = lib.sdeo_layer_norm
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -184,19 +201,11 @@ class _LayerNorm(torch.autograd.Function):
 def _layer_norm_forward(x, weight, bias, eps: float, plan: Optional[LayerNormPlan]):
     if not dispatch.use_kernel(x, weight, bias):
         return fused_layer_norm_plain(x, weight, bias, eps)
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"layer norm kernel takes float32 or bfloat16, got {x.dtype}")
-    if x.dim() < 1 or x.numel() == 0 or not x.is_contiguous():
-        raise ValueError(f"layer norm kernel needs a contiguous non-empty input, "
-                         f"got {tuple(x.shape)} strides {x.stride()}")
+    err = (refusal(x.shape, x.dtype, memory_layout(x))
+           or affine_refusal("layer norm", x.shape[-1], x.device, weight, bias))
+    if err is not None:
+        raise err
     c = x.shape[-1]
-    for t in (weight, bias):
-        if t.shape != (c,) or not t.is_contiguous() or t.device != x.device:
-            raise ValueError(f"layer norm weight and bias must be contiguous ({c},) "
-                             f"on {x.device}, got {tuple(t.shape)} on {t.device}")
-    if weight.dtype not in _DTYPE_CODE or bias.dtype != weight.dtype:
-        raise TypeError("layer norm weight and bias must share a float32 or "
-                        f"bfloat16 dtype, got {weight.dtype} and {bias.dtype}")
     y = torch.empty_like(x)
     rows = x.numel() // c
     if plan is None:

@@ -151,21 +151,26 @@ class Engine:
     """One function as one captured program (the JAX package's Engine).
 
     capture=True (CUDA): `load(*example)` copies the example tensors into
-    static buffers, runs the function once eagerly on a side stream (which
-    settles what a first call settles: kernel attributes, library handles and
-    workspaces, cached constants), captures a second run into a CUDA graph
-    with a memory pool of its own, and instantiates it; `compile_seconds` is
-    all of that. A call copies its arguments into the static buffers, replays
-    the graph on the current stream and returns the static output, which the
-    next call overwrites. A capture that fails raises: there is no eager
-    fallback behind a captured engine.
+    contiguous static buffers, runs the function once eagerly on a side
+    stream (which settles what a first call settles: kernel attributes,
+    library handles and workspaces, cached constants), captures a second run
+    into a CUDA graph with a memory pool of its own, and instantiates it;
+    `compile_seconds` is all of that. A call copies its arguments into the
+    static buffers, replays the graph on the current stream and returns the
+    static output, which the next call overwrites. A capture that fails
+    raises: there is no eager fallback behind a captured engine.
 
     capture=False (the CPU, or graphs=False): a call runs the function on
-    contiguous copies of its arguments where they are not contiguous, as a
-    captured engine's static buffers are: a convolution may take another
-    algorithm on another memory layout, and then a replay and an eager call
-    would give other bytes (an img2img init latent straight from the encoder
-    is a channel slice of NCHW memory).
+    contiguous copies of its arguments, as a captured engine's static
+    buffers are: a convolution may take another algorithm on another memory
+    layout, and the norm kernels, which keep their input's layout, sum in
+    another order, and then a replay and an eager call would give other
+    bytes (an img2img init latent straight from the encoder is a channel
+    slice of NCHW memory). Copies, not `contiguous()`: that keeps a view
+    whose size-1 dims carry other strides, from which `torch.cat` takes
+    another layout (depth2img's (B, h, w, 1) depth channel, a permuted
+    view, made the UNet's input NCHW where the buffer made it
+    channels-last).
 
     Launch counters (ops/dispatch.py) count in Python, so a replay would
     leave them standing: the engine takes back what its capture counted
@@ -193,7 +198,7 @@ class Engine:
             return self
         t0 = time.perf_counter()
         device = example[0].device
-        self._inputs = [a.clone() for a in example]
+        self._inputs = [a.clone(memory_format=torch.contiguous_format) for a in example]
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream), torch.no_grad():
@@ -227,7 +232,8 @@ class Engine:
     def __call__(self, *args: torch.Tensor):
         if not self._capture:
             with torch.no_grad(), self._span(args[0]):
-                return self._fn(*(a.contiguous() for a in args))
+                return self._fn(*(a.clone(memory_format=torch.contiguous_format)
+                                  for a in args))
         if self._graph is None:
             self.load(*args)
         if len(args) != len(self._inputs):

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from stablediffusioneo_tpu_torch.config import sd15_pipeline
-from stablediffusioneo_tpu_torch.ops import dispatch
+from stablediffusioneo_tpu_torch.ops import dispatch, norms
 from stablediffusioneo_tpu_torch.ops.kernels import attention as ka
 from stablediffusioneo_tpu_torch.ops.kernels import groupnorm as kg
 from stablediffusioneo_tpu_torch.ops.kernels import layernorm as kl
@@ -836,7 +836,7 @@ def test_counters_after_a_replay_equal_the_captures(gen, flags):
         cfg, rt = _tiny_runtime(model_channels=80)
         x_T, hint, ctx_c, ctx_u = _tiny_inputs(cfg, gen, res=256)
         counters = (ka.variant_launches, kg.plan_launches, kl.plan_launches,
-                    kq.plan_launches)
+                    kq.plan_launches, norms.route_counts)
 
         def request(graphs):
             rt.graphs = graphs
@@ -851,7 +851,9 @@ def test_counters_after_a_replay_equal_the_captures(gen, flags):
         replay = request(None)   # a replay alone
         assert eager[1]["fused_attention_packed"] > 0
         assert eager[2][0] == {"wgmma": eager[1]["fused_attention_packed"]}
-        assert (eager[1]["fused_group_norm"] > 0) == bool(flags)
+        # the card's rule: the norms reach their kernels whatever the flags
+        assert eager[1]["fused_group_norm"] > 0 and eager[1]["fused_layer_norm"] > 0
+        assert {route for _, route in eager[2][4]} <= {"one_pass", "pair", "kernel"}
         assert replay[1:] == eager[1:]
         assert first[1] == {k: 2 * v for k, v in eager[1].items()}
         assert torch.equal(eager[0], replay[0]) and torch.equal(eager[0], first[0])
@@ -860,6 +862,167 @@ def test_counters_after_a_replay_equal_the_captures(gen, flags):
         assert info["device_ops"] > 100
     finally:
         dispatch.set_kernels(groupnorm=False, layernorm=False, int8_linear=False)
+
+
+# GroupNorm sites the JAX package's VMEM gate kept on the plain path, which
+# the card's rule sends to the kernels: SDXL's 128x128x320 and 64x64x640,
+# SD-1.5's 64x64x960 and the VAE decoder's 512x512x128
+GATE_REFUSED_GN = [((2, 320, 128, 128), True), ((2, 640, 64, 64), True),
+                   ((2, 960, 64, 64), True), ((1, 128, 512, 512), True),
+                   ((2, 640, 64, 64), False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("shape,swish", GATE_REFUSED_GN,
+                         ids=[f"{s[1]}x{s[2]}x{s[3]}-{sw}" for s, sw in GATE_REFUSED_GN])
+def test_group_norm_route_at_the_sites_the_gate_refused(gen, dtype, channels_last, shape,
+                                                        swish):
+    """ops/norms.group_norm with the flags off, outside autograd, at the
+    shapes the JAX gate refused: the stats + apply pair runs, held to fp32
+    F.group_norm (+SiLU) of the same input, in either memory layout."""
+    x = _randn(shape, gen, dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    w, b = _affine(shape[1], gen, dtype)
+    assert not kg.group_norm_supported(shape, 32) and not dispatch.kernels_enabled("groupnorm")
+    dispatch.reset_launches()
+    norms.route_counts.clear()
+    with torch.no_grad():
+        out = norms.group_norm(x, w, b, 32, 1e-6, swish)
+    assert dispatch.launches["group_norm_stats"] == dispatch.launches["group_norm_apply"] == 1
+    assert dispatch.launches["fused_group_norm"] == 0
+    assert norms.route_counts == {("group_norm", "pair"): 1}
+    assert out.dtype == dtype and out.stride() == x.stride()
+    ref = torch.nn.functional.group_norm(x.float(), 32, w.float(), b.float(), 1e-6)
+    _check(out, torch.nn.functional.silu(ref) if swish else ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 77, 768), (2, 77, 1280), (2, 64, 1280), (2, 4096, 320)])
+def test_layer_norm_route_at_every_size(gen, dtype, shape):
+    """ops/norms.layer_norm with the flags off: CLIP's and bigG's towers and
+    the 8x8 mid-block (under the JAX gate's 256K elements) reach the kernel
+    too, held to fp32 F.layer_norm."""
+    x = _randn(shape, gen, dtype)
+    w, b = _affine(shape[-1], gen, dtype)
+    dispatch.reset_launches()
+    norms.route_counts.clear()
+    with torch.no_grad():
+        out = norms.layer_norm(x, w, b, 1e-5)
+    assert dispatch.launches["fused_layer_norm"] == 1
+    assert norms.route_counts == {("layer_norm", "kernel"): 1}
+    _check(out, torch.nn.functional.layer_norm(x.float(), (shape[-1],), w.float(), b.float(),
+                                               1e-5), dtype)
+
+
+def test_norm_routes_that_stay_plain_on_the_card(gen):
+    """A strided input and a call under autograd run the plain norms on the
+    card, raising nothing, with the flags off."""
+    x = _randn((2, 320, 32, 32), gen, torch.bfloat16)
+    w, b = _affine(320, gen, torch.bfloat16)
+    t = _randn((77, 2, 768), gen, torch.bfloat16).transpose(0, 1)
+    wt, bt = _affine(768, gen, torch.bfloat16)
+    dispatch.reset_launches()
+    norms.route_counts.clear()
+    with torch.no_grad():
+        strided = norms.group_norm(x.transpose(2, 3), w, b, 32, 1e-5, True)
+        ln = norms.layer_norm(t, wt, bt, 1e-5)
+    xg = x.detach().requires_grad_()
+    norms.group_norm(xg, w, b, 32, 1e-5, True).float().sum().backward()
+    assert torch.isfinite(xg.grad.float()).all()
+    assert dispatch.launches == {name: 0 for name in dispatch.KERNELS}
+    assert norms.route_counts == {("group_norm", "plain_refused"): 1,
+                                  ("layer_norm", "plain_refused"): 1,
+                                  ("group_norm", "plain_grad"): 1}
+    ref = torch.nn.functional.group_norm(x.transpose(2, 3).float(), 32, w.float(), b.float(),
+                                         1e-5)
+    _check(strided, torch.nn.functional.silu(ref), torch.bfloat16)
+    _check(ln, torch.nn.functional.layer_norm(t.float(), (768,), wt.float(), bt.float(), 1e-5),
+           torch.bfloat16)
+
+
+def test_a_flagged_layer_norm_under_grad_counts_as_the_kernel_it_launches(gen):
+    """Under autograd with the layernorm flag on, a gated LayerNorm launches
+    the kernel through its autograd Function, and route_counts says so
+    (kernel); the gradient flows."""
+    x = _randn((2, 4096, 320), gen, torch.bfloat16).requires_grad_()
+    w, b = _affine(320, gen, torch.bfloat16)
+    dispatch.reset_launches()
+    norms.route_counts.clear()
+    dispatch.set_kernels(layernorm=True)
+    try:
+        norms.layer_norm(x, w, b, 1e-5).float().sum().backward()
+    finally:
+        dispatch.set_kernels(layernorm=False)
+    assert torch.isfinite(x.grad.float()).all()
+    assert dispatch.launches["fused_layer_norm"] == 1
+    assert norms.route_counts == {("layer_norm", "kernel"): 1}
+
+
+def test_captured_sd15_request_reaches_no_plain_norm(gen):
+    """A full-width SD-1.5 ControlNet request at 512x512 in bf16 through the
+    captured sample+decode engine, the flags off: every norm call of the
+    replay counts under a kernel route, as many as the plan lists (steps x
+    the step's sites + the decode's), and none under plain_*."""
+    from stablediffusioneo_tpu_torch.runtime.engine import CNSDRuntime
+
+    cfg, steps = sd15_pipeline(), 2
+    rt = CNSDRuntime(chip_smoke.build_model(cfg, seed=0), cfg, device="cuda")
+    x_T, hint, ctx_c, ctx_u = _tiny_inputs(cfg, gen, res=512)
+    sites = chip_smoke.norm_sites(cfg, 512)
+    for _ in range(2):  # the load's eager pass, the capture and a replay; a replay
+        norms.route_counts.clear()
+        img = rt.sample_decode(steps, x_T, hint, ctx_c, ctx_u)
+    assert img.shape == (1, 512, 512, 3) and torch.isfinite(rt.last_latents).all()
+    assert any(e.compiled for e in rt._engines.values())
+    assert {route for _, route in norms.route_counts} == {"one_pass", "pair", "kernel"}
+    assert sum(norms.route_counts.values()) == steps * len(sites["step"]) + len(sites["decode"])
+    rt.release()
+
+
+def test_a_capture_copies_its_arguments_into_contiguous_buffers(gen):
+    """A captured engine's static buffers are contiguous whatever the first
+    call's layout, as an eager engine's copies are, so the GroupNorm kernel,
+    which keeps its input's layout, sums in one order in both and a replay
+    equals an eager call in bytes (an NHWC view of NCHW memory here)."""
+    from stablediffusioneo_tpu_torch.runtime.engine import Engine
+
+    w, b = _affine(320, gen, torch.bfloat16)
+
+    def fn(x):  # NHWC in, as the engines take their latents
+        with torch.no_grad():
+            return norms.group_norm(x.permute(0, 3, 1, 2), w, b, 32, 1e-5, True)
+
+    x = _randn((2, 320, 32, 32), gen, torch.bfloat16).permute(0, 2, 3, 1)
+    assert not x.is_contiguous()
+    captured = Engine(fn, capture=True)
+    out = captured(x).clone()
+    assert captured.compiled and all(buf.is_contiguous() for buf in captured._inputs)
+    assert torch.equal(out, Engine(fn)(x))
+
+
+def test_an_eager_engine_takes_the_buffers_layout(gen):
+    """An argument that is contiguous but carries other strides on a size-1
+    dim (depth2img's (B, h, w, 1) depth channel, a permuted view) reaches an
+    eager engine's function in the strides a captured engine's static
+    buffer has, so that torch.cat takes one layout in both (channels-last
+    here, NCHW from the view) and a replay equals an eager call in bytes."""
+    from stablediffusioneo_tpu_torch.runtime.engine import Engine
+
+    w, b = _affine(321, gen, torch.bfloat16)
+
+    def fn(x, depth):  # NHWC in; the depth channel joined as a concat UNet's input is
+        with torch.no_grad():
+            h = torch.cat([x.permute(0, 3, 1, 2), depth.permute(0, 3, 1, 2)], dim=1)
+            return norms.group_norm(h, w, b, 3, 1e-5, True)
+
+    x = _randn((2, 32, 32, 320), gen, torch.bfloat16)
+    depth = _randn((2, 1, 32, 32), gen, torch.bfloat16).permute(0, 2, 3, 1)
+    assert depth.is_contiguous() and depth.stride() != (1024, 32, 1, 1)
+    captured = Engine(fn, capture=True)
+    out = captured(x, depth).clone()
+    assert torch.equal(out, Engine(fn)(x, depth))
 
 
 def test_a_capture_that_fails_raises(gen):

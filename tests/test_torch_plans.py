@@ -489,3 +489,23 @@ def test_editing_a_shared_header_changes_the_library_path(tmp_path, monkeypatch)
     assert build.library_path("quant", kq.SOURCES) != after
     assert all(src.endswith(".cu") for src in kq.SOURCES + kg.SOURCES)
     assert (build.CSRC / "hopper.cuh").exists()
+
+
+def test_the_first_build_builds_the_registered_libraries_together(monkeypatch):
+    """Attention, GroupNorm and LayerNorm are registered: the first library a
+    process asks for is built and loaded together with every one of them
+    (one call of load_libraries, its nvcc runs started together); a loaded
+    library returns at once."""
+    asked = []
+
+    def load_libraries(specs):
+        asked.append(dict(specs))
+        return {name: f"lib{name}" for name in specs}
+
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "load_libraries", load_libraries)
+    assert build.load_library("quant", kq.SOURCES) == "libquant"
+    assert asked == [{"attention": ("attention.cu",), "groupnorm": kg.SOURCES,
+                      "layernorm": ("layernorm.cu",), "quant": kq.SOURCES}]
+    build._LIBS["groupnorm"] = "loaded"
+    assert build.load_library("groupnorm", kg.SOURCES) == "loaded" and len(asked) == 1
