@@ -3,9 +3,16 @@
 A configuration file names its `family`; `benchmark/families/<family>.py`
 gives `build(cfg, seed, device) -> (model, program config)`, `ENTRIES` (the
 entries a traffic file may name, each a class with `warm`, `run(request) ->
-Output`, `engines`, `counters`, `reset`, `close` and `clients_max`) and
-`reference_request(net, cfg, request) -> (latents, image)`. A new
-configuration of a known family adds only its configuration file.
+Output`, `engines`, `counters`, `reset`, `close` and `clients_max`: None
+where it takes any number of callers at once), `reference_module(cfg)` (the
+float32 reference networks under the checkpoint's names, whose state dict
+the benchmark draws from the seed for both sides), `reference_request(net,
+cfg, request) -> (latents, image)`, and the work it counts from the
+configuration's shapes: `flops_per_image(cfg)` (for `mfu`) and
+`attention_calls(cfg, batch)` (for `kernels.attention_roofline`; see
+`benchmark/work.py`). A new configuration of a known family adds only its
+configuration file; a new family adds its module and its configuration
+file.
 """
 
 from __future__ import annotations

@@ -5,8 +5,12 @@ its configuration, its seeded model, and its two entries, the pipeline
 
 from __future__ import annotations
 
+import torch.nn as nn
+
+from benchmark import work
 from benchmark.families import Output, program_model
-from benchmark.reference.sample import checkpoint_module
+from benchmark.reference.nets import ControlNet, HFCLIPText
+from benchmark.reference.sample import unet_vae_module
 from benchmark.traffic import stand_in_tokenizer
 
 # the request texts both sides take (the program's own defaults, handed in)
@@ -48,7 +52,7 @@ def build(cfg: dict, seed: int, device):
     from stablediffusioneo_tpu_torch.models.cldm import ControlLDM
 
     pcfg = program_config(cfg)
-    return program_model(lambda: ControlLDM(pcfg), lambda: checkpoint_module(cfg), seed,
+    return program_model(lambda: ControlLDM(pcfg), lambda: reference_module(cfg), seed,
                          device,
                          cfg["dtype"]), pcfg
 
@@ -150,6 +154,33 @@ class ServerEntry:
 
 
 ENTRIES = {"pipeline": PipelineEntry, "server": ServerEntry}
+
+
+def reference_module(cfg: dict) -> nn.Module:
+    """The float32 reference under the checkpoint's top-level names (so
+    `state_dict()` keys are the checkpoint's keys): UNet, VAE, ControlNet,
+    CLIP ViT-L's text tower."""
+    m = unet_vae_module(cfg)
+    m.control_model = ControlNet(cfg["unet"], cfg["controlnet"]["hint_channels"])
+    m.cond_stage_model = nn.Module()
+    m.cond_stage_model.transformer = HFCLIPText(cfg["clip"])
+    return m
+
+
+def flops_per_image(cfg: dict) -> int:
+    """ControlNet (hint block included) and UNet on every row of every step,
+    CLIP on the cond and uncond rows, the decode."""
+    s, u = cfg["sampling"], cfg["unet"]
+    side, ctx_len = work.latent_side(cfg), cfg["clip"]["max_length"]
+    per_row = work.unet_flops(u, side, ctx_len) + work.controlnet_flops(
+        u, side, ctx_len, cfg["controlnet"]["hint_channels"], s["resolution"])
+    return work.ldm_flops_per_image(cfg, per_row, work.text_flops(cfg["clip"], 2))
+
+
+def attention_calls(cfg: dict, batch: int):
+    """CLIP's layers; the UNet's and the ControlNet's transformers (the
+    encoder's and middle block's twice); the decoder's mid-block."""
+    return work.ldm_attention_calls(cfg, [cfg["clip"]], 2, batch)
 
 
 def reference_request(net, cfg, req):

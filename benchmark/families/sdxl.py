@@ -9,9 +9,12 @@ import time
 
 import numpy as np
 import torch
+import torch.nn as nn
 
+from benchmark import work
 from benchmark.families import Output, program_model
-from benchmark.reference.sample import checkpoint_module, draw_x_T
+from benchmark.reference.nets import HFCLIPText, OpenCLIPText
+from benchmark.reference.sample import draw_x_T, unet_vae_module
 from benchmark.traffic import stand_in_tokenizer
 
 EOT = 49407
@@ -50,7 +53,7 @@ def build(cfg: dict, seed: int, device):
     from stablediffusioneo_tpu_torch.models.sdxl import SDXL
 
     pcfg = program_config(cfg)
-    return program_model(lambda: SDXL(pcfg), lambda: checkpoint_module(cfg), seed,
+    return program_model(lambda: SDXL(pcfg), lambda: reference_module(cfg), seed,
                          device,
                          cfg["dtype"]), pcfg
 
@@ -107,6 +110,32 @@ class EngineEntry:
 
 
 ENTRIES = {"pipeline": EngineEntry}
+
+
+def reference_module(cfg: dict) -> nn.Module:
+    """The float32 reference under the checkpoint's top-level names (so
+    `state_dict()` keys are the checkpoint's keys): UNet, VAE, the CLIP-L and
+    OpenCLIP bigG towers of sgm's conditioner."""
+    m = unet_vae_module(cfg)
+    m.conditioner = nn.Module()
+    m.conditioner.embedders = nn.ModuleList([nn.Module(), nn.Module()])
+    m.conditioner.embedders[0].transformer = HFCLIPText(cfg["clip_l"])
+    m.conditioner.embedders[1].model = OpenCLIPText(cfg["clip_g"])
+    return m
+
+
+def flops_per_image(cfg: dict) -> int:
+    """The UNet (its ADM input included) on every row of every step, both
+    towers on the cond and uncond rows, the decode."""
+    text = work.text_flops(cfg["clip_l"], 2) + work.text_flops(cfg["clip_g"], 2)
+    per_row = work.unet_flops(cfg["unet"], work.latent_side(cfg), cfg["clip_l"]["max_length"])
+    return work.ldm_flops_per_image(cfg, per_row, text)
+
+
+def attention_calls(cfg: dict, batch: int):
+    """Both towers' layers; the UNet's transformers; the decoder's
+    mid-block."""
+    return work.ldm_attention_calls(cfg, [cfg["clip_l"], cfg["clip_g"]], 1, batch)
 
 
 def reference_request(net, cfg, req):

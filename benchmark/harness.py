@@ -5,7 +5,17 @@ A cell (`workloads` in BENCHMARK.json) names a configuration
 (`benchmark/configs/<name>.json`, found through `configs`) and a traffic
 file (`benchmark/traffic/<name>.json`); the per-layer metrics are readers in
 `benchmark/metrics/<name>.py`, each `read(run) -> number or None`. Nothing
-here names a cell, a configuration or a metric.
+here names a cell, a configuration, a family or a metric.
+
+A traffic file's `loop` says how requests are sent: "closed", `clients`
+callers each sending its next request when its last one completes; or
+"open", arrivals on a schedule drawn before the window from the traffic
+file's `arrivals_seed` (`traffic.arrivals`: the same schedule in every run,
+the run's seed choosing the requests), each request started at its time on
+a worker thread whether or not earlier ones have completed, at most
+`max_outstanding` at a time. An open-loop request's latency runs from its
+scheduled arrival, so a harness that falls behind its schedule shows as
+latency.
 """
 
 from __future__ import annotations
@@ -15,6 +25,7 @@ import importlib.util
 import itertools
 import json
 import math
+import queue
 import sys
 import threading
 import time
@@ -34,9 +45,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "stablediffusioneo_tpu")
 @dataclass
 class Record:
     req: traffic_mod.Request
-    t0: float
+    t0: float                       # sent; in an open loop, its scheduled arrival
     t1: float
     out: Optional[families.Output]  # None: the request failed
+    late_s: float = 0.0             # open loop: scheduled arrival -> the call's start
 
 
 @dataclass
@@ -100,6 +112,19 @@ def percentile(values, q):
     return float(np.percentile(np.asarray(values, np.float64), q))
 
 
+def call(entry, req, i, annotate):
+    """One request through the entry; None where it raised (counted as
+    failed, reported)."""
+    try:
+        if annotate:
+            with torch.profiler.record_function("bench.request"):
+                return entry.run(req)
+        return entry.run(req)
+    except Exception as e:  # noqa: BLE001 - counted as failed, reported
+        print(f"request {i} failed: {e!r}", file=sys.stderr, flush=True)
+        return None
+
+
 def closed_loop(entry, reqs, clients, seconds=None, count=None, annotate=False):
     """`clients` callers, each sending its next request when its last one
     completes, until `seconds` have passed since the start (a request is not
@@ -119,15 +144,7 @@ def closed_loop(entry, reqs, clients, seconds=None, count=None, annotate=False):
                 return
             req = reqs[i % len(reqs)]
             t0 = time.perf_counter()
-            try:
-                if annotate:
-                    with torch.profiler.record_function("bench.request"):
-                        out = entry.run(req)
-                else:
-                    out = entry.run(req)
-            except Exception as e:  # noqa: BLE001 - counted as failed, reported
-                print(f"request {i} failed: {e!r}", file=sys.stderr, flush=True)
-                out = None
+            out = call(entry, req, i, annotate)
             with lock:
                 records.append(Record(req, t0, time.perf_counter(), out))
 
@@ -142,6 +159,88 @@ def closed_loop(entry, reqs, clients, seconds=None, count=None, annotate=False):
             t.join()
     t_end = max((r.t1 for r in records), default=time.perf_counter())
     return records, t_start, t_end
+
+
+def open_loop(entry, reqs, offsets, max_outstanding, annotate=False):
+    """Request i arrives `offsets[i]` seconds after the start and is started
+    then on one of `max_outstanding` worker threads, whatever earlier
+    requests are doing. Its record's t0 is its scheduled arrival, so a late
+    start counts as latency; an arrival that finds `max_outstanding`
+    requests outstanding is not sent and is recorded as failed. Returns the
+    records and (start, end of the last completion), as `closed_loop`."""
+    records, lock = [], threading.Lock()
+    work_q = queue.SimpleQueue()
+    outstanding = 0
+
+    def worker():
+        nonlocal outstanding
+        while (item := work_q.get()) is not None:
+            i, t0 = item
+            late = time.perf_counter() - t0
+            out = call(entry, reqs[i % len(reqs)], i, annotate)
+            t1 = time.perf_counter()
+            with lock:
+                records.append(Record(reqs[i % len(reqs)], t0, t1, out, late))
+                outstanding -= 1
+
+    threads = [threading.Thread(target=worker, name=f"bench-arrival-{k}")
+               for k in range(max_outstanding)]
+    for t in threads:
+        t.start()
+    t_start = time.perf_counter()
+    try:
+        for i, offset in enumerate(offsets):
+            t0 = t_start + offset
+            wait = t0 - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            with lock:
+                refused = outstanding >= max_outstanding
+                if refused:
+                    records.append(Record(reqs[i % len(reqs)], t0, t0, None))
+                else:
+                    outstanding += 1
+            if refused:
+                print(f"request {i} failed: {max_outstanding} requests outstanding",
+                      file=sys.stderr, flush=True)
+            else:
+                work_q.put((i, t0))
+    finally:
+        for _ in threads:
+            work_q.put(None)
+        for t in threads:
+            t.join()
+    t_end = max((r.t1 for r in records), default=time.perf_counter())
+    return records, t_start, t_end
+
+
+def drive(entry, reqs, traffic, seconds=None, count=None, annotate=False):
+    """The traffic's loop over `reqs` for `seconds` (no request sent after
+    them) or for `count` requests. An open loop sends floor(rate x seconds)
+    arrivals in the window, or `count`, on the schedule of its
+    `arrivals_seed`."""
+    if traffic["loop"] == "closed":
+        return closed_loop(entry, reqs, traffic["clients"], seconds=seconds, count=count,
+                           annotate=annotate)
+    rate = traffic["rate_per_s"]
+    n = count if count is not None else math.floor(rate * seconds)
+    return open_loop(entry, reqs, traffic_mod.arrivals(rate, n, traffic["arrivals_seed"]),
+                     traffic["max_outstanding"], annotate=annotate)
+
+
+def check_loop(traffic, Entry):
+    """Refuse a traffic file the entry cannot take."""
+    loop = traffic["loop"]
+    if loop == "closed":
+        if Entry.clients_max is not None and traffic["clients"] > Entry.clients_max:
+            raise ValueError(f"entry {traffic['entry']} takes {Entry.clients_max} client(s)")
+    elif loop == "open":
+        if Entry.clients_max is not None:
+            raise ValueError(f"an open loop sends requests while earlier ones are running; "
+                             f"entry {traffic['entry']} takes {Entry.clients_max} caller(s) "
+                             f"at a time, so it takes closed loops only")
+    else:
+        raise ValueError(f"traffic loop {loop!r}: the generator drives closed and open loops")
 
 
 def end_to_end(run: Run, names) -> Dict[str, dict]:
@@ -203,11 +302,10 @@ def sample_records(records, k, seed):
 def reference_net(cfg, weight_seed, device):
     """The reference's networks in float32 on `device`, with the weights the
     program got (the same draw from the same seed, widened)."""
-    from benchmark.reference.sample import checkpoint_module
     from benchmark.weights import draw_state_dict
 
     with torch.device("meta"):
-        net = checkpoint_module(cfg)
+        net = families.load(cfg["family"]).reference_module(cfg)
     net = net.to_empty(device=device)
     sd = draw_state_dict(net, weight_seed, device, families.DTYPES[cfg["dtype"]])
     net.load_state_dict(sd)
@@ -267,12 +365,8 @@ def run_cell(bench, wl, cfg, traffic, seed, seconds, trace, device, t_process):
     """One run of a cell on `device`; returns the result dict (the last line
     of the benchmark's output). The chip check is the caller's."""
     fam = families.load(cfg["family"])
-    if traffic["loop"] != "closed":
-        raise ValueError(f"traffic loop {traffic['loop']!r}: the generator drives closed loops")
-    clients = traffic["clients"]
     Entry = fam.ENTRIES[traffic["entry"]]
-    if Entry.clients_max is not None and clients > Entry.clients_max:
-        raise ValueError(f"entry {traffic['entry']} takes {Entry.clients_max} client(s)")
+    check_loop(traffic, Entry)
     weight_seed = int(np.random.default_rng([seed, 0]).integers(0, 2 ** 62))
     say(f"imports done at {time.perf_counter() - t_process:.1f} s")
     model, pcfg = fam.build(cfg, weight_seed, device)
@@ -288,20 +382,23 @@ def run_cell(bench, wl, cfg, traffic, seed, seconds, trace, device, t_process):
     say(f"set-up {setup_s:.1f} s; engines {engines}")
 
     entry.reset()
-    records, t0, t1 = closed_loop(entry, reqs[traffic["warm"]:] + reqs[:traffic["warm"]],
-                                  clients, seconds=seconds)
+    records, t0, t1 = drive(entry, reqs[traffic["warm"]:] + reqs[:traffic["warm"]], traffic,
+                            seconds=seconds)
     counters = entry.counters()
     failed = sum(r.out is None for r in records)
     lat = sorted(r.t1 - r.t0 for r in records if r.out is not None)
+    late = [r.late_s for r in records]
     say(f"window: {len(records)} requests ({failed} failed) in {t1 - t0:.3f} s; latency "
         f"min/p10/p50/p90/max {[round(percentile(lat, q), 4) for q in (0, 10, 50, 90, 100)]}"
-        f"; {counters}")
+        + (f"; start late by mean {1e3 * sum(late) / max(len(late), 1):.2f} ms, max "
+           f"{1e3 * max(late, default=0.0):.2f} ms" if traffic["loop"] == "open" else "")
+        + f"; {counters}")
     run = Run(cfg=cfg, traffic=traffic, setup_s=setup_s, window_s=t1 - t0, records=records,
               failed=failed, engines=engines, counters=counters, peak_reserved=0,
               flops_per_image=work.model_flops_per_image(cfg))
     if trace:
         n = traffic["trace_requests"]
-        run.trace = traced(lambda: closed_loop(entry, reqs, clients, count=n, annotate=True))
+        run.trace = traced(lambda: drive(entry, reqs, traffic, count=n, annotate=True))
         say(f"traced segment: {n} requests, "
             f"{'no device events' if run.trace is None else f'{run.trace.window_s:.3f} s'}")
         run.trace_images = n

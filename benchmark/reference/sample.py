@@ -18,34 +18,17 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from benchmark.reference.nets import (
-    AutoencoderKL,
-    ControlNet,
-    HFCLIPText,
-    OpenCLIPText,
-    UNet,
-    timestep_embedding,
-)
+from benchmark.reference.nets import AutoencoderKL, UNet, timestep_embedding
 
 
-def checkpoint_module(cfg: dict) -> nn.Module:
-    """The configuration's networks under the checkpoint's top-level names
-    (so `state_dict()` keys are the checkpoint's keys)."""
+def unet_vae_module(cfg: dict) -> nn.Module:
+    """The UNet and the VAE under the checkpoint's top-level names (so
+    `state_dict()` keys are the checkpoint's keys); a family adds its other
+    networks after them (`benchmark/families/<family>.py:reference_module`)."""
     m = nn.Module()
     m.model = nn.Module()
     m.model.diffusion_model = UNet(cfg["unet"])
     m.first_stage_model = AutoencoderKL(cfg["vae"])
-    if cfg["family"] == "controlnet_sd":
-        m.control_model = ControlNet(cfg["unet"], cfg["controlnet"]["hint_channels"])
-        m.cond_stage_model = nn.Module()
-        m.cond_stage_model.transformer = HFCLIPText(cfg["clip"])
-    elif cfg["family"] == "sdxl":
-        m.conditioner = nn.Module()
-        m.conditioner.embedders = nn.ModuleList([nn.Module(), nn.Module()])
-        m.conditioner.embedders[0].transformer = HFCLIPText(cfg["clip_l"])
-        m.conditioner.embedders[1].model = OpenCLIPText(cfg["clip_g"])
-    else:
-        raise ValueError(f"unknown family {cfg['family']!r}")
     return m
 
 

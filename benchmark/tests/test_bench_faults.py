@@ -4,8 +4,8 @@ float32, past the look for a card, with the cell's own limits: a sound run
 comes out `correct`, a run with a fault underneath does not. The faults a
 cell of one card's inference can have: a DDIM step that returns its state
 unchanged; an image altered where it is produced (a quarter of it blanked
-in the decode to uint8); in the served cell, the rows of a batch answered
-with each other's images."""
+in the decode to uint8); in the served cells, the rows of a batch answered
+with each other's images (the open loop's tiny traffic fills every batch)."""
 
 from __future__ import annotations
 
@@ -65,7 +65,8 @@ def rows_rolled(monkeypatch):
 FAULTS = {"step_unchanged": step_unchanged, "answer_altered": answer_altered,
           "rows_rolled": rows_rolled}
 CASES = [(c, f) for c in CELLS for f in [None, "step_unchanged", "answer_altered"]
-         + (["rows_rolled"] if CELLS[c]["traffic"] == "served" else [])]
+         + (["rows_rolled"] if traffic_mod.load(CELLS[c]["traffic"])["entry"] == "server"
+            else [])]
 
 
 @pytest.mark.parametrize("cell,fault", CASES, ids=[f"{c}-{f or 'sound'}" for c, f in CASES])

@@ -47,7 +47,9 @@ def test_configs_files_and_use():
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert c["name"] in used
         cfg = json.loads((ROOT / c["file"]).read_text())
-        assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"] == []
+        assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
+        assert isinstance(c["reduced"], list) and len(c["reduced"]) <= 16
+        assert all(isinstance(k, str) and NAME.match(k) for k in c["reduced"])
         assert cfg["source"] == c["source"]
         assert c["file"].startswith("benchmark/configs/")
 
@@ -57,7 +59,12 @@ def test_workloads():
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert w["chips"] == 1
-        assert (ROOT / "benchmark" / "traffic" / f"{w['traffic']}.json").is_file()
+        traffic = json.loads((ROOT / "benchmark" / "traffic" / f"{w['traffic']}.json").read_text())
+        if traffic["loop"] == "open":
+            assert traffic["rate_per_s"] > 0 and traffic["max_outstanding"] >= 1
+            assert isinstance(traffic["arrivals_seed"], int)
+        else:
+            assert traffic["loop"] == "closed" and traffic["clients"] >= 1
         pair = (w["config"], w["traffic"])
         assert pair not in pairs
         pairs.add(pair)

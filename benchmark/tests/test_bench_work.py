@@ -34,12 +34,13 @@ def counted(fn):
 def test_flops_match_flop_counter_on_tiny_presets(name):
     """One request of the reference, every product counted by torch's flop
     counter, equals the analytic count."""
+    from benchmark import families
     from benchmark.reference import sample
     from benchmark.weights import draw_state_dict
 
     cfg = tiny(name)
     torch.manual_seed(0)
-    net = sample.checkpoint_module(cfg)
+    net = families.load(cfg["family"]).reference_module(cfg)
     net.load_state_dict(draw_state_dict(net, 1, "cpu", torch.float32))
     if cfg["family"] == "controlnet_sd":
         import numpy as np

@@ -51,6 +51,12 @@ def tiny_traffic(traffic):
     t = copy.deepcopy(traffic)
     t.update(pool=min(t["pool"], 6), warm=min(t["warm"], 2), trace_requests=2)
     if "server" in t:
-        t["clients"] = 4
-        t["server"] = dict(t["server"], max_wait_ms=20)
+        # 4 clients, or 8 arrivals in a 1 s window, and a batching window long
+        # enough to wait for each batch of 4: every batch is full whatever the
+        # CPU's speed, so a fault that mixes a batch's rows shows
+        if t["loop"] == "closed":
+            t["clients"] = 4
+        else:
+            t.update(rate_per_s=8.0, max_outstanding=16)
+        t["server"] = dict(t["server"], max_wait_ms=5000)
     return t

@@ -10,7 +10,9 @@ uncond rows, `steps` evaluations of the nets on the batch-2 CFG concat
 input), the VAE decode. Norms, activations and the DDIM update are not
 counted (they are not products); neither are biases. The program may do
 less (it computes the cross-attention K/V and the hint embedding once a
-request), never more of this work.
+request), never more of this work. Each family counts its own request
+(`benchmark/families/<family>.py`: `flops_per_image`, `attention_calls`)
+from the pieces here; a family of another architecture brings its own.
 
 The attention sites and bounds are a frozen copy of the smoke test's
 `attention_sites` / `attention_work` / `bound_ms`: each call's least time is
@@ -22,6 +24,8 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
+
+from benchmark import families
 
 PEAKS = json.loads((Path(__file__).parent / "peaks.json").read_text())
 
@@ -155,25 +159,24 @@ def text_flops(t, rows):
     return fl
 
 
+def latent_side(cfg):
+    """The latent's side: the request's resolution over the VAE's
+    downsampling."""
+    return cfg["sampling"]["resolution"] // 2 ** (len(cfg["vae"]["ch_mult"]) - 1)
+
+
+def ldm_flops_per_image(cfg, per_row, text):
+    """FLOPs of one image of a latent-diffusion request: `per_row` FLOPs of
+    the nets a row, on the cond and uncond rows of every step, the text
+    towers' `text` and the VAE decode."""
+    return 2 * cfg["sampling"]["steps"] * per_row + text + vae_decode_flops(
+        cfg["vae"], latent_side(cfg))
+
+
 def model_flops_per_image(cfg):
     """FLOPs of one image of the configuration's request (see the module's
-    docstring)."""
-    s, u, v = cfg["sampling"], cfg["unet"], cfg["vae"]
-    f = 2 ** (len(v["ch_mult"]) - 1)
-    side = s["resolution"] // f
-    evals = 2 * s["steps"]  # rows: cond and uncond, every step
-    if cfg["family"] == "controlnet_sd":
-        ctx_len = cfg["clip"]["max_length"]
-        per_row = unet_flops(u, side, ctx_len) + controlnet_flops(
-            u, side, ctx_len, cfg["controlnet"]["hint_channels"], s["resolution"])
-        text = text_flops(cfg["clip"], 2)
-    elif cfg["family"] == "sdxl":
-        ctx_len = cfg["clip_l"]["max_length"]
-        per_row = unet_flops(u, side, ctx_len)
-        text = text_flops(cfg["clip_l"], 2) + text_flops(cfg["clip_g"], 2)
-    else:
-        raise ValueError(f"unknown family {cfg['family']!r}")
-    return evals * per_row + text + vae_decode_flops(v, side)
+    docstring), as its family counts them (`flops_per_image`)."""
+    return families.load(cfg["family"]).flops_per_image(cfg)
 
 
 # ------------------------------------------------------- attention bounds
@@ -210,15 +213,14 @@ def _unet_sites(u, side, ctx_len, copies_enc):
     return sites + [(ch, (side // ds) ** 2, _depth(u, last))] * copies_enc
 
 
-def attention_calls(cfg, batch=1):
-    """Every attention call of `batch` requests as (batch, heads, Tq, S,
-    head_dim), once each: the text towers, `steps` evaluations of the nets
-    on the CFG concat (self- and cross-attention of every transformer
-    block), the VAE decoder's mid-block attention."""
+def ldm_attention_calls(cfg, towers, copies, batch):
+    """Every attention call of `batch` requests of a latent-diffusion family
+    as (batch, heads, Tq, S, head_dim), once each: the text `towers`, `steps`
+    evaluations of the nets on the CFG concat (self- and cross-attention of
+    every transformer block; the encoder's and middle block's `copies`
+    times: 2 with a ControlNet), the VAE decoder's mid-block attention."""
     s, u, v = cfg["sampling"], cfg["unet"], cfg["vae"]
-    side = s["resolution"] // 2 ** (len(v["ch_mult"]) - 1)
-    towers = [cfg["clip"]] if cfg["family"] == "controlnet_sd" else [cfg["clip_l"],
-                                                                     cfg["clip_g"]]
+    side = latent_side(cfg)
     calls = []
     for t in towers:
         n = t["num_layers"] - (1 if t["layer"] == "penultimate_raw"
@@ -226,7 +228,6 @@ def attention_calls(cfg, batch=1):
         hd = t["hidden_size"] // t["num_heads"]
         calls += [(2 * batch, t["num_heads"], t["max_length"], t["max_length"], hd)] * n
     ctx_len = towers[0]["max_length"]
-    copies = 2 if cfg["family"] == "controlnet_sd" else 1
     for ch, tokens, depth in _unet_sites(u, side, ctx_len, copies):
         h = _heads(u, ch)
         for _ in range(s["steps"] * depth):
@@ -235,6 +236,13 @@ def attention_calls(cfg, batch=1):
     c = v["ch"] * v["ch_mult"][-1]
     calls.append((batch, 1, side * side, side * side, c))
     return calls
+
+
+def attention_calls(cfg, batch=1):
+    """Every attention call of `batch` requests as (batch, heads, Tq, S,
+    head_dim), once each, as the configuration's family lists them
+    (`attention_calls`)."""
+    return families.load(cfg["family"]).attention_calls(cfg, batch)
 
 
 def attention_bound_s(cfg, batch=1):
