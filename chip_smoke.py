@@ -130,7 +130,17 @@ source, all started together), then:
      run's latents, t_enc 4 of 20, scale 5, as a main path over
      sdxl_refine_decode_engine (320 packed + 1 split a request), then its
      sgm-layout file through load_sdxl_refiner_pipeline (free bytes first;
-     every key consumed or named, the same image).
+     every key consumed or named, the same image). Then SD 3.5 Medium
+     (sd3_phase): the packed attention at its joint site (2, 4429, 1536) x
+     4429 and image-only site (2, 4096, 1536), q and k through rms_norm, and
+     #7 without affine at (2, 4096, 1536) and (2, 333, 1536), each timed
+     against its plain version with its bound; then the seeded full-width
+     model in bf16 (weights drawn on the card): the towers' conditioning,
+     sd3_sample_decode_engine at 1024x1024, 40 steps, scale 4.5, captured
+     by a warm-up; two replayed requests, their launches held to sd3_plan
+     (1,480 packed + 1 split, 3,840 #7 launches and 4,880 plain RMSNorm
+     calls a request, every norm call by route); one eager request equal to
+     the replay in bytes.
   14. the annotator nets at full width in fp32 (annotator_reference, after
      the reference phase): DPT-L at 512x512 (24 split launches), the
      DPT-hybrid at 384x384, HED at 512x512, the OpenPose body net at
@@ -4127,6 +4137,279 @@ def refiner_phase(tokenizer, z_base):
     return run
 
 
+# ------------------------------------------------------------- SD3 phase
+
+
+SD3_RES, SD3_STEPS, SD3_SCALE = 1024, 40, 4.5  # the model card's request
+
+
+def build_sd3(seed):
+    """SD 3.5 Medium at full width (the 2.5 B MMDiT-X, CLIP-L, bigG, T5-XXL
+    and the 16-channel VAE: 7.9 B parameters), its weights drawn in bf16 on
+    the card from a seed: linears and convs U(+-1/sqrt(fan_in)), embeddings
+    N(0, 0.02) (positions 0.01), every norm's gain 1 and bias 0 (the
+    benchmark's rules; init_weights does not know the RMSNorm and T5 norm
+    modules)."""
+    from stablediffusioneo_tpu_torch.models.sd3 import SD3, SD3Config
+
+    with torch.device("meta"):
+        model = SD3(SD3Config())
+    model = model.to(torch.bfloat16).to_empty(device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d)):
+                bound = m.weight[0].numel() ** -0.5
+                for p in (m.weight, m.bias):
+                    if p is not None:
+                        p.uniform_(-bound, bound, generator=g)
+            elif isinstance(m, torch.nn.Embedding):
+                m.weight.normal_(0.0, 0.01 if name.endswith("position_embedding") else 0.02,
+                                 generator=g)
+            else:
+                for pname, p in m.named_parameters(recurse=False):
+                    if p.dim() != 1 or pname not in ("weight", "bias"):
+                        raise RuntimeError(f"build_sd3: no rule for {name}.{pname}")
+                    p.fill_(1.0 if pname == "weight" else 0.0)
+    return model.eval().requires_grad_(False)
+
+
+def sd3_ids(cfg):
+    """(CLIP-L, bigG, T5) ids of [PROMPT, ""] on the card: the stand-in CLIP
+    ids (bigG padded with zeros after the first EOT, as open_clip does) and
+    a stand-in for T5's SentencePiece ids (one hashed id a word in [3,
+    32000), EOS 1, padded with 0 to the tower's length)."""
+    ids_l = stand_in_tokenizer([PROMPT, ""], cfg.clip_l.max_length)
+    ids_g = ids_l.copy()
+    for row in ids_g:
+        row[np.nonzero(row == 49407)[0][0] + 1:] = 0
+    n = cfg.t5.max_length
+    t5 = []
+    for text in (PROMPT, ""):
+        row = [3 + zlib.crc32(w.encode()) % 31997 for w in text.split()][:n - 1] + [1]
+        t5.append(row + [0] * (n - len(row)))
+    return [torch.as_tensor(np.asarray(a), dtype=torch.long, device="cuda")
+            for a in (ids_l, ids_g, t5)]
+
+
+def sd3_plan(cfg, steps, requests, res=SD3_RES):
+    """What `requests` SD3 requests of batch 1 at res x res launch in the sample+decode
+    engine, from the configuration: each evaluation (the batch-2 CFG
+    concat) runs the joint attention in every block over text + image
+    tokens and the image-only attention in each dual block on the packed
+    kernel; the q/k RMSNorm of each of those projections (context, image
+    and image-only: two calls each), plain; the adaLN LayerNorms on #7: two
+    a block in each stream, one in the pre-only last context block, one
+    before the final layer; the decode, its GroupNorms by the card's rule
+    and one split attention at the mid-block. Returns (launches by kernel,
+    attention calls by key length, norm calls by (norm, route))."""
+    from stablediffusioneo_tpu_torch.ops.norms import group_norm_route
+
+    t = cfg.transformer
+    lat = res // cfg.vae.downsample_factor
+    n = (lat // t.patch_size) ** 2
+    joint = n + cfg.clip_l.max_length + cfg.t5.max_length
+    dual = sum(1 for i in t.dual_attention_layers if i < t.num_layers)
+    evals = requests * steps
+    ln = 2 * t.num_layers + 2 * (t.num_layers - 1) + 1 + 1
+    decode = _vae_norms(cfg.vae, lat, 1)
+    want = add_norms({**dict.fromkeys(KERNELS, 0),
+                      "fused_attention_packed": evals * (t.num_layers + dual),
+                      "fused_attention": requests, "fused_layer_norm": evals * ln},
+                     (decode, requests))
+    keys = {joint: evals * t.num_layers, n: evals * dual, lat * lat: requests}
+    routes = collections.Counter({("layer_norm", "kernel"): evals * ln,
+                                  ("rms_norm", "plain_card"): evals * 2 * (2 * t.num_layers
+                                                                           + dual)})
+    for _, shape, _, groups in decode:
+        routes["group_norm", group_norm_route(shape, groups, torch.bfloat16, "contiguous",
+                                              "cuda", False)] += requests
+    return want, keys, dict(routes)
+
+
+def sd3_kernel_rows(cfg):
+    """The kernels at SD3's sites, each against its plain version (measure:
+    bf16 and fp32, device and eager times, the bound): the packed attention
+    at the joint site (2, 4429, 1536) x 4429 and the image-only site (2,
+    4096, 1536) x 4096, 24 heads of 64, q and k through `ops/norms.py:
+    rms_norm` as the MMDiT-X feeds them; #7 without affine
+    (`layer_norm(x, None, None, 1e-6)`, adaLN's norm, `unit_affine` standing
+    in) at the image tokens (2, 4096, 1536) and the context's (2, 333, 1536)."""
+    from stablediffusioneo_tpu_torch.ops import norms
+    from stablediffusioneo_tpu_torch.ops.attention import packed_attention
+    from stablediffusioneo_tpu_torch.ops.kernels import attention as ka
+    from stablediffusioneo_tpu_torch.ops.kernels import layernorm as kl
+
+    t = cfg.transformer
+    heads, d, c = t.num_attention_heads, t.attention_head_dim, t.hidden_size
+    n = (SD3_RES // cfg.vae.downsample_factor // t.patch_size) ** 2
+    ctx = cfg.clip_l.max_length + cfg.t5.max_length
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    rows = {"fused_attention_packed": [], "fused_layer_norm": []}
+    for site, tq in (("joint", n + ctx), ("image_only", n)):
+        def make(dt, tq=tq):
+            w = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dt)
+            q, k = (norms.rms_norm(randn((2, tq, heads, d), dt), w, 1e-6).reshape(2, tq, c)
+                    for _ in range(2))
+            return q, k, randn((2, tq, c), dt)
+
+        ops, _, exps = attention_work(2, heads, tq, tq, d)
+        row = measure(
+            "fused_attention_packed", {"site": site, "q": [2, tq, c], "s": tq, "heads": heads},
+            lambda q, k, v: packed_attention(q, k, v, heads),
+            lambda q, k, v: ka.fused_attention_packed_plain(q, k, v, heads, d ** -0.5), make,
+            ops=ops, peak=PEAK_BF16, variants=ka.variant_launches,
+            library=lambda q, k, v: F.scaled_dot_product_attention(
+                *(x.view(2, -1, heads, d).transpose(1, 2) for x in (q, k, v))))
+        row["exp_ms"] = exps / PEAK_EXP * 1e3
+        if row["bf16_variant"] != "wgmma" or row["fp32_variant"] != "cuda_core":
+            raise AssertionError(f"SD3 {site} attention ran {row['bf16_variant']} (bf16) and "
+                                 f"{row['fp32_variant']} (fp32)")
+        rows["fused_attention_packed"].append(row)
+    for site, shape in (("image", (2, n, c)), ("context", (2, ctx, c))):
+        norms.route_counts.clear()
+        row = measure(
+            "fused_layer_norm", {"site": site, "x": list(shape), "affine": False},
+            lambda x: norms.layer_norm(x, None, None, 1e-6),
+            lambda x: kl.fused_layer_norm_plain(x, *norms.unit_affine(c, x.dtype, x.device),
+                                                1e-6),
+            lambda dt: (randn(shape, dt),), ops=NORM_OPS * math.prod(shape),
+            library=lambda x: F.layer_norm(x, (c,), None, None, 1e-6),
+            variants=kl.plan_launches)
+        if set(norms.route_counts) != {("layer_norm", "kernel")}:
+            raise AssertionError(f"SD3 {site} LayerNorm without affine ran "
+                                 f"{dict(norms.route_counts)}")
+        rows["fused_layer_norm"].append(row)
+    return rows
+
+
+def sd3_request(model, eng, ctx, y, seed):
+    """One SD3 engine call on x_T drawn from the seed (NHWC, 16 channels)
+    with the conditioning `ctx`, `y` of [PROMPT, ""]. Returns the image on
+    the host and the latents."""
+    lat = SD3_RES // model.cfg.vae.downsample_factor
+    x = torch.randn((1, lat, lat, model.cfg.transformer.in_channels),
+                    generator=torch.Generator(device="cuda").manual_seed(seed),
+                    device="cuda").to(torch.bfloat16)
+    img, z = eng(x, ctx[:1], ctx[1:], y[:1], y[1:], torch.full((1,), SD3_SCALE, device="cuda"))
+    return img[0].cpu().numpy(), z.clone()
+
+
+def sd3_phase():
+    """SD 3.5 Medium (the cell sd35-medium.single's request): the kernels at
+    its sites (sd3_kernel_rows), then the seeded full-width model in bf16:
+    the three towers' conditioning (sd3_conditioning, eager; device time
+    printed), the flow-matching sample+decode engine
+    (runtime/engine.py:sd3_sample_decode_engine, 40 steps, scale 4.5,
+    1024x1024) captured by a warm-up request, the counters zeroed, two
+    replayed requests of the same conditioning, their launches held to
+    sd3_plan (by kernel, by key length, every norm call by route: 1,480
+    packed + 1 split attention, 3,840 #7 and 4,880 plain RMSNorm calls a
+    request), then one eager request (capture=False) with the first one's
+    seed whose image must equal the replayed one in bytes."""
+    from stablediffusioneo_tpu_torch.models.sd3 import SD3Config, sd3_conditioning
+    from stablediffusioneo_tpu_torch.ops import dispatch
+    from stablediffusioneo_tpu_torch.ops.kernels.attention import (
+        key_length_launches,
+        variant_launches,
+    )
+    from stablediffusioneo_tpu_torch.ops.kernels.groupnorm import plan_launches as gn_plans
+    from stablediffusioneo_tpu_torch.ops.kernels.layernorm import plan_launches as ln_plans
+    from stablediffusioneo_tpu_torch.ops.norms import route_counts
+    from stablediffusioneo_tpu_torch.runtime.engine import sd3_sample_decode_engine
+
+    cfg = SD3Config()
+    rows = sd3_kernel_rows(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_sd3(seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = sd3_ids(cfg)
+    with torch.no_grad():
+        towers_ms = device_ms(lambda: sd3_conditioning(model, *ids), calls=3)
+        ctx, y = sd3_conditioning(model, *ids)
+    print(f"sd3: seeded model built on the card in {build_s:.2f} s, "
+          f"{torch.cuda.memory_allocated()} bytes allocated; conditioning (CLIP-L, bigG, "
+          f"T5-XXL over 256 tokens, cond and uncond as one batch of 2): device "
+          f"{towers_ms:.3f} ms; context {tuple(ctx.shape)}, pooled {tuple(y.shape)}", flush=True)
+    if not (torch.isfinite(ctx).all() and torch.isfinite(y).all()):
+        raise AssertionError("sd3 conditioning is not finite")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = sd3_sample_decode_engine(model, SD3_STEPS, 1, SD3_RES, SD3_RES)
+    sd3_request(model, eng, ctx, y, 0)
+    warm_s = time.perf_counter() - t0
+    info = eng.get_engine_infor()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"sd3 warm-up request: {warm_s:.3f} s, of which the capture "
+          f"{info['compile_seconds']:.3f} s; stages {info['stages']}, graph nodes "
+          f"{info['device_ops']}, graph pools {info['memory']['pool_bytes']} bytes, peak "
+          f"memory allocated {peak} bytes", flush=True)
+    if not eng.compiled:
+        raise AssertionError("the SD3 engine was not captured")
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    for counter in (variant_launches, gn_plans, ln_plans, key_length_launches, route_counts):
+        counter.clear()
+    images, latencies = [], []
+    lat = SD3_RES // cfg.vae.downsample_factor
+    for seed in (1, 2):
+        t0 = time.perf_counter()
+        img, z = sd3_request(model, eng, ctx, y, seed)
+        latencies.append(time.perf_counter() - t0)
+        if not (torch.isfinite(z).all() and z.shape == (1, lat, lat, 16)
+                and img.shape == (SD3_RES, SD3_RES, 3) and img.dtype == np.uint8):
+            raise AssertionError(f"sd3 latents {tuple(z.shape)} not finite or image "
+                                 f"{img.shape} {img.dtype}")
+        images.append(img)
+        print(f"sd3 replayed request seed={seed}: {latencies[-1]:.4f} s; max |z| "
+              f"{z.abs().max().item():.3f}", flush=True)
+    launches = dict(dispatch.launches)
+    variants, routes = dict(variant_launches), dict(route_counts)
+    gn, ln = dict(gn_plans), dict(ln_plans)
+    key_lengths = {s: n for s, n in key_length_launches.items() if n}
+    want, want_keys, want_routes = sd3_plan(cfg, SD3_STEPS, requests=2)
+    want_variants = {"wgmma": want["fused_attention_packed"],
+                     "wgmma_split": want["fused_attention"]}
+    print(f"sd3 kernel launches over the 2 replayed requests: {launches} (expected {want}); "
+          f"by key length {key_lengths} (expected {want_keys}); by variant {variants}; "
+          f"GroupNorm plans { {str(p): n for p, n in gn.items()} }; LayerNorm plans "
+          f"{ {str(p): n for p, n in ln.items()} }; norm calls by (norm, route) {routes} "
+          f"(expected {want_routes})", flush=True)
+    if (launches != want or key_lengths != want_keys or routes != want_routes
+            or {k: v for k, v in variants.items() if v} != want_variants
+            or sum(ln.values()) != want["fused_layer_norm"]):
+        raise AssertionError(f"sd3 launches {launches}, {key_lengths}, {variants}, {routes} "
+                             f"!= {want}, {want_keys}, {want_routes}")
+    if np.array_equal(images[0], images[1]):
+        raise AssertionError("two seeds gave the same SD3 image")
+    eager_eng = sd3_sample_decode_engine(model, SD3_STEPS, 1, SD3_RES, SD3_RES, capture=False)
+    t0 = time.perf_counter()
+    eager = sd3_request(model, eager_eng, ctx, y, 1)[0]
+    eager_latency = time.perf_counter() - t0
+    differ = int((eager != images[0]).sum())
+    print(f"sd3 eager request seed=1: {eager_latency:.4f} s; bytes that differ from the "
+          f"replayed image: {differ} of {eager.size}; image mean {images[0].mean():.2f} "
+          f"std {images[0].std():.2f}", flush=True)
+    if differ:
+        raise AssertionError(f"the replayed SD3 image differs from the eager one in "
+                             f"{differ} bytes")
+    del eng, eager_eng, model, ctx, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kernels": rows, "latencies": latencies, "eager_latency": eager_latency,
+            "launches": launches, "key_lengths": key_lengths, "routes": {
+                f"{norm}:{route}": n for (norm, route), n in routes.items()},
+            "text_towers_ms": towers_ms, "peak_bytes": peak, "warm_s": warm_s,
+            "engine": info}
+
+
 # ------------------------------------------------------------ training phase
 
 
@@ -5127,6 +5410,8 @@ def main():
     runs["sdxl refiner 1024"] = refiner_phase(tokenizer, runs["sdxl 1024"]["latents"])
     print(f"main path (sdxl refiner 1024), its reference and checkpoint done at "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    sd3 = sd3_phase()
+    print(f"sd3 phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     training = training_phase(cfg)
     print(f"training phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     gc.collect()
@@ -5166,6 +5451,7 @@ def main():
             "launches_by_path": {**{config: r["launches"][name] for config, r in runs.items()},
                                  "serving": serving["launches"].get(name, 0),
                                  "multi-ControlNet": multi["launches"].get(name, 0),
+                                 "sd3 1024": sd3["launches"][name],
                                  **{f"annotators:{f}": r["launches"][name]
                                     for f, r in annotators["families"].items()},
                                  **{f"annotators:{f}": r["launches"][name]
@@ -5200,7 +5486,7 @@ def main():
     families["depth2img"]["tower_ms"] = runs["depth2img"]["tower_ms"]
     print(json.dumps({"kernels": out, "request_s": latencies, "eager_request_s": eager,
                       "checkpoint": checkpoint, "hackathon": hack,
-                      "sdxl": sdxl, "sdxl_checkpoint": sdxl_checkpoint,
+                      "sdxl": sdxl, "sdxl_checkpoint": sdxl_checkpoint, "sd3": sd3,
                       "lora": lora, "textual_inversion": inversion, "families": families,
                       "refiner_reference": runs["sdxl refiner 1024"]["reference"],
                       "annotators": annotators, "annotator_reference": annotator_ref,

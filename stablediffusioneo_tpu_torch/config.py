@@ -109,6 +109,32 @@ class VAEConfig:
         """Spatial image->latent factor (f=8 for SD: 3 stride-2 stages)."""
         return 2 ** (len(self.ch_mult) - 1)
 
+    @property
+    def quant_convs(self) -> bool:
+        """Whether quant_conv and post_quant_conv sit between the towers and
+        the latents (SD-1.x, 2.x and XL: yes; FlowVAEConfig sets it)."""
+        return True
+
+    @property
+    def shift_factor(self) -> float:
+        """The latents' shift: z = (x - shift_factor) * scale_factor (0 here;
+        FlowVAEConfig sets it)."""
+        return 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class FlowVAEConfig(VAEConfig):
+    """SD3's first stage (diffusers AutoencoderKL of
+    stabilityai/stable-diffusion-3.5-medium, vae/config.json): the same
+    towers with 16 latent channels, no quant_conv or post_quant_conv, and
+    latents both scaled and shifted."""
+
+    z_channels: int = 16
+    embed_dim: int = 16
+    scale_factor: float = 1.5305
+    shift_factor: float = 0.0609
+    quant_convs: bool = False
+
 
 @dataclasses.dataclass(frozen=True)
 class CLIPTextConfig:

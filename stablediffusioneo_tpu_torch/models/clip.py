@@ -4,8 +4,9 @@ Two towers under their checkpoints' own names:
   * `CLIPTextModel`, HF names (`text_model.embeddings.*`,
     `text_model.encoder.layers.N.*`, `text_model.final_layer_norm`): SD-1.x's
     ViT-L at `cond_stage_model.transformer.`, SDXL's first tower at
-    `conditioner.embedders.0.transformer.` (no projection: no HF-layout
-    checkpoint the JAX package loads holds one).
+    `conditioner.embedders.0.transformer.`; with `projection_dim`, HF's
+    CLIPTextModelWithProjection (`text_projection.weight`, a bias-free
+    Linear stored (proj, d)): SD3's CLIP-L and bigG.
   * `OpenCLIPTextModel`, OpenCLIP names (`token_embedding`,
     `positional_embedding`, `transformer.resblocks.N.{ln_1, attn.in_proj_*,
     attn.out_proj, ln_2, mlp.c_fc, mlp.c_proj}`, `ln_final`,
@@ -100,15 +101,15 @@ class CLIPTextTransformer(nn.Module):
 
 
 class CLIPTextModel(nn.Module):
-    """HF CLIPTextModel."""
+    """HF CLIPTextModel, or CLIPTextModelWithProjection where the config has
+    a projection_dim."""
 
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
-        if cfg.projection_dim:
-            raise ValueError("a projected text tower is OpenCLIP's "
-                             "(OpenCLIPTextModel, as SDXL's bigG)")
         self.cfg = cfg
         self.text_model = CLIPTextTransformer(cfg)
+        if cfg.projection_dim:
+            self.text_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
 
     def embed(self, input_ids):
         emb = self.text_model.embeddings
@@ -125,7 +126,7 @@ class CLIPTextModel(nn.Module):
 
     def projection(self) -> Optional[torch.Tensor]:
         """The pooled output's projection as a (d, proj) matrix, or None."""
-        return None
+        return self.text_projection.weight.t() if self.cfg.projection_dim else None
 
 
 class OpenCLIPAttention(nn.Module):

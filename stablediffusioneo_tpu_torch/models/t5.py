@@ -24,8 +24,10 @@ T5 quirks kept, as in the JAX package:
   - no biases on any linear; embeddings are not scaled.
 T5's attention takes an additive bias, which the attention kernels do not,
 and the JAX package runs it as plain einsums: here plain torch.matmul and
-softmax. `t5_encode_pp` runs the block stack pipeline-parallel over a
-mesh's pp axis (parallel/pipeline.py).
+softmax. `t5_encode` runs inside a `text.t5` span (device time on the
+current stream: SD3's T5-XXL, eager in front of its engine). `t5_encode_pp`
+runs the block stack pipeline-parallel over a mesh's pp axis
+(parallel/pipeline.py).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from stablediffusioneo_tpu_torch.annotators._dtype import default_device
+from stablediffusioneo_tpu_torch.runtime import profiling
 
 __all__ = ["T5Config", "T5Encoder", "clip_t5_encode", "convert_t5", "init_t5",
            "t5_encode", "t5_encode_pp", "tiny_t5"]
@@ -242,14 +245,15 @@ def t5_encode(t5: T5Encoder, ids: torch.Tensor, mask: Optional[torch.Tensor] = N
               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """(B, T) int token ids [+ (B, T) 0/1 attention mask] -> (B, T, d_model)
     last hidden state in the compute `dtype` (default: the weights'),
-    T5EncoderModel.forward semantics."""
+    T5EncoderModel.forward semantics. The `text.t5` span."""
     cfg = t5.cfg
     dtype = dtype or t5.shared.weight.dtype
-    x = t5.shared.weight[ids].to(dtype)
-    bias = _attn_bias(t5, ids, mask)
-    for blk in t5.encoder.block:
-        x = blk(x, bias, cfg.num_heads)
-    return t5.encoder.final_layer_norm(x)
+    with profiling.span("text.t5", device=ids.device):
+        x = t5.shared.weight[ids].to(dtype)
+        bias = _attn_bias(t5, ids, mask)
+        for blk in t5.encoder.block:
+            x = blk(x, bias, cfg.num_heads)
+        return t5.encoder.final_layer_norm(x)
 
 
 def _attn_bias(t5: T5Encoder, ids: torch.Tensor, mask: Optional[torch.Tensor]):

@@ -3,7 +3,9 @@
 Names follow `first_stage_model.*` (ldm/modules/diffusionmodules/model.py):
 the encoder tower and quant_conv (img2img and inpainting encode with them),
 post_quant_conv and the decoder tower, each with its single-head mid-block
-attention. All GroupNorms use eps 1e-6 (cfg.norm_eps). The encoder's
+attention; SD3's first stage (config.FlowVAEConfig) has neither quant conv
+and shifts its latents as well as scaling them. All GroupNorms use eps 1e-6
+(cfg.norm_eps). The encoder's
 downsample pads right and bottom by one before its stride-2 conv
 (model.py:80-87), not symmetrically. `vae_encode` returns the
 DiagonalGaussian of quant_conv(encoder(x)); its sample takes the noise from
@@ -153,17 +155,20 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """SD's first stage: encoder + quant_conv, post_quant_conv + decoder."""
+    """SD's first stage: encoder + quant_conv, post_quant_conv + decoder
+    (the quant convs None where cfg.quant_convs is off)."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         self.cfg = cfg
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
-        q_in = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
-        q_out = 2 * cfg.embed_dim if cfg.double_z else cfg.embed_dim
-        self.quant_conv = nn.Conv2d(q_in, q_out, 1)
-        self.post_quant_conv = nn.Conv2d(cfg.embed_dim, cfg.z_channels, 1)
+        self.quant_conv = self.post_quant_conv = None
+        if cfg.quant_convs:
+            q_in = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
+            q_out = 2 * cfg.embed_dim if cfg.double_z else cfg.embed_dim
+            self.quant_conv = nn.Conv2d(q_in, q_out, 1)
+            self.post_quant_conv = nn.Conv2d(cfg.embed_dim, cfg.z_channels, 1)
 
 
 class DiagonalGaussian:
@@ -190,13 +195,22 @@ def vae_encode(vae: AutoencoderKL, x) -> DiagonalGaussian:
     (N, H/8, W/8, embed_dim), unscaled (callers multiply by scale_factor)."""
     if not vae.cfg.double_z:
         raise ValueError("vae_encode needs double_z (mean and log-variance moments)")
-    return DiagonalGaussian(nhwc(vae.quant_conv(vae.encoder(nchw(x)))))
+    moments = vae.encoder(nchw(x))
+    if vae.quant_conv is not None:
+        moments = vae.quant_conv(moments)
+    return DiagonalGaussian(nhwc(moments))
 
 
 def vae_decode(vae: AutoencoderKL, z, scaled: bool = True):
-    """NHWC latent (N, h, w, 4) -> NHWC image (N, 8h, 8w, 3) in about [-1, 1].
-    scaled=True: z is in LatentDiffusion units and is divided by the scale
-    factor (in z's dtype) first."""
+    """NHWC latent (N, h, w, embed_dim) -> NHWC image (N, 8h, 8w, 3) in about
+    [-1, 1]. scaled=True: z is in LatentDiffusion units and is divided by the
+    scale factor (in z's dtype) first, then shifted by the shift factor where
+    the configuration has one (SD3: z / 1.5305 + 0.0609)."""
     if scaled:
         z = z / const_tensor(float(vae.cfg.scale_factor), z.dtype, z.device)
-    return nhwc(vae.decoder(vae.post_quant_conv(nchw(z))))
+        if vae.cfg.shift_factor:
+            z = z + const_tensor(float(vae.cfg.shift_factor), z.dtype, z.device)
+    z = nchw(z)
+    if vae.post_quant_conv is not None:
+        z = vae.post_quant_conv(z)
+    return nhwc(vae.decoder(z))

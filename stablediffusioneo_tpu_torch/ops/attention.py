@@ -10,6 +10,10 @@
     out-project. Unmasked sites with at least ATTN_MIN_TQ query tokens go to
     the kernel's head-packed entry, or to its streaming entry where the JAX
     package streams K/V (`stream_attention`).
+  * `packed_attention`: q, k, v already projected (and normed, as SD3's
+    per-head q/k RMSNorm) in the packed (B, T, H*D) layout, unmasked: the
+    head-packed entry from ATTN_MIN_TQ query tokens, whatever the lengths
+    (SD3's joint sites run at 4429 = 333 + 4096 tokens), else plain math.
 """
 
 from __future__ import annotations
@@ -141,6 +145,22 @@ def attention(q, k, v, mask: Optional[torch.Tensor] = None,
         logits = logits + mask.float()
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(w.float(), v.float()).to(q.dtype)
+
+
+def packed_attention(q, k, v, heads: int):
+    """Multi-head attention of q (B, Tq, H*D) against k, v (B, S, H*D),
+    scale D^-1/2, out (B, Tq, H*D) in q's dtype: the kernel's head-packed
+    entry (`fused_attention_packed`) from ATTN_MIN_TQ query tokens, else
+    `attention` on the heads split out."""
+    b, tq, c = q.shape
+    d = c // heads
+    if tq >= ATTN_MIN_TQ:
+        return fused_attention_packed(q, k, v, heads, scale=d ** -0.5)
+
+    def split(t):
+        return t.reshape(b, t.shape[1], heads, d).transpose(1, 2)
+
+    return attention(split(q), split(k), split(v)).transpose(1, 2).reshape(b, tq, c)
 
 
 def grid_attention(q, k, v):

@@ -1,5 +1,6 @@
-"""GroupNorm and LayerNorm with fp32 statistics
-(counterpart of stablediffusioneo_tpu/ops/norms.py).
+"""GroupNorm, LayerNorm and RMSNorm with fp32 statistics
+(counterpart of stablediffusioneo_tpu/ops/norms.py; RMSNorm is the port's
+own, for SD3's per-head q/k norms).
 
 Where a norm runs is one rule (`group_norm_route`, `layer_norm_route`, pure
 functions of what a call's input shows and of the flag), and the call runs
@@ -31,9 +32,14 @@ the route the rule returns:
   need no gradient (the UNet's encoder in ControlNet training) is outside
   autograd and takes its kernel.
 
-`route_counts` counts the calls by (norm, route), "group_norm" or
-"layer_norm" and the route above; it is registered with the dispatch
-counters, so a captured engine adds its calls at every replay. The sp
+`rms_norm` has no hand-written kernel yet: PyTorch's `F.rms_norm` on every
+device, its route `plain_cpu`, `plain_grad` or, on CUDA outside autograd,
+`plain_card` (a call on the card that no kernel of the port took, as
+`plain_refused` is).
+
+`route_counts` counts the calls by (norm, route), "group_norm",
+"layer_norm" or "rms_norm" and the route above; it is registered with the
+dispatch counters, so a captured engine adds its calls at every replay. The sp
 branch of `group_norm` (mesh engines) keeps its own route and is not
 counted.
 
@@ -45,6 +51,7 @@ GroupNorm 1e-6.
 from __future__ import annotations
 
 import collections
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -142,12 +149,25 @@ def group_norm(x, weight, bias, groups: int, eps: float, swish: bool = False):
     return out.to(x.dtype)
 
 
+@functools.lru_cache(maxsize=16)
+def unit_affine(c: int, dtype: torch.dtype, device: torch.device):
+    """(ones, zeros) of c channels: the affine pair of a LayerNorm without
+    one (SD3's adaLN), made once for each (c, dtype, device) and never
+    written, so that a captured loop allocates nothing for it."""
+    return (torch.ones(c, dtype=dtype, device=device),
+            torch.zeros(c, dtype=dtype, device=device))
+
+
 def layer_norm(x, weight, bias, eps: float):
-    """LayerNorm over the last dim in fp32, routed by `layer_norm_route`.
-    Inside a mesh engine the kernel takes this rank's tokens as they are:
-    each row is whole under dp, tp and sp. (The JAX package keeps its kernel
-    off under a mesh, because GSPMD has no partitioning rule for that
-    pallas_call and would gather its operands; the port has no such limit.)"""
+    """LayerNorm over the last dim in fp32, routed by `layer_norm_route`;
+    weight and bias None: no affine (`unit_affine` stands in, so the kernel
+    takes the call). Inside a mesh engine the kernel takes this rank's
+    tokens as they are: each row is whole under dp, tp and sp. (The JAX
+    package keeps its kernel off under a mesh, because GSPMD has no
+    partitioning rule for that pallas_call and would gather its operands;
+    the port has no such limit.)"""
+    if weight is None and bias is None:
+        weight, bias = unit_affine(x.shape[-1], x.dtype, x.device)
     route = layer_norm_route(
         x.shape, x.dtype, memory_layout(x), x.device.type,
         dispatch.needs_grad(x, weight, bias),
@@ -159,3 +179,22 @@ def layer_norm(x, weight, bias, eps: float):
     out = F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(),
                        eps)
     return out.to(x.dtype)
+
+
+def rms_norm_route(device_type: str, needs_grad: bool) -> str:
+    """The route of an RMSNorm call: "plain_card" (CUDA outside autograd),
+    "plain_grad" or "plain_cpu"; no kernel takes it yet."""
+    if device_type != "cuda":
+        return "plain_cpu"
+    return "plain_grad" if needs_grad else "plain_card"
+
+
+def rms_norm(x, weight, eps: float):
+    """RMSNorm over the last dim: x / sqrt(mean(x^2) + eps) * weight (SD3's
+    per-head q/k norm over d = 64), routed by `rms_norm_route` and counted.
+    PyTorch's own `F.rms_norm`: on CUDA one fused launch that works in fp32
+    and rounds once to x's dtype (a strided input is copied first); on the
+    CPU its decomposition, exact in fp32."""
+    route_counts["rms_norm", rms_norm_route(x.device.type,
+                                            dispatch.needs_grad(x, weight))] += 1
+    return F.rms_norm(x, (x.shape[-1],), weight.to(x.dtype), eps)

@@ -43,7 +43,9 @@ The ControlNet-free families have free-standing engines over their models
 package runs these loops under):
 `sdxl_sample_decode_engine` (SDXL base), `sdxl_refine_decode_engine` (the
 refiner's tail), `concat_sample_decode_engine` (the 9-channel inpainting
-model) and `encoder_engine` (its masked-image encode).
+model), `encoder_engine` (its masked-image encode) and
+`sd3_sample_decode_engine` (SD 3.5's flow-matching loop and decode, as a
+`StagedEngine` of captured stages).
 """
 
 from __future__ import annotations
@@ -434,6 +436,122 @@ def concat_sample_decode_engine(model, num_steps: int, batch: int, h: int, w: in
         + ("" if t_enc is None else f"_genxT-img2img_of{num_steps}"), run,
         entry + [(lat[:3] + (cfg.unet.in_channels - 4,), dtype), (ctx, dtype),
                  (ctx, dtype), ((batch,), torch.float32)], capture)
+
+
+class StagedEngine:
+    """Engines run in turn as one program: each stage's outputs are the next
+    stage's inputs, the first takes the caller's arguments and the last
+    gives the result. With `pace`, a stage is launched only once the stage
+    before it has finished on the device (the host waits on the stream), so
+    each launch starts on an empty command buffer. The H100's holds about
+    5,200 of SD3's graph nodes: a launch of more holds the host in
+    cudaGraphLaunch until the rest fits, and the profiler records a
+    "Command Buffer Full" event at each wait and attaches every kernel of the
+    launch to each of them, so a traced request's parse grows as waits x
+    kernels (SD3's 40 steps in one graph of 51,506 nodes: 4,361 waits,
+    224.8M kernel records; PERF.md, PR 23). Pacing leaves the device idle
+    between stages for the host's wake-up and the next launch."""
+
+    def __init__(self, name: str, stages: Sequence[Engine], pace: bool):
+        self.name, self.stages, self.pace = name, list(stages), pace
+
+    def __call__(self, *args: torch.Tensor):
+        out = args
+        for i, eng in enumerate(self.stages):
+            if i and self.pace:
+                torch.cuda.current_stream(out[0].device).synchronize()
+            out = eng(*out)
+        return out
+
+    @property
+    def compiled(self) -> bool:
+        return all(e.compiled for e in self.stages)
+
+    def get_engine_infor(self) -> Dict[str, Any]:
+        infos = [e.get_engine_infor() for e in self.stages]
+        if not all(i["compiled"] for i in infos):
+            return {"compiled": False}
+        return {"compiled": True,
+                "compile_seconds": sum(i["compile_seconds"] for i in infos),
+                "device_ops": sum(i["device_ops"] for i in infos),
+                "memory": {"pool_bytes": sum(i["memory"]["pool_bytes"] for i in infos),
+                           "argument_bytes": infos[0]["memory"]["argument_bytes"]},
+                "stages": [{"name": e.name, "device_ops": i["device_ops"]}
+                           for e, i in zip(self.stages, infos)]}
+
+
+# Steps a stage of SD3's engine: at 1024x1024 a step is ~1,283 graph nodes,
+# so a stage of 5 waits for the command buffer ~66 times where 40 steps in
+# one graph waited 4,361 times (PERF.md, PR 23); shorter stages add graph
+# pools (6.40 GiB for 8 stages) and host waits between them.
+SD3_STAGE_STEPS = 5
+
+
+def sd3_sample_decode_engine(model, num_steps: int, batch: int, h: int, w: int,
+                             capture: Optional[bool] = None) -> StagedEngine:
+    """SD 3.5 txt2img as one program of captured stages (`StagedEngine`,
+    paced on the card): the flow-matching Euler loop with guidance
+    (pipeline/flow_match.py, diffusers' schedule at the model's shift,
+    baked in) over the MMDiT-X, SD3_STAGE_STEPS steps a stage, and the VAE
+    decode to uint8 in the last (a graph pool each: a pool shared by the
+    stages measured the same 6.40 GiB). The conditioning
+    (models/sd3.py:sd3_conditioning) runs outside it. `model` is an SD3
+    (models/sd3.py) on its device in its compute dtype. Inputs: x_T
+    (B, h/8, w/8, 16) in the compute dtype, contexts (B, L, 4096) and pooled
+    (B, 2048) of each CFG branch in the compute dtype, scale (B,) fp32.
+    Returns (image uint8 (B, h, w, 3), x_0 latents fp32). The first stage
+    embeds the context and pooled vectors once a request and hands them on
+    with the latents (fp32 between stages: the exact widening of the
+    compute dtype the loop carries); the position table and the steps'
+    scalars are made here, outside any capture. capture: None captures on a
+    CUDA device and runs eagerly on the CPU."""
+    from stablediffusioneo_tpu_torch.pipeline.flow_match import (
+        flow_match_sample,
+        flow_match_sigmas,
+        flow_match_steps,
+    )
+
+    cfg, net = model.cfg, model.mmdit
+    p = next(net.parameters())
+    dtype, f = p.dtype, cfg.vae.downsample_factor
+    steps = flow_match_steps(flow_match_sigmas(num_steps, cfg.shift), p.device)
+    parts = [steps[i:i + SD3_STAGE_STEPS] for i in range(0, num_steps, SD3_STAGE_STEPS)]
+    pe = net.pos_embed(h // f, w // f, dtype, p.device)
+
+    def loop(part, x, ctx, y, scale):
+        def velocity(x2, t):
+            return net.velocity(x2, t, ctx, y, pe).chunk(2)
+
+        return flow_match_sample(velocity, part, x, scale, dtype)
+
+    def first(x, ctx_cond, ctx_uncond, y_cond, y_uncond, scale):
+        ctx = net.embed_context(torch.cat([ctx_cond, ctx_uncond]))
+        y = net.embed_pooled(torch.cat([y_cond, y_uncond]))
+        return loop(parts[0], x, ctx, y, scale), ctx, y, scale
+
+    def middle(part):
+        return lambda x, ctx, y, scale: (loop(part, x, ctx, y, scale), ctx, y, scale)
+
+    def decode(x, ctx, y, scale):
+        z = loop(parts[-1], x, ctx, y, scale) if len(parts) > 1 else x
+        return decode_u8(model.vae, z, dtype), z
+
+    t = cfg.transformer
+    lat = (batch, h // f, w // f, t.in_channels)
+    ctx = (batch, cfg.clip_l.max_length + cfg.t5.max_length, t.joint_attention_dim)
+    pooled = (batch, t.pooled_projection_dim)
+    carry = [(lat, torch.float32), ((2 * batch,) + ctx[1:2] + (t.hidden_size,), dtype),
+             ((2 * batch, t.hidden_size), dtype), ((batch,), torch.float32)]
+    name = f"sd3+decode_{num_steps}x{batch}x{h}x{w}"
+    if len(parts) == 1:  # one stage: the loop, then the decode
+        fns = [lambda *args: decode(*first(*args))]
+    else:
+        fns = [first] + [middle(part) for part in parts[1:-1]] + [decode]
+    inputs = [(lat, dtype), (ctx, dtype), (ctx, dtype), (pooled, dtype), (pooled, dtype),
+              ((batch,), torch.float32)]
+    stages = [_model_engine(model, f"{name}_stage{i}", fn, carry if i else inputs, capture)
+              for i, fn in enumerate(fns)]
+    return StagedEngine(name, stages, pace=stages[0].compiled)
 
 
 class MeshEngine:

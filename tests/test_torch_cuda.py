@@ -21,6 +21,7 @@ import torch
 
 from stablediffusioneo_tpu_torch.config import sd15_pipeline
 from stablediffusioneo_tpu_torch.ops import dispatch, norms
+from stablediffusioneo_tpu_torch.ops.attention import packed_attention
 from stablediffusioneo_tpu_torch.ops.kernels import attention as ka
 from stablediffusioneo_tpu_torch.ops.kernels import groupnorm as kg
 from stablediffusioneo_tpu_torch.ops.kernels import layernorm as kl
@@ -108,6 +109,38 @@ def test_packed_kernel_head_dim_64(gen, dtype, b, tq, c, s, heads):
     assert dict(ka.variant_launches) == {
         "wgmma" if dtype == torch.bfloat16 else "cuda_core": 1}
     _check(out, fused_attention_packed_plain(q, k, v, heads, 64 ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tq", [4429, 4096], ids=["joint", "image_only"])
+def test_packed_kernel_at_the_sd3_sites(gen, dtype, tq):
+    """SD 3.5 Medium at 1024x1024 through `ops/attention.py:packed_attention`:
+    the joint attention over 333 + 4096 tokens (not a multiple of 64) and
+    the image-only one over 4096, 24 heads of 64, q and k RMS-normed per head
+    by `ops/norms.py:rms_norm` as the MMDiT-X feeds them."""
+    b, heads, d = 2, 24, 64
+    w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+    q, k = (norms.rms_norm(_randn((b, tq, heads, d), gen, dtype), w, 1e-6).reshape(b, tq, -1)
+            for _ in range(2))
+    v = _randn((b, tq, heads * d), gen, dtype)
+    ka.variant_launches.clear()
+    out = packed_attention(q, k, v, heads)
+    assert dict(ka.variant_launches) == {
+        "wgmma" if dtype == torch.bfloat16 else "cuda_core": 1}
+    _check(out, fused_attention_packed_plain(q, k, v, heads, d ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rms_norm_on_the_card(gen, dtype):
+    """One `rms_norm` call at SD3's q shape against its definition, counted
+    on its card route."""
+    x = _randn((2, 4429, 24, 64), gen, dtype)
+    w = (1 + 0.1 * torch.randn(64, generator=gen, device="cuda")).to(dtype)
+    before = norms.route_counts["rms_norm", "plain_card"]
+    out = norms.rms_norm(x, w, 1e-6)
+    xf = x.float()
+    _check(out, xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + 1e-6) * w.float(), dtype)
+    assert norms.route_counts["rms_norm", "plain_card"] == before + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -914,6 +947,24 @@ def test_layer_norm_route_at_every_size(gen, dtype, shape):
     assert norms.route_counts == {("layer_norm", "kernel"): 1}
     _check(out, torch.nn.functional.layer_norm(x.float(), (shape[-1],), w.float(), b.float(),
                                                1e-5), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 4096, 1536), (2, 333, 1536)], ids=["image", "context"])
+def test_layer_norm_without_affine_at_the_sd3_sites(gen, dtype, shape):
+    """SD3's adaLN norm, `layer_norm(x, None, None, 1e-6)` at width 1536,
+    over the image and the context tokens of a 1024x1024 evaluation: the
+    kernel with `unit_affine` standing in, held to fp32 F.layer_norm without
+    affine."""
+    x = _randn(shape, gen, dtype)
+    dispatch.reset_launches()
+    norms.route_counts.clear()
+    with torch.no_grad():
+        out = norms.layer_norm(x, None, None, 1e-6)
+    assert dispatch.launches["fused_layer_norm"] == 1
+    assert norms.route_counts == {("layer_norm", "kernel"): 1}
+    _check(out, torch.nn.functional.layer_norm(x.float(), (shape[-1],), None, None, 1e-6),
+           dtype)
 
 
 def test_norm_routes_that_stay_plain_on_the_card(gen):

@@ -176,11 +176,18 @@ def test_openclip_tower_with_pooled(tower, layer, eot_id):
 
 
 def test_a_projected_tower_is_openclips():
+    """A projected tower in OpenCLIP's layout stores `text_projection`
+    (d, proj); in HF's (CLIPTextModelWithProjection: SD3's CLIP-L and bigG)
+    a bias-free Linear, stored (proj, d). Both hand the pooled output the
+    (d, proj) matrix."""
     from stablediffusioneo_tpu_torch.models.clip import CLIPTextModel
 
-    with pytest.raises(ValueError, match="OpenCLIP"):
-        CLIPTextModel(TOWER)
-    assert OpenCLIPTextModel(TOWER).text_projection.shape == (32, 24)
+    hf, oc = CLIPTextModel(TOWER), OpenCLIPTextModel(TOWER)
+    assert hf.text_projection.weight.shape == (24, 32) and hf.text_projection.bias is None
+    assert torch.equal(hf.projection(), hf.text_projection.weight.t())
+    assert oc.text_projection.shape == (32, 24)
+    assert oc.projection() is oc.text_projection
+    assert hf.projection().shape == oc.projection().shape
 
 
 def test_openclip_packs_q_k_v_in_order(tower):
