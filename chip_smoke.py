@@ -579,7 +579,8 @@ def traced_request(fn):
 
 
 # the tensor-core kernels of each library, by what their names hold
-TENSOR_CORE_KERNELS = {"attention": ("attention_split512_kernel", "attention_wgmma_kernel"),
+TENSOR_CORE_KERNELS = {"attention": ("attention_split512_kernel", "attention_wgmma_kernel",
+                                     "attention_ws_kernel"),
                        "quant": ("qmm_wgmma_kernel",)}
 # every kernel of the norm libraries, held to no spills
 NORM_KERNELS = {"groupnorm": ("gn_fused_kernel", "gn_stats_kernel", "gn_stats_rows_kernel",
@@ -747,6 +748,7 @@ def kernel_phase(cfg):
             scale = d ** -0.5
             kern = lambda q, k, v: ka.fused_attention(q, k, v, scale)
             plain = lambda q, k, v: ka.fused_attention_plain(q, k, v, scale)
+            wgmma = lambda q, k, v: ka._split_launch(q, k, v, scale, "wgmma")
             library = F.scaled_dot_product_attention
             make = (lambda dt, b=batch, t=tq, h=heads, dd=d: tuple(
                 randn((b, t, 3, h, dd), dt).permute(2, 0, 3, 1, 4).unbind(0)))
@@ -756,6 +758,7 @@ def kernel_phase(cfg):
             scale = d ** -0.5
             kern = lambda q, k, v: ka.fused_attention(q, k, v, scale)
             plain = lambda q, k, v: ka.fused_attention_plain(q, k, v, scale)
+            wgmma = lambda q, k, v: ka._split_launch(q, k, v, scale, "wgmma")
             library = F.scaled_dot_product_attention
         else:
             kv_shape = (q_shape[0], s, q_shape[2])
@@ -764,17 +767,20 @@ def kernel_phase(cfg):
             kern = (lambda q, k, v, e=getattr(ka, name): e(q, k, v, heads, scale))
             plain = (lambda q, k, v, e=getattr(ka, name + "_plain"):
                      e(q, k, v, heads, scale))
+            wgmma = lambda q, k, v: ka._packed_launch(q, k, v, heads, scale, name, "wgmma")
             # the library call on the head-split view of the packed tensors
             library = lambda q, k, v: F.scaled_dot_product_attention(
                 *(t.view(batch, -1, heads, d).transpose(1, 2) for t in (q, k, v)))
         ops, _, exps = attention_work(batch, heads, tq, s, d)
+        want = site_variant(d, s)  # the tensor-core variants
         row = measure(
             name, {"q": list(q_shape), "s": s, "heads": heads, "paths": paths}, kern, plain,
-            make, ops=ops, peak=PEAK_BF16, library=library, variants=ka.variant_launches)
+            make, ops=ops, peak=PEAK_BF16, library=library, variants=ka.variant_launches,
+            # the wgmma variant's time beside the warp-specialised one's
+            others={"wgmma": wgmma} if want == "wgmma_ws" else None)
         # a second figure beside the bound: one exp per logit on the
         # special-function units
         row["exp_ms"] = exps / PEAK_EXP * 1e3
-        want = "wgmma_split" if d == 512 else "wgmma"  # the tensor-core variants
         if row["bf16_variant"] != want or row["fp32_variant"] != "cuda_core":
             raise AssertionError(f"{name} {q_shape} x {s} ran {row['bf16_variant']} "
                                  f"(bf16) and {row['fp32_variant']} (fp32)")
@@ -1091,6 +1097,32 @@ def attention_route(q_shape, s, dtype):
     if stream_attention(tq, s, c, dtype):
         return "fused_attention_packed_stream"
     return "fused_attention_packed"
+
+
+def site_variant(d, s):
+    """The variant of csrc/attention.cu a bf16 call of head dim d over s keys
+    runs on aligned views (ops/kernels/attention.py:attention_variant)."""
+    from stablediffusioneo_tpu_torch.ops.kernels.attention import attention_variant
+
+    return attention_variant(torch.bfloat16, d, s, s, True)
+
+
+def add_variant(want, variant, n):
+    """Adds n launches of `variant` to the count `want` (no entry for 0)."""
+    if n:
+        want[variant] = want.get(variant, 0) + n
+    return want
+
+
+def packed_variants(cfg, res, evals, ctx_len=None, tome_ratio=0.0, n_controlnets=1):
+    """Packed and streaming attention launches of `evals` evaluations of the
+    nets, by the variant each site runs in bf16."""
+    want = {}
+    for q_shape, s, heads in attention_sites(cfg, res, ctx_len=ctx_len, tome_ratio=tome_ratio,
+                                             n_controlnets=n_controlnets):
+        if attention_route(q_shape, s, torch.bfloat16):
+            add_variant(want, site_variant(q_shape[2] // heads, s), evals)
+    return want
 
 
 def expected_launches(cfg, res, dtype=torch.bfloat16, ctx_len=None, tome_ratio=0.0,
@@ -1659,6 +1691,19 @@ def run_ctx_len(cfg, config):
     return RUNS[config].get("windows", 1) * text_length(cfg)
 
 
+def expected_request_variants(cfg, config, split):
+    """Attention launches by variant over the two timed requests of
+    main_path: every pass's packed sites, and `split` launches of the VAE's
+    mid-block (head dim 512)."""
+    tome_ratio = RUNS[config].get("process", {}).get("tome_ratio", 0.0)
+    want = {}
+    for res, n_steps in request_passes(config):
+        for variant, n in packed_variants(cfg, res, n_steps, ctx_len=run_ctx_len(cfg, config),
+                                          tome_ratio=tome_ratio).items():
+            add_variant(want, variant, 2 * n)
+    return add_variant(want, site_variant(512, 1), split)
+
+
 def expected_request_launches(cfg, config):
     """Every kernel's launches over the two timed requests of main_path, and
     the attention launches by key length."""
@@ -1898,9 +1943,7 @@ def main_path(model, cfg, config, tokenizer=stand_in_tokenizer):
     want_ln = expected_layer_norm_plans(cfg, config)
     print(f"main path ({config}) norm calls by (norm, route): {routes}", flush=True)
     # every attention launch of the bf16 main path is a tensor-core variant
-    want_variants = {"wgmma": want["fused_attention_packed"]
-                     + want["fused_attention_packed_stream"],
-                     "wgmma_split": want["fused_attention"]}
+    want_variants = expected_request_variants(cfg, config, want["fused_attention"])
     print(f"main path ({config}) attention launches by variant: {variants}", flush=True)
     if {k: v for k, v in variants.items() if v} != \
             {k: v for k, v in want_variants.items() if v}:
@@ -2070,8 +2113,7 @@ def sdxl_path(model, config, tokenizer):
           f"variant {variants}; GroupNorm plans { {str(p): n for p, n in gn.items()} }; "
           f"LayerNorm plans { {str(p): n for p, n in ln.items()} }; norm calls by (norm, "
           f"route) {routes}", flush=True)
-    want_variants = {"wgmma": want["fused_attention_packed"],
-                     "wgmma_split": want["fused_attention"]}
+    want_variants = expected_request_variants(cfg, config, want["fused_attention"])
     if (launches != want or key_lengths != want_keys
             or {k: v for k, v in variants.items() if v}
             != {k: v for k, v in want_variants.items() if v}
@@ -2775,8 +2817,10 @@ def captured_path(config, build, cfg, res, evals, encodes=0, towers=()):
               (_vae_norms(cfg.vae, lat, 1), 2), (_vae_encoder_norms(cfg.vae, res, 1), 2 * encodes),
               *((sites, 2 * calls) for sites, calls in towers))
     want_keys = {s: n for s, n in want_keys.items() if n}
-    want_variants = {k: n for k, n in (("wgmma", want["fused_attention_packed"]),
-                                       ("wgmma_split", want["fused_attention"])) if n}
+    want_variants = add_variant(
+        {variant: 2 * n for variant, n in packed_variants(cfg, res, evals,
+                                                          n_controlnets=0).items()},
+        site_variant(512, 1), want["fused_attention"])
     print(f"{config} kernel launches over the 2 replayed requests: {launches} (expected "
           f"{want}); by key length {key_lengths} (expected {want_keys}); by variant "
           f"{variants}", flush=True)
@@ -3235,8 +3279,9 @@ def detector_requests(pipe, cfg, family, build, hint, splits, norms=()):
     want_keys = dict(base_keys)
     for s, n in splits.items():
         want_keys[s] = want_keys.get(s, 0) + 2 * n
-    want_variants = {k: n for k, n in (("wgmma", want["fused_attention_packed"] + extra),
-                                       ("wgmma_split", base["fused_attention"])) if n}
+    want_variants = expected_request_variants(cfg, "default", base["fused_attention"])
+    for s, n in splits.items():  # the ViTs' and UniFormer's heads of 64 channels
+        add_variant(want_variants, site_variant(64, s), 2 * n)
     names = sorted(e.name for e in pipe.runtime._engines.values()
                    if e.name.startswith("ddim+decode"))
     p50 = statistics.median(times)
@@ -4250,6 +4295,8 @@ def sd3_kernel_rows(cfg):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
     rows = {"fused_attention_packed": [], "fused_layer_norm": []}
+    wgmma = lambda q, k, v: ka._packed_launch(q, k, v, heads, d ** -0.5,
+                                              "fused_attention_packed", "wgmma")
     for site, tq in (("joint", n + ctx), ("image_only", n)):
         def make(dt, tq=tq):
             w = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dt)
@@ -4262,11 +4309,11 @@ def sd3_kernel_rows(cfg):
             "fused_attention_packed", {"site": site, "q": [2, tq, c], "s": tq, "heads": heads},
             lambda q, k, v: packed_attention(q, k, v, heads),
             lambda q, k, v: ka.fused_attention_packed_plain(q, k, v, heads, d ** -0.5), make,
-            ops=ops, peak=PEAK_BF16, variants=ka.variant_launches,
+            ops=ops, peak=PEAK_BF16, variants=ka.variant_launches, others={"wgmma": wgmma},
             library=lambda q, k, v: F.scaled_dot_product_attention(
                 *(x.view(2, -1, heads, d).transpose(1, 2) for x in (q, k, v))))
         row["exp_ms"] = exps / PEAK_EXP * 1e3
-        if row["bf16_variant"] != "wgmma" or row["fp32_variant"] != "cuda_core":
+        if row["bf16_variant"] != site_variant(d, tq) or row["fp32_variant"] != "cuda_core":
             raise AssertionError(f"SD3 {site} attention ran {row['bf16_variant']} (bf16) and "
                                  f"{row['fp32_variant']} (fp32)")
         rows["fused_attention_packed"].append(row)
@@ -4375,8 +4422,10 @@ def sd3_phase():
     gn, ln = dict(gn_plans), dict(ln_plans)
     key_lengths = {s: n for s, n in key_length_launches.items() if n}
     want, want_keys, want_routes = sd3_plan(cfg, SD3_STEPS, requests=2)
-    want_variants = {"wgmma": want["fused_attention_packed"],
-                     "wgmma_split": want["fused_attention"]}
+    want_variants = {}
+    for s, n in want_keys.items():  # the decode's mid-block at lat x lat keys, d = 512
+        add_variant(want_variants, site_variant(
+            512 if s == lat * lat else cfg.transformer.attention_head_dim, s), n)
     print(f"sd3 kernel launches over the 2 replayed requests: {launches} (expected {want}); "
           f"by key length {key_lengths} (expected {want_keys}); by variant {variants}; "
           f"GroupNorm plans { {str(p): n for p, n in gn.items()} }; LayerNorm plans "

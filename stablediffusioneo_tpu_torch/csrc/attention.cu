@@ -27,14 +27,28 @@
 // fp32 and the divide by the denominator comes once, after AV. The bf16
 // variants take exp(x) as ex2(x log2 e) on the special-function units.
 //
-// Three variants (`Variant`; chosen by ops/kernels/attention.py):
+// Four variants (`Variant`; chosen by ops/kernels/attention.py):
+//   - attention_ws_kernel (bf16, d = 64 over long key lengths: SD 3.5's joint
+//     and image-only attention, the SDXL / SD-2.x / depth2img
+//     self-attention, the ViTs' 1,025 tokens). It replaces
+//     attention_wgmma_kernel there. At d = 64 a logit costs 4 d = 256
+//     tensor-core operations and one ex2; an SM does ~4,096 of the first
+//     and 16 of the second a clock, so the exp of a tile takes as long as
+//     its two products, and a warpgroup that waits for its products before
+//     its softmax (as attention_wgmma_kernel does) idles one unit while the
+//     other works: ~25% of the bound. The design overlaps them: a TMA
+//     producer warp keeps K/V tiles of 128 keys in flight, and each
+//     consumer warpgroup runs the softmax of tile i + 1 while P_i V_i is on
+//     the tensor cores, the warpgroups taking turns at the tensor cores.
+//     Its section below has the details.
 //   - attention_wgmma_kernel (bf16, d in {40, 64, 80, 160}: every UNet and
-//     ControlNet site). Both products on the tensor cores by wgmma, K/V
-//     tiles through a cp.async ring with mbarriers, p in registers. At d =
-//     40 a logit costs 4 d = 160 tensor-core operations but also a max, an
-//     FMA, an exp, an add and half a convert on the CUDA cores and the
-//     special-function units, and each tile one round trip to the tensor
-//     cores; those, not the products, bound it: at (2, 16384, 320) x 16384
+//     ControlNet site, at d = 64 the short key lengths). Both products on
+//     the tensor cores by wgmma, K/V tiles through a cp.async ring with
+//     mbarriers, p in registers. At d = 40 a logit costs 4 d = 160
+//     tensor-core operations but also a max, an FMA, an exp, an add and half
+//     a convert on the CUDA cores and the special-function units, and each
+//     tile one round trip to the tensor cores; those, not the products,
+//     bound it: at (2, 16384, 320) x 16384
 //     the exp alone needs 1.2 ms where the products need 0.7 ms. The design
 //     keeps several warpgroups an SM independent (no block barrier in the
 //     loop), issues O += P V of one tile and S of the next as one wgmma
@@ -51,7 +65,8 @@
 //     register tile per thread, bounded by shared-memory loads per FMA; no
 //     bf16 main-path site reaches it.
 // Measured times, bounds and the library call's times: PERF.md section 6.
-// Head dims compiled: 40, 64, 80, 160 and 512.
+// Head dims compiled: 40, 64, 80, 160 and 512 (the warp-specialised
+// variant: 64).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -630,6 +645,225 @@ cudaError_t launch_wgmma_blocks(const Params& p, int batch, cudaStream_t stream)
   return launch_wgmma<D, 64, STAGES, 2>(p, batch, stream);
 }
 
+// ---- warp-specialised kernel: bf16, d = 64, long key lengths --------------
+//
+// A block is two consumer warpgroups of 64 query rows each and a producer
+// warpgroup, one warp of which keeps TMA loads of K and V tiles of 128 keys
+// in flight into a ring of four stages, each tile 128 rows of 128 bytes in
+// the 128-byte swizzle; a tile's bytes complete on its `full` mbarrier (K and V
+// have one each), and every consumer warp arrives on the stage's `empty`
+// mbarrier once its products have read both. The tensor maps are rank 4
+// (head dim, token, head, batch) from the views' strides, so any layout the
+// wrapper passes (packed, split, column views of a fused projection) is one
+// box per tile, and TMA zero-fills the rows past S. The producer warpgroup
+// gives its registers to the consumers (setmaxnreg): a whole warpgroup, so
+// that what it gives back covers what they take.
+//
+// A consumer warpgroup keeps q (scaled, rounded to bf16), its 64 x 64 fp32
+// output, the logits of one tile (m64n128, 64 registers a thread) and the p
+// fragments of two tiles in registers. Per tile i it issues S_(i+1) = Q
+// K_(i+1)^T and O += P_i V_i as two wgmma groups, waits for the first only
+// (wait_group 1), and runs the softmax of S_(i+1) on the special-function
+// units while P_i V_i is still on the tensor cores; then it waits for P_i V_i
+// and rescales O by the factor of tile i + 1. At d = 64 the exp of a tile
+// takes as long as its two products, so this overlap inside the warpgroup,
+// and the other warpgroup's products under this one's softmax, is what
+// moves the kernel towards its bound.
+
+constexpr int kWsD = 64;
+constexpr int kWsBK = 128;                  // keys a tile
+constexpr int kWsTile = kWsBK * kWsD * 2;   // bytes of a K (or V) tile
+constexpr int kWsNWG = 2;                   // consumer warpgroups a block
+constexpr int kWsStages = 4;                // K/V tiles in the ring
+// the consumers' registers: 2 x 128 threads at 240 and the producer's 128
+// at 24 take the 168 a thread that 384 threads get at launch
+constexpr int kWsConsumerRegs = 240;
+// 1024 bytes of slack align the ring to the swizzle's 1024-byte pattern
+constexpr size_t kWsBytes = (size_t)kWsStages * 2 * kWsTile + 3 * kWsStages * 8 + 1024;
+
+__global__ void __launch_bounds__((kWsNWG + 1) * 128, 1)
+attention_ws_kernel(const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map, Params p) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(1024) unsigned char ws_smem[];
+  const uint32_t smem0 = (smem_u32(ws_smem) + 1023u) & ~1023u;
+  const uint32_t bars = smem0 + kWsStages * 2 * kWsTile;
+  auto k_tile = [&](int j) { return smem0 + (j % kWsStages) * 2 * kWsTile; };
+  auto full_k = [&](int j) { return bars + (j % kWsStages) * 8; };
+  auto full_v = [&](int j) { return bars + (kWsStages + j % kWsStages) * 8; };
+  auto empty = [&](int j) { return bars + (2 * kWsStages + j % kWsStages) * 8; };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.y / p.heads, h = blockIdx.y % p.heads;
+  const int n_tiles = (p.s + kWsBK - 1) / kWsBK;
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < kWsStages; ++st) {
+      mbar_init(full_k(st), 1);
+      mbar_init(full_v(st), 1);
+      mbar_init(empty(st), kWsNWG * 4);  // every consumer warp is done with the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the only block-wide barrier
+
+  if (warp >= kWsNWG * 4) {  // the producer warpgroup: its first warp loads
+    setmaxnreg_dec<24>();
+    if (warp == kWsNWG * 4 && lane == 0) {
+      // a zero batch or head stride broadcasts: the map has extent 1 there
+      const int kb = p.k_sb ? b : 0, kh = p.k_sh ? h : 0;
+      const int vb = p.v_sb ? b : 0, vh = p.v_sh ? h : 0;
+      for (int j = 0; j < n_tiles; ++j) {
+        if (j >= kWsStages) mbar_wait(empty(j), (j / kWsStages - 1) & 1);
+        mbar_expect_tx(full_k(j), kWsTile);
+        tma_load_4d(k_tile(j), &k_map, full_k(j), 0, j * kWsBK, kh, kb);
+        mbar_expect_tx(full_v(j), kWsTile);
+        tma_load_4d(k_tile(j) + kWsTile, &v_map, full_v(j), 0, j * kWsBK, vh, vb);
+      }
+    }
+  } else {
+    setmaxnreg_inc<kWsConsumerRegs>();
+    const int wg = warp / 4, wq = warp % 4;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = blockIdx.x * kWsNWG * 64 + wg * 64 + wq * 16 + g;
+    const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+    bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+
+    // q fragments straight from global memory: rows row0 and row0 + 8
+    uint32_t qa[kWsD / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < kWsD / 16; ++ks) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e & 1), col = ks * 16 + 2 * t + 8 * (e >> 1);
+        qa[ks][e] = row < p.tq
+                        ? scale_bf16x2(ld32(q + (long long)row * p.q_st + col), p.scale)
+                        : 0u;
+      }
+    }
+
+    float m[2] = {-1e30f, -1e30f};
+    float l[2] = {0.f, 0.f};
+    float alpha[2];
+    float acc[kWsD / 2];
+#pragma unroll
+    for (int i = 0; i < kWsD / 2; ++i) acc[i] = 0.f;
+    float s[kWsBK / 2];
+    uint32_t pa[kWsBK / 16][4], pb[kWsBK / 16][4];
+
+    // The warpgroups take turns at issuing their products (named barrier
+    // 1 + w is warpgroup w's turn; the last one opens the first turn), so one
+    // warpgroup's softmax runs under the other's products. Every warpgroup
+    // has n_tiles + 1 turns; the last warpgroup's last turn passes on none.
+    int turn = 0;
+    auto take_turn = [&] { named_sync(1 + wg, 2 * 128); };
+    auto pass_turn = [&] {
+      if (!(wg == kWsNWG - 1 && turn == n_tiles))
+        named_arrive(1 + (wg + 1) % kWsNWG, 2 * 128);
+      ++turn;
+    };
+    if (wg == kWsNWG - 1) named_arrive(1, 2 * 128);
+
+    auto issue_s = [&](int j) {  // S_j = Q K_j^T, K K-major in the swizzle
+#pragma unroll
+      for (int ks = 0; ks < kWsD / 16; ++ks)
+        wgmma_rs<0>(s, qa[ks], wgmma_desc_sw128(k_tile(j) + ks * 32), ks > 0);
+    };
+    // Tile i: O += P_i V_i from `cur` and, if there is a next tile, S_(i+1)
+    // and its softmax into `nxt` while P_i V_i runs.
+    auto step = [&](int i, uint32_t (&cur)[kWsBK / 16][4], uint32_t (&nxt)[kWsBK / 16][4]) {
+      const bool more = i + 1 < n_tiles;
+      if (more) mbar_wait(full_k(i + 1), ((i + 1) / kWsStages) & 1);
+      mbar_wait(full_v(i), (i / kWsStages) & 1);
+      take_turn();
+      wgmma_fence();
+      if (more) {
+        issue_s(i + 1);
+        wgmma_commit();
+      }
+      const uint32_t vb = k_tile(i) + kWsTile;  // V MN-major as it lies
+#pragma unroll
+      for (int kc = 0; kc < kWsBK / 16; ++kc)
+        wgmma_rs<1>(acc, cur[kc], wgmma_desc_sw128_mn(vb + kc * 2048), 1);
+      wgmma_commit();
+      pass_turn();
+      if (more) {
+        wgmma_wait_group<1>();  // S_(i+1) is done; P_i V_i may still run
+        softmax_tile<kWsBK>(s, p.s - (i + 1) * kWsBK, t, m, l, alpha, nxt);
+      }
+      wgmma_wait();
+      if (lane == 0) mbar_arrive(empty(i));
+      if (more) {
+#pragma unroll
+        for (int n = 0; n < kWsD / 2; ++n) acc[n] *= alpha[(n >> 1) & 1];
+      }
+    };
+
+    mbar_wait(full_k(0), 0);
+    take_turn();
+    wgmma_fence();
+    issue_s(0);
+    wgmma_commit();
+    pass_turn();
+    wgmma_wait();
+    softmax_tile<kWsBK>(s, p.s, t, m, l, alpha, pa);  // O is still zero: alpha unused
+    for (int i = 0; i < n_tiles; i += 2) {  // two steps a turn: pa and pb swap roles
+      step(i, pa, pb);
+      if (i + 1 < n_tiles) step(i + 1, pb, pa);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // a row's denominator is spread over a quad
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= p.tq) continue;
+      bf16* orow = o + (long long)row * p.o_st;
+#pragma unroll
+      for (int n = 0; n < kWsD / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) = __floats2bfloat162_rn(
+            acc[4 * n + 2 * r] / l[r], acc[4 * n + 2 * r + 1] / l[r]);
+    }
+  }
+}
+
+// Rank-4 tensor map (head dim, token, head, batch) of one of K or V, read in
+// boxes of 128 tokens x the 64-element (128-byte) row in the 128-byte
+// swizzle; rows past S read as zeros. A zero batch or head stride gets
+// extent 1 (the kernel then reads coordinate 0 there).
+bool kv_map(CUtensorMap* map, const void* base, int batch, int heads, int s,
+            long long sb, long long sh, long long st) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const long long row = st * 2, slab = row * s;  // bytes
+  const cuuint64_t dims[4] = {(cuuint64_t)kWsD, (cuuint64_t)s, (cuuint64_t)(sh ? heads : 1),
+                              (cuuint64_t)(sb ? batch : 1)};
+  const cuuint64_t strides[3] = {(cuuint64_t)row, (cuuint64_t)(sh ? sh * 2 : slab),
+                                 (cuuint64_t)(sb ? sb * 2 : slab)};
+  const cuuint32_t box[4] = {(cuuint32_t)kWsD, (cuuint32_t)kWsBK, 1, 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+cudaError_t launch_ws(const Params& p, int batch, cudaStream_t stream) {
+  CUtensorMap k_map, v_map;
+  if (!kv_map(&k_map, p.k, batch, p.heads, p.s, p.k_sb, p.k_sh, p.k_st) ||
+      !kv_map(&v_map, p.v, batch, p.heads, p.s, p.v_sb, p.v_sh, p.v_st))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_ws_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWsBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.tq + kWsNWG * 64 - 1) / (kWsNWG * 64), batch * p.heads);
+  attention_ws_kernel<<<grid, (kWsNWG + 1) * 128, kWsBytes, stream>>>(k_map, v_map, p);
+  return cudaGetLastError();
+}
+
 // ---- split kernel: bf16, d = 512 (the VAE mid-block, one head) -----------
 //
 // O for 64 query rows is 64 x 512 fp32 = 128 KB, more than one warpgroup's
@@ -807,7 +1041,7 @@ cudaError_t launch_cuda_core(const Params& p, int head_dim, int batch,
 // The variant is the caller's choice (ops/kernels/attention.py:
 // attention_variant); a variant that does not take these arguments is an
 // error, never a silent switch to another one.
-enum Variant { kCudaCore = 0, kWgmma = 1, kWgmmaSplit = 2 };
+enum Variant { kCudaCore = 0, kWgmma = 1, kWgmmaSplit = 2, kWgmmaWs = 3 };
 
 cudaError_t launch_variant(const Params& p, int dtype, int head_dim, int batch,
                            int variant, cudaStream_t stream) {
@@ -828,6 +1062,7 @@ cudaError_t launch_variant(const Params& p, int dtype, int head_dim, int batch,
   }
   if (variant == kWgmmaSplit && head_dim == kSplitD)
     return launch_split512(p, batch, stream);
+  if (variant == kWgmmaWs && head_dim == kWsD) return launch_ws(p, batch, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of this
 // directory (attention.cu, quant.cu): shared-memory addresses and wgmma
 // matrix descriptors, the wgmma fences, cp.async, mbarriers, tensor-map (TMA)
-// tile loads, and wgmma.mma_async with the A operand in registers.
+// tile loads and the host's tensor-map encoder, register hand-over between
+// warpgroups, and wgmma.mma_async with the A operand in registers.
 //
 // Shared-memory operand layout (no swizzle, "core matrices"): a tile of R rows
 // x C 16-byte chunks (8 bf16) stores chunk c of row r at
@@ -13,11 +14,11 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -35,6 +36,15 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
 // c ^ (r % 8), tile aligned to 1024 bytes. A k16 step inside the row moves
 // the start address by 32 bytes; 8 rows are 1024 bytes apart.
 __device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// MN-major operand in the same 128-byte swizzle: rows of 128 bytes are 64
+// bf16 of the N index (one swizzle atom wide), consecutive rows run along
+// the reduction; the next 8 rows of the reduction are 1024 bytes on (stride
+// byte offset), and a k16 step moves the start address by 2048 bytes. The
+// leading byte offset (the next 64 of N) is never used at N = 64.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128_mn(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
@@ -299,6 +309,16 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tensor_map
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(tensor_map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
+// the same for a rank-4 tensor map, coordinates innermost first
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* tensor_map,
+                                            uint32_t bar, int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(tensor_map)), "r"(bar), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
+}
 // spins until the barrier's phase of this parity is complete
 __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   uint32_t done;
@@ -309,6 +329,47 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   } while (!done);
+}
+
+
+// Named barriers (ids 1..15; __syncthreads is id 0) over `threads` threads:
+// `sync` waits until that many have arrived, `arrive` counts without waiting.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// Register hand-over between the warpgroups of a warp-specialised block:
+// `dec` gives registers back to the block's pool, `inc` waits until the pool
+// holds enough. Every warp of a warpgroup runs the same one.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// cuTensorMapEncodeTiled through the runtime's entry-point query (no link
+// against libcuda); null where the entry point is missing.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* entry = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &entry, cudaEnableDefault, &found) !=
+            cudaSuccess || found != cudaDriverEntryPointSuccess)
+      entry = nullptr;
+    return reinterpret_cast<EncodeTiled>(entry);
+  }();
+  return fn;
 }
 
 }  // namespace

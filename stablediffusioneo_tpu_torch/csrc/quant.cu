@@ -468,25 +468,6 @@ __global__ void __launch_bounds__(NWG * 128) qmm_wgmma_kernel(
   if (split > 1) cluster.sync();  // no block leaves while its partial tile may still be read
 }
 
-// cuTensorMapEncodeTiled through the runtime's entry-point query (no link
-// against libcuda); null where the entry point is missing.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* entry = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &entry, cudaEnableDefault, &found) !=
-            cudaSuccess || found != cudaDriverEntryPointSuccess)
-      entry = nullptr;
-    return reinterpret_cast<EncodeTiled>(entry);
-  }();
-  return fn;
-}
-
 // Tensor map of a row-major (rows, cols) matrix read in boxes of box_rows x
 // 64 columns; out-of-range elements read as zeros.
 bool tile_map(CUtensorMap* map, CUtensorMapDataType type, int elem_size, const void* base,

@@ -6,7 +6,7 @@ Counterpart of stablediffusioneo_tpu/ops/pallas/attention.py. The source
 `fused_attention_packed_stream`) and `_attn_kernel` (entry
 `fused_attention`). Every entry passes batch/head/token strides, streams
 K/V tiles with an online softmax whatever the key length, and adds to its
-own counter. The source holds three variants of that schedule;
+own counter. The source holds four variants of that schedule;
 `attention_variant` chooses one from the dtype, head dim, lengths and
 alignment, and the C entry launches exactly that one or returns an error.
 On CPU tensors each entry runs its plain version, which mirrors the JAX
@@ -47,7 +47,13 @@ VARIANTS = {
     "cuda_core": 0,    # fp32 FMAs from shared memory: fp32, and unaligned views
     "wgmma": 1,        # bf16 d <= 160: wgmma, cp.async ring, 2-4 warpgroups a block
     "wgmma_split": 2,  # bf16 d = 512: wgmma, O's columns split over 2 warpgroups
+    "wgmma_ws": 3,     # bf16 d = 64, S >= WS_S_MIN: TMA producer warp, 2 consumer warpgroups
 }
+# the shortest key length at which the warp-specialised variant beats the
+# wgmma one at head dim 64: (2, 1024, 1280) x S, 20 heads, on the H100, S =
+# 256 0.0246 against 0.0260 ms, 512 0.0343 / 0.0382, 1024 0.0509 / 0.0704
+# (PERF.md section 6 row #1)
+WS_S_MIN = 256
 # launches by variant name since the last clear() (chip_smoke.py reads it)
 variant_launches: "collections.Counter[str]" = collections.Counter()
 dispatch.register_counter(variant_launches)
@@ -66,13 +72,17 @@ def attention_variant(dtype: torch.dtype, head_dim: int, tq: int, s: int,
                       aligned: bool) -> str:
     """The variant of csrc/attention.cu that one call runs. `aligned`: every
     row of q, k and v starts on 16 bytes and every row of the output on 4
-    (`views_aligned`), which the tensor-core variants' vector loads need.
-    The lengths do not enter yet: on the H100 the wgmma variant is the
-    faster one at every main-path site, S = 77 included (PERF.md)."""
-    del tq, s
+    (`views_aligned`), which the tensor-core variants' vector loads and the
+    tensor maps need. bf16 at head dim 64 with at least WS_S_MIN keys takes
+    the warp-specialised variant; every other aligned bf16 call the wgmma
+    one (d = 512 its split form), S = 77 cross-attention included, which is
+    bound by bytes."""
+    del tq
     if dtype != torch.bfloat16 or not aligned:
         return "cuda_core"
-    return "wgmma_split" if head_dim == 512 else "wgmma"
+    if head_dim == 512:
+        return "wgmma_split"
+    return "wgmma_ws" if head_dim == 64 and s >= WS_S_MIN else "wgmma"
 
 
 def views_aligned(q, k, v, out, strides) -> bool:

@@ -63,6 +63,13 @@ def _randn(shape, gen, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
+def _want(dtype, d, s):
+    """The variant a call on aligned views runs (ops/kernels/attention.py)."""
+    if dtype != torch.bfloat16:
+        return "cuda_core"
+    return "wgmma_ws" if d == 64 and s >= ka.WS_S_MIN else "wgmma"
+
+
 def _check(out, ref, dtype):
     err = (out.float() - ref.float()).abs()
     assert torch.isfinite(out).all()
@@ -88,8 +95,7 @@ def test_packed_kernel_matches_plain(gen, dtype, b, tq, c, s, heads):
     ka.variant_launches.clear()
     out = fused_attention_packed(q, k, v, heads, scale)
     assert dispatch.launches["fused_attention_packed"] == 1
-    assert dict(ka.variant_launches) == {
-        "wgmma" if dtype == torch.bfloat16 else "cuda_core": 1}
+    assert dict(ka.variant_launches) == {_want(dtype, c // heads, s): 1}
     _check(out, fused_attention_packed_plain(q, k, v, heads, scale), dtype)
 
 
@@ -101,13 +107,13 @@ def test_packed_kernel_matches_plain(gen, dtype, b, tq, c, s, heads):
     (2, 2304, 640, 2304, 10), (2, 2304, 640, 77, 10),      # SD-2.1 level 1
 ])
 def test_packed_kernel_head_dim_64(gen, dtype, b, tq, c, s, heads):
-    """The SD-2.x / SDXL sites: heads of 64 channels, 5, 10 and 20 of them."""
+    """The SD-2.x / SDXL sites: heads of 64 channels, 5, 10 and 20 of them
+    (the self-attention on the warp-specialised variant in bf16)."""
     q = _randn((b, tq, c), gen, dtype)
     k, v = _randn((b, s, c), gen, dtype), _randn((b, s, c), gen, dtype)
     ka.variant_launches.clear()
     out = fused_attention_packed(q, k, v, heads, 64 ** -0.5)
-    assert dict(ka.variant_launches) == {
-        "wgmma" if dtype == torch.bfloat16 else "cuda_core": 1}
+    assert dict(ka.variant_launches) == {_want(dtype, 64, s): 1}
     _check(out, fused_attention_packed_plain(q, k, v, heads, 64 ** -0.5), dtype)
 
 
@@ -125,9 +131,53 @@ def test_packed_kernel_at_the_sd3_sites(gen, dtype, tq):
     v = _randn((b, tq, heads * d), gen, dtype)
     ka.variant_launches.clear()
     out = packed_attention(q, k, v, heads)
-    assert dict(ka.variant_launches) == {
-        "wgmma" if dtype == torch.bfloat16 else "cuda_core": 1}
+    assert dict(ka.variant_launches) == {_want(dtype, d, tq): 1}
     _check(out, fused_attention_packed_plain(q, k, v, heads, d ** -0.5), dtype)
+
+
+def _ws_inputs(gen, b, tq, s, c, fused):
+    """q, k, v in bf16: column views of one (B, T, 3C) projection (fused,
+    Tq = S), or three tensors."""
+    if fused:
+        return _randn((b, tq, 3 * c), gen, torch.bfloat16).chunk(3, dim=-1)
+    return (_randn((b, tq, c), gen, torch.bfloat16),
+            *(_randn((b, s, c), gen, torch.bfloat16) for _ in range(2)))
+
+
+@pytest.mark.parametrize("b,tq,s,c,heads,fused", [
+    (2, 4429, 4429, 1536, 24, True),   # SD3's joint attention: views of one projection
+    (2, 4096, 4096, 1536, 24, False),  # SD3's image-only attention
+    (2, 1000, None, 640, 10, False),   # S = WS_S_MIN + 13: a ragged last key tile
+], ids=["sd3_joint", "sd3_image_only", "s_min_plus_13"])
+def test_ws_variant_matches_plain(gen, b, tq, s, c, heads, fused):
+    """The warp-specialised variant against the plain version, with ragged
+    Tq and S, and its one launch counted under its name."""
+    s = s or ka.WS_S_MIN + 13
+    q, k, v = _ws_inputs(gen, b, tq, s, c, fused)
+    ka.variant_launches.clear()
+    out = fused_attention_packed(q, k, v, heads, 64 ** -0.5)
+    assert dict(ka.variant_launches) == {"wgmma_ws": 1}
+    _check(out, fused_attention_packed_plain(q, k, v, heads, 64 ** -0.5), torch.bfloat16)
+
+
+def test_ws_variant_split_layout_ragged_queries(gen):
+    """Tq = S = 1025 through `fused_attention` (the split layout), q, k, v as
+    (B, H, T, d) views of one (B, T, 3, H, d) projection."""
+    qkv = _randn((1, 1025, 3, 16, 64), gen, torch.bfloat16)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    ka.variant_launches.clear()
+    out = fused_attention(q, k, v, 64 ** -0.5)
+    assert dict(ka.variant_launches) == {"wgmma_ws": 1}
+    _check(out, fused_attention_plain(q, k, v, 64 ** -0.5), torch.bfloat16)
+
+
+def test_ws_variant_refuses_other_head_dims(gen):
+    """The warp-specialised variant asked for d = 40 is an error."""
+    h = _randn((1, 2048, 320), gen, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="wgmma_ws"):
+        ka._launch(h, h, h, torch.empty_like(h), 1, 8, 2048, 2048, 40,
+                   [(t.stride(0), 40, t.stride(1)) for t in (h, h, h, h)], 40 ** -0.5,
+                   variant="wgmma_ws")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1195,8 +1245,7 @@ def test_packed_kernel_long_prompt_keys(gen, dtype, b, tq, c, s):
     ka.variant_launches.clear()
     ka.key_length_launches.clear()
     out = fused_attention_packed(q, k, v, 8, scale)
-    assert dict(ka.variant_launches) == {
-        "wgmma" if dtype == torch.bfloat16 else "cuda_core": 1}
+    assert dict(ka.variant_launches) == {_want(dtype, c // 8, s): 1}
     assert dict(ka.key_length_launches) == {s: 1}
     _check(out, fused_attention_packed_plain(q, k, v, 8, scale), dtype)
 
@@ -1212,8 +1261,7 @@ def test_split_kernel_reads_vit_qkv_views(gen, dtype, heads):
     q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
     ka.variant_launches.clear()
     out = fused_attention(q, k, v, 64 ** -0.5)
-    assert dict(ka.variant_launches) == {
-        "wgmma" if dtype == torch.bfloat16 else "cuda_core": 1}
+    assert dict(ka.variant_launches) == {_want(dtype, 64, 1025): 1}
     _check(out, fused_attention_plain(q, k, v, 64 ** -0.5), dtype)
 
 

@@ -33,7 +33,11 @@ from stablediffusioneo_tpu_torch.annotators import midas as pmidas
 from stablediffusioneo_tpu_torch.checkpoint import accounting
 from stablediffusioneo_tpu_torch.checkpoint.convert import jax_trees, state_dict_from_jax
 from stablediffusioneo_tpu_torch.models.cldm import Depth2ImgModel, depth_conditioned
-from stablediffusioneo_tpu_torch.ops.kernels.attention import attention_variant, views_aligned
+from stablediffusioneo_tpu_torch.ops.kernels.attention import (
+    WS_S_MIN,
+    attention_variant,
+    views_aligned,
+)
 from stablediffusioneo_tpu_torch.ops.schedule import DiffusionSchedule
 from stablediffusioneo_tpu_torch.pipeline import concat_cond as pcc
 from stablediffusioneo_tpu_torch.runtime.engine import concat_sample_decode_engine, decode_u8
@@ -296,14 +300,17 @@ def test_smoke_takes_the_new_paths_rows():
 
 @pytest.mark.parametrize("row", list(NEW_ROWS), ids=[f"{r[0]}-{r[1]}x{r[2]}" for r in NEW_ROWS])
 def test_new_rows_take_the_tensor_core_variant(row):
-    """Head dim 64 in bf16 on aligned views: the wgmma variant; fp32 the CUDA
-    cores (the ViT rows' q / k / v are views of one projection, token stride
-    3C: aligned)."""
+    """Head dim 64 in bf16 on aligned views: the warp-specialised variant at
+    WS_S_MIN keys or more (the 1,024- and 4,096-token self-attention, the
+    ViTs' 1,025 tokens), the wgmma one at S = 77; fp32 the CUDA cores (the
+    ViT rows' q / k / v are views of one projection, token stride 3C:
+    aligned)."""
     entry, q_shape, s, heads = row
     tq, d = (q_shape[2], q_shape[3]) if entry == "fused_attention" else \
         (q_shape[1], q_shape[2] // heads)
     assert d == 64
-    assert attention_variant(torch.bfloat16, d, tq, s, True) == "wgmma"
+    want = "wgmma_ws" if s >= WS_S_MIN else "wgmma"
+    assert attention_variant(torch.bfloat16, d, tq, s, True) == want
     assert attention_variant(torch.float32, d, tq, s, True) == "cuda_core"
 
 

@@ -27,6 +27,7 @@ from stablediffusioneo_tpu_torch.ops import dispatch
 from stablediffusioneo_tpu_torch.ops.attention import attention, multi_head_attention
 from stablediffusioneo_tpu_torch.ops.kernels.attention import (
     VARIANTS,
+    WS_S_MIN,
     attention_variant,
     fused_attention,
     fused_attention_packed,
@@ -100,11 +101,13 @@ def _row_dims(entry, q_shape, heads):
 @pytest.mark.parametrize("entry,q_shape,s,heads", ROWS,
                          ids=[f"{r[0]}-{r[1]}x{r[2]}" for r in ROWS])
 def test_main_path_rows_take_the_tensor_core_variants(entry, q_shape, s, heads):
-    """bf16 on aligned tensors: d = 512 takes the split wgmma variant, every
-    other site (long self-attention and S = 77 alike) the packed wgmma one;
-    the same rows in fp32 take the CUDA cores."""
+    """bf16 on aligned tensors: d = 512 takes the split wgmma variant, d = 64
+    at WS_S_MIN keys or more the warp-specialised one, every other site
+    (d = 40 self-attention and S = 77 alike) the packed wgmma one; the same
+    rows in fp32 take the CUDA cores."""
     tq, d = _row_dims(entry, q_shape, heads)
-    want = "wgmma_split" if d == 512 else "wgmma"
+    want = ("wgmma_split" if d == 512 else
+            "wgmma_ws" if d == 64 and s >= WS_S_MIN else "wgmma")
     assert attention_variant(torch.bfloat16, d, tq, s, True) == want
     assert attention_variant(torch.float32, d, tq, s, True) == "cuda_core"
     assert attention_variant(torch.bfloat16, d, tq, s, False) == "cuda_core"
@@ -158,10 +161,38 @@ def test_main_path_rows_cover_the_sites_the_redesign_names():
     (torch.bfloat16, 40, 16384, 16384, True, "wgmma"),      # the streaming sites
     (torch.bfloat16, 512, 4096, 4096, True, "wgmma_split"),
     (torch.bfloat16, 512, 16384, 16384, True, "wgmma_split"),
+    (torch.bfloat16, 64, 4429, 4429, True, "wgmma_ws"),     # SD3's joint attention
+    (torch.bfloat16, 64, 4096, 4096, True, "wgmma_ws"),     # its image-only attention
+    (torch.bfloat16, 64, 1024, WS_S_MIN, True, "wgmma_ws"),
+    (torch.bfloat16, 64, 4096, 77, True, "wgmma"),          # bound by bytes
+    (torch.bfloat16, 64, 1024, WS_S_MIN - 1, True, "wgmma"),
+    (torch.bfloat16, 40, 4096, 4096, True, "wgmma"),        # d = 40 keeps its variant
+    (torch.float32, 64, 4429, 4429, True, "cuda_core"),
+    (torch.bfloat16, 64, 4429, 4429, False, "cuda_core"),   # unaligned view
 ])
 def test_attention_variant(dtype, d, tq, s, aligned, want):
     assert attention_variant(dtype, d, tq, s, aligned) == want
     assert want in VARIANTS
+
+
+@pytest.mark.parametrize("config", ["default", "hires", "sd21 768", "sdxl 1024"])
+def test_smoke_plans_count_launches_by_variant(config):
+    """chip_smoke's plan by variant: SD-1.5's heads (40, 80, 160 channels)
+    stay on the wgmma variant; at SD-2.1 768 and SDXL 1024 (heads of 64)
+    every gated self-attention (S >= WS_S_MIN) takes the warp-specialised
+    one and its block's cross-attention (S = 77) the wgmma one; the VAE's
+    mid-block the split one. The counts add up to the plan's launches."""
+    sd21, sdxl = chip_smoke.family_configs()
+    cfg = {"sd21 768": sd21, "sdxl 1024": sdxl}.get(config, sd15_pipeline())
+    want, _ = chip_smoke.expected_request_launches(cfg, config)
+    variants = chip_smoke.expected_request_variants(cfg, config, want["fused_attention"])
+    assert sum(variants.values()) == (want["fused_attention_packed"] + want["fused_attention"]
+                                      + want["fused_attention_packed_stream"])
+    assert variants["wgmma_split"] == want["fused_attention"] > 0
+    if config in ("default", "hires"):
+        assert set(variants) == {"wgmma", "wgmma_split"}
+    else:
+        assert variants["wgmma_ws"] == variants["wgmma"] > 0
 
 
 def _packed_strides(q, k, v, out, d):
